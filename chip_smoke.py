@@ -8,21 +8,43 @@ and the script exits non-zero without a result line:
 
 1. card    the card's name and power limit (nvidia-smi);
 2. build   the one `nvcc` build of `vfi_tpu_torch/csrc/*.cu`;
-3. kernels each CUDA kernel at the 720p main-path shapes in bf16, held
+3. kernels each CUDA kernel at every shape a path below launches (and
+           the DCN at C=67 R=4, which none does) in bf16, held
            against its plain PyTorch version (max abs error within the
            stated tolerance), then timed with CUDA events (median of
            N_TIMED runs after warm-up) beside its plain version, one
            PyTorch library call where one computes the same function, and
            its bound from bytes and operations;
 4. main    the flagship engine (qocc checkpoint + flow prior, bf16,
-           dcn_max_offset=1, warp_max_flow=16, cascade_levels=2) answers
-           three b=1 requests and one b=2 request at 1280x720 on the card:
-           launch counts (8 conv-chain, 3 DCN, 1 warp per engine launch),
-           finite outputs in [0, 1], PSNR against the same engine run
-           through the plain versions on the card, frames/s;
-5. profile (only with --profile) torch.profiler over one b=1 request: the
+           dcn_max_offset=1, warp_max_flow=16, cascade_levels=2,
+           conv_kernel="pallas") answers three b=1 requests and one b=2
+           request at 1280x720 on the card: launch counts (8 conv-chain,
+           3 DCN, 1 warp per engine launch), finite outputs in [0, 1], PSNR
+           against the same engine run through the plain versions on the
+           card, frames/s;
+5. q12     the 67-channel reference topology (q12: no fuse_proj, R=2)
+           with conv_kernel="pallas" on one b=4 batch of Middlebury val
+           frames: 8 / 3 / 1 launches, PSNR against its plain-version
+           engine (the 67-wide chains and DCN run in the kernels);
+6. eval    the Middlebury eval entry point (`vfi_tpu_torch.cli.eval.sweep`)
+           over data/processed/val at batch 4, bf16, conv_kernel="xla"
+           and use_pallas, as the JAX package's records were made: qocc
+           native, qocc with auto_scale 9.0 + TTA, and q12. Each mean PSNR
+           within 0.05 dB and mean SSIM within 0.002 of its record
+           (`artifacts/*_eval.json`), 3 DCN and 1 warp launches per model
+           forward and no chain launch; per-scene rows, the auto_scale
+           probes, seconds and pairs/s;
+7. conv_compare conv_kernel "xla" against "pallas", taking turns, on the
+           flagship's b=1 720p requests and on the three eval sweeps:
+           seconds, which is faster, launches per forward, and each
+           sweep's quality under "pallas" against its record;
+8. profile (only with --profile) torch.profiler over one b=1 request: the
            device's busy share of the request's wall time and device time
            by kernel, split into the port's CUDA kernels and the rest.
+
+Each kernel row's `launches` is its count over the paths (main, q12,
+eval) that launch its shape; the run fails when a path launches a
+(kernel, shape) that no row checks.
 
 The lines before the last are the `kernels` JSON line and the card's
 `nvidia-smi --query-gpu=name,power.limit` line; the last line is
@@ -31,17 +53,21 @@ The lines before the last are the `kernels` JSON line and the card's
 
 from __future__ import annotations
 
+import glob
 import json
 import os
 import subprocess
 import sys
 import time
+from collections import Counter
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 import vfi_tpu_torch
+from vfi_tpu_torch.cli.eval import sweep
+from vfi_tpu_torch.data import load_image
 from vfi_tpu_torch.infer import FrameInterpolator
 from vfi_tpu_torch.ops.cuda import (WRAPPERS, bounded_warp,
                                     bounded_warp_plain, build, conv_chain,
@@ -53,7 +79,11 @@ from vfi_tpu_torch.utils.convert import load_params_npz, params_from_jax
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(vfi_tpu_torch.__file__)))
 CKPT = os.path.join(ROOT, "artifacts", "emavfi_qocc_best")
+Q12 = os.path.join(ROOT, "artifacts", "emavfi_q12_best")
+VAL = os.path.join(ROOT, "data", "processed", "val")
 H, W = 720, 1280
+# Middlebury val frames and the eval batch.
+EH, EW, EB = 480, 640, 4
 SEED = 0
 N_TIMED = 20
 # H100 SXM published peaks (dense): HBM bytes/s, bf16 tensor-core FLOP/s,
@@ -71,11 +101,31 @@ REL_TOL = 2.0 ** -7
 # wrong tap, channel or boundary costs far more than this floor allows.
 PSNR_FLOOR_DB = 40.0
 FLAGSHIP = dict(bf16=True, dcn_max_offset=1, warp_max_flow=16,
-                cascade_levels=2)
+                cascade_levels=2, conv_kernel="pallas")
+Q12_ENGINE = dict(bf16=True, dcn_max_offset=2, warp_max_flow=16,
+                  cascade_levels=2)
+# The eval records' route (`eval.py --use_pallas`: the v4 DCN, the bounded
+# warp, the conv trunk on plain XLA convs, the JAX CLI's only setting);
+# flow prior, warp bound 16, cascade 2 (tools/queueAF.sh:33-40,
+# tools/queueT.sh:114-117). Here the DCN and warp kernels always run.
+EVAL_ENGINE = dict(bf16=True, warp_max_flow=16, cascade_levels=2,
+                   conv_kernel="xla")
+SWEEPS = (
+    ("qocc", CKPT, dict(dcn_max_offset=1), "qocc_eval.json"),
+    ("qocc_as9_tta", CKPT, dict(dcn_max_offset=1, auto_scale=9.0, tta=True),
+     "qocc_autoscale_tta_eval.json"),
+    ("q12", Q12, dict(dcn_max_offset=2), "q12_eval.json"),
+)
+# Quality against the JAX package's records on the TPU: bf16 on both, so
+# rounding-order differences move a scene's PSNR by hundredths of a dB;
+# a wrong tap, channel or route moves the mean by tenths or more.
+PSNR_TOL_DB = 0.05
+SSIM_TOL = 0.002
 # Launches of each kernel per engine launch on the flagship path.
 PER_LAUNCH = {"conv_chain": 8, "deform_conv2d_bounded": 3, "bounded_warp": 1}
 CHAIN_TPU = "vfi_tpu/ops/pallas/conv.py:543"
 DCN_TPU = "vfi_tpu/ops/pallas/sampling.py:1027"
+DCN_V4_TPU = "vfi_tpu/ops/pallas/sampling.py:379"
 WARP_TPU = "vfi_tpu/ops/pallas/sampling.py:739"
 
 
@@ -163,10 +213,19 @@ def phase_build() -> dict:
             "ptxas": ptxas}
 
 
+def row_name(base: str, b: int, h: int, w: int) -> str:
+    """`base@HxW` for a b=1 shape (the flagship rows' names, kept stable
+    so runs compare), else `base@BxHxW`."""
+    return f"{base}@{h}x{w}" if b == 1 else f"{base}@{b}x{h}x{w}"
+
+
 def kernel_row(name, source, replaces, key, kernel, plain, library,
                io_bytes, flops_bf16, flops_f32=0.0) -> dict:
     """Check one kernel call against its plain version, then time the
-    kernel, the plain version and (where one exists) a library call."""
+    kernel, the plain version and (where one exists) a library call.
+    `key` = (paths, wrapper name, launch shape): the paths whose runs
+    launch the wrapper at this shape (their counts are this row's
+    launches), or () for a shape no path of this run takes."""
     got = kernel()
     row = {"name": name, "route": "cuda", "source": source,
            "replaces": replaces, **check_close(name, got, plain())}
@@ -180,7 +239,73 @@ def kernel_row(name, source, replaces, key, kernel, plain, library,
     return row
 
 
-def phase_kernels(sd: dict, dev) -> list:
+def chain_row(rnd, sd, tag, cin, names, acts, b, h, w, paths) -> dict:
+    ws = [sd[f"{n}.weight"].cuda() for n in names]
+    bs = [sd[f"{n}.bias"].cuda() for n in names]
+    acts = tuple(bool(a) for a in acts)
+    x = rnd(b, h, w, cin)
+    library = None
+    if len(ws) == 1:  # one conv: cuDNN computes the same function
+        xn, wb, bb = (x.permute(0, 3, 1, 2), ws[0].to(torch.bfloat16),
+                      bs[0].to(torch.bfloat16))
+        library = lambda: F.conv2d(xn, wb, bb, padding=1)  # noqa: E731
+    chans = tuple([cin] + [wt.shape[0] for wt in ws])
+    pk = pack_conv_chain(ws, bs)       # packed once, as the engine does
+    return kernel_row(
+        row_name(f"conv_chain/{tag}", b, h, w),
+        "vfi_tpu_torch/csrc/conv_chain.cu",
+        CHAIN_TPU, (paths, "conv_chain", (chans, h, w)),
+        lambda: conv_chain(x, ws, bs, acts, packed=pk),
+        lambda: conv_chain_plain(x, ws, bs, acts), library,
+        nbytes(x) + nbytes(*ws) // 2 + nbytes(*bs),
+        sum(2.0 * b * h * w * 9 * wt.shape[1] * wt.shape[0] for wt in ws))
+
+
+def dcn_row(rnd, sd, layer, b, h, w, R, replaces, paths) -> dict:
+    """Bounded DCN at a fusion stack's shape; offsets reach past R so the
+    clamp is exercised. No single PyTorch call computes it (torchvision is
+    absent), so no library time."""
+    wt = sd[f"{layer}.weight"].cuda()
+    bt = sd[f"{layer}.bias"].cuda()
+    c = wt.shape[1]
+    x = rnd(b, h, w, c)
+    off = rnd(b, h, w, 18, scale=0.8 * R)
+    mask = torch.sigmoid(rnd(b, h, w, 9, scale=2.0).float()).to(
+        torch.bfloat16)
+    pk = pack_dcn(wt, bt)
+    n = b * h * w
+    return kernel_row(
+        row_name("deform_conv2d_bounded" if b == 1
+                 else f"deform_conv2d_bounded/C{c}R{R}", b, h, w),
+        "vfi_tpu_torch/csrc/dcn_bounded.cu", replaces,
+        (paths, "deform_conv2d_bounded", (c, wt.shape[0], h, w, R)),
+        lambda: deform_conv2d_bounded(x, off, mask, wt, bt, R, packed=pk),
+        lambda: deform_conv2d_bounded_plain(x, off, mask, wt, bt, R), None,
+        nbytes(x, off, mask) + nbytes(wt) // 2 + nbytes(bt),
+        2.0 * n * 9 * c * wt.shape[0], 8.0 * n * 9 * c)
+
+
+def warp_row(rnd, b, h, w, paths, dev) -> dict:
+    img = rnd(b, h, w, 3)
+    flow = rnd(b, h, w, 2, scale=10.0)
+    fc = flow.float().clamp(-16, 16)
+    gx = (torch.arange(w, device=dev).float() + fc[..., 0]) * (2 / (w - 1)) - 1
+    gy = (torch.arange(h, device=dev).float()[:, None] + fc[..., 1]) * (
+        2 / (h - 1)) - 1
+    grid = torch.stack([gx, gy], dim=-1).to(torch.bfloat16)
+    imn = img.permute(0, 3, 1, 2)
+    return kernel_row(
+        row_name("bounded_warp", b, h, w),
+        "vfi_tpu_torch/csrc/warp_bounded.cu", WARP_TPU,
+        (paths, "bounded_warp", (3, h, w)),
+        lambda: bounded_warp(img, flow, 16),
+        lambda: bounded_warp_plain(img, flow, 16),
+        lambda: F.grid_sample(imn, grid, mode="bilinear",
+                              padding_mode="zeros", align_corners=True),
+        nbytes(img, flow), 0.0, 40.0 * b * h * w)
+
+
+def phase_kernels(sd: dict, sd12: dict, dev) -> list:
     gen = torch.Generator(device=dev).manual_seed(SEED)
     bf = torch.bfloat16
 
@@ -196,61 +321,41 @@ def phase_kernels(sd: dict, dev) -> list:
         ("offset", 64, ["fusion_dcn0.offset_conv"], (0,)),
         ("rec", 64, [f"rec_conv{i}.conv" for i in (1, 2, 3)], (1, 1, 0)),
     ]
-    shapes = [(H, W, c) for c in chains] + [
-        (H // 2, W // 2, c) for c in chains[:2]]
-    for h, w, (tag, cin, names, acts) in shapes:
-        ws = [sd[f"{n}.weight"].to(dev) for n in names]
-        bs = [sd[f"{n}.bias"].to(dev) for n in names]
-        acts = tuple(bool(a) for a in acts)
-        x = rnd(1, h, w, cin)
-        library = None
-        if len(ws) == 1:  # one conv: cuDNN computes the same function
-            xn, wb, bb = x.permute(0, 3, 1, 2), ws[0].to(bf), bs[0].to(bf)
-            library = lambda: F.conv2d(xn, wb, bb, padding=1)  # noqa: E731
-        chans = tuple([cin] + [wt.shape[0] for wt in ws])
-        pk = pack_conv_chain(ws, bs)       # packed once, as the engine does
-        rows.append(kernel_row(
-            f"conv_chain/{tag}@{h}x{w}", "vfi_tpu_torch/csrc/conv_chain.cu",
-            CHAIN_TPU, ("conv_chain", (chans, h, w)),
-            lambda: conv_chain(x, ws, bs, acts, packed=pk),
-            lambda: conv_chain_plain(x, ws, bs, acts), library,
-            nbytes(x) + nbytes(*ws) // 2 + nbytes(*bs),
-            sum(2.0 * h * w * 9 * wt.shape[1] * wt.shape[0] for wt in ws)))
+    main, q12, ev = ("main",), ("q12",), ("eval",)
+    for h, w, chain in ([(H, W, c) for c in chains]
+                        + [(H // 2, W // 2, c) for c in chains[:2]]):
+        rows.append(chain_row(rnd, sd, *chain, 1, h, w, main))
+    # The q12 phase's chains on its batch of val frames: the 64-wide trunk
+    # chains at native and cascade resolution, and the reference
+    # topology's 67-wide offset and reconstruction chains.
+    for h, w in ((EH, EW), (EH // 2, EW // 2)):
+        for chain in chains[:2]:
+            rows.append(chain_row(rnd, sd12, *chain, EB, h, w, q12))
+    rows.append(chain_row(rnd, sd12, "offset67", 67,
+                          ["fusion_dcn0.offset_conv"], (0,), EB, EH, EW, q12))
+    rows.append(chain_row(rnd, sd12, "rec67", 67,
+                          [f"rec_conv{i}.conv" for i in (1, 2, 3)],
+                          (1, 1, 0), EB, EH, EW, q12))
 
-    # Bounded DCN at the fusion stack's shape; offsets reach past R = 1 so
-    # the clamp is exercised. No single PyTorch call computes it
-    # (torchvision is absent), so no library time.
-    x = rnd(1, H, W, 64)
-    off = rnd(1, H, W, 18, scale=0.8)
-    mask = torch.sigmoid(rnd(1, H, W, 9, scale=2.0).float()).to(bf)
-    wt, bt = sd["fusion_dcn0.weight"].to(dev), sd["fusion_dcn0.bias"].to(dev)
-    pk_dcn = pack_dcn(wt, bt)
-    rows.append(kernel_row(
-        f"deform_conv2d_bounded@{H}x{W}", "vfi_tpu_torch/csrc/dcn_bounded.cu",
-        DCN_TPU, ("deform_conv2d_bounded", (64, 64, H, W)),
-        lambda: deform_conv2d_bounded(x, off, mask, wt, bt, 1,
-                                      packed=pk_dcn),
-        lambda: deform_conv2d_bounded_plain(x, off, mask, wt, bt, 1), None,
-        nbytes(x, off, mask) + nbytes(wt) // 2 + nbytes(bt),
-        2.0 * H * W * 9 * 64 * 64, 8.0 * H * W * 9 * 64))
+    rows.append(dcn_row(rnd, sd, "fusion_dcn0", 1, H, W, 1, DCN_TPU, main))
+    # The v4 route's shapes on the eval path: qocc (C=64, R=1) at native
+    # and auto_scale's half resolution, q12 (C=67, R=2, also the q12
+    # phase's); and C=67 at R=4 (the training config's radius), which no
+    # path of this run takes.
+    rows.append(dcn_row(rnd, sd, "fusion_dcn0", EB, EH, EW, 1, DCN_V4_TPU,
+                        ev))
+    rows.append(dcn_row(rnd, sd, "fusion_dcn0", EB, EH // 2, EW // 2, 1,
+                        DCN_V4_TPU, ev))
+    rows.append(dcn_row(rnd, sd12, "fusion_dcn0", EB, EH, EW, 2, DCN_V4_TPU,
+                        q12 + ev))
+    rows.append(dcn_row(rnd, sd12, "fusion_dcn0", EB, EH, EW, 4, DCN_V4_TPU,
+                        ()))
 
     # Bounded warp of the RGB frame; flows reach past R = 16. The library
     # call is grid_sample on the clamped flow's normalized grid.
-    img = rnd(1, H, W, 3)
-    flow = rnd(1, H, W, 2, scale=10.0)
-    fc = flow.float().clamp(-16, 16)
-    gx = (torch.arange(W, device=dev).float() + fc[..., 0]) * (2 / (W - 1)) - 1
-    gy = (torch.arange(H, device=dev).float()[:, None] + fc[..., 1]) * (
-        2 / (H - 1)) - 1
-    grid, imn = torch.stack([gx, gy], dim=-1).to(bf), img.permute(0, 3, 1, 2)
-    rows.append(kernel_row(
-        f"bounded_warp@{H}x{W}", "vfi_tpu_torch/csrc/warp_bounded.cu",
-        WARP_TPU, ("bounded_warp", (3, H, W)),
-        lambda: bounded_warp(img, flow, 16),
-        lambda: bounded_warp_plain(img, flow, 16),
-        lambda: F.grid_sample(imn, grid, mode="bilinear",
-                              padding_mode="zeros", align_corners=True),
-        nbytes(img, flow), 0.0, 40.0 * H * W))
+    for b, h, w, paths in ((1, H, W, main), (EB, EH, EW, q12 + ev),
+                           (EB, EH // 2, EW // 2, ev)):
+        rows.append(warp_row(rnd, b, h, w, paths, dev))
     return rows
 
 
@@ -309,6 +414,250 @@ def phase_main(params, flow_params) -> dict:
             "pairs": pairs, "psnr_vs_plain_db": psnrs,
             "psnr_floor_db": PSNR_FLOOR_DB, "_by_shape": by_shape,
             "_engine": eng, "_request": requests[0]}
+
+
+def shapes_now() -> dict:
+    return {fn.__name__: Counter(fn.launches_by_shape) for fn in WRAPPERS}
+
+
+def decode_val() -> dict:
+    """Every PNG of the val set, decoded once by the port's decoder."""
+    paths = sorted(glob.glob(os.path.join(VAL, "*", "*.png")))
+    if not paths:
+        raise AssertionError(f"no val frames under {VAL}")
+    return {p: load_image(p) for p in paths}
+
+
+def val_batch(frames: dict, scene: str) -> tuple:
+    """The first EB triplets of one val scene: (f0, gt, f1) stacks."""
+    paths = sorted(p for p in frames if os.path.basename(
+        os.path.dirname(p)) == scene)
+    trip = [paths[i:i + 3] for i in range(EB)]
+    return tuple(np.stack([frames[t[k]] for t in trip]) for k in range(3))
+
+
+def phase_q12(frames: dict) -> dict:
+    """q12, the 67-channel reference topology, with conv_kernel="pallas"
+    on one b=4 val batch: the 67-wide offset and reconstruction chains and
+    the 67-channel R=2 DCN run in the kernels."""
+    params = load_params_npz(Q12 + ".npz")
+    flow = load_params_npz(Q12 + ".flow.npz")
+    f0, gt, f1 = val_batch(frames, "Urban")
+    eng = FrameInterpolator(params, flow_params=flow, device="cuda",
+                            conv_kernel="pallas", **Q12_ENGINE)
+    eng.midpoints(f0, f1)                  # warm-up
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = eng.midpoints(f0, f1)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts, by_shape = launch_counts(), shapes_now()
+    if counts != PER_LAUNCH:
+        raise AssertionError(f"q12 launches {counts}, expected {PER_LAUNCH}")
+    if tuple(out.shape) != f0.shape or not torch.isfinite(out).all():
+        raise AssertionError("q12: bad output")
+    plain = FrameInterpolator(params, flow_params=flow, device="cuda",
+                              conv_kernel="pallas", use_kernels=False,
+                              **Q12_ENGINE).midpoints(f0, f1)
+    vs_plain = psnr(out, plain)
+    if not vs_plain >= PSNR_FLOOR_DB:
+        raise AssertionError(f"q12 PSNR vs plain engine {vs_plain} below "
+                             f"{PSNR_FLOOR_DB} dB")
+    return {"phase": "q12", "batch": list(f0.shape), "launches": counts,
+            "launch_seconds": secs, "psnr_vs_plain_db": vs_plain,
+            "psnr_vs_gt_db": psnr(out, torch.from_numpy(gt).cuda()),
+            "_by_shape": by_shape}
+
+
+def phase_eval(frames: dict) -> dict:
+    """The three record sweeps through the eval entry point. Runs all
+    three, then fails if any missed its record or its launch counts."""
+    warm = val_batch(frames, "Army")
+    results, failures = [], []
+    by_shape = {fn.__name__: Counter() for fn in WRAPPERS}
+    for name, ckpt, kw, record_file in SWEEPS:
+        record = json.load(open(os.path.join(ROOT, "artifacts",
+                                             record_file)))
+        eng = FrameInterpolator(load_params_npz(ckpt + ".npz"),
+                                flow_params=load_params_npz(
+                                    ckpt + ".flow.npz"),
+                                device="cuda", **EVAL_ENGINE, **kw)
+        eng.midpoints(warm[0], warm[2])    # warm-up (not counted)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        report, batches = sweep(eng, VAL, 1, EB, load=frames.__getitem__)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = launch_counts()
+        for fn, c in shapes_now().items():
+            by_shape[fn].update(c)
+        forwards = len(batches) * (4 if kw.get("tta") else 1)
+        want = {"conv_chain": 0, "deform_conv2d_bounded": 3 * forwards,
+                "bounded_warp": forwards}
+        pairs = sum(bt["n"] for bt in batches)
+        quality, missed = sweep_quality(name, report, record)
+        scenes = {sc: {"psnr": r["psnr"], "ssim": r["ssim"],
+                       "record_psnr": record["scenes"][sc]["psnr"],
+                       **({"auto_scaled": r["auto_scaled"],
+                           "record_auto_scaled":
+                               record["scenes"][sc]["auto_scaled"]}
+                          if "auto_scaled" in r else {})}
+                  for sc, r in report["scenes"].items()}
+        res = {"phase": "eval", "sweep": name, "seconds": secs,
+               "pairs": pairs, "pairs_per_s": pairs / secs, **quality,
+               "excluded_scenes": report["excluded_scenes"],
+               "forwards": forwards, "launches": counts,
+               "scenes": scenes,
+               "probes": [[bt["scene"], bt["probe"], bt["scaled"]]
+                          for bt in batches if bt["probe"] is not None]}
+        emit(res)
+        results.append(res)
+        if counts != want:
+            failures.append(f"{name}: launches {counts}, expected {want}")
+        failures += missed
+    if failures:
+        raise AssertionError("eval: " + "; ".join(failures))
+    return {"phase": "eval_done", "sweeps": [r["sweep"] for r in results],
+            "seconds": sum(r["seconds"] for r in results),
+            "_by_shape": by_shape}
+
+
+def sweep_quality(name: str, report: dict, record: dict) -> tuple:
+    """(fields, failures) of one sweep's means against its record."""
+    d_psnr = report["mean_psnr"] - record["mean_psnr"]
+    d_ssim = report["mean_ssim"] - record["mean_ssim"]
+    failures = []
+    if not abs(d_psnr) <= PSNR_TOL_DB:
+        failures.append(f"{name}: mean PSNR {report['mean_psnr']:.4f} is "
+                        f"{d_psnr:+.4f} dB from its record")
+    if not abs(d_ssim) <= SSIM_TOL:
+        failures.append(f"{name}: mean SSIM {report['mean_ssim']:.5f} is "
+                        f"{d_ssim:+.5f} from its record")
+    return ({"mean_psnr": report["mean_psnr"],
+             "record_psnr": record["mean_psnr"], "diff_psnr": d_psnr,
+             "mean_ssim": report["mean_ssim"],
+             "record_ssim": record["mean_ssim"], "diff_ssim": d_ssim},
+            failures)
+
+
+def phase_conv_compare(frames: dict, params, flow_params) -> list:
+    """conv_kernel="xla" (the trunk on cuDNN convs) against "pallas" (the
+    conv-chain kernels) on both workloads, inside one call: the flagship's
+    b=1 720p requests, and the three eval sweeps. The two engines take
+    turns, xla / pallas / pallas / xla; each reports its median seconds.
+    Launches per forward are checked (0 or 8 chains, 3 DCN, 1 warp), the
+    flagship's two outputs are held to each other (PSNR floor), and each
+    sweep under "pallas" is held to its record as the eval phase holds
+    "xla"."""
+    order = ("xla", "pallas", "pallas", "xla")
+    chains = {"xla": 0, "pallas": PER_LAUNCH["conv_chain"]}
+    results, failures = [], []
+
+    def want(ck, forwards):
+        return {"conv_chain": chains[ck] * forwards,
+                "deform_conv2d_bounded": 3 * forwards,
+                "bounded_warp": forwards}
+
+    t0 = time.perf_counter()
+    f0, f1 = smooth_frames(np.random.default_rng(SEED), 1)
+    kw = {k: v for k, v in FLAGSHIP.items() if k != "conv_kernel"}
+    engs = {ck: FrameInterpolator(params, flow_params=flow_params,
+                                  device="cuda", conv_kernel=ck, **kw)
+            for ck in chains}
+    outs = {ck: e.midpoints(f0, f1) for ck, e in engs.items()}  # warm-up
+    times = {ck: [] for ck in chains}
+    for ck in order:
+        reset_launch_counts()
+        for _ in range(5):
+            t1 = time.perf_counter()
+            engs[ck].midpoints(f0, f1)
+            torch.cuda.synchronize()
+            times[ck].append(time.perf_counter() - t1)
+        if launch_counts() != want(ck, 5):
+            failures.append(f"flagship {ck}: launches {launch_counts()}")
+    agree = psnr(outs["xla"], outs["pallas"])
+    if not agree >= PSNR_FLOOR_DB:
+        failures.append(f"flagship: xla vs pallas {agree} dB")
+    med = {ck: float(np.median(t)) for ck, t in times.items()}
+    results.append({"phase": "conv_compare", "workload": "flagship_720p_b1",
+                    "seconds": time.perf_counter() - t0,
+                    "request_seconds": times,
+                    "frames_per_s": {ck: 1.0 / m for ck, m in med.items()},
+                    "psnr_xla_vs_pallas_db": agree,
+                    "faster": min(med, key=med.get)})
+    emit(results[-1])
+
+    warm = val_batch(frames, "Army")
+    for name, ckpt, skw, record_file in SWEEPS:
+        t0 = time.perf_counter()
+        record = json.load(open(os.path.join(ROOT, "artifacts",
+                                             record_file)))
+        p, fp = (load_params_npz(ckpt + ".npz"),
+                 load_params_npz(ckpt + ".flow.npz"))
+        ekw = {k: v for k, v in EVAL_ENGINE.items() if k != "conv_kernel"}
+        engs = {ck: FrameInterpolator(p, flow_params=fp, device="cuda",
+                                      conv_kernel=ck, **ekw, **skw)
+                for ck in chains}
+        for e in engs.values():
+            e.midpoints(warm[0], warm[2])
+        times, reports = {ck: [] for ck in chains}, {}
+        for ck in order:
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t1 = time.perf_counter()
+            reports[ck], batches = sweep(engs[ck], VAL, 1, EB,
+                                         load=frames.__getitem__)
+            torch.cuda.synchronize()
+            times[ck].append(time.perf_counter() - t1)
+            forwards = len(batches) * (4 if skw.get("tta") else 1)
+            if launch_counts() != want(ck, forwards):
+                failures.append(f"{name} {ck}: launches {launch_counts()}")
+        pairs = sum(bt["n"] for bt in batches)
+        med = {ck: float(np.median(t)) for ck, t in times.items()}
+        quality, missed = sweep_quality(f"{name} pallas", reports["pallas"],
+                                        record)
+        failures += missed
+        results.append({
+            "phase": "conv_compare", "workload": f"eval_{name}",
+            "seconds": time.perf_counter() - t0, "sweep_seconds": times,
+            "pairs_per_s": {ck: pairs / m for ck, m in med.items()},
+            "faster": min(med, key=med.get),
+            "xla_mean_psnr": reports["xla"]["mean_psnr"],
+            "pallas": quality})
+        emit(results[-1])
+    if failures:
+        raise AssertionError("conv_compare: " + "; ".join(failures))
+    return results
+
+
+def kernel_launches(rows: list, by_path: dict) -> list:
+    """Each row's launches, summed over its paths' runs (null for a shape
+    no path takes). Fails when a row's path never launched its shape, and
+    when a path launched a (wrapper, shape) that no row of that path
+    checks and times."""
+    kernels, covered = [], set()
+    for row in rows:
+        paths, fn_name, key = row.pop("_key")
+        per_path = {p: by_path[p][fn_name].get(key, 0) for p in paths}
+        for p, n in per_path.items():
+            if n == 0:
+                raise AssertionError(f"{row['name']}: never launched on the "
+                                     f"{p} path")
+            covered.add((p, fn_name, key))
+        row["launches"] = sum(per_path.values()) if paths else None
+        row["launches_by_path"] = per_path
+        row.pop("tol")
+        kernels.append(row)
+    unchecked = [(p, fn_name, key) for p, shapes in by_path.items()
+                 for fn_name, counts in shapes.items()
+                 for key, n in counts.items()
+                 if n and (p, fn_name, key) not in covered]
+    if unchecked:
+        raise AssertionError(f"launched at shapes no kernel row checks: "
+                             f"{unchecked}")
+    return kernels
 
 
 PORT_KERNELS = ("conv_chain_kernel", "dcn_bounded_kernel",
@@ -380,31 +729,38 @@ def main() -> int:
     params = load_params_npz(CKPT + ".npz")
     flow_params = load_params_npz(CKPT + ".flow.npz")
     sd = params_from_jax(params)
+    sd12 = params_from_jax(load_params_npz(Q12 + ".npz"))
 
     t0 = time.perf_counter()
-    rows = phase_kernels(sd, dev)
+    rows = phase_kernels(sd, sd12, dev)
     emit({"phase": "kernels", "seconds": time.perf_counter() - t0})
 
+    by_path = {}
     t0 = time.perf_counter()
     main_res = phase_main(params, flow_params)
-    by_shape = main_res.pop("_by_shape")
+    by_path["main"] = main_res.pop("_by_shape")
     eng, request = main_res.pop("_engine"), main_res.pop("_request")
     main_res["seconds"] = time.perf_counter() - t0
     main_res["card"] = card
     emit(main_res)
+
+    t0 = time.perf_counter()
+    frames = decode_val()
+    emit({"phase": "decode", "seconds": time.perf_counter() - t0,
+          "pngs": len(frames)})
+    t0 = time.perf_counter()
+    q12_res = phase_q12(frames)
+    by_path["q12"] = q12_res.pop("_by_shape")
+    q12_res["seconds"] = time.perf_counter() - t0
+    emit(q12_res)
+    eval_res = phase_eval(frames)
+    by_path["eval"] = eval_res.pop("_by_shape")
+    emit(eval_res)
+    phase_conv_compare(frames, params, flow_params)
     if "--profile" in sys.argv[1:]:
         emit(phase_profile(eng, request))
 
-    kernels = []
-    for row in rows:
-        fn_name, key = row.pop("_key")
-        row["launches"] = by_shape[fn_name].get(key, 0)
-        if row["launches"] == 0:
-            raise AssertionError(f"{row['name']}: never launched on the main "
-                                 "path")
-        row.pop("tol")
-        kernels.append(row)
-    emit({"kernels": kernels})
+    emit({"kernels": kernel_launches(rows, by_path)})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -1,14 +1,22 @@
 """The port's CUDA kernels vs their plain versions on the card, at small
-shapes with ragged edges (the 720p main-path shapes run in
-chip_smoke.py). Needs an NVIDIA GPU and nvcc; skips without a GPU. Run on
+shapes with ragged edges (the main paths' full-size shapes run in
+chip_smoke.py): the DCN under v4's contract (C in {64, 67} x R 1..4, with
+and without a mask, and its shared-memory refusals), the chains with a
+67-wide first layer, and q12 (the 67-channel topology) through the engine
+with both conv_kernel settings. Needs an NVIDIA GPU and nvcc; skips
+without a GPU. Run on
 the card with `python -m pytest --noconftest tests/test_torch_cuda.py -m cuda`
 (tests/conftest.py imports jax, which a GPU host that runs only the port
 need not have).
 
 Tolerance: two bf16 ulps at the top of the output's range (2**-7 *
 max|plain|): kernel and plain version differ only in float32 summation
-order, which can move a bf16 rounding by one ulp."""
+order, which can move a bf16 rounding by one ulp. Engine against its
+plain-version engine: 40 dB, as chip_smoke.py."""
 
+import os
+
+import numpy as np
 import pytest
 import torch
 
@@ -20,6 +28,7 @@ from vfi_tpu_torch.ops.cuda import (bounded_warp, bounded_warp_plain,
 
 pytestmark = pytest.mark.cuda
 REL_TOL = 2.0 ** -7
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture
@@ -50,6 +59,10 @@ def _rnd(gen, dev, *shape, scale=1.0):
     ((64, 27), (False,)),
     ((64, 64, 32, 3), (True, True, False)),
     ((16, 48, 16, 8, 5), (True, False, True, False)),
+    ((67, 64, 32, 3), (True, True, False)),
+    ((67, 27), (False,)),
+    ((3, 16), (True,)),
+    ((24, 8), (False,)),
 ])
 def test_conv_chain_kernel(dev, hw, chans, acts):
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -77,6 +90,58 @@ def test_deform_conv2d_bounded_kernel(dev, hw, cin, cout, R):
     got = deform_conv2d_bounded(x, off, mask, w, b, R)
     assert launch_counts()["deform_conv2d_bounded"] == 1
     _close(got, deform_conv2d_bounded_plain(x, off, mask, w, b, R))
+
+
+@pytest.mark.parametrize("hw", [(13, 37), (24, 130)])
+@pytest.mark.parametrize("with_mask", [True, False])
+@pytest.mark.parametrize("R", [1, 2, 3, 4])
+@pytest.mark.parametrize("cin", [64, 67])
+def test_deform_conv2d_bounded_kernel_v4_contract(dev, hw, cin, R,
+                                                  with_mask):
+    """v4's contract: any C (the 67-channel reference topology), R 1..4,
+    an optional mask (None: weight 1)."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    x = _rnd(gen, dev, 2, *hw, cin)
+    off = _rnd(gen, dev, 2, *hw, 18, scale=0.8 * R)
+    mask = (torch.sigmoid(_rnd(gen, dev, 2, *hw, 9, scale=2.0).float()).to(
+        torch.bfloat16) if with_mask else None)
+    w = torch.randn(cin, cin, 3, 3, generator=gen, device=dev) / (
+        9 * cin) ** .5
+    b = torch.randn(cin, generator=gen, device=dev) * 0.1
+    reset_launch_counts()
+    got = deform_conv2d_bounded(x, off, mask, w, b, R)
+    assert launch_counts()["deform_conv2d_bounded"] == 1
+    _close(got, deform_conv2d_bounded_plain(x, off, mask, w, b, R))
+
+
+@pytest.mark.parametrize("cin,cout,R", [(64, 128, 1), (67, 5, 2), (3, 24, 2),
+                                        (80, 67, 4)])
+def test_deform_conv2d_bounded_kernel_channel_counts(dev, cin, cout, R):
+    gen = torch.Generator(device=dev).manual_seed(5)
+    hw = (13, 70)
+    x = _rnd(gen, dev, 1, *hw, cin)
+    off = _rnd(gen, dev, 1, *hw, 18, scale=0.8 * R)
+    mask = torch.sigmoid(_rnd(gen, dev, 1, *hw, 9).float()).to(torch.bfloat16)
+    w = torch.randn(cout, cin, 3, 3, generator=gen, device=dev) / (
+        9 * cin) ** .5
+    b = torch.randn(cout, generator=gen, device=dev) * 0.1
+    _close(deform_conv2d_bounded(x, off, mask, w, b, R),
+           deform_conv2d_bounded_plain(x, off, mask, w, b, R))
+
+
+@pytest.mark.parametrize("cin,cout,R", [(67, 67, 8), (128, 128, 4),
+                                        (64, 129, 1)])
+def test_deform_conv2d_bounded_refuses_what_shared_memory_cannot_hold(
+        dev, cin, cout, R):
+    """A (C, R) pair above the per-block shared memory, or Cout > 128,
+    raises ValueError before any launch; no plain route is taken."""
+    x = torch.zeros(1, 8, 16, cin, dtype=torch.bfloat16, device=dev)
+    off = torch.zeros(1, 8, 16, 18, dtype=torch.bfloat16, device=dev)
+    w = torch.zeros(cout, cin, 3, 3, device=dev)
+    reset_launch_counts()
+    with pytest.raises(ValueError):
+        deform_conv2d_bounded(x, off, None, w, None, R)
+    assert launch_counts()["deform_conv2d_bounded"] == 0
 
 
 @pytest.mark.parametrize("hw", [(8, 16), (13, 37), (33, 140)])
@@ -123,3 +188,33 @@ def test_packed_weights_match_packing_on_the_call(dev):
     with pytest.raises(ValueError):
         deform_conv2d_bounded(x, off, mask, w, None, 1,
                               packed=pack_dcn(w[:32], None))
+
+
+@pytest.mark.parametrize("conv_kernel,chains", [("pallas", 8), ("xla", 0)])
+def test_q12_engine_runs_the_kernels(dev, conv_kernel, chains):
+    """The 67-channel reference topology (q12: no fuse_proj, R=2, cascade
+    2, flow prior) on the card: per engine launch 3 DCN and 1 warp kernel
+    launches, and 8 conv-chain launches under conv_kernel="pallas" (none
+    under "xla"); close to the same engine through the plain versions."""
+    from vfi_tpu_torch.infer import FrameInterpolator
+    from vfi_tpu_torch.utils.convert import load_params_npz
+
+    ckpt = os.path.join(REPO, "artifacts", "emavfi_q12_best")
+    params = load_params_npz(ckpt + ".npz")
+    flow = load_params_npz(ckpt + ".flow.npz")
+    kw = dict(flow_params=flow, dcn_max_offset=2, warp_max_flow=16,
+              cascade_levels=2, conv_kernel=conv_kernel,
+              device="cuda")
+    rng = np.random.default_rng(6)
+    f0 = rng.uniform(0, 1, (2, 64, 128, 3)).astype(np.float32)
+    f1 = np.roll(f0, (3, -4), axis=(1, 2))
+    eng = FrameInterpolator(params, **kw)
+    reset_launch_counts()
+    got = eng.midpoints(f0, f1)
+    torch.cuda.synchronize()
+    assert launch_counts() == {"conv_chain": chains,
+                               "deform_conv2d_bounded": 3, "bounded_warp": 1}
+    assert got.device.type == "cuda" and torch.isfinite(got).all()
+    ref = FrameInterpolator(params, use_kernels=False, **kw).midpoints(f0, f1)
+    mse = (got - ref).pow(2).mean().item()
+    assert mse == 0 or 10 * np.log10(1 / mse) >= 40.0

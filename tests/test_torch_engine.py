@@ -1,7 +1,9 @@
 """`FrameInterpolator.midpoints` of the port vs `vfi_tpu`'s, the JAX
 engine on a one-CPU-device mesh; flagship settings (qocc + flow prior,
 cascade 2, R=1, warp bound 16) in float32, JAX matmuls at HIGHEST. Inputs
-from numpy seeds. Tolerance 1e-4 on [0, 1] outputs."""
+from numpy seeds. Tolerance 1e-4 on [0, 1] outputs, and on the auto_scale
+probe (pixels) relative 1e-4. TTA and both auto_scale routes are held
+against the JAX engine with the same options."""
 
 import os
 
@@ -18,6 +20,16 @@ from vfi_tpu_torch.utils.convert import load_params_npz
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 QOCC = os.path.join(REPO, "artifacts", "emavfi_qocc_best")
 FLAGSHIP = dict(dcn_max_offset=1, warp_max_flow=16, cascade_levels=2)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: the suite runs several workers on the CPU at
+    once, and torch's default of one thread per core oversubscribes it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -87,8 +99,78 @@ def test_bf16_engine_runs_on_cpu(qocc, frames, jax_out):
     assert np.abs(got.numpy() - jax_out[:1]).mean() < 2e-2
 
 
-@pytest.mark.parametrize("kw", [dict(tta=True), dict(io_uint8=True),
-                                dict(auto_scale=9.0), dict(spatial=True),
+def _jax_engine(qocc, **kw):
+    return JFI(qocc[0], flow_params=qocc[1], bf16=False, use_pallas=True,
+               mesh=make_mesh(devices=jax.devices()[:1]),
+               **{**FLAGSHIP, **kw})
+
+
+def test_tta_matches_jax(qocc, frames):
+    """Identity, W-flip, H-flip and temporal swap, each through the flow
+    prior, averaged in float32. Cascade 1 keeps the JAX compile of the four
+    branches short; the cascade is held against JAX above."""
+    f0, f1 = frames[0][:2], frames[1][:2]
+    with jax.default_matmul_precision("highest"):
+        ref = np.asarray(_jax_engine(qocc, tta=True, cascade_levels=1)
+                         .midpoints(f0, f1))
+    eng = _engine(qocc, tta=True, cascade_levels=1)
+    assert eng.max_px_per_launch == 2_000_000      # "auto" halves
+    got = eng.midpoints(f0, f1)
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-4, rtol=1e-4)
+
+
+@pytest.fixture(scope="module")
+def jax_scaled(qocc, frames):
+    """The JAX engine with a threshold below the pair's p95 motion: the
+    half-resolution route, and the probe it took."""
+    with jax.default_matmul_precision("highest"):
+        eng = _jax_engine(qocc, auto_scale=0.5)
+        out = np.asarray(eng.midpoints(*frames))
+    return out, eng.auto_scale_stats
+
+
+def test_auto_scale_half_resolution_route_matches_jax(qocc, frames,
+                                                      jax_scaled):
+    ref, stats = jax_scaled
+    assert stats["scaled"] == 1 and stats["probes"][0] > 0.5
+    eng = _engine(qocc, auto_scale=0.5)
+    got = eng.midpoints(*frames)
+    assert eng.auto_scale_stats["scaled"] == 1
+    np.testing.assert_allclose(eng.auto_scale_stats["probes"],
+                               stats["probes"], rtol=1e-4)
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-4, rtol=1e-4)
+
+
+def test_auto_scale_native_route_matches_jax(qocc, frames, jax_out,
+                                             jax_scaled):
+    """A threshold above the probe keeps the native route: the plain
+    engine's midpoints, with the same probe recorded."""
+    _, stats = jax_scaled
+    eng = _engine(qocc, auto_scale=1e9)
+    got = eng.midpoints(*frames)
+    assert eng.auto_scale_stats["scaled"] == 0
+    np.testing.assert_allclose(eng.auto_scale_stats["probes"],
+                               stats["probes"], rtol=1e-4)
+    np.testing.assert_allclose(got.numpy(), jax_out, atol=1e-4, rtol=1e-4)
+
+
+def test_auto_scale_probes_once_per_call_on_the_first_chunk(qocc, frames):
+    """The guard splits three pairs into launches of one; the probe sees
+    the first chunk only, and decides for the whole call."""
+    eng = _engine(qocc, auto_scale=1e9, max_px_per_launch=64 * 128)
+    first = _engine(qocc, auto_scale=1e9)
+    eng.midpoints(*frames)
+    first.midpoints(frames[0][:1], frames[1][:1])
+    assert eng.auto_scale_stats["probes"] == first.auto_scale_stats["probes"]
+
+
+def test_auto_scale_needs_flow_params(qocc):
+    with pytest.raises(ValueError):
+        FrameInterpolator(qocc[0], device="cpu", dcn_max_offset=1,
+                          auto_scale=9.0)
+
+
+@pytest.mark.parametrize("kw", [dict(io_uint8=True), dict(spatial=True),
                                 dict(mesh="data"),
                                 dict(reference_compat=True)])
 def test_unported_options_raise(qocc, kw):

@@ -1,7 +1,8 @@
 """The port stands alone: no module of vfi_tpu_torch, and not
-chip_smoke.py, imports jax, flax, the JAX package or tools/; importing the
-port loads no jax; entry points refuse to run without a card unless the
-caller asks for the CPU."""
+chip_smoke.py, imports jax, flax, the JAX package, tools/, PIL or cv2 (the
+card's machine has none of them); importing the port loads none of them;
+entry points refuse to run without a card unless the caller asks for the
+CPU."""
 
 import ast
 import os
@@ -12,7 +13,8 @@ import pytest
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "vfi_tpu", "tools")
+BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "vfi_tpu", "tools",
+          "PIL", "cv2")
 
 
 def _sources():
@@ -41,9 +43,10 @@ def test_no_jax_or_reference_imports(path):
 
 def test_import_leaves_jax_out():
     code = ("import sys, vfi_tpu_torch, vfi_tpu_torch.infer, "
-            "vfi_tpu_torch.ops.cuda, vfi_tpu_torch.models;"
+            "vfi_tpu_torch.ops.cuda, vfi_tpu_torch.models, "
+            "vfi_tpu_torch.data, vfi_tpu_torch.cli.eval;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'flax', 'vfi_tpu', 'triton')];"
+            "('jax', 'flax', 'vfi_tpu', 'triton', 'PIL', 'cv2')];"
             "assert not bad, bad")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -52,9 +55,30 @@ def test_import_leaves_jax_out():
 
 
 def test_import_builds_nothing():
+    from vfi_tpu_torch import native
     from vfi_tpu_torch.ops.cuda import build
 
     assert build._lib is None
+    code = ("import vfi_tpu_torch.data, vfi_tpu_torch.cli.eval;"
+            "from vfi_tpu_torch import native; assert native._lib is None")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert native.SRC.is_file()
+
+
+def test_eval_cli_needs_a_card_unless_asked_for_cpu(monkeypatch):
+    from vfi_tpu_torch.cli import eval as teval
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ckpt = os.path.join(REPO, "artifacts", "emavfi_qocc_best")
+    with pytest.raises(RuntimeError):
+        teval.main(["--data-dir", os.path.join(REPO, "data", "processed",
+                                               "val"),
+                    "--model_path", ckpt + ".npz", "--dcn_max_offset", "1"])
+    with pytest.raises(RuntimeError):
+        teval.main(["--data-dir", ".", "--flow_model", ckpt + ".flow.npz"])
 
 
 def test_engine_needs_a_card_unless_asked_for_cpu(monkeypatch):

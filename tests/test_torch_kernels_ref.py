@@ -14,6 +14,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from vfi_tpu.ops.pallas.conv import conv_chain_pallas
 from vfi_tpu.ops.pallas.sampling import (bounded_warp_pallas_v2,
+                                         deform_conv2d_pallas_v4,
                                          deform_conv2d_pallas_v5)
 from vfi_tpu_torch.ops.cuda import (bounded_warp, bounded_warp_plain,
                                     conv_chain, conv_chain_plain,
@@ -21,6 +22,16 @@ from vfi_tpu_torch.ops.cuda import (bounded_warp, bounded_warp_plain,
                                     deform_conv2d_bounded_plain,
                                     launch_counts, pack_conv_chain, pack_dcn,
                                     reset_launch_counts)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: the suite runs several workers on the CPU at
+    once, and torch's default of one thread per core oversubscribes it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture
@@ -84,6 +95,24 @@ def test_dcn_plain_matches_pallas_v5(rng, interpret_mode, b, h, w, cin, cout,
     got = deform_conv2d_bounded_plain(t(x), t(off), t(mask),
                                       t(wt.transpose(3, 2, 0, 1)), t(bias),
                                       R).numpy()
+    np.testing.assert_allclose(got, ref, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("with_mask", [True, False])
+@pytest.mark.parametrize("R", [1, 2, 4])
+@pytest.mark.parametrize("c", [64, 67])
+def test_dcn_plain_matches_pallas_v4(rng, interpret_mode, c, R, with_mask):
+    """The v4 route's contract: any C (67, the reference topology's fusion
+    stack, lane-padded by v4), any R, an optional mask (None: weight 1)."""
+    x, off, mask, wt, bias = _dcn_case(rng, 1, 8, 16, c, c, R, 0.7 * R, 0.1)
+    mask = mask if with_mask else None
+    ref = np.asarray(deform_conv2d_pallas_v4(
+        jnp.asarray(x), jnp.asarray(off),
+        None if mask is None else jnp.asarray(mask), jnp.asarray(wt),
+        jnp.asarray(bias), max_offset=R))
+    got = deform_conv2d_bounded_plain(
+        t(x), t(off), None if mask is None else t(mask),
+        t(wt.transpose(3, 2, 0, 1)), t(bias), R).numpy()
     np.testing.assert_allclose(got, ref, rtol=2e-4, atol=2e-4)
 
 
@@ -185,3 +214,39 @@ def test_pack_dcn_layout(rng):
     assert torch.equal(wpk.reshape(3, 3, 16, 32),
                        w.permute(2, 3, 1, 0).to(torch.bfloat16))
     assert bpk.dtype == torch.float32 and not bpk.any()
+
+
+def test_pack_dcn_pads_67_channels_to_80(rng):
+    """[9 * Cin16][Cout16] with zero rows and columns past 67; the bias
+    padded with zeros to Cout16."""
+    w = t(rng.standard_normal((67, 67, 3, 3)).astype(np.float32))
+    b = t(rng.standard_normal((67,)).astype(np.float32))
+    wpk, bpk = pack_dcn(w, b)
+    assert wpk.shape == (9 * 80, 80) and bpk.shape == (80,)
+    blk = wpk.reshape(3, 3, 80, 80)
+    assert torch.equal(blk[:, :, :67, :67],
+                       w.permute(2, 3, 1, 0).to(torch.bfloat16))
+    assert not blk[:, :, 67:].any() and not blk[..., 67:].any()
+    assert torch.equal(bpk[:67], b.to(torch.bfloat16).float())
+    assert not bpk[67:].any()
+
+
+def test_pack_conv_chain_pads_a_67_wide_first_layer(rng):
+    """The first layer's block is [9][80][cout_p]: the kernel stages a
+    67-wide input zero-padded to 80 channels."""
+    ws = [t(rng.standard_normal((27, 67, 3, 3)).astype(np.float32))]
+    wpk, _ = pack_conv_chain(ws, [None])
+    blk = wpk.reshape(3, 3, 80, 32)
+    assert torch.equal(blk[:, :, :67, :27],
+                       ws[0].permute(2, 3, 1, 0).to(torch.bfloat16))
+    assert not blk[:, :, 67:].any() and not blk[..., 27:].any()
+
+
+def test_dcn_plain_takes_no_mask_as_weight_one(rng):
+    x, off, mask, wt, bias = _dcn_case(rng, 1, 6, 9, 5, 4, 2, 1.0, 0.3)
+    args = (t(x), t(off))
+    w = t(wt.transpose(3, 2, 0, 1))
+    ones = torch.ones(1, 6, 9, 9)
+    assert torch.equal(deform_conv2d_bounded(*args, None, w, t(bias), 2),
+                       deform_conv2d_bounded_plain(*args, ones, w, t(bias),
+                                                   2))

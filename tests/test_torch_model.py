@@ -28,6 +28,16 @@ QOCC = os.path.join(REPO, "artifacts", "emavfi_qocc_best")
 TOL = 1e-4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: the suite runs several workers on the CPU at
+    once, and torch's default of one thread per core oversubscribes it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def t(a):
     return torch.from_numpy(np.ascontiguousarray(np.asarray(a)))
 
@@ -176,9 +186,11 @@ def test_unported_modes_raise():
 
 
 def test_pack_kernel_weights_holds_every_chain_and_dcn(qocc):
-    """The engine packs once: three chains and each DCN's offset conv and
-    weights, each pack equal to packing the live weights on a call."""
-    model = EMAVFI(dcn_max_offset=1, warp_max_flow=16, fuse_project=True)
+    """The engine packs once: under conv_kernel="pallas", three chains and
+    each DCN's offset conv and weights, each pack equal to packing the
+    live weights on a call."""
+    model = EMAVFI(dcn_max_offset=1, warp_max_flow=16, fuse_project=True,
+                   conv_kernel="pallas")
     model.load_state_dict(params_from_jax(qocc[0]))
     model.pack_kernel_weights()
     assert set(model.packed) == {model.feat_chain, model.MOTION_CHAIN,
@@ -193,3 +205,17 @@ def test_pack_kernel_weights_holds_every_chain_and_dcn(qocc):
         assert torch.equal(dcn.packed[1][0],
                            pack_dcn(dcn.weight, dcn.bias)[0])
         assert dcn.packed[0][0].numel() == 9 * 64 * 32
+
+
+def test_pack_kernel_weights_under_xla_packs_only_the_dcns(qocc):
+    """Under conv_kernel="xla" no chain kernel runs: only the DCNs'
+    weights are packed."""
+    model = EMAVFI(dcn_max_offset=1, warp_max_flow=16, fuse_project=True)
+    model.load_state_dict(params_from_jax(qocc[0]))
+    model.pack_kernel_weights()
+    assert model.packed == {}
+    for i in range(model.num_blocks):
+        dcn = getattr(model, f"fusion_dcn{i}")
+        assert dcn.packed[0] is None
+        assert torch.equal(dcn.packed[1][0],
+                           pack_dcn(dcn.weight, dcn.bias)[0])

@@ -17,6 +17,16 @@ from vfi_tpu.ops.resize import resize_bilinear as jax_resize
 from vfi_tpu_torch.ops import deform_conv2d_shifts, resize_bilinear, warp
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: the suite runs several workers on the CPU at
+    once, and torch's default of one thread per core oversubscribes it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
 

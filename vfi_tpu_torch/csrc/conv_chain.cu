@@ -21,6 +21,13 @@
 // read back. Intermediates at positions outside the image are stored as
 // 0, not relu(bias): each layer of the unfused chain zero-pads its own
 // input, and the TPU kernel re-zeroes those rows for the same reason.
+// The first layer's width is zero-padded to a multiple of 16 (the WMMA
+// depth) in the shared tile, and the packed weights carry zero rows for
+// the padded channels. The tile is staged in 16-byte rows of 8 channels,
+// so the input takes c0 % 8 == 0: the reference topology's 67-channel
+// fusion stack (134-byte rows) is padded to 72 channels by the wrapper
+// (2-byte loads in the kernel instead were 1.4-1.5x slower for the
+// 67-wide chains).
 // Each warp keeps the accumulators of up to three 16-row tiles across the
 // whole K loop; all warps walk the 9 taps in step while the next tap's
 // weight slice streams into shared memory (cp.async, double-buffered), so
@@ -201,16 +208,18 @@ conv_chain_kernel(const ChainParams p) {
   const int tx0 = blockIdx.x * TW, ty0 = blockIdx.y * TH, b = blockIdx.z;
   const int L = p.L, Wp = p.Wp;
 
-  // Stage the input tile with its L-pixel halo (zeros outside the image).
+  // Stage the input tile with its L-pixel halo (zeros outside the image,
+  // and in the channels from cin up to the padded width cinp), in
+  // 16-byte rows of 8 channels.
   {
     const int cin = p.cin[0], cp = p.cpitch[0];
-    const int chunks = cin / 8;
+    const int chunks = p.cinp[0] / 8;
     const int npx = (TH + 2 * L) * Wp;
     const int total = (npx + SLACK_PX) * chunks;
     for (int idx = threadIdx.x; idx < total; idx += NTHREADS) {
       const int pix = idx / chunks, ch = idx - (idx / chunks) * chunks;
       uint4 v = make_uint4(0, 0, 0, 0);
-      if (pix < npx) {
+      if (pix < npx && ch * 8 < cin) {
         const int rr = pix / Wp, cc = pix - (pix / Wp) * Wp;
         const int gy = ty0 - L + rr, gx = tx0 - L + cc;
         if (gy >= 0 && gy < p.H && gx >= 0 && gx < p.W)
@@ -250,7 +259,7 @@ extern "C" int vfi_conv_chain_bf16(const void* x, const void* w, const void* bia
                                    int act_mask, int device, void* stream) {
   if (L < 1 || L > MAXL) return (int)cudaErrorInvalidValue;
   const int c[MAXL + 1] = {c0, c1, c2, c3, c4};
-  if (c0 % 16 != 0) return (int)cudaErrorInvalidValue;
+  if (c0 < 8 || c0 % 8 != 0) return (int)cudaErrorInvalidValue;
   ChainParams p{};
   p.x = static_cast<const bf16*>(x);
   p.w = static_cast<const bf16*>(w);
@@ -262,7 +271,7 @@ extern "C" int vfi_conv_chain_bf16(const void* x, const void* w, const void* bia
   int boff = 0;
   for (int l = 0; l < L; ++l) {
     p.cin[l] = c[l];
-    p.cinp[l] = l == 0 ? c[0] : p.coutp[l - 1];
+    p.cinp[l] = l == 0 ? (c[0] + 15) / 16 * 16 : p.coutp[l - 1];
     p.cout[l] = c[l + 1];
     p.coutp[l] = (c[l + 1] + 15) / 16 * 16;
     if (p.coutp[l] > 64 || c[l + 1] < 1) return (int)cudaErrorInvalidValue;

@@ -1,12 +1,13 @@
 """EMAVFI — the flagship two-frame midpoint model, port of
 `vfi_tpu/models/ema_vfi.py` (NHWC frames in, midpoint in [0, 1] out).
 
-Stages, as in the JAX model's fused-chain mode:
+Stages, as in the JAX model (its fused-chain mode with
+conv_kernel="pallas"):
   0. self-cascade (cascade_levels > 1): the motion stages on downsampled
      copies, the flow upsampled (per-axis magnitude rescale, float32) and
      applied to frame2 as an exact unbounded pre-warp;
   1. feature extraction: plain conv 2C -> M, then the `num_blocks` M -> M
-     blocks as one fused conv chain;
+     blocks (one fused conv chain under conv_kernel="pallas");
   2. context: two stride-2 convs, one 4M -> 4M conv, global mean, dense
      (plain PyTorch ops, XLA in the JAX package);
   3. motion: chain cat(feat, ctx) 2M -> M -> M -> 2, flow channels (dx, dy);
@@ -16,9 +17,14 @@ Stages, as in the JAX model's fused-chain mode:
      modulated DCNs, each with its offset conv as a chain of one layer;
   6. reconstruction chain M -> M -> M/2 -> C, tanh, (x + 1) / 2.
 
-`use_kernels` picks, once, the `ops.cuda.Ops` triple the chains, the DCNs
-and the bounded warp call: True, the CUDA kernel wrappers (plain versions
-for CPU tensors); False, the plain versions on any device.
+`conv_kernel` ("xla", the JAX default, or "pallas") picks how the trunk
+chains (feature blocks, motion, reconstruction) and each DCN's offset conv
+run: as separate plain convs, or each chain as one conv-chain kernel
+launch. `use_kernels` picks, once, the `ops.cuda.Ops` triple the chains,
+the DCNs and the bounded warp call: True, the CUDA kernel wrappers (plain
+versions for CPU tensors); False, the plain versions on any device. The bounded DCN and warp always go through that
+choice: the JAX model's `use_pallas` and `dcn_kernel` (the XLA shifts op,
+v4 and v5 compute one function) have no counterpart here.
 `pack_kernel_weights()` repacks the kernels' weights once for inference.
 """
 
@@ -30,7 +36,7 @@ import torch
 from torch import nn
 
 from vfi_tpu_torch.models.layers import (ConvBlock, ModulatedDeformConv,
-                                         apply_conv_chain)
+                                         apply_conv_chain, check_conv_kernel)
 from vfi_tpu_torch.ops.cuda import KERNELS, PLAIN, pack_conv_chain
 from vfi_tpu_torch.ops.resize import resize_bilinear
 from vfi_tpu_torch.ops.warp import warp
@@ -45,7 +51,7 @@ class EMAVFI(nn.Module):
                  dcn_max_offset: Optional[int] = None,
                  warp_max_flow: Optional[int] = None,
                  cascade_levels: int = 1, fuse_project: bool = False,
-                 use_kernels: bool = True,
+                 conv_kernel: str = "xla", use_kernels: bool = True,
                  spatial_axis: Optional[str] = None):
         super().__init__()
         if spatial_axis is not None:
@@ -58,6 +64,7 @@ class EMAVFI(nn.Module):
         if cascade_levels < 1:
             raise ValueError(f"cascade_levels must be >= 1, got "
                              f"{cascade_levels}")
+        check_conv_kernel(conv_kernel)
         m, c = mid_channels, in_channels
         self.in_channels, self.mid_channels = c, m
         self.num_blocks = num_blocks
@@ -65,6 +72,7 @@ class EMAVFI(nn.Module):
         self.warp_max_flow = warp_max_flow
         self.cascade_levels = cascade_levels
         self.fuse_project = fuse_project
+        self.conv_kernel = conv_kernel
         self.ops = KERNELS if use_kernels else PLAIN
         self.feat_chain = tuple(f"feat_ext_block{i}"
                                 for i in range(num_blocks))
@@ -88,25 +96,36 @@ class EMAVFI(nn.Module):
             fused_ch = m + c
         for i in range(num_blocks):
             self.add_module(f"fusion_dcn{i}",
-                            ModulatedDeformConv(fused_ch, dcn_max_offset))
+                            ModulatedDeformConv(fused_ch, dcn_max_offset,
+                                                conv_kernel))
         self.rec_conv1 = ConvBlock(fused_ch, m)
         self.rec_conv2 = ConvBlock(m, m // 2)
         self.rec_conv3 = ConvBlock(m // 2, c, act=False)
 
     def _chain(self, x, names, acts):
-        return apply_conv_chain(x, [getattr(self, n) for n in names], acts,
-                                self.dtype, self.ops,
-                                self.packed.get(names))
+        """Stride-1 3x3 conv(+ReLU) blocks `names`: one conv-chain launch
+        under conv_kernel="pallas", else each block as its own conv (the
+        `acts` are the blocks' own)."""
+        if self.conv_kernel == "pallas":
+            return apply_conv_chain(x, [getattr(self, n) for n in names],
+                                    acts, self.dtype, self.ops,
+                                    self.packed.get(names))
+        x = x.to(self.dtype or x.dtype)
+        for n in names:
+            x = getattr(self, n)(x)
+        return x
 
     def pack_kernel_weights(self) -> None:
-        """Repack every chain's and DCN's weights into the kernels'
-        layouts once, on the weights' device. Call it after the weights
-        are loaded and moved, and again whenever they change; a model
-        never packed repacks on every call."""
-        for names in (self.feat_chain, self.MOTION_CHAIN, self.REC_CHAIN):
-            blocks = [getattr(self, n).conv for n in names]
-            self.packed[names] = pack_conv_chain(
-                [c.weight for c in blocks], [c.bias for c in blocks])
+        """Repack the DCNs' weights, and under conv_kernel="pallas" every
+        chain's, into the kernels' layouts once, on the weights' device.
+        Call it after the weights are loaded and moved, and again whenever
+        they change; a model never packed repacks on every call."""
+        if self.conv_kernel == "pallas":
+            for names in (self.feat_chain, self.MOTION_CHAIN,
+                          self.REC_CHAIN):
+                blocks = [getattr(self, n).conv for n in names]
+                self.packed[names] = pack_conv_chain(
+                    [c.weight for c in blocks], [c.bias for c in blocks])
         for i in range(self.num_blocks):
             getattr(self, f"fusion_dcn{i}").pack_kernel_weights()
 

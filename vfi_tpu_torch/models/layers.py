@@ -8,7 +8,9 @@ ConvBlock, `<dcn>.offset_conv.*`, `<dcn>.weight`/`.bias`), so
 The chains and DCNs call through an `ops.cuda.Ops` triple: `KERNELS`
 (the CUDA kernel wrappers, which run their plain versions only for CPU
 tensors) or `PLAIN` (the plain versions on any device, the reference a run
-on the card is held against).
+on the card is held against). `conv_kernel` picks how the stride-1 3x3
+convs run, as in the JAX package: "xla", each as its own plain PyTorch
+conv (XLA convs there); "pallas", through the fused conv-chain kernel.
 """
 
 from __future__ import annotations
@@ -22,13 +24,32 @@ from torch import nn
 from vfi_tpu_torch.ops.cuda import (KERNELS, Ops, pack_conv_chain,
                                     pack_dcn)
 
+CONV_KERNELS = ("xla", "pallas")
+
+
+def check_conv_kernel(conv_kernel: str) -> None:
+    if conv_kernel not in CONV_KERNELS:
+        raise ValueError(f"conv_kernel must be one of {CONV_KERNELS}, got "
+                         f"{conv_kernel!r}")
+
+
+def conv_nhwc(x: torch.Tensor, conv: nn.Conv2d, act: bool) -> torch.Tensor:
+    """`conv` (+ ReLU) on an NHWC tensor in its dtype, the bias added after
+    the conv, as Flax's `nn.Conv` does."""
+    y = F.conv2d(x.permute(0, 3, 1, 2), conv.weight.to(x.dtype), None,
+                 conv.stride, conv.padding)
+    y = y + conv.bias.to(x.dtype)[:, None, None]
+    if act:
+        y = torch.relu(y)
+    return y.permute(0, 2, 3, 1).contiguous()
+
 
 class ConvBlock(nn.Module):
     """k x k conv (+ ReLU) with explicit symmetric padding, NHWC in/out
     (`vfi_tpu/models/layers.py:116`). Runs as a plain PyTorch conv in the
     input's dtype with the bias added after the conv, as Flax's `nn.Conv`
-    does; the stride-1 trunk blocks run through `apply_conv_chain`
-    instead."""
+    does; with conv_kernel="pallas" the stride-1 trunk blocks run through
+    `apply_conv_chain` instead."""
 
     def __init__(self, cin: int, cout: int, kernel_size: int = 3,
                  stride: int = 1, padding: int = 1, act: bool = True):
@@ -37,13 +58,7 @@ class ConvBlock(nn.Module):
         self.act = act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        c = self.conv
-        y = F.conv2d(x.permute(0, 3, 1, 2), c.weight.to(x.dtype), None,
-                     c.stride, c.padding)
-        y = y + c.bias.to(x.dtype)[:, None, None]
-        if self.act:
-            y = torch.relu(y)
-        return y.permute(0, 2, 3, 1).contiguous()
+        return conv_nhwc(x, self.conv, self.act)
 
 
 def apply_conv_chain(x: torch.Tensor, blocks: Sequence[ConvBlock],
@@ -65,10 +80,15 @@ class ModulatedDeformConv(nn.Module):
     The offset conv (Cin -> 27, a chain of one layer) output splits into
     static | mask | dynamic groups of 9, in that order; the offsets are
     cat(static, dynamic), read as torchvision (dy, dx) pairs per tap, and
-    the mask is sigmoided. Output channels == input channels."""
+    the mask is sigmoided. Output channels == input channels. The offset
+    conv runs as a plain conv (conv_kernel="xla") or as a one-layer
+    conv-chain kernel launch ("pallas")."""
 
-    def __init__(self, channels: int, max_offset: int):
+    def __init__(self, channels: int, max_offset: int,
+                 conv_kernel: str = "xla"):
         super().__init__()
+        check_conv_kernel(conv_kernel)
+        self.conv_kernel = conv_kernel
         self.offset_conv = nn.Conv2d(channels, 27, 3, 1, 1)
         self.weight = nn.Parameter(torch.empty(channels, channels, 3, 3))
         self.bias = nn.Parameter(torch.empty(channels))
@@ -81,16 +101,21 @@ class ModulatedDeformConv(nn.Module):
         self.packed = (None, None)
 
     def pack_kernel_weights(self) -> None:
-        """Repack the offset conv's and the DCN's weights into the
-        kernels' layouts once; call again after the weights change."""
+        """Repack the DCN's weights, and under conv_kernel="pallas" the
+        offset conv's, into the kernels' layouts once; call again after
+        the weights change."""
         oc = self.offset_conv
-        self.packed = (pack_conv_chain([oc.weight], [oc.bias]),
+        self.packed = (pack_conv_chain([oc.weight], [oc.bias])
+                       if self.conv_kernel == "pallas" else None,
                        pack_dcn(self.weight, self.bias))
 
     def forward(self, x: torch.Tensor, ops: Ops = KERNELS) -> torch.Tensor:
-        raw = ops.conv_chain(x, [self.offset_conv.weight],
-                             [self.offset_conv.bias], (False,),
-                             packed=self.packed[0])
+        if self.conv_kernel == "pallas":
+            raw = ops.conv_chain(x, [self.offset_conv.weight],
+                                 [self.offset_conv.bias], (False,),
+                                 packed=self.packed[0])
+        else:
+            raw = conv_nhwc(x, self.offset_conv, act=False)
         off_static, mask, off_dynamic = torch.split(raw, 9, dim=-1)
         offset = torch.cat([off_static, off_dynamic], dim=-1).contiguous()
         mask = torch.sigmoid(mask).contiguous()

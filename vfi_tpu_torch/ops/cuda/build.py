@@ -109,6 +109,8 @@ def load():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        lib.vfi_dcn_bounded_smem_bytes.argtypes = [_I, _I, _I]
+        lib.vfi_dcn_bounded_smem_bytes.restype = ctypes.c_int
         lib.vfi_cuda_error_string.argtypes = [ctypes.c_int]
         lib.vfi_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

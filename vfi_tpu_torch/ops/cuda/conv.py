@@ -11,8 +11,9 @@ JAX chain (`vfi_tpu/models/layers.py::apply_conv_chain`) does.
 (`nn.Conv2d.weight`), biases (cout,) or None; `packed` is
 `pack_conv_chain(weights, biases)` made ahead of time, or None to pack on
 this call. A CPU tensor runs the plain version; a CUDA tensor launches the
-kernel (bf16, contiguous, first-layer channels a multiple of 16, every
-cout <= 64) or raises.
+kernel (bf16, contiguous, 1..4 layers, every cout <= 64; the first layer
+takes any width: an input whose channels are not a multiple of 8 is
+zero-padded to one first, `pad_channels8`) or raises.
 """
 
 from __future__ import annotations
@@ -53,16 +54,26 @@ def _pad16(c: int) -> int:
     return -(-c // 16) * 16
 
 
+def pad_channels8(x: torch.Tensor) -> torch.Tensor:
+    """x with its channels zero-padded to a multiple of 8: the chain and
+    DCN kernels copy their input tile in 16-byte rows of 8 bf16 channels.
+    A 67-channel input (134-byte rows) becomes 72 channels; others pass
+    unchanged."""
+    c = x.shape[-1]
+    return x if c % 8 == 0 else F.pad(x, (0, -c % 8))
+
+
 def pack_conv_chain(weights: Sequence[torch.Tensor],
                     biases: Sequence[Optional[torch.Tensor]]) -> tuple:
     """The kernel's weight layout: weights -> one bf16 buffer of per-layer
     [9][cin_p][cout_p] blocks, biases -> one f32 buffer of per-layer
-    [cout_p] (bf16-rounded values); padded channels are zero. A module
-    whose weights stay fixed packs them once and passes the result as
-    `conv_chain(..., packed=)`."""
+    [cout_p] (bf16-rounded values); cin_p and cout_p are the channel
+    counts padded to multiples of 16, and padded channels are zero. A
+    module whose weights stay fixed packs them once and passes the result
+    as `conv_chain(..., packed=)`."""
     dev = weights[0].device
     wblocks, bblocks = [], []
-    cin_p = weights[0].shape[1]
+    cin_p = _pad16(weights[0].shape[1])
     for w, b in zip(weights, biases):
         cout, cin = w.shape[0], w.shape[1]
         cout_p = _pad16(cout)
@@ -104,9 +115,6 @@ def conv_chain(x: torch.Tensor, weights: Sequence[torch.Tensor],
     L = len(weights)
     if not 1 <= L <= MAX_LAYERS:
         raise ValueError(f"conv_chain kernel takes 1..{MAX_LAYERS} layers")
-    if chans[0] % 16 != 0:
-        raise ValueError(f"conv_chain kernel needs first-layer channels % 16"
-                         f" == 0, got {chans[0]}")
     if max(chans[1:]) > MAX_COUT:
         raise ValueError(f"conv_chain kernel takes cout <= {MAX_COUT}")
     if any(w.device != x.device for w in weights):
@@ -120,11 +128,12 @@ def conv_chain(x: torch.Tensor, weights: Sequence[torch.Tensor],
                          "channels or device")
     out = torch.empty(b, h, w, chans[-1], dtype=torch.bfloat16,
                       device=x.device)
-    cs = chans + [0] * (MAX_LAYERS + 1 - len(chans))
+    xp = pad_channels8(x)
+    cs = [xp.shape[-1]] + chans[1:] + [0] * (MAX_LAYERS + 1 - len(chans))
     act_mask = sum(1 << i for i, a in enumerate(acts) if a)
     lib = build.load()
     rc = lib.vfi_conv_chain_bf16(
-        x.data_ptr(), wpk.data_ptr(), bpk.data_ptr(), out.data_ptr(),
+        xp.data_ptr(), wpk.data_ptr(), bpk.data_ptr(), out.data_ptr(),
         b, h, w, L, *cs, act_mask, x.device.index,
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(rc, "conv_chain")

@@ -2,10 +2,12 @@
 `csrc/warp_bounded.cu`, with their plain PyTorch versions.
 
 - `deform_conv2d_bounded` replaces
-  `vfi_tpu/ops/pallas/sampling.py::deform_conv2d_pallas_v5` (kernel
-  `_sampling_kernel_v5`): modulated DCNv2, stride 1, one offset group,
-  offsets clamped to [-R, R]. Plain version:
-  `ops/deform_conv_shifts.deform_conv2d_shifts`.
+  `vfi_tpu/ops/pallas/sampling.py::deform_conv2d_pallas_v4` (kernel
+  `_sampling_kernel_v4`) and `deform_conv2d_pallas_v5`
+  (`_sampling_kernel_v5`), which compute one function under v4's
+  contract: modulated DCNv2, stride 1, one offset group, offsets clamped
+  to [-R, R], any Cin, Cout up to 128, an optional mask (None: weight 1).
+  Plain version: `ops/deform_conv_shifts.deform_conv2d_shifts`.
 - `bounded_warp` replaces `bounded_warp_pallas_v2` (kernel
   `_warp_kernel_v2`): backward warp by the flow clipped to [-R, R].
   Plain version: `ops/warp.warp(image, clip(flow))`.
@@ -24,10 +26,11 @@ from typing import Optional
 import torch
 
 from vfi_tpu_torch.ops.cuda import build
+from vfi_tpu_torch.ops.cuda.conv import _pad16, pad_channels8
 from vfi_tpu_torch.ops.deform_conv_shifts import deform_conv2d_shifts
 from vfi_tpu_torch.ops.warp import warp
 
-DCN_MAX_COUT = 64
+DCN_MAX_COUT = 128
 
 
 def deform_conv2d_bounded_plain(x, offset, mask, weight, bias=None,
@@ -50,6 +53,8 @@ def bounded_warp_plain(image: torch.Tensor, flow: torch.Tensor,
 def _cuda_checks(name: str, **tensors) -> torch.device:
     dev = None
     for k, t in tensors.items():
+        if t is None:
+            continue
         if t.device.type != "cuda":
             raise ValueError(f"{name}: {k} on {t.device}, expected cuda")
         if t.dtype != torch.bfloat16:
@@ -63,28 +68,35 @@ def _cuda_checks(name: str, **tensors) -> torch.device:
 
 
 def pack_dcn(weight: torch.Tensor, bias: Optional[torch.Tensor]) -> tuple:
-    """The kernel's weight layout: OIHW -> bf16 [9 * Cin][Cout] (tap-major),
-    bias -> f32 (bf16-rounded values, zeros for None). A module whose
-    weights stay fixed packs them once and passes the result as
-    `deform_conv2d_bounded(..., packed=)`."""
+    """The kernel's weight layout: OIHW -> bf16 [9 * Cin16][Cout16]
+    (tap-major, channels padded to multiples of 16 with zeros), bias -> f32
+    [Cout16] (bf16-rounded values, zeros for None and the padding). A
+    module whose weights stay fixed packs them once and passes the result
+    as `deform_conv2d_bounded(..., packed=)`."""
     cout, cin = weight.shape[:2]
-    wpk = weight.detach().to(torch.bfloat16).permute(2, 3, 1, 0).reshape(
-        9 * cin, cout).contiguous()
-    bpk = (torch.zeros(cout, dtype=torch.float32, device=weight.device)
-           if bias is None else bias.detach().to(torch.bfloat16).float())
-    return wpk, bpk
+    cin16, cout16 = _pad16(cin), _pad16(cout)
+    dev = weight.device
+    wpk = torch.zeros(9, cin16, cout16, dtype=torch.bfloat16, device=dev)
+    wpk[:, :cin, :cout] = weight.detach().to(torch.bfloat16).permute(
+        2, 3, 1, 0).reshape(9, cin, cout)
+    bpk = torch.zeros(cout16, dtype=torch.float32, device=dev)
+    if bias is not None:
+        bpk[:cout] = bias.detach().to(torch.bfloat16).float()
+    return wpk.reshape(9 * cin16, cout16), bpk
 
 
 def deform_conv2d_bounded(x: torch.Tensor, offset: torch.Tensor,
-                          mask: torch.Tensor, weight: torch.Tensor,
+                          mask: Optional[torch.Tensor], weight: torch.Tensor,
                           bias: Optional[torch.Tensor] = None,
                           max_offset: int = 3,
                           tile_w: Optional[int] = None,
                           packed: Optional[tuple] = None) -> torch.Tensor:
     """x (B, H, W, Cin) NHWC; offset (B, H, W, 18) as (dy, dx) per tap;
-    mask (B, H, W, 9), already sigmoided; weight OIHW (Cout, Cin, 3, 3);
-    bias (Cout,) or None; `packed` is `pack_dcn(weight, bias)` made ahead
-    of time, or None to pack on this call. Returns (B, H, W, Cout)."""
+    mask (B, H, W, 9), already sigmoided, or None (weight 1); weight OIHW
+    (Cout, Cin, 3, 3); bias (Cout,) or None; `packed` is
+    `pack_dcn(weight, bias)` made ahead of time, or None to pack on this
+    call. Returns (B, H, W, Cout). On the card a (C, R) pair whose shared
+    memory exceeds the per-block limit raises ValueError."""
     del tile_w  # TPU tiling knob: no effect on the function
     if x.dim() != 4:
         raise ValueError(f"x must be NHWC, got shape {tuple(x.shape)}")
@@ -93,34 +105,47 @@ def deform_conv2d_bounded(x: torch.Tensor, offset: torch.Tensor,
         raise ValueError(f"weight {tuple(weight.shape)} is not OIHW 3x3 "
                          f"with cin={cin}")
     cout = weight.shape[0]
-    if tuple(offset.shape) != (b, h, w, 18) or tuple(mask.shape) != (b, h, w, 9):
+    if tuple(offset.shape) != (b, h, w, 18) or (
+            mask is not None and tuple(mask.shape) != (b, h, w, 9)):
         raise ValueError(f"offset {tuple(offset.shape)} / mask "
-                         f"{tuple(mask.shape)} do not match x {tuple(x.shape)}")
+                         f"{None if mask is None else tuple(mask.shape)} do "
+                         f"not match x {tuple(x.shape)}")
     if x.device.type == "cpu":
         return deform_conv2d_bounded_plain(x, offset, mask, weight, bias,
                                            max_offset)
     dev = _cuda_checks("deform_conv2d_bounded", x=x, offset=offset, mask=mask)
-    if cin % 16 != 0 or cout % 16 != 0 or cout > DCN_MAX_COUT:
-        raise ValueError(f"deform_conv2d_bounded kernel takes Cin % 16 == 0 "
-                         f"and Cout in 16..{DCN_MAX_COUT} step 16, got "
-                         f"{cin}->{cout}")
+    if not 1 <= cout <= DCN_MAX_COUT or max_offset < 0:
+        raise ValueError(f"deform_conv2d_bounded kernel takes Cout in "
+                         f"1..{DCN_MAX_COUT} and R >= 0, got Cout={cout}, "
+                         f"R={max_offset}")
     if weight.device != dev or (bias is not None and bias.device != dev):
         raise ValueError("weight and bias must be on the input's device")
+    lib = build.load()
+    smem = lib.vfi_dcn_bounded_smem_bytes(cin, cout, int(max_offset))
+    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    if smem > limit:
+        raise ValueError(
+            f"deform_conv2d_bounded kernel: C={cin}->{cout} at R="
+            f"{max_offset} needs {smem} bytes of shared memory per block, "
+            f"above the card's limit of {limit} bytes ({limit // 1024} KB)")
 
     wpk, bpk = packed or pack_dcn(weight, bias)
-    if tuple(wpk.shape) != (9 * cin, cout) or wpk.device != dev:
+    if (tuple(wpk.shape) != (9 * _pad16(cin), _pad16(cout))
+            or wpk.device != dev):
         raise ValueError("packed weights do not match this DCN's channels "
                          "or device")
     out = torch.empty(b, h, w, cout, dtype=torch.bfloat16, device=dev)
-    lib = build.load()
+    xp = pad_channels8(x)
     rc = lib.vfi_dcn_bounded_bf16(
-        x.data_ptr(), offset.data_ptr(), mask.data_ptr(), wpk.data_ptr(),
-        bpk.data_ptr(), out.data_ptr(), b, h, w, cin, cout,
+        xp.data_ptr(), offset.data_ptr(),
+        None if mask is None else mask.data_ptr(), wpk.data_ptr(),
+        bpk.data_ptr(), out.data_ptr(), b, h, w, xp.shape[-1], cout,
         int(max_offset), dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(rc, "deform_conv2d_bounded")
     deform_conv2d_bounded.launches += 1
-    deform_conv2d_bounded.launches_by_shape[(cin, cout, h, w)] += 1
+    deform_conv2d_bounded.launches_by_shape[
+        (cin, cout, h, w, int(max_offset))] += 1
     return out
 
 

@@ -7,14 +7,17 @@ Phases, each printing one JSON line with its `seconds`; any failure raises
 and the script exits non-zero without a result line:
 
 1. card    the card's name and power limit (nvidia-smi);
-2. build   the one `nvcc` build of `vfi_tpu_torch/csrc/*.cu`;
+2. build   the `nvcc` build of `vfi_tpu_torch/csrc/*.cu` (one process per
+           source, in parallel, then one link);
 3. kernels each CUDA kernel at every shape a path below launches (and
-           the DCN at C=67 R=4, which none does) in bf16, held
-           against its plain PyTorch version (max abs error within the
-           stated tolerance), then timed with CUDA events (median of
-           N_TIMED runs after warm-up) beside its plain version, one
-           PyTorch library call where one computes the same function, and
-           its bound from bytes and operations;
+           the shapes of the kernels' contracts that none does: the DCN at
+           C=67 R=4 and R=8 and C=128 R=4 and R=8, the conv at k=1 and
+           k=5, the wide warp at R=4) in bf16, held against its plain
+           PyTorch version (max abs error within the stated tolerance),
+           then timed with CUDA events (median of N_TIMED runs after
+           warm-up) beside its plain version, one PyTorch library call
+           where one computes the same function, and its bound from bytes
+           and operations; each DCN row names its tile plan;
 4. main    the flagship engine (qocc checkpoint + flow prior, bf16,
            dcn_max_offset=1, warp_max_flow=16, cascade_levels=2,
            conv_kernel="pallas") answers three b=1 requests and one b=2
@@ -38,12 +41,20 @@ and the script exits non-zero without a result line:
            flagship's b=1 720p requests and on the three eval sweeps:
            seconds, which is faster, launches per forward, and each
            sweep's quality under "pallas" against its record;
-8. profile (only with --profile) torch.profiler over one b=1 request: the
+8. tools   the kernel tools in-process (`vfi_tpu_torch.tools`,
+           `TOOL_RUNS`): bench_conv over its four shapes at 720p,
+           bench_kernels' DCN at vga (C=67, R=2) and its warp (C=3 and
+           C=64): each kernel within tolerance of its plain version, and
+           the conv, DCN and warp kernels launched;
+9. grad    gradients through each kernel wrapper (conv, chain, DCN, warp
+           at C=3 and C=64) against those through its plain version at
+           a small shape (GRAD_SHAPE, tolerance stated there);
+10. profile (only with --profile) torch.profiler over one b=1 request: the
            device's busy share of the request's wall time and device time
            by kernel, split into the port's CUDA kernels and the rest.
 
 Each kernel row's `launches` is its count over the paths (main, q12,
-eval) that launch its shape; the run fails when a path launches a
+eval, tools) that launch its shape; the run fails when a path launches a
 (kernel, shape) that no row checks.
 
 The lines before the last are the `kernels` JSON line and the card's
@@ -70,11 +81,15 @@ from vfi_tpu_torch.cli.eval import sweep
 from vfi_tpu_torch.data import load_image
 from vfi_tpu_torch.infer import FrameInterpolator
 from vfi_tpu_torch.ops.cuda import (WRAPPERS, bounded_warp,
-                                    bounded_warp_plain, build, conv_chain,
-                                    conv_chain_plain, deform_conv2d_bounded,
+                                    bounded_warp_plain, build, conv2d,
+                                    conv2d_plain, conv_chain,
+                                    conv_chain_plain, dcn_plan,
+                                    deform_conv2d_bounded,
                                     deform_conv2d_bounded_plain,
-                                    launch_counts, pack_conv_chain, pack_dcn,
+                                    launch_counts, pack_conv2d,
+                                    pack_conv_chain, pack_dcn,
                                     reset_launch_counts)
+from vfi_tpu_torch.tools import bench_conv, bench_kernels
 from vfi_tpu_torch.utils.convert import load_params_npz, params_from_jax
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(vfi_tpu_torch.__file__)))
@@ -121,12 +136,36 @@ SWEEPS = (
 # a wrong tap, channel or route moves the mean by tenths or more.
 PSNR_TOL_DB = 0.05
 SSIM_TOL = 0.002
-# Launches of each kernel per engine launch on the flagship path.
-PER_LAUNCH = {"conv_chain": 8, "deform_conv2d_bounded": 3, "bounded_warp": 1}
+# Launches of each kernel per engine launch on the flagship path (the
+# single conv runs only in the kernel tools).
+PER_LAUNCH = {"conv_chain": 8, "deform_conv2d_bounded": 3, "bounded_warp": 1,
+              "conv2d": 0}
 CHAIN_TPU = "vfi_tpu/ops/pallas/conv.py:543"
+CONV_TPU = "vfi_tpu/ops/pallas/conv.py:92"
+CONV_V2_TPU = "vfi_tpu/ops/pallas/conv.py:282"
 DCN_TPU = "vfi_tpu/ops/pallas/sampling.py:1027"
 DCN_V4_TPU = "vfi_tpu/ops/pallas/sampling.py:379"
+DCN_V3_TPU = "vfi_tpu/ops/pallas/sampling.py:135"
 WARP_TPU = "vfi_tpu/ops/pallas/sampling.py:739"
+WARP_V1_TPU = "vfi_tpu/ops/pallas/sampling.py:883"
+# The kernel tools' runs in the tools phase: few iterations each.
+TOOL_RUNS = (
+    (bench_conv, ["--shapes", "all", "--kernels", "xla,im2col,direct,v2,plain",
+                  "--iters", "3"]),
+    (bench_kernels, ["--size", "vga", "--kernels", "xla,pallas,v4,v5",
+                     "--iters", "3"]),
+    (bench_kernels, ["--warp", "--iters", "3"]),
+)
+# Library calls the tools time beside the kernels (not checked).
+TOOL_LIBRARY = ("xla", "xla-shifts", "plain", "grid_sample")
+# Gradients through a kernel wrapper against those through its plain
+# version. The DCN, warp and chain backward is autograd of the plain
+# version itself, so their gradients differ only where the inputs'
+# atomics add in another order; the conv's is closed-form float32 with the
+# ReLU mask read off the kernel's bf16 output, which can flip where the
+# kernel and the plain version round a value near 0 apart. Tolerance: as
+# the forward, 2**-7 * max|plain gradient|.
+GRAD_SHAPE = (2, 24, 40)
 
 
 def emit(obj) -> None:
@@ -220,15 +259,16 @@ def row_name(base: str, b: int, h: int, w: int) -> str:
 
 
 def kernel_row(name, source, replaces, key, kernel, plain, library,
-               io_bytes, flops_bf16, flops_f32=0.0) -> dict:
+               io_bytes, flops_bf16, flops_f32=0.0, **extra) -> dict:
     """Check one kernel call against its plain version, then time the
     kernel, the plain version and (where one exists) a library call.
     `key` = (paths, wrapper name, launch shape): the paths whose runs
     launch the wrapper at this shape (their counts are this row's
-    launches), or () for a shape no path of this run takes."""
+    launches), or () for a shape no path of this run takes. `extra`
+    fields go into the row as they are."""
     got = kernel()
     row = {"name": name, "route": "cuda", "source": source,
-           "replaces": replaces, **check_close(name, got, plain())}
+           "replaces": replaces, **extra, **check_close(name, got, plain())}
     row["ms"] = median_ms(kernel)
     row["plain_ms"] = median_ms(plain)
     row["library_ms"] = None if library is None else median_ms(library)
@@ -261,12 +301,40 @@ def chain_row(rnd, sd, tag, cin, names, acts, b, h, w, paths) -> dict:
         sum(2.0 * b * h * w * 9 * wt.shape[1] * wt.shape[0] for wt in ws))
 
 
-def dcn_row(rnd, sd, layer, b, h, w, R, replaces, paths) -> dict:
-    """Bounded DCN at a fusion stack's shape; offsets reach past R so the
-    clamp is exercised. No single PyTorch call computes it (torchvision is
-    absent), so no library time."""
-    wt = sd[f"{layer}.weight"].cuda()
-    bt = sd[f"{layer}.bias"].cuda()
+def conv2d_row(rnd, gen, cin, cout, k, b, h, w, variant, replaces,
+               paths, act=True) -> dict:
+    """The single conv at one shape, random weights (no checkpoint holds
+    these convs); library: F.conv2d in bf16 with the bias, then the ReLU
+    where the row fuses it (two calls)."""
+    dev = gen.device
+    x = rnd(b, h, w, cin)
+    wt = torch.randn(cout, cin, k, k, generator=gen, device=dev) / (
+        k * k * cin) ** 0.5
+    bt = torch.randn(cout, generator=gen, device=dev) * 0.1
+    xn, wb, bb = x.permute(0, 3, 1, 2), wt.to(torch.bfloat16), bt.to(
+        torch.bfloat16)
+
+    def library():
+        y = F.conv2d(xn, wb, bb, padding=k // 2)
+        return torch.relu(y) if act else y
+
+    pk = pack_conv2d(wt, bt)
+    tag = f"conv2d{'/v2' if variant == 'v2' else ''}/{cin}x{cout}k{k}"
+    return kernel_row(
+        row_name(tag, b, h, w), "vfi_tpu_torch/csrc/conv2d.cu", replaces,
+        (paths, "conv2d", (cin, cout, k, h, w)),
+        lambda: conv2d(x, wt, bt, act, variant, packed=pk),
+        lambda: conv2d_plain(x, wt, bt, act), library,
+        nbytes(x) + nbytes(wt) // 2 + nbytes(bt),
+        2.0 * b * h * w * k * k * cin * cout,
+        library_call="F.conv2d+relu" if act else "F.conv2d")
+
+
+def dcn_row(rnd, wt, bt, b, h, w, R, replaces, paths) -> dict:
+    """Bounded DCN at a fusion stack's shape with weights `wt`, `bt`;
+    offsets reach past R so the clamp is exercised. No single PyTorch call
+    computes it (torchvision is absent), so no library time. The row names
+    the tile plan the launch picks."""
     c = wt.shape[1]
     x = rnd(b, h, w, c)
     off = rnd(b, h, w, 18, scale=0.8 * R)
@@ -275,34 +343,36 @@ def dcn_row(rnd, sd, layer, b, h, w, R, replaces, paths) -> dict:
     pk = pack_dcn(wt, bt)
     n = b * h * w
     return kernel_row(
-        row_name("deform_conv2d_bounded" if b == 1
+        row_name("deform_conv2d_bounded" if b == 1 and c == 64 and R == 1
                  else f"deform_conv2d_bounded/C{c}R{R}", b, h, w),
         "vfi_tpu_torch/csrc/dcn_bounded.cu", replaces,
         (paths, "deform_conv2d_bounded", (c, wt.shape[0], h, w, R)),
         lambda: deform_conv2d_bounded(x, off, mask, wt, bt, R, packed=pk),
         lambda: deform_conv2d_bounded_plain(x, off, mask, wt, bt, R), None,
         nbytes(x, off, mask) + nbytes(wt) // 2 + nbytes(bt),
-        2.0 * n * 9 * c * wt.shape[0], 8.0 * n * 9 * c)
+        2.0 * n * 9 * c * wt.shape[0], 8.0 * n * 9 * c,
+        plan=dcn_plan(c, wt.shape[0], R, x.device))
 
 
-def warp_row(rnd, b, h, w, paths, dev) -> dict:
-    img = rnd(b, h, w, 3)
-    flow = rnd(b, h, w, 2, scale=10.0)
-    fc = flow.float().clamp(-16, 16)
+def warp_row(rnd, b, h, w, paths, dev, c=3, R=16, replaces=WARP_TPU) -> dict:
+    img = rnd(b, h, w, c)
+    flow = rnd(b, h, w, 2, scale=10.0 * R / 16)
+    fc = flow.float().clamp(-R, R)
     gx = (torch.arange(w, device=dev).float() + fc[..., 0]) * (2 / (w - 1)) - 1
     gy = (torch.arange(h, device=dev).float()[:, None] + fc[..., 1]) * (
         2 / (h - 1)) - 1
     grid = torch.stack([gx, gy], dim=-1).to(torch.bfloat16)
     imn = img.permute(0, 3, 1, 2)
     return kernel_row(
-        row_name("bounded_warp", b, h, w),
-        "vfi_tpu_torch/csrc/warp_bounded.cu", WARP_TPU,
-        (paths, "bounded_warp", (3, h, w)),
-        lambda: bounded_warp(img, flow, 16),
-        lambda: bounded_warp_plain(img, flow, 16),
+        row_name("bounded_warp" if c == 3 else f"bounded_warp/C{c}R{R}",
+                 b, h, w),
+        "vfi_tpu_torch/csrc/warp_bounded.cu", replaces,
+        (paths, "bounded_warp", (c, h, w, R)),
+        lambda: bounded_warp(img, flow, R),
+        lambda: bounded_warp_plain(img, flow, R),
         lambda: F.grid_sample(imn, grid, mode="bilinear",
                               padding_mode="zeros", align_corners=True),
-        nbytes(img, flow), 0.0, 40.0 * b * h * w)
+        nbytes(img, flow), 0.0, (16.0 + 8.0 * c) * b * h * w)
 
 
 def phase_kernels(sd: dict, sd12: dict, dev) -> list:
@@ -337,25 +407,54 @@ def phase_kernels(sd: dict, sd12: dict, dev) -> list:
                           [f"rec_conv{i}.conv" for i in (1, 2, 3)],
                           (1, 1, 0), EB, EH, EW, q12))
 
-    rows.append(dcn_row(rnd, sd, "fusion_dcn0", 1, H, W, 1, DCN_TPU, main))
+    dcn, dcn12 = [(d["fusion_dcn0.weight"].cuda(), d["fusion_dcn0.bias"].cuda())
+                  for d in (sd, sd12)]
+    rows.append(dcn_row(rnd, *dcn, 1, H, W, 1, DCN_TPU, main))
     # The v4 route's shapes on the eval path: qocc (C=64, R=1) at native
     # and auto_scale's half resolution, q12 (C=67, R=2, also the q12
     # phase's); and C=67 at R=4 (the training config's radius), which no
     # path of this run takes.
-    rows.append(dcn_row(rnd, sd, "fusion_dcn0", EB, EH, EW, 1, DCN_V4_TPU,
-                        ev))
-    rows.append(dcn_row(rnd, sd, "fusion_dcn0", EB, EH // 2, EW // 2, 1,
-                        DCN_V4_TPU, ev))
-    rows.append(dcn_row(rnd, sd12, "fusion_dcn0", EB, EH, EW, 2, DCN_V4_TPU,
-                        q12 + ev))
-    rows.append(dcn_row(rnd, sd12, "fusion_dcn0", EB, EH, EW, 4, DCN_V4_TPU,
-                        ()))
+    rows.append(dcn_row(rnd, *dcn, EB, EH, EW, 1, DCN_V4_TPU, ev))
+    rows.append(dcn_row(rnd, *dcn, EB, EH // 2, EW // 2, 1, DCN_V4_TPU, ev))
+    rows.append(dcn_row(rnd, *dcn12, EB, EH, EW, 2, DCN_V4_TPU, q12 + ev))
+    rows.append(dcn_row(rnd, *dcn12, EB, EH, EW, 4, DCN_V4_TPU, ()))
 
     # Bounded warp of the RGB frame; flows reach past R = 16. The library
     # call is grid_sample on the clamped flow's normalized grid.
     for b, h, w, paths in ((1, H, W, main), (EB, EH, EW, q12 + ev),
                            (EB, EH // 2, EW // 2, ev)):
         rows.append(warp_row(rnd, b, h, w, paths, dev))
+    return rows + tool_rows(rnd, gen, dcn12, dev)
+
+
+def tool_rows(rnd, gen, dcn12, dev) -> list:
+    """The kernels the tools phase launches, at the tools' shapes (key
+    paths ("tools",)), and the shapes of the contracts this slice added
+    that no path takes (key paths ()): the conv at k = 1 and 5, the DCN at
+    radii that need smaller tiles or channel chunks, the wide warp at
+    R = 4."""
+    tools = ("tools",)
+    rows = [conv2d_row(rnd, gen, cin, cout, 3, 1, H, W, "im2col", CONV_TPU,
+                       tools) for cin, cout in bench_conv.ALL_SHAPES]
+    rows += [conv2d_row(rnd, gen, cin, 64, 3, 1, H, W, "v2", CONV_V2_TPU,
+                        tools) for cin in (64, 128)]
+    rows.append(conv2d_row(rnd, gen, 64, 32, 1, 1, EH, EW, "im2col",
+                           CONV_TPU, (), act=False))
+    rows.append(conv2d_row(rnd, gen, 64, 64, 5, 1, EH, EW, "im2col",
+                           CONV_TPU, ()))
+    # bench_kernels' defaults (vga, C=67, R=2) with q12's weights, then
+    # C=67 R=8 and C=128 at R=4 and 8 with random ones.
+    eh, ew = bench_kernels.SIZES["vga"]
+    rows.append(dcn_row(rnd, *dcn12, 1, eh, ew, 2, DCN_V3_TPU, tools))
+    rows.append(dcn_row(rnd, *dcn12, 1, eh, ew, 8, DCN_V3_TPU, ()))
+    w128 = torch.randn(128, 128, 3, 3, generator=gen, device=dev) / 34.0
+    b128 = torch.randn(128, generator=gen, device=dev) * 0.1
+    for R in (4, 8):
+        rows.append(dcn_row(rnd, w128, b128, 1, eh, ew, R, DCN_V3_TPU, ()))
+    for c, R, paths in ((3, bench_kernels.WARP_R, tools),
+                        (64, bench_kernels.WARP_R, tools), (64, 4, ())):
+        rows.append(warp_row(rnd, 1, eh, ew, paths, dev, c, R,
+                             WARP_TPU if c == 3 else WARP_V1_TPU))
     return rows
 
 
@@ -495,7 +594,7 @@ def phase_eval(frames: dict) -> dict:
             by_shape[fn].update(c)
         forwards = len(batches) * (4 if kw.get("tta") else 1)
         want = {"conv_chain": 0, "deform_conv2d_bounded": 3 * forwards,
-                "bounded_warp": forwards}
+                "bounded_warp": forwards, "conv2d": 0}
         pairs = sum(bt["n"] for bt in batches)
         quality, missed = sweep_quality(name, report, record)
         scenes = {sc: {"psnr": r["psnr"], "ssim": r["ssim"],
@@ -558,7 +657,7 @@ def phase_conv_compare(frames: dict, params, flow_params) -> list:
     def want(ck, forwards):
         return {"conv_chain": chains[ck] * forwards,
                 "deform_conv2d_bounded": 3 * forwards,
-                "bounded_warp": forwards}
+                "bounded_warp": forwards, "conv2d": 0}
 
     t0 = time.perf_counter()
     f0, f1 = smooth_frames(np.random.default_rng(SEED), 1)
@@ -632,6 +731,113 @@ def phase_conv_compare(frames: dict, params, flow_params) -> list:
     return results
 
 
+def phase_tools() -> dict:
+    """The two ported kernel tools, in-process on the card at a few
+    iterations (`TOOL_RUNS`): every kernel row of their output within the
+    tolerance of its plain version, and each of the conv, DCN and warp
+    kernels launched. The shapes they launch are the `tools` path's."""
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    results, failures = [], []
+    for tool, argv in TOOL_RUNS:
+        t1 = time.perf_counter()
+        res = tool.main(argv)
+        checked = 0
+        for row in res["rows"]:
+            if "refused" in row or row["kernel"] in TOOL_LIBRARY:
+                continue
+            checked += 1
+            if not row["max_abs_err"] <= REL_TOL * row["ref_max_abs"]:
+                failures.append(f"{res['tool']} {row}")
+        results.append({"tool": res["tool"], "argv": argv,
+                        "seconds": time.perf_counter() - t1,
+                        "kernel_rows_checked": checked, "rows": res["rows"]})
+    counts = launch_counts()
+    for k in ("conv2d", "deform_conv2d_bounded", "bounded_warp"):
+        if counts[k] == 0:
+            failures.append(f"the tools launched no {k}")
+    if failures:
+        raise AssertionError("tools: " + "; ".join(failures))
+    return {"phase": "tools", "seconds": time.perf_counter() - t0,
+            "launches": counts, "runs": results, "_by_shape": shapes_now()}
+
+
+def grad_case(name, kernel, plain, inputs) -> dict:
+    """Gradients of sum(out * cot) through `kernel` and through `plain`
+    with respect to every floating input: the kernel's output carries a
+    grad_fn, each gradient is within 2**-7 * max|plain gradient| and
+    non-zero wherever the plain one is."""
+    grads, launches = {}, None
+    for tag, fn in (("kernel", kernel), ("plain", plain)):
+        leaves = [None if t is None else t.detach().clone().requires_grad_()
+                  for t in inputs]
+        reset_launch_counts()
+        out = fn(*leaves)
+        if tag == "kernel":
+            launches = sum(launch_counts().values())
+            if out.grad_fn is None or launches != 1:
+                raise AssertionError(f"grad {name}: grad_fn {out.grad_fn}, "
+                                     f"{launches} launches")
+        cot = torch.randn(out.shape, device=out.device,
+                          generator=torch.Generator(out.device).manual_seed(1))
+        (out.float() * cot).sum().backward()
+        grads[tag] = [None if t is None else t.grad for t in leaves]
+    errs = []
+    for i, (gk, gp) in enumerate(zip(grads["kernel"], grads["plain"])):
+        if gp is None:
+            continue
+        res = check_close(f"grad {name} input {i}", gk, gp)
+        lost = int(((gk == 0) & (gp != 0)).sum().item())
+        if lost:
+            raise AssertionError(f"grad {name} input {i}: {lost} entries "
+                                 f"zero where the plain gradient is not")
+        errs.append(res["max_abs_err"] / max(res["tol"] * 2 ** 7, 1e-30))
+    return {"name": name, "max_rel_err": max(errs), "inputs": len(errs)}
+
+
+def phase_grad(dev) -> dict:
+    """Gradients through each kernel wrapper against those through its
+    plain version at GRAD_SHAPE: bf16 activations, float32 weights (as
+    the model holds its parameters)."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    b, h, w = GRAD_SHAPE
+
+    def rnd(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(*shape, generator=gen, device=dev)
+                * scale).to(dtype)
+
+    x = rnd(b, h, w, 64)
+    w3 = [rnd(co, ci, 3, 3, scale=(9 * ci) ** -0.5, dtype=torch.float32)
+          for ci, co in ((64, 64), (64, 32), (32, 8))]
+    b3 = [rnd(co, scale=0.1, dtype=torch.float32) for co in (64, 32, 8)]
+    off = rnd(b, h, w, 18, scale=1.5)
+    mask = torch.sigmoid(rnd(b, h, w, 9, scale=2.0).float()).to(
+        torch.bfloat16)
+    img3, img64 = rnd(b, h, w, 3), rnd(b, h, w, 64)
+    flow = rnd(b, h, w, 2, scale=3.0)
+    acts = (True, True, False)
+    cases = [
+        grad_case("conv2d", lambda x, wt, bt: conv2d(x, wt, bt, True),
+                  lambda x, wt, bt: conv2d_plain(x, wt, bt, True),
+                  [x, w3[1], b3[1]]),
+        grad_case("conv_chain",
+                  lambda x, *p: conv_chain(x, p[:3], p[3:], acts),
+                  lambda x, *p: conv_chain_plain(x, p[:3], p[3:], acts),
+                  [x, *w3, *b3]),
+        grad_case("deform_conv2d_bounded",
+                  lambda *a: deform_conv2d_bounded(*a, 2),
+                  lambda *a: deform_conv2d_bounded_plain(*a, 2),
+                  [x, off, mask, w3[0], b3[0]]),
+        grad_case("bounded_warp/C3", lambda i, f: bounded_warp(i, f, 4),
+                  lambda i, f: bounded_warp_plain(i, f, 4), [img3, flow]),
+        grad_case("bounded_warp/C64", lambda i, f: bounded_warp(i, f, 4),
+                  lambda i, f: bounded_warp_plain(i, f, 4), [img64, flow]),
+    ]
+    return {"phase": "grad", "seconds": time.perf_counter() - t0,
+            "shape": list(GRAD_SHAPE), "rel_tol": REL_TOL, "cases": cases}
+
+
 def kernel_launches(rows: list, by_path: dict) -> list:
     """Each row's launches, summed over its paths' runs (null for a shape
     no path takes). Fails when a row's path never launched its shape, and
@@ -660,8 +866,8 @@ def kernel_launches(rows: list, by_path: dict) -> list:
     return kernels
 
 
-PORT_KERNELS = ("conv_chain_kernel", "dcn_bounded_kernel",
-                "warp_bounded_kernel")
+PORT_KERNELS = ("conv_chain_kernel", "conv2d_kernel", "dcn_bounded_kernel",
+                "warp_bounded_kernel", "warp_bounded_wide_kernel")
 
 
 def phase_profile(eng, request) -> dict:
@@ -757,6 +963,10 @@ def main() -> int:
     by_path["eval"] = eval_res.pop("_by_shape")
     emit(eval_res)
     phase_conv_compare(frames, params, flow_params)
+    tools_res = phase_tools()
+    by_path["tools"] = tools_res.pop("_by_shape")
+    emit(tools_res)
+    emit(phase_grad(dev))
     if "--profile" in sys.argv[1:]:
         emit(phase_profile(eng, request))
 

@@ -1,18 +1,23 @@
 """The port's CUDA kernels vs their plain versions on the card, at small
 shapes with ragged edges (the main paths' full-size shapes run in
 chip_smoke.py): the DCN under v4's contract (C in {64, 67} x R 1..4, with
-and without a mask, and its shared-memory refusals), the chains with a
-67-wide first layer, and q12 (the 67-channel topology) through the engine
-with both conv_kernel settings. Needs an NVIDIA GPU and nvcc; skips
-without a GPU. Run on
+and without a mask) and at radii that need smaller tiles or channel
+chunks, the chains with a 67-wide first layer, the single conv at k 1..9,
+the warp at C=3 and wide C, gradients through every kernel wrapper
+against those through its plain version, and q12 (the 67-channel
+topology) through the engine with both conv_kernel settings. Needs an
+NVIDIA GPU and nvcc; skips without a GPU. Run on
 the card with `python -m pytest --noconftest tests/test_torch_cuda.py -m cuda`
 (tests/conftest.py imports jax, which a GPU host that runs only the port
 need not have).
 
 Tolerance: two bf16 ulps at the top of the output's range (2**-7 *
 max|plain|): kernel and plain version differ only in float32 summation
-order, which can move a bf16 rounding by one ulp. Engine against its
-plain-version engine: 40 dB, as chip_smoke.py."""
+order, which can move a bf16 rounding by one ulp. Gradients: the same,
+against max|plain gradient| (the DCN, chain and warp backward is autograd
+of the plain version; the conv's closed form reads its ReLU mask off the
+kernel's output). Engine against its plain-version engine: 40 dB, as
+chip_smoke.py."""
 
 import os
 
@@ -21,7 +26,8 @@ import pytest
 import torch
 
 from vfi_tpu_torch.ops.cuda import (bounded_warp, bounded_warp_plain,
-                                    conv_chain, conv_chain_plain,
+                                    conv2d, conv2d_plain, conv_chain,
+                                    conv_chain_plain, dcn_plan,
                                     deform_conv2d_bounded,
                                     deform_conv2d_bounded_plain,
                                     launch_counts, reset_launch_counts)
@@ -129,12 +135,36 @@ def test_deform_conv2d_bounded_kernel_channel_counts(dev, cin, cout, R):
            deform_conv2d_bounded_plain(x, off, mask, w, b, R))
 
 
-@pytest.mark.parametrize("cin,cout,R", [(67, 67, 8), (128, 128, 4),
-                                        (64, 129, 1)])
-def test_deform_conv2d_bounded_refuses_what_shared_memory_cannot_hold(
-        dev, cin, cout, R):
-    """A (C, R) pair above the per-block shared memory, or Cout > 128,
-    raises ValueError before any launch; no plain route is taken."""
+@pytest.mark.parametrize("cin,cout,R,px,chunks", [
+    (67, 67, 8, 32, 1), (128, 128, 4, 32, 1), (128, 128, 8, 16, 2),
+    (128, 128, 6, 16, 1), (67, 67, 20, 16, 3)])
+def test_deform_conv2d_bounded_kernel_any_radius(dev, cin, cout, R, px,
+                                                 chunks):
+    """Radii whose whole-Cin 64-pixel tile exceeds the per-block shared
+    memory run on smaller tiles (32 or 16 pixels) and, past 16 pixels, on
+    the input tile in channel chunks; the plan is the one named."""
+    plan = dcn_plan(cin, cout, R, dev)
+    assert (plan["px"], plan["chunks"]) == (px, chunks)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    hw = (2 * R + 9, 70)
+    x = _rnd(gen, dev, 1, *hw, cin)
+    off = _rnd(gen, dev, 1, *hw, 18, scale=0.8 * R)
+    mask = torch.sigmoid(_rnd(gen, dev, 1, *hw, 9).float()).to(torch.bfloat16)
+    w = torch.randn(cout, cin, 3, 3, generator=gen, device=dev) / (
+        9 * cin) ** .5
+    b = torch.randn(cout, generator=gen, device=dev) * 0.1
+    reset_launch_counts()
+    got = deform_conv2d_bounded(x, off, mask, w, b, R)
+    assert launch_counts()["deform_conv2d_bounded"] == 1
+    _close(got, deform_conv2d_bounded_plain(x, off, mask, w, b, R))
+
+
+@pytest.mark.parametrize("cin,cout,R", [(64, 129, 1), (16, 16, 37),
+                                        (128, 128, 36)])
+def test_deform_conv2d_bounded_refuses_what_no_plan_holds(dev, cin, cout, R):
+    """Cout > 128, or an R whose 16-pixel, 16-channel tile exceeds the
+    per-block shared memory, raises ValueError before any launch; no plain
+    route is taken."""
     x = torch.zeros(1, 8, 16, cin, dtype=torch.bfloat16, device=dev)
     off = torch.zeros(1, 8, 16, 18, dtype=torch.bfloat16, device=dev)
     w = torch.zeros(cout, cin, 3, 3, device=dev)
@@ -144,16 +174,127 @@ def test_deform_conv2d_bounded_refuses_what_shared_memory_cannot_hold(
     assert launch_counts()["deform_conv2d_bounded"] == 0
 
 
+@pytest.mark.parametrize("hw", [(8, 16), (13, 37), (17, 130)])
+@pytest.mark.parametrize("cin,cout,k,act", [
+    (64, 64, 3, True), (128, 64, 3, True), (64, 32, 3, False),
+    (6, 64, 3, True), (64, 32, 1, False), (16, 128, 1, True),
+    (64, 64, 5, True), (67, 5, 5, False), (24, 3, 7, True),
+    (200, 40, 9, True)])
+def test_conv2d_kernel(dev, hw, cin, cout, k, act):
+    gen = torch.Generator(device=dev).manual_seed(8)
+    x = _rnd(gen, dev, 2, *hw, cin)
+    w = torch.randn(cout, cin, k, k, generator=gen, device=dev) / (
+        k * k * cin) ** .5
+    b = torch.randn(cout, generator=gen, device=dev) * 0.1
+    reset_launch_counts()
+    got = conv2d(x, w, b, act)
+    assert launch_counts()["conv2d"] == 1
+    _close(got, conv2d_plain(x, w, b, act))
+    _close(conv2d(x, w, None, act), conv2d_plain(x, w, None, act))
+
+
+@pytest.mark.parametrize("cin,cout,k", [(16, 129, 3), (16, 16, 11)])
+def test_conv2d_kernel_refuses_past_its_limits(dev, cin, cout, k):
+    x = torch.zeros(1, 8, 16, cin, dtype=torch.bfloat16, device=dev)
+    w = torch.zeros(cout, cin, k, k, device=dev)
+    reset_launch_counts()
+    with pytest.raises(ValueError):
+        conv2d(x, w)
+    assert launch_counts()["conv2d"] == 0
+
+
 @pytest.mark.parametrize("hw", [(8, 16), (13, 37), (33, 140)])
 @pytest.mark.parametrize("R", [4, 16])
-def test_bounded_warp_kernel(dev, hw, R):
+@pytest.mark.parametrize("c", [3, 6, 64, 67])
+def test_bounded_warp_kernel(dev, hw, R, c):
+    """C <= 4 the RGB instance, wider the float32-blend one (v1's
+    contract)."""
     gen = torch.Generator(device=dev).manual_seed(2)
-    img = _rnd(gen, dev, 2, *hw, 3)
+    img = _rnd(gen, dev, 2, *hw, c)
     flow = _rnd(gen, dev, 2, *hw, 2, scale=1.5 * R)
     reset_launch_counts()
     got = bounded_warp(img, flow, R)
     assert launch_counts()["bounded_warp"] == 1
     _close(got, bounded_warp_plain(img, flow, R))
+
+
+def _grads(fn, inputs, cot_seed=9):
+    leaves = [None if t is None else t.detach().clone().requires_grad_()
+              for t in inputs]
+    out = fn(*leaves)
+    cot = torch.randn(out.shape, device=out.device,
+                      generator=torch.Generator(out.device).manual_seed(
+                          cot_seed))
+    (out.float() * cot).sum().backward()
+    return out, [None if t is None else t.grad for t in leaves]
+
+
+def _grad_cases(dev):
+    gen = torch.Generator(device=dev).manual_seed(10)
+    x = _rnd(gen, dev, 2, 13, 37, 64)
+    ws = [torch.randn(co, 64, 3, 3, generator=gen, device=dev) / 24
+          for co in (64, 27)]
+    bs = [torch.randn(co, generator=gen, device=dev) * 0.1 for co in (64, 27)]
+    off = _rnd(gen, dev, 2, 13, 37, 18, scale=1.5)
+    mask = torch.sigmoid(_rnd(gen, dev, 2, 13, 37, 9).float()).to(
+        torch.bfloat16)
+    flow = _rnd(gen, dev, 2, 13, 37, 2, scale=3.0)
+    img3 = _rnd(gen, dev, 2, 13, 37, 3)
+    return {
+        "conv2d": (lambda x, w, b: conv2d(x, w, b, True),
+                   lambda x, w, b: conv2d_plain(x, w, b, True),
+                   [x, ws[1], bs[1]]),
+        "conv_chain": (
+            lambda x, *p: conv_chain(x, p[:2], p[2:], (True, False)),
+            lambda x, *p: conv_chain_plain(x, p[:2], p[2:], (True, False)),
+            [x, ws[0], torch.randn(8, 64, 3, 3, generator=gen, device=dev)
+             / 24, bs[0], None]),
+        "deform_conv2d_bounded": (
+            lambda *a: deform_conv2d_bounded(*a, 2),
+            lambda *a: deform_conv2d_bounded_plain(*a, 2),
+            [x, off, mask, ws[0], bs[0]]),
+        "deform_conv2d_bounded_no_mask": (
+            lambda x, o, w: deform_conv2d_bounded(x, o, None, w, None, 1),
+            lambda x, o, w: deform_conv2d_bounded_plain(x, o, None, w, None,
+                                                        1),
+            [x, off, ws[0]]),
+        "bounded_warp": (lambda i, f: bounded_warp(i, f, 4),
+                         lambda i, f: bounded_warp_plain(i, f, 4),
+                         [img3, flow]),
+        "bounded_warp_wide": (lambda i, f: bounded_warp(i, f, 4),
+                              lambda i, f: bounded_warp_plain(i, f, 4),
+                              [x, flow]),
+    }
+
+
+@pytest.mark.parametrize("name", [
+    "conv2d", "conv_chain", "deform_conv2d_bounded",
+    "deform_conv2d_bounded_no_mask", "bounded_warp", "bounded_warp_wide"])
+def test_gradients_through_the_kernels_match_the_plain_versions(dev, name):
+    """The kernel's output carries a grad_fn whenever an input requires
+    grad, and every gradient matches the one through the plain version and
+    is non-zero wherever that one is."""
+    kernel, plain, inputs = _grad_cases(dev)[name]
+    reset_launch_counts()
+    out, gk = _grads(kernel, inputs)
+    assert out.grad_fn is not None
+    assert sum(launch_counts().values()) == 1
+    _, gp = _grads(plain, inputs)
+    for a, b in zip(gk, gp):
+        if b is None:
+            continue
+        _close(a, b)
+        assert not ((a == 0) & (b != 0)).any()
+
+
+def test_kernels_skip_autograd_under_inference_mode(dev):
+    """Under inference_mode (the engine's) the wrappers launch without
+    recording a graph, parameters requiring grad or not."""
+    kernel, _, inputs = _grad_cases(dev)["deform_conv2d_bounded"]
+    params = [t.clone().requires_grad_() for t in inputs]
+    with torch.inference_mode():
+        out = kernel(*params)
+    assert out.grad_fn is None and not out.requires_grad
 
 
 def test_kernels_refuse_float32(dev):
@@ -163,6 +304,8 @@ def test_kernels_refuse_float32(dev):
     with pytest.raises(TypeError):
         bounded_warp(torch.zeros(1, 8, 16, 3, device=dev),
                      torch.zeros(1, 8, 16, 2, device=dev))
+    with pytest.raises(TypeError):
+        conv2d(x, torch.zeros(16, 16, 3, 3, device=dev))
 
 
 def test_packed_weights_match_packing_on_the_call(dev):
@@ -213,7 +356,8 @@ def test_q12_engine_runs_the_kernels(dev, conv_kernel, chains):
     got = eng.midpoints(f0, f1)
     torch.cuda.synchronize()
     assert launch_counts() == {"conv_chain": chains,
-                               "deform_conv2d_bounded": 3, "bounded_warp": 1}
+                               "deform_conv2d_bounded": 3, "bounded_warp": 1,
+                               "conv2d": 0}
     assert got.device.type == "cuda" and torch.isfinite(got).all()
     ref = FrameInterpolator(params, use_kernels=False, **kw).midpoints(f0, f1)
     mse = (got - ref).pow(2).mean().item()

@@ -4,7 +4,8 @@ package's own kernel tests use. Also the wrappers' CPU route and argument
 checks (the kernels themselves run only on the card: test_torch_cuda.py).
 
 Tolerances: conv chain 3e-5 (the JAX chain test's own); DCN 2e-4 and
-warp 1e-4 (those of tests/test_pallas_sampling.py)."""
+warp 1e-4 (those of tests/test_pallas_sampling.py), for v3 and v1 as for
+v4, v5 and v2."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -13,7 +14,9 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from vfi_tpu.ops.pallas.conv import conv_chain_pallas
-from vfi_tpu.ops.pallas.sampling import (bounded_warp_pallas_v2,
+from vfi_tpu.ops.pallas.sampling import (bounded_warp_pallas,
+                                         bounded_warp_pallas_v2,
+                                         deform_conv2d_pallas,
                                          deform_conv2d_pallas_v4,
                                          deform_conv2d_pallas_v5)
 from vfi_tpu_torch.ops.cuda import (bounded_warp, bounded_warp_plain,
@@ -22,6 +25,7 @@ from vfi_tpu_torch.ops.cuda import (bounded_warp, bounded_warp_plain,
                                     deform_conv2d_bounded_plain,
                                     launch_counts, pack_conv_chain, pack_dcn,
                                     reset_launch_counts)
+from vfi_tpu_torch.ops.warp import warp
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -128,6 +132,63 @@ def test_warp_plain_matches_pallas_v2(rng, interpret_mode, shape, R):
     np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("c,R,with_mask,with_bias", [
+    (4, 2, True, True), (4, 3, False, False), (67, 2, False, True),
+    (67, 3, True, False)])
+def test_dcn_plain_matches_pallas_v3(rng, interpret_mode, c, R, with_mask,
+                                     with_bias):
+    """v3's contract (`deform_conv2d_pallas`, the kernel of
+    tools/bench_kernels.py): 3x3, padding 1, a mask or none (weight 1), a
+    bias or none."""
+    x, off, mask, wt, bias = _dcn_case(rng, 1, 8, 16, c, c, R, 0.7 * R, 0.1)
+    mask = mask if with_mask else None
+    bias = bias if with_bias else None
+    ref = np.asarray(deform_conv2d_pallas(
+        jnp.asarray(x), jnp.asarray(off),
+        None if mask is None else jnp.asarray(mask), jnp.asarray(wt),
+        None if bias is None else jnp.asarray(bias), max_offset=R,
+        padding=1))
+    got = deform_conv2d_bounded(
+        t(x), t(off), None if mask is None else t(mask),
+        t(wt.transpose(3, 2, 0, 1)), None if bias is None else t(bias), R,
+        padding=1).numpy()
+    np.testing.assert_allclose(got, ref, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("c,R", [(3, 2), (3, 3), (64, 2), (64, 3)])
+def test_warp_plain_matches_pallas_v1(rng, interpret_mode, c, R):
+    """v1's contract (`bounded_warp_pallas`): any channel count. Small R:
+    interpret mode loops over the (2R + 1)^2 shifts."""
+    img = rng.standard_normal((1, 8, 24, c)).astype(np.float32)
+    flow = (rng.standard_normal((1, 8, 24, 2)) * 1.5 * R).astype(np.float32)
+    ref = np.asarray(bounded_warp_pallas(jnp.asarray(img), jnp.asarray(flow),
+                                         max_flow=R))
+    got = bounded_warp_plain(t(img), t(flow), R).numpy()
+    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4)
+
+
+def test_wide_warp_plain_blends_in_float32_and_rounds_once(rng):
+    """Above 4 channels the plain warp (and the wide kernel) blends a bf16
+    image in float32 and rounds once, as v1's float32 tile does; up to 4
+    channels it blends in the image's dtype, as v2 and ops/warp.py."""
+    img = t(rng.standard_normal((1, 6, 20, 8)).astype(np.float32)).to(
+        torch.bfloat16)
+    flow = t((rng.standard_normal((1, 6, 20, 2)) * 3).astype(np.float32))
+    clipped = flow.clamp(-2, 2)
+    assert torch.equal(bounded_warp_plain(img, flow, 2),
+                       warp(img.float(), clipped).to(torch.bfloat16))
+    assert torch.equal(bounded_warp_plain(img[..., :3], flow, 2),
+                       warp(img[..., :3], clipped))
+
+
+@pytest.mark.parametrize("k,padding", [(3, 0), (3, 2), (5, 2), (1, 0)])
+def test_dcn_takes_3x3_with_padding_1_only(k, padding):
+    x = torch.zeros(1, 4, 4, 8)
+    with pytest.raises(ValueError, match="3x3 OIHW weight"):
+        deform_conv2d_bounded(x, torch.zeros(1, 4, 4, 2 * k * k), None,
+                              torch.zeros(8, 8, k, k), padding=padding)
+
+
 def test_cpu_tensors_take_the_plain_versions_and_launch_nothing(rng):
     reset_launch_counts()
     x, ws, bs = _chain_case(rng, (16, 8, 3), b=1, h=5, w=7)
@@ -144,7 +205,7 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing(rng):
     assert torch.equal(bounded_warp(img, flow, 16),
                        bounded_warp_plain(img, flow, 16))
     assert launch_counts() == {"conv_chain": 0, "deform_conv2d_bounded": 0,
-                               "bounded_warp": 0}
+                               "bounded_warp": 0, "conv2d": 0}
 
 
 def test_bounded_warp_plain_clips_the_flow(rng):

@@ -2,7 +2,7 @@
 
 The same model, engine and numerics as the JAX package, for an NVIDIA
 Hopper card (H100, `sm_90a`). Plain tensor code is PyTorch; every TPU
-(Pallas) kernel on the ported path is a hand-written CUDA kernel under
+(Pallas) kernel of the JAX package is a hand-written CUDA kernel under
 `csrc/`, built with `nvcc` into a plain shared library on first use and
 bound with `ctypes` (`ops/cuda/build.py`).
 
@@ -12,7 +12,9 @@ Layout mirrors `vfi_tpu` so each module's counterpart is easy to find:
   csrc/       CUDA C++ kernels
   models/     EMAVFI, SimpleFlowNet, the flow-prior pre-warp
   infer/      the frame-pair engine (`FrameInterpolator`)
-  utils/      checkpoint loading and the JAX-tree -> torch mapping
+  utils/      checkpoint loading and the JAX-tree -> torch mapping,
+              profiling (`trace`, `StepTimer`)
+  tools/      the kernel microbenchmarks (bench_conv, bench_kernels)
 
 Public functions take NHWC tensors, like the JAX package. Entry points run
 on `cuda` unless the caller passes `device="cpu"`. Importing the package

@@ -34,10 +34,10 @@
 // both WMMA operands come from shared memory. Making this kernel fast for
 // real (wgmma, TMA, warp specialisation) is later work.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "common.cuh"
 
 using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
@@ -67,18 +67,6 @@ struct ChainParams {
   int act_mask;
   int bufA_bytes, bufB_bytes;
 };
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 // One layer. Every warp owns the m-tiles warp, warp + NWARPS, ... (at most
 // MT_MAX) and keeps their accumulators across the whole K loop; all warps

@@ -1,13 +1,14 @@
 // Bounded modulated deformable conv (DCNv2), bf16 NHWC, stride 1, 3x3,
-// one offset group, offsets clamped to [-R, R], optional mask (none means
-// weight 1), Cin a multiple of 8 (the wrapper pads any other) and Cout up
-// to 128.
+// padding 1, one offset group, offsets clamped to [-R, R], optional mask
+// (none means weight 1), Cin a multiple of 8 (the wrapper pads any other),
+// Cout up to 128, any R whose smallest tile plan fits (below).
 //
 // Replaces: vfi_tpu/ops/pallas/sampling.py::_sampling_kernel_v4
 // (deform_conv2d_pallas_v4, the route of dcn_kernel="v4", the JAX
-// package's default) and ::_sampling_kernel_v5 (deform_conv2d_pallas_v5,
-// dcn_kernel="v5"): the TPU kernels of EMAVFI's three fusion DCNs, which
-// compute one function. The TPU had no fast gather, so its kernels
+// package's default), ::_sampling_kernel_v5 (deform_conv2d_pallas_v5,
+// dcn_kernel="v5") and ::_sampling_kernel (deform_conv2d_pallas, v3, the
+// kernel of tools/bench_kernels.py): the TPU kernels of EMAVFI's three
+// fusion DCNs, which compute one function. The TPU had no fast gather, so its kernels
 // decomposed each bounded sample into (2R+1)^2 statically shifted reads
 // and padded the channels to 128 lanes; a GPU gathers from shared memory
 // cheaply, so this kernel samples directly and pads the channels to 16.
@@ -33,48 +34,53 @@
 // block per SM the serial loads' latency was exposed. Cout % 8 != 0 is
 // written with 2-byte stores.
 //
-// Design: a block owns PX = 64 output pixels of one row. It
-//   1. copies the input it can reach -- rows py-1-R .. py+1+R, columns
-//      px0-1-R .. px0+64+R, zeros outside the image -- into shared memory
-//      once (cp.async), and computes per (pixel, tap) the clamped float32
-//      sample position, its four corners in that tile (none outside the
-//      image) and the four bilinear weights times the tap's mask;
-//   2. walks the 9 taps: for tap t it builds the modulated sample slab
-//      S_t[PX][Cin16] -- each entry the float32 blend of four corners read
-//      from the tile, rounded once to bf16, the working dtype the TPU
-//      kernel's sample buffer holds -- and multiplies it by the tap's
-//      weight slice W_t[Cin16][Cout16] on the tensor cores (WMMA bf16,
-//      float32 accumulators kept in registers across all taps; warp w owns
-//      fragments w, w + 8, ... of the 4 x Cout16/16 grid, at most MAXJ = 4,
-//      so Cout16 = 80 splits 3/2 over the 8 warps). S and W are
-//      double-buffered: the next tap's slab is built and its weight slice
-//      streams in (cp.async) while this tap multiplies;
-//   3. adds the bias and writes bf16 -- one rounding of the output.
-// Shared memory grows with (3 + 2R)(66 + 2R) Cin16; the launch computes
-// it (vfi_dcn_bounded_smem_bytes) and refuses a (C, R) pair above the
-// card's per-block limit (227 KB on Hopper): C <= 80 runs every R <= 4.
+// Design: a block owns PX output pixels of one row. It
+//   1. computes per (pixel, tap) the clamped float32 sample position, its
+//      four corners in the block's input tile -- rows py-1-R .. py+1+R,
+//      columns px0-1-R .. px0+PX+R -- (none outside the image) and the
+//      four bilinear weights times the tap's mask;
+//   2. copies that tile into shared memory (cp.async, zeros outside the
+//      image), all of Cin16 at once or, where that does not fit, in
+//      channel chunks of CK, one after the other;
+//   3. walks the steps (chunk, tap): for each it builds the modulated
+//      sample slab S[PX][CK] -- each entry the float32 blend of four
+//      corners read from the tile, rounded once to bf16, the working dtype
+//      the TPU kernel's sample buffer holds -- and multiplies it by the
+//      tap's weight slice W[CK][Cout16] on the tensor cores (WMMA bf16,
+//      float32 accumulators kept in registers across all steps; warp w
+//      owns fragments w, w + 8, ... of the PX/16 x Cout16/16 grid, so at
+//      PX = 64 Cout16 = 80 splits 3/2 over the 8 warps). S and W are
+//      double-buffered: the next step's slab is built and its weight slice
+//      streams in (cp.async) while this step multiplies; the next chunk of
+//      the tile is copied while the last tap of this one multiplies;
+//   4. adds the bias and writes bf16 -- one rounding of the output.
+// Shared memory grows with (3 + 2R)(PX + 2 + 2R) CK. The launch picks the
+// plan (dcn_plan; vfi_dcn_bounded_smem_bytes reports it): PX = 64 with the
+// whole Cin16 where that fits the card's per-block limit (227 KB on
+// Hopper), else PX = 32, then 16; where even 16 pixels do not fit, PX = 16
+// with the tile in n chunks of CK = pad16(Cin16 / n) channels, for the
+// least n that fits. On an H100 (232,448 bytes a block), with Cout = Cin:
+// C = 64 takes PX = 64 up to R = 7; C = 67 PX = 64 up to R = 5 and 32 up
+// to R = 8; C = 128 PX = 64 at R = 1, 32 at R = 2..4, 16 at R = 5..7 and
+// two 64-channel chunks at R = 8. Every C up to 128 runs up to R = 35.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "common.cuh"
 
 using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int PX = 64;            // output pixels per block (one row segment)
 constexpr int NTAPS = 9;
 constexpr int NWARPS = 8;
 constexpr int NTHREADS = NWARPS * 32;
 constexpr int SPAD = 16;          // S row padding (bank spread, 32 B aligned rows)
 constexpr int WPAD = 8;           // W row padding (bank spread)
 constexpr int MAX_COUT = 128;
-constexpr int MAXJ = (PX / 16) * (MAX_COUT / 16) / NWARPS;  // accumulators per warp
-
-__host__ __device__ inline int pad16(int c) { return (c + 15) / 16 * 16; }
-__host__ __device__ inline int round128(int b) { return (b + 127) / 128 * 128; }
+constexpr int SCRATCH_BYTES = NWARPS * 256 * 4;   // epilogue, 16x16 f32 a warp
 
 struct DcnParams {
   const bf16* x;        // (B, H, W, Cin)
@@ -84,46 +90,63 @@ struct DcnParams {
   const float* bias;    // (Cout16,), zero padded
   bf16* out;            // (B, H, W, Cout)
   int B, H, W, Cin, Cout, R, Cin16, Cout16;
+  int ck;                          // tile channels per chunk
   int x_bytes, s_bytes, w_bytes;   // shared-memory regions
 };
 
-// Shared-memory regions of one block: the input tile, the two sample
-// slabs, the two weight slices, the taps' corner indices and weights.
-struct DcnSmem {
-  int x_bytes, s_bytes, w_bytes, total;
+// One launch's tile plan: PX output pixels a block, the input tile in
+// chunks of ck channels, and its shared-memory regions: the tile, the two
+// sample slabs, the two weight slices, the taps' corner indices and
+// weights. total == 0: no plan fits.
+struct DcnPlan {
+  int px, ck, x_bytes, s_bytes, w_bytes, total;
 };
 
-__host__ inline DcnSmem dcn_smem(int Cin, int Cout, int R) {
-  const int cin16 = pad16(Cin), cout16 = pad16(Cout);
-  DcnSmem m;
-  m.x_bytes = round128((3 + 2 * R) * (PX + 2 + 2 * R) * cin16 * 2);
-  m.s_bytes = 2 * PX * (cin16 + SPAD) * 2;
-  m.w_bytes = round128(2 * cin16 * (cout16 + WPAD) * 2);
-  m.total = m.x_bytes + m.s_bytes + m.w_bytes + PX * NTAPS * 4 * 8;
+__host__ inline DcnPlan dcn_plan_at(int px, int ck, int cout16, int R) {
+  DcnPlan m;
+  m.px = px;
+  m.ck = ck;
+  m.x_bytes = round128((3 + 2 * R) * (px + 2 + 2 * R) * ck * 2);
+  const int sb = 2 * px * (ck + SPAD) * 2;
+  m.s_bytes = round128(sb > SCRATCH_BYTES ? sb : SCRATCH_BYTES);
+  m.w_bytes = round128(2 * ck * (cout16 + WPAD) * 2);
+  m.total = m.x_bytes + m.s_bytes + m.w_bytes + px * NTAPS * 4 * 8;
   return m;
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::);
+__host__ inline DcnPlan dcn_plan(int Cin, int Cout, int R, int limit) {
+  const int cin16 = pad16(Cin), cout16 = pad16(Cout);
+  const int pxs[3] = {64, 32, 16};
+  for (int px : pxs) {
+    const DcnPlan m = dcn_plan_at(px, cin16, cout16, R);
+    if (m.total <= limit) return m;
+  }
+  int last = cin16;
+  for (int n = 2; n <= cin16 / 16; ++n) {
+    const int ck = pad16((cin16 + n - 1) / n);
+    if (ck == last) continue;
+    last = ck;
+    const DcnPlan m = dcn_plan_at(16, ck, cout16, R);
+    if (m.total <= limit) return m;
+  }
+  return DcnPlan{0, 0, 0, 0, 0, 0};
 }
 
+// CHUNKED: the tile in several channel chunks (ck < Cin16); else one chunk
+// of all Cin16 channels and a loop of exactly the 9 taps.
+template <int PX, bool CHUNKED>
 __global__ void __launch_bounds__(NTHREADS)
 dcn_bounded_kernel(const DcnParams p) {
+  constexpr int MAXJ = (PX / 16) * (MAX_COUT / 16) / NWARPS;  // accumulators per warp
   extern __shared__ __align__(128) unsigned char smem[];
   const int Cin = p.Cin, Cout = p.Cout, R = p.R;
-  const int Cin16 = p.Cin16, Cout16 = p.Cout16;
+  const int Cin16 = p.Cin16, Cout16 = p.Cout16, ck = CHUNKED ? p.ck : p.Cin16;
   const int trows = 3 + 2 * R, tcols = PX + 2 + 2 * R;
-  const int kp = Cin16 + SPAD, wp = Cout16 + WPAD;
-  bf16* X = reinterpret_cast<bf16*>(smem);                               // [trows*tcols][Cin16]
+  const int kp = ck + SPAD, wp = Cout16 + WPAD;
+  const int nsteps = CHUNKED ? (Cin16 + ck - 1) / ck * NTAPS : NTAPS;  // (chunk, tap) pairs
+  bf16* X = reinterpret_cast<bf16*>(smem);                               // [trows*tcols][ck]
   bf16* S = reinterpret_cast<bf16*>(smem + p.x_bytes);                   // [2][PX][kp]
-  bf16* Wt = reinterpret_cast<bf16*>(smem + p.x_bytes + p.s_bytes);      // [2][Cin16][wp]
+  bf16* Wt = reinterpret_cast<bf16*>(smem + p.x_bytes + p.s_bytes);      // [2][ck][wp]
   int* cidx = reinterpret_cast<int*>(smem + p.x_bytes + p.s_bytes + p.w_bytes);  // [PX*9][4]
   float* cwt = reinterpret_cast<float*>(cidx + PX * NTAPS * 4);                  // [PX*9][4]
 
@@ -131,34 +154,41 @@ dcn_bounded_kernel(const DcnParams p) {
   const int H = p.H, W = p.W;
   const int ty0 = py - 1 - R, tx0 = px0 - 1 - R;   // image position of tile (0, 0)
   const size_t row0 = ((size_t)b * H + py) * W;    // flat pixel index of (b, py, 0)
-  const int chunks = Cin16 / 8;
 
-  auto stage_w = [&](int t, int buf) {
-    const bf16* src = p.w + (size_t)t * Cin16 * Cout16;
-    bf16* dst = Wt + buf * Cin16 * wp;
+  auto chunk_width = [&](int c) { return CHUNKED ? min(ck, Cin16 - c * ck) : Cin16; };
+
+  // Chunk c of the reachable input tile (channels past Cin zero).
+  auto stage_x = [&](int c) {
+    const int pieces = chunk_width(c) / 8;
+    const bf16* xb = p.x + (size_t)b * H * W * Cin;
+    for (int it = threadIdx.x; it < trows * tcols * pieces; it += NTHREADS) {
+      const int pix = it / pieces, pc = it - (it / pieces) * pieces;
+      const int gy = ty0 + pix / tcols, gx = tx0 + pix % tcols;
+      const int ch = c * ck + pc * 8;
+      bf16* dst = X + (size_t)pix * ck + pc * 8;
+      if (ch < Cin && gy >= 0 && gy < H && gx >= 0 && gx < W)
+        cp_async16(dst, xb + ((size_t)gy * W + gx) * Cin + ch);
+      else
+        *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+    }
+    cp_async_commit();
+  };
+  // The weight slice of step s = (chunk, tap): rows t * Cin16 + c * ck ...
+  auto stage_w = [&](int s, int buf) {
+    const int c = CHUNKED ? s / NTAPS : 0, t = CHUNKED ? s - c * NTAPS : s;
+    const bf16* src = p.w + ((size_t)t * Cin16 + c * ck) * Cout16;
+    bf16* dst = Wt + buf * ck * wp;
     const int rc = Cout16 / 8;
-    for (int c = threadIdx.x; c < Cin16 * rc; c += NTHREADS) {
-      const int k = c / rc, j = c - (c / rc) * rc;
+    for (int i = threadIdx.x; i < chunk_width(c) * rc; i += NTHREADS) {
+      const int k = i / rc, j = i - (i / rc) * rc;
       cp_async16(dst + k * wp + j * 8, src + (size_t)k * Cout16 + j * 8);
     }
     cp_async_commit();
   };
 
-  // 1. The reachable input tile (channels past Cin zero), and the taps'
-  //    corners and weights.
-  {
-    const bf16* xb = p.x + (size_t)b * H * W * Cin;
-    for (int it = threadIdx.x; it < trows * tcols * chunks; it += NTHREADS) {
-      const int pix = it / chunks, ch = it - (it / chunks) * chunks;
-      const int gy = ty0 + pix / tcols, gx = tx0 + pix % tcols;
-      bf16* dst = X + (size_t)pix * Cin16 + ch * 8;
-      if (ch * 8 < Cin && gy >= 0 && gy < H && gx >= 0 && gx < W)
-        cp_async16(dst, xb + ((size_t)gy * W + gx) * Cin + ch * 8);
-      else
-        *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
-    }
-    cp_async_commit();
-  }
+  // 1-2. The first chunk of the tile and weight slice in flight, the
+  //      taps' corners and weights meanwhile.
+  stage_x(0);
   stage_w(0, 0);
   for (int it = threadIdx.x; it < PX * NTAPS; it += NTHREADS) {
     const int pl = it / NTAPS, t = it - (it / NTAPS) * NTAPS;
@@ -201,24 +231,27 @@ dcn_bounded_kernel(const DcnParams p) {
       cwt[it * 4 + c] = cw[c];
     }
   }
-  cp_async_wait_all();
+  cp_async_wait<0>();
   __syncthreads();
 
-  // S_t[pixel][c] = bf16(sum over corners of weight * x), float32 blend.
-  auto build_s = [&](int t, int buf) {
+  // S[pixel][c] of step s = bf16(sum over corners of weight * x), float32
+  // blend, from the tile chunk in shared memory.
+  auto build_s = [&](int s, int buf) {
+    const int c = CHUNKED ? s / NTAPS : 0, t = CHUNKED ? s - c * NTAPS : s;
+    const int pieces = chunk_width(c) / 8;
     bf16* sb = S + buf * PX * kp;
-    for (int it = threadIdx.x; it < PX * chunks; it += NTHREADS) {
-      const int pl = it / chunks, ch = it - (it / chunks) * chunks;
+    for (int it = threadIdx.x; it < PX * pieces; it += NTHREADS) {
+      const int pl = it / pieces, pc = it - (it / pieces) * pieces;
       const int pt = pl * NTAPS + t;
       float acc[8];
 #pragma unroll
       for (int e = 0; e < 8; ++e) acc[e] = 0.0f;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int idx = cidx[pt * 4 + c];
+      for (int q = 0; q < 4; ++q) {
+        const int idx = cidx[pt * 4 + q];
         if (idx >= 0) {
-          const float wgt = cwt[pt * 4 + c];
-          const uint4 raw = *reinterpret_cast<const uint4*>(X + (size_t)idx * Cin16 + ch * 8);
+          const float wgt = cwt[pt * 4 + q];
+          const uint4 raw = *reinterpret_cast<const uint4*>(X + (size_t)idx * ck + pc * 8);
           const __nv_bfloat162* v2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
@@ -231,11 +264,11 @@ dcn_bounded_kernel(const DcnParams p) {
       __align__(16) bf16 o[8];
 #pragma unroll
       for (int e = 0; e < 8; ++e) o[e] = __float2bfloat16_rn(acc[e]);
-      *reinterpret_cast<uint4*>(sb + pl * kp + ch * 8) = *reinterpret_cast<const uint4*>(o);
+      *reinterpret_cast<uint4*>(sb + pl * kp + pc * 8) = *reinterpret_cast<const uint4*>(o);
     }
   };
 
-  // 2. Taps: out[PX][Cout16] += S_t @ W_t. Warp w owns output fragments
+  // 3. Steps: out[PX][Cout16] += S_s @ W_s. Warp w owns output fragments
   //    w, w + NWARPS, ... of the (PX/16) x (Cout16/16) grid.
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int ntn = Cout16 / 16, items = (PX / 16) * ntn;
@@ -245,15 +278,20 @@ dcn_bounded_kernel(const DcnParams p) {
   build_s(0, 0);
   stage_w(1, 1);
   __syncthreads();
-  for (int t = 0; t < NTAPS; ++t) {
-    const bf16* sb = S + (t & 1) * PX * kp;
-    const bf16* wb = Wt + (t & 1) * Cin16 * wp;
+  for (int s = 0; s < nsteps; ++s) {
+    // The last tap of a chunk: every slab of this chunk is built, so the
+    // tile is free for the next chunk, copied while this step multiplies.
+    const bool next_chunk = CHUNKED && s % NTAPS == NTAPS - 1 && s + 1 < nsteps;
+    if (next_chunk) stage_x(s / NTAPS + 1);
+    const bf16* sb = S + (s & 1) * PX * kp;
+    const bf16* wb = Wt + (s & 1) * ck * wp;
+    const int ckw = chunk_width(CHUNKED ? s / NTAPS : 0);
 #pragma unroll
     for (int j = 0; j < MAXJ; ++j) {
       const int item = warp + j * NWARPS;
       if (item < items) {
         const int mt = item / ntn, nt = item - (item / ntn) * ntn;
-        for (int k0 = 0; k0 < Cin16; k0 += 16) {
+        for (int k0 = 0; k0 < ckw; k0 += 16) {
           wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> afr;
           wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr;
           wmma::load_matrix_sync(afr, sb + mt * 16 * kp + k0, kp);
@@ -262,13 +300,19 @@ dcn_bounded_kernel(const DcnParams p) {
         }
       }
     }
-    if (t + 1 < NTAPS) build_s(t + 1, (t + 1) & 1);
-    cp_async_wait_all();
-    __syncthreads();   // S_{t+1}, W_{t+1} ready; S_t, W_t free
-    if (t + 2 < NTAPS) stage_w(t + 2, t & 1);
+    if (s + 1 < nsteps) {
+      if (next_chunk) {
+        cp_async_wait<0>();
+        __syncthreads();   // the next chunk of the tile is in
+      }
+      build_s(s + 1, (s + 1) & 1);
+    }
+    cp_async_wait<0>();
+    __syncthreads();   // S_{s+1}, W_{s+1} ready; S_s, W_s free
+    if (s + 2 < nsteps) stage_w(s + 2, s & 1);
   }
 
-  // 3. Bias, one rounding, bf16 out at Cout channels. The S buffers are
+  // 4. Bias, one rounding, bf16 out at Cout channels. The S buffers are
   //    free: scratch.
   float* scr = reinterpret_cast<float*>(S) + warp * 256;
   const int r = lane >> 1, c8 = (lane & 1) * 8;
@@ -300,24 +344,48 @@ dcn_bounded_kernel(const DcnParams p) {
   }
 }
 
+template <int PX, bool CHUNKED>
+cudaError_t launch_dcn(const DcnParams& p, int smem, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(dcn_bounded_kernel<PX, CHUNKED>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((p.W + PX - 1) / PX, p.H, p.B);
+  dcn_bounded_kernel<PX, CHUNKED><<<grid, NTHREADS, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// Dynamic shared memory one launch needs for (Cin, Cout, R), in bytes.
-extern "C" int vfi_dcn_bounded_smem_bytes(int Cin, int Cout, int R) {
-  return dcn_smem(Cin, Cout, R).total;
+// The plan a launch picks for (Cin, Cout, R) under a per-block limit of
+// `limit` bytes: returns its dynamic shared memory in bytes (0: no plan
+// fits) and, where `px_ck` is not null, writes its pixels per block and
+// tile channels per chunk there.
+extern "C" int vfi_dcn_bounded_smem_bytes(int Cin, int Cout, int R, int limit, int* px_ck) {
+  const DcnPlan m = dcn_plan(Cin, Cout, R, limit);
+  if (px_ck) {
+    px_ck[0] = m.px;
+    px_ck[1] = m.ck;
+  }
+  return m.total;
 }
 
 // Launch one bounded DCN layer (integer radius R >= 0, Cin % 8 == 0,
-// 1 <= Cout <= 128).
-// `mask` may be null (weight 1). Returns the cudaError_t of the launch;
-// cudaErrorInvalidValue for arguments out of range, including a shared
-// memory need above the card's per-block limit.
+// 1 <= Cout <= 128). `mask` may be null (weight 1). Returns the
+// cudaError_t of the launch; cudaErrorInvalidValue for arguments out of
+// range, including an R for which no tile plan fits the card.
 extern "C" int vfi_dcn_bounded_bf16(const void* x, const void* offset, const void* mask,
                                     const void* w, const void* bias, void* out,
                                     int B, int H, int W, int Cin, int Cout, int R,
                                     int device, void* stream) {
   if (Cin < 8 || Cin % 8 != 0 || Cout < 1 || Cout > MAX_COUT || R < 0)
     return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  int limit = 0;
+  err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return (int)err;
+  const DcnPlan m = dcn_plan(Cin, Cout, R, limit);
+  if (m.total == 0) return (int)cudaErrorInvalidValue;
   DcnParams p{};
   p.x = static_cast<const bf16*>(x);
   p.offset = static_cast<const bf16*>(offset);
@@ -326,20 +394,12 @@ extern "C" int vfi_dcn_bounded_bf16(const void* x, const void* offset, const voi
   p.bias = static_cast<const float*>(bias);
   p.out = static_cast<bf16*>(out);
   p.B = B; p.H = H; p.W = W; p.Cin = Cin; p.Cout = Cout; p.R = R;
-  p.Cin16 = pad16(Cin); p.Cout16 = pad16(Cout);
-  const DcnSmem m = dcn_smem(Cin, Cout, R);
+  p.Cin16 = pad16(Cin); p.Cout16 = pad16(Cout); p.ck = m.ck;
   p.x_bytes = m.x_bytes; p.s_bytes = m.s_bytes; p.w_bytes = m.w_bytes;
-  if (p.s_bytes < NWARPS * 256 * 4) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  int limit = 0;
-  err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  if (err != cudaSuccess) return (int)err;
-  if (m.total > limit) return (int)cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(dcn_bounded_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, m.total);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((W + PX - 1) / PX, H, B);
-  dcn_bounded_kernel<<<grid, NTHREADS, m.total, static_cast<cudaStream_t>(stream)>>>(p);
-  return (int)cudaGetLastError();
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (m.ck < p.Cin16) err = launch_dcn<16, true>(p, m.total, st);   // chunks: PX = 16
+  else if (m.px == 64) err = launch_dcn<64, false>(p, m.total, st);
+  else if (m.px == 32) err = launch_dcn<32, false>(p, m.total, st);
+  else err = launch_dcn<16, false>(p, m.total, st);
+  return (int)err;
 }

@@ -1,8 +1,8 @@
 """Build and bind the port's CUDA kernels.
 
-One `nvcc` call compiles every `vfi_tpu_torch/csrc/*.cu` for Hopper
-(`sm_90a`) into a plain shared library with a C interface, which `ctypes`
-loads. The library lands in `build/vfi_tpu_torch/<key>/` beside the
+One `nvcc` process per `vfi_tpu_torch/csrc/*.cu`, all started together,
+compiles each for Hopper (`sm_90a`); one more links the objects into a
+plain shared library with a C interface, which `ctypes` loads. The library lands in `build/vfi_tpu_torch/<key>/` beside the
 package (a git-ignored directory), keyed by a hash of the sources and the
 flags, so a changed source rebuilds and an unchanged one loads at once.
 Nothing here includes PyTorch's headers: a build takes seconds.
@@ -27,20 +27,24 @@ CSRC = PKG_DIR / "csrc"
 BUILD_ROOT = PKG_DIR.parent / "build" / "vfi_tpu_torch"
 LIB_NAME = "libvfi_tpu_torch.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# C entry points: name -> argtypes. Every entry returns the int
-# cudaError_t of its launch (0 = launched).
+# C entry points: name -> argtypes. Every entry returns an int: the
+# cudaError_t of its launch (0 = launched), or the count it names.
 SIGNATURES = {
     # x, w, bias, out, B, H, W, L, c0..c4, act_mask, device, stream
     "vfi_conv_chain_bf16": [_P, _P, _P, _P, _I, _I, _I, _I,
                             _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, w, bias, out, B, H, W, Cin, Cout, K, act, device, stream
+    "vfi_conv2d_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, offset, mask, w, bias, out, B, H, W, Cin, Cout, R, device, stream
     "vfi_dcn_bounded_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                              _I, _I, _P],
+    # Cin, Cout, R, limit, px_ck (int[2] out) -> bytes of the picked plan
+    "vfi_dcn_bounded_smem_bytes": [_I, _I, _I, _I, _P],
     # image, flow, out, B, H, W, C, R, device, stream
     "vfi_warp_bounded_bf16": [_P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
 }
@@ -82,17 +86,35 @@ def build(verbose: bool = False) -> Path:
         build_info.update(path=str(lib), cached=True, seconds=0.0)
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f".{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-           *map(str, _sources())]
+    nvcc, tag = find_nvcc(), f"{os.getpid()}.tmp"
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    secs = time.perf_counter() - t0
-    log = res.stdout + res.stderr
-    if res.returncode != 0:
+    objs, procs = [], []
+    for src in _sources():
+        obj = out_dir / f"{src.stem}.{tag}.o"
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src), "-o",
+             str(obj)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    logs = [(p, p.communicate()[0]) for p in procs]
+    log = "".join(out for _, out in logs)
+    tmp = out_dir / f".{LIB_NAME}.{tag}"
+    try:
+        failed = [p.returncode for p, _ in logs if p.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed ({failed}):\n{log}")
+        res = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                              *map(str, objs)], capture_output=True,
+                             text=True)
+        log += res.stdout + res.stderr
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{log}")
+        os.replace(tmp, lib)
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log}")
-    os.replace(tmp, lib)
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    secs = time.perf_counter() - t0
     (out_dir / "nvcc.log").write_text(log)
     build_info.update(path=str(lib), cached=False, seconds=secs, log=log)
     if verbose:
@@ -109,8 +131,6 @@ def load():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        lib.vfi_dcn_bounded_smem_bytes.argtypes = [_I, _I, _I]
-        lib.vfi_dcn_bounded_smem_bytes.restype = ctypes.c_int
         lib.vfi_cuda_error_string.argtypes = [ctypes.c_int]
         lib.vfi_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

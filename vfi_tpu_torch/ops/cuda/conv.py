@@ -1,19 +1,31 @@
-"""Fused stride-1 3x3 conv chain: the CUDA kernel `csrc/conv_chain.cu`
-and its plain PyTorch version.
+"""Convolution kernels: the fused stride-1 3x3 chain (`csrc/conv_chain.cu`)
+and the single stride-1 odd-k conv (`csrc/conv2d.cu`), with their plain
+PyTorch versions.
 
-Replaces `vfi_tpu/ops/pallas/conv.py::conv_chain_pallas` (kernel
-`_chain_kernel`). L layers of 3x3 conv + bias (+ ReLU where `acts[l]`),
-each zero-padded on its own, float32 accumulation; the bias is rounded to
-the working dtype first and every layer's output is rounded to it, as the
-JAX chain (`vfi_tpu/models/layers.py::apply_conv_chain`) does.
+- `conv_chain` replaces `vfi_tpu/ops/pallas/conv.py::conv_chain_pallas`
+  (kernel `_chain_kernel`). L layers of 3x3 conv + bias (+ ReLU where
+  `acts[l]`), each zero-padded on its own, float32 accumulation; the bias
+  is rounded to the working dtype first and every layer's output is
+  rounded to it, as the JAX chain (`vfi_tpu/models/layers.py::
+  apply_conv_chain`) does. `conv_chain(x, weights, biases, acts,
+  packed=None)`: x NHWC, weights OIHW (`nn.Conv2d.weight`), biases (cout,)
+  or None; `packed` is `pack_conv_chain(weights, biases)` made ahead of
+  time, or None to pack on this call. On the card: bf16, contiguous, 1..4
+  layers, every cout <= 64; the first layer takes any width (an input
+  whose channels are not a multiple of 8 is zero-padded to one first,
+  `pad_channels8`).
+- `conv2d` replaces `conv2d_pallas` (kernel `_conv_kernel`, variants
+  "im2col" and "direct") and `conv2d_pallas_v2` (`_conv_kernel_v2`,
+  variant "v2"): one stride-1 square odd-k conv, zeros padding k // 2, an
+  optional bias and an optional fused ReLU, NHWC, float32 accumulation and
+  one rounding of the output. On the card: bf16, contiguous, k <= 9,
+  Cout <= 128, any Cin.
 
-`conv_chain(x, weights, biases, acts, packed=None)`: x NHWC, weights OIHW
-(`nn.Conv2d.weight`), biases (cout,) or None; `packed` is
-`pack_conv_chain(weights, biases)` made ahead of time, or None to pack on
-this call. A CPU tensor runs the plain version; a CUDA tensor launches the
-kernel (bf16, contiguous, 1..4 layers, every cout <= 64; the first layer
-takes any width: an input whose channels are not a multiple of 8 is
-zero-padded to one first, `pad_channels8`) or raises.
+A CPU tensor runs the plain version; a CUDA tensor launches the kernel or
+raises. On the card the result carries autograd when an input requires
+grad: the chain's backward is autograd of `conv_chain_plain` (`grad.py`),
+the conv's the closed form of the reference's `conv2d_fast`
+(`conv2d_backward`).
 """
 
 from __future__ import annotations
@@ -25,9 +37,15 @@ import torch
 import torch.nn.functional as F
 
 from vfi_tpu_torch.ops.cuda import build
+from vfi_tpu_torch.ops.cuda.grad import differentiable, needs_grad
 
 MAX_LAYERS = 4
 MAX_COUT = 64
+CONV2D_MAX_COUT = 128
+CONV2D_MAX_K = 9
+# conv2d_pallas's variants and conv2d_pallas_v2 ("v2"): TPU layouts of one
+# function. They do not change the result; "v2" keeps v2's contract.
+CONV2D_VARIANTS = ("im2col", "direct", "v2")
 
 
 def conv_chain_plain(x: torch.Tensor, weights: Sequence[torch.Tensor],
@@ -63,37 +81,42 @@ def pad_channels8(x: torch.Tensor) -> torch.Tensor:
     return x if c % 8 == 0 else F.pad(x, (0, -c % 8))
 
 
+def pack_conv2d(weight: torch.Tensor,
+                bias: Optional[torch.Tensor]) -> tuple:
+    """The conv and DCN kernels' weight layout: OIHW (Cout, Cin, kh, kw) ->
+    bf16 [kh * kw * Cin16][Cout16] (tap-major, t = kw * i + j; channels
+    padded to multiples of 16 with zeros), bias -> f32 [Cout16] (bf16-rounded
+    values, zeros for None and the padding). A module whose weights stay
+    fixed packs them once and passes the result as `packed=`."""
+    cout, cin, kh, kw = weight.shape
+    cin16, cout16 = _pad16(cin), _pad16(cout)
+    dev = weight.device
+    wpk = torch.zeros(kh * kw, cin16, cout16, dtype=torch.bfloat16,
+                      device=dev)
+    wpk[:, :cin, :cout] = weight.detach().to(torch.bfloat16).permute(
+        2, 3, 1, 0).reshape(kh * kw, cin, cout)
+    bpk = torch.zeros(cout16, dtype=torch.float32, device=dev)
+    if bias is not None:
+        bpk[:cout] = bias.detach().to(torch.bfloat16).float()
+    return wpk.reshape(kh * kw * cin16, cout16), bpk
+
+
 def pack_conv_chain(weights: Sequence[torch.Tensor],
                     biases: Sequence[Optional[torch.Tensor]]) -> tuple:
-    """The kernel's weight layout: weights -> one bf16 buffer of per-layer
-    [9][cin_p][cout_p] blocks, biases -> one f32 buffer of per-layer
-    [cout_p] (bf16-rounded values); cin_p and cout_p are the channel
-    counts padded to multiples of 16, and padded channels are zero. A
-    module whose weights stay fixed packs them once and passes the result
-    as `conv_chain(..., packed=)`."""
-    dev = weights[0].device
-    wblocks, bblocks = [], []
-    cin_p = _pad16(weights[0].shape[1])
-    for w, b in zip(weights, biases):
-        cout, cin = w.shape[0], w.shape[1]
-        cout_p = _pad16(cout)
-        blk = torch.zeros(9, cin_p, cout_p, dtype=torch.bfloat16, device=dev)
-        blk[:, :cin, :cout] = w.detach().permute(2, 3, 1, 0).reshape(
-            9, cin, cout)
-        wblocks.append(blk.reshape(-1))
-        bb = torch.zeros(cout_p, dtype=torch.float32, device=dev)
-        if b is not None:
-            bb[:cout] = b.detach().to(torch.bfloat16).float()
-        bblocks.append(bb)
-        cin_p = cout_p
-    return torch.cat(wblocks), torch.cat(bblocks)
+    """The chain kernel's weight layout: every layer's `pack_conv2d`
+    block, [9][cin_p][cout_p] bf16, concatenated into one buffer, and its
+    [cout_p] f32 biases into another. A module whose weights stay fixed
+    packs them once and passes the result as `conv_chain(..., packed=)`."""
+    packs = [pack_conv2d(w, b) for w, b in zip(weights, biases)]
+    return (torch.cat([w.reshape(-1) for w, _ in packs]),
+            torch.cat([b for _, b in packs]))
 
 
 def conv_chain(x: torch.Tensor, weights: Sequence[torch.Tensor],
                biases: Sequence[Optional[torch.Tensor]],
                acts: Sequence[bool],
                packed: Optional[tuple] = None) -> torch.Tensor:
-    weights, biases, acts = list(weights), list(biases), list(acts)
+    weights, biases, acts = list(weights), list(biases), tuple(acts)
     if not (len(weights) == len(biases) == len(acts)):
         raise ValueError("weights, biases and acts differ in length")
     if x.dim() != 4:
@@ -119,28 +142,155 @@ def conv_chain(x: torch.Tensor, weights: Sequence[torch.Tensor],
         raise ValueError(f"conv_chain kernel takes cout <= {MAX_COUT}")
     if any(w.device != x.device for w in weights):
         raise ValueError("weights must be on the input's device")
-    b, h, w, _ = x.shape
     wpk, bpk = packed or pack_conv_chain(weights, biases)
     n_w = sum(9 * _pad16(ci) * _pad16(co) for ci, co in
               zip([chans[0]] + chans[1:-1], chans[1:]))
     if wpk.numel() != n_w or wpk.device != x.device:
         raise ValueError("packed weights do not match this chain's "
                          "channels or device")
-    out = torch.empty(b, h, w, chans[-1], dtype=torch.bfloat16,
-                      device=x.device)
-    xp = pad_channels8(x)
-    cs = [xp.shape[-1]] + chans[1:] + [0] * (MAX_LAYERS + 1 - len(chans))
-    act_mask = sum(1 << i for i, a in enumerate(acts) if a)
-    lib = build.load()
-    rc = lib.vfi_conv_chain_bf16(
-        xp.data_ptr(), wpk.data_ptr(), bpk.data_ptr(), out.data_ptr(),
-        b, h, w, L, *cs, act_mask, x.device.index,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(rc, "conv_chain")
-    conv_chain.launches += 1
-    conv_chain.launches_by_shape[(tuple(chans), h, w)] += 1
-    return out
+
+    def launch(x, *_):
+        b, h, w, _ = x.shape
+        out = torch.empty(b, h, w, chans[-1], dtype=torch.bfloat16,
+                          device=x.device)
+        xp = pad_channels8(x)
+        cs = [xp.shape[-1]] + chans[1:] + [0] * (MAX_LAYERS + 1 - len(chans))
+        act_mask = sum(1 << i for i, a in enumerate(acts) if a)
+        rc = build.load().vfi_conv_chain_bf16(
+            xp.data_ptr(), wpk.data_ptr(), bpk.data_ptr(), out.data_ptr(),
+            b, h, w, L, *cs, act_mask, x.device.index,
+            torch.cuda.current_stream(x.device).cuda_stream)
+        build.check(rc, "conv_chain")
+        conv_chain.launches += 1
+        conv_chain.launches_by_shape[(tuple(chans), h, w)] += 1
+        return out
+
+    def plain(x, *wb):
+        return conv_chain_plain(x, wb[:L], wb[L:], acts)
+
+    return differentiable(launch, plain, x, *weights, *biases)
 
 
 conv_chain.launches = 0
 conv_chain.launches_by_shape = Counter()
+
+
+def conv2d_plain(x: torch.Tensor, weight: torch.Tensor,
+                 bias: Optional[torch.Tensor] = None, act: bool = False,
+                 variant: str = "im2col",
+                 packed: Optional[tuple] = None) -> torch.Tensor:
+    """One float32 convolution of the working-dtype values: the weight and
+    bias rounded to x.dtype, float32 accumulation, bias, ReLU, one rounding
+    to x.dtype. `variant` and `packed` are taken only so that this
+    function and `conv2d` share one signature."""
+    dt = x.dtype
+    y = F.conv2d(x.permute(0, 3, 1, 2).float(), weight.to(dt).float(),
+                 padding=weight.shape[-1] // 2)
+    if bias is not None:
+        y = y + bias.to(dt).float()[:, None, None]
+    if act:
+        y = torch.relu(y)
+    return y.to(dt).permute(0, 2, 3, 1).contiguous()
+
+
+def conv2d_backward(g: torch.Tensor, x: torch.Tensor, weight: torch.Tensor,
+                    out: Optional[torch.Tensor],
+                    bias: Optional[torch.Tensor]) -> tuple:
+    """(dx, dw, db) of `conv2d` given the output's cotangent `g`, in closed
+    form as the reference's `_conv_bwd` (`vfi_tpu/ops/pallas/
+    wrappers.py`): the ReLU mask from the saved output (`out`, None without
+    a ReLU), dx the conv of g with the spatially flipped, IO-swapped
+    weight, dw the correlation of x with g, db the sum of g; float32, each
+    cast to its input's dtype. No forward is recomputed."""
+    m = weight.shape[-1] // 2
+    g = g.float()
+    if out is not None:
+        g = g * (out > 0)
+    gn = g.permute(0, 3, 1, 2)
+    db = None if bias is None else g.sum((0, 1, 2)).to(bias.dtype)
+    dx = F.conv2d(gn, weight.float().flip(2, 3).transpose(0, 1), padding=m)
+    dw = torch.nn.grad.conv2d_weight(x.permute(0, 3, 1, 2).float(),
+                                     tuple(weight.shape), gn, padding=m)
+    return (dx.permute(0, 2, 3, 1).to(x.dtype).contiguous(),
+            dw.to(weight.dtype), db)
+
+
+class Conv2dFunction(torch.autograd.Function):
+    """forward: `launch(x, weight, bias)`; backward: `conv2d_backward`,
+    with the ReLU mask read off the saved output where `act`."""
+
+    @staticmethod
+    def forward(ctx, launch, act: bool, x, weight, bias):
+        out = launch(x, weight, bias)
+        ctx.save_for_backward(x, weight, out if act else None, bias)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None, None, *conv2d_backward(g, *ctx.saved_tensors))
+
+
+def conv2d(x: torch.Tensor, weight: torch.Tensor,
+           bias: Optional[torch.Tensor] = None, act: bool = False,
+           variant: str = "im2col",
+           packed: Optional[tuple] = None) -> torch.Tensor:
+    """x (B, H, W, Cin) NHWC; weight OIHW (Cout, Cin, k, k), k odd; bias
+    (Cout,) or None; `act` fuses a ReLU; `variant` one of
+    `CONV2D_VARIANTS` (TPU layouts of the same function; "v2" keeps
+    `conv2d_pallas_v2`'s refusals: Cin in {64, 128}, W a multiple of
+    128 // Cin); `packed` is `pack_conv2d(weight, bias)` made ahead of
+    time, or None to pack on this call. Returns (B, H, W, Cout)."""
+    if x.dim() != 4:
+        raise ValueError(f"x must be NHWC, got shape {tuple(x.shape)}")
+    b, h, w, cin = x.shape
+    if (weight.dim() != 4 or weight.shape[1] != cin
+            or weight.shape[2] != weight.shape[3] or weight.shape[2] % 2 != 1):
+        raise ValueError(f"weight {tuple(weight.shape)} is not OIHW square "
+                         f"odd-k with cin={cin}")
+    if variant not in CONV2D_VARIANTS:
+        raise ValueError(f"variant must be one of {CONV2D_VARIANTS}, got "
+                         f"{variant!r}")
+    if variant == "v2" and (cin not in (64, 128) or w % (128 // cin)):
+        raise ValueError(f"v2 packed conv supports C in {{64, 128}} with W "
+                         f"a multiple of 128 // C, got C={cin}, W={w}")
+    if x.device.type == "cpu":
+        return conv2d_plain(x, weight, bias, act)
+    if x.device.type != "cuda":
+        raise ValueError(f"conv2d: unsupported device {x.device}")
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"conv2d kernel takes bfloat16, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("conv2d kernel takes a contiguous NHWC tensor")
+    cout, k = weight.shape[0], weight.shape[2]
+    if cout > CONV2D_MAX_COUT or k > CONV2D_MAX_K:
+        raise ValueError(f"conv2d kernel takes Cout <= {CONV2D_MAX_COUT} and "
+                         f"k <= {CONV2D_MAX_K}, got Cout={cout}, k={k}")
+    if weight.device != x.device or (bias is not None
+                                     and bias.device != x.device):
+        raise ValueError("weight and bias must be on the input's device")
+    wpk, bpk = packed or pack_conv2d(weight, bias)
+    if (tuple(wpk.shape) != (k * k * _pad16(cin), _pad16(cout))
+            or wpk.device != x.device):
+        raise ValueError("packed weights do not match this conv's shape or "
+                         "device")
+
+    def launch(x, *_):
+        out = torch.empty(b, h, w, cout, dtype=torch.bfloat16,
+                          device=x.device)
+        xp = pad_channels8(x)
+        rc = build.load().vfi_conv2d_bf16(
+            xp.data_ptr(), wpk.data_ptr(), bpk.data_ptr(), out.data_ptr(),
+            b, h, w, xp.shape[-1], cout, k, int(act), x.device.index,
+            torch.cuda.current_stream(x.device).cuda_stream)
+        build.check(rc, "conv2d")
+        conv2d.launches += 1
+        conv2d.launches_by_shape[(cin, cout, k, h, w)] += 1
+        return out
+
+    if needs_grad(x, weight, bias):
+        return Conv2dFunction.apply(launch, act, x, weight, bias)
+    return launch(x)
+
+
+conv2d.launches = 0
+conv2d.launches_by_shape = Counter()

@@ -3,51 +3,70 @@
 
 - `deform_conv2d_bounded` replaces
   `vfi_tpu/ops/pallas/sampling.py::deform_conv2d_pallas_v4` (kernel
-  `_sampling_kernel_v4`) and `deform_conv2d_pallas_v5`
-  (`_sampling_kernel_v5`), which compute one function under v4's
-  contract: modulated DCNv2, stride 1, one offset group, offsets clamped
-  to [-R, R], any Cin, Cout up to 128, an optional mask (None: weight 1).
-  Plain version: `ops/deform_conv_shifts.deform_conv2d_shifts`.
+  `_sampling_kernel_v4`), `deform_conv2d_pallas_v5` (`_sampling_kernel_v5`)
+  and `deform_conv2d_pallas` (v3, `_sampling_kernel`), which compute one
+  function: modulated DCNv2, stride 1, 3x3, padding 1, one offset group,
+  offsets clamped to [-R, R], any Cin, Cout up to 128, an optional mask
+  (None: weight 1) and an optional bias. Any R whose smallest tile plan
+  fits the card's shared memory (on an H100 R <= 35 at any Cout;
+  `dcn_plan`). Plain version:
+  `ops/deform_conv_shifts.deform_conv2d_shifts`.
 - `bounded_warp` replaces `bounded_warp_pallas_v2` (kernel
-  `_warp_kernel_v2`): backward warp by the flow clipped to [-R, R].
-  Plain version: `ops/warp.warp(image, clip(flow))`.
+  `_warp_kernel_v2`, C <= 4) and `bounded_warp_pallas` (v1, `_warp_kernel`,
+  any C): backward warp by the flow clipped to [-R, R]. Plain version:
+  `ops/warp.warp(image, clip(flow))`, blended in the image's dtype for
+  C <= 4 (as v2 and the RGB kernel) and in float32 with one rounding
+  above (as v1's float32 tile and the wide kernel).
 
 A CPU tensor runs the plain version; a CUDA tensor launches the kernel
-(bf16, contiguous) or raises. `tile_w` is accepted for API parity with
-the JAX wrappers (a TPU skip-predicate tiling knob) and has no effect on
-the output.
+(bf16, contiguous) or raises. On the card the result carries autograd
+when an input requires grad: autograd of the plain version (`grad.py`), as
+the reference's `deform_conv2d_fast` and `warp_fast`. `tile_w` is accepted
+for API parity with the JAX wrappers (a TPU skip-predicate tiling knob)
+and has no effect on the output.
 """
 
 from __future__ import annotations
 
+import ctypes
 from collections import Counter
 from typing import Optional
 
 import torch
 
 from vfi_tpu_torch.ops.cuda import build
-from vfi_tpu_torch.ops.cuda.conv import _pad16, pad_channels8
+from vfi_tpu_torch.ops.cuda.conv import _pad16, pack_conv2d, pad_channels8
+from vfi_tpu_torch.ops.cuda.grad import differentiable
 from vfi_tpu_torch.ops.deform_conv_shifts import deform_conv2d_shifts
 from vfi_tpu_torch.ops.warp import warp
 
 DCN_MAX_COUT = 128
+# The RGB warp instance's channels; wider images blend in float32.
+WARP_RGB_MAX_C = 4
+# The DCN kernel's tap pattern: 3x3 with padding 1, the only one any caller
+# in the repo passes.
+DCN_K, DCN_PADDING = 3, 1
+# The DCN kernel reads `pack_conv2d`'s tap-major layout.
+pack_dcn = pack_conv2d
 
 
 def deform_conv2d_bounded_plain(x, offset, mask, weight, bias=None,
                                 max_offset: int = 3,
-                                packed: Optional[tuple] = None
-                                ) -> torch.Tensor:
+                                packed: Optional[tuple] = None,
+                                padding: int = DCN_PADDING) -> torch.Tensor:
     """Reads `weight` and `bias`; `packed`, the kernel's copy of them, is
     taken only so that this function and `deform_conv2d_bounded` share one
     signature."""
     return deform_conv2d_shifts(x, offset, mask, weight, bias,
-                                max_offset=max_offset, padding=1)
+                                max_offset=max_offset, padding=padding)
 
 
 def bounded_warp_plain(image: torch.Tensor, flow: torch.Tensor,
                        max_flow: int = 16) -> torch.Tensor:
     r = float(max_flow)
-    return warp(image, flow.clamp(-r, r))
+    if image.shape[-1] <= WARP_RGB_MAX_C:
+        return warp(image, flow.clamp(-r, r))
+    return warp(image.float(), flow.clamp(-r, r)).to(image.dtype)
 
 
 def _cuda_checks(name: str, **tensors) -> torch.device:
@@ -67,22 +86,26 @@ def _cuda_checks(name: str, **tensors) -> torch.device:
     return dev
 
 
-def pack_dcn(weight: torch.Tensor, bias: Optional[torch.Tensor]) -> tuple:
-    """The kernel's weight layout: OIHW -> bf16 [9 * Cin16][Cout16]
-    (tap-major, channels padded to multiples of 16 with zeros), bias -> f32
-    [Cout16] (bf16-rounded values, zeros for None and the padding). A
-    module whose weights stay fixed packs them once and passes the result
-    as `deform_conv2d_bounded(..., packed=)`."""
-    cout, cin = weight.shape[:2]
-    cin16, cout16 = _pad16(cin), _pad16(cout)
-    dev = weight.device
-    wpk = torch.zeros(9, cin16, cout16, dtype=torch.bfloat16, device=dev)
-    wpk[:, :cin, :cout] = weight.detach().to(torch.bfloat16).permute(
-        2, 3, 1, 0).reshape(9, cin, cout)
-    bpk = torch.zeros(cout16, dtype=torch.float32, device=dev)
-    if bias is not None:
-        bpk[:cout] = bias.detach().to(torch.bfloat16).float()
-    return wpk.reshape(9 * cin16, cout16), bpk
+def dcn_plan(cin: int, cout: int, max_offset: int,
+             device: torch.device) -> dict:
+    """The DCN kernel's tile plan on `device` (`csrc/dcn_bounded.cu`):
+    pixels per block, tile channels per chunk, chunks, and its dynamic
+    shared memory in bytes. Raises ValueError where no plan fits the
+    card's per-block limit."""
+    limit = torch.cuda.get_device_properties(
+        device).shared_memory_per_block_optin
+    px_ck = (ctypes.c_int * 2)()
+    smem = build.load().vfi_dcn_bounded_smem_bytes(
+        _pad16(cin), cout, int(max_offset), limit, px_ck)
+    if smem == 0:
+        raise ValueError(
+            f"deform_conv2d_bounded kernel: no tile plan for C={cin}->{cout} "
+            f"at R={max_offset} fits the card's {limit} bytes of shared "
+            f"memory per block (the smallest plan, 16 pixels and 16 "
+            f"channels a chunk, holds (3 + 2R)(18 + 2R) * 32 bytes of "
+            f"tile; on an H100 R <= 35 at any Cout)")
+    return {"px": px_ck[0], "ck": px_ck[1],
+            "chunks": -(-_pad16(cin) // px_ck[1]), "smem_bytes": smem}
 
 
 def deform_conv2d_bounded(x: torch.Tensor, offset: torch.Tensor,
@@ -90,20 +113,23 @@ def deform_conv2d_bounded(x: torch.Tensor, offset: torch.Tensor,
                           bias: Optional[torch.Tensor] = None,
                           max_offset: int = 3,
                           tile_w: Optional[int] = None,
-                          packed: Optional[tuple] = None) -> torch.Tensor:
+                          packed: Optional[tuple] = None,
+                          padding: int = DCN_PADDING) -> torch.Tensor:
     """x (B, H, W, Cin) NHWC; offset (B, H, W, 18) as (dy, dx) per tap;
     mask (B, H, W, 9), already sigmoided, or None (weight 1); weight OIHW
     (Cout, Cin, 3, 3); bias (Cout,) or None; `packed` is
     `pack_dcn(weight, bias)` made ahead of time, or None to pack on this
-    call. Returns (B, H, W, Cout). On the card a (C, R) pair whose shared
-    memory exceeds the per-block limit raises ValueError."""
+    call; `padding` 1 (v3's argument; the only value the kernel takes).
+    Returns (B, H, W, Cout)."""
     del tile_w  # TPU tiling knob: no effect on the function
     if x.dim() != 4:
         raise ValueError(f"x must be NHWC, got shape {tuple(x.shape)}")
     b, h, w, cin = x.shape
-    if weight.dim() != 4 or tuple(weight.shape[1:]) != (cin, 3, 3):
-        raise ValueError(f"weight {tuple(weight.shape)} is not OIHW 3x3 "
-                         f"with cin={cin}")
+    if (weight.dim() != 4 or tuple(weight.shape[1:]) != (cin, DCN_K, DCN_K)
+            or padding != DCN_PADDING):
+        raise ValueError(f"deform_conv2d_bounded takes a 3x3 OIHW weight "
+                         f"with cin={cin} and padding 1, got weight "
+                         f"{tuple(weight.shape)}, padding {padding}")
     cout = weight.shape[0]
     if tuple(offset.shape) != (b, h, w, 18) or (
             mask is not None and tuple(mask.shape) != (b, h, w, 9)):
@@ -120,39 +146,37 @@ def deform_conv2d_bounded(x: torch.Tensor, offset: torch.Tensor,
                          f"R={max_offset}")
     if weight.device != dev or (bias is not None and bias.device != dev):
         raise ValueError("weight and bias must be on the input's device")
-    lib = build.load()
-    smem = lib.vfi_dcn_bounded_smem_bytes(cin, cout, int(max_offset))
-    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
-    if smem > limit:
-        raise ValueError(
-            f"deform_conv2d_bounded kernel: C={cin}->{cout} at R="
-            f"{max_offset} needs {smem} bytes of shared memory per block, "
-            f"above the card's limit of {limit} bytes ({limit // 1024} KB)")
-
+    dcn_plan(cin, cout, max_offset, dev)   # raises where no plan fits
     wpk, bpk = packed or pack_dcn(weight, bias)
     if (tuple(wpk.shape) != (9 * _pad16(cin), _pad16(cout))
             or wpk.device != dev):
         raise ValueError("packed weights do not match this DCN's channels "
                          "or device")
-    out = torch.empty(b, h, w, cout, dtype=torch.bfloat16, device=dev)
-    xp = pad_channels8(x)
-    rc = lib.vfi_dcn_bounded_bf16(
-        xp.data_ptr(), offset.data_ptr(),
-        None if mask is None else mask.data_ptr(), wpk.data_ptr(),
-        bpk.data_ptr(), out.data_ptr(), b, h, w, xp.shape[-1], cout,
-        int(max_offset), dev.index,
-        torch.cuda.current_stream(dev).cuda_stream)
-    build.check(rc, "deform_conv2d_bounded")
-    deform_conv2d_bounded.launches += 1
-    deform_conv2d_bounded.launches_by_shape[
-        (cin, cout, h, w, int(max_offset))] += 1
-    return out
+    R = int(max_offset)
+
+    def launch(x, offset, mask, *_):
+        out = torch.empty(b, h, w, cout, dtype=torch.bfloat16, device=dev)
+        xp = pad_channels8(x)
+        rc = build.load().vfi_dcn_bounded_bf16(
+            xp.data_ptr(), offset.data_ptr(),
+            None if mask is None else mask.data_ptr(), wpk.data_ptr(),
+            bpk.data_ptr(), out.data_ptr(), b, h, w, xp.shape[-1], cout, R,
+            dev.index, torch.cuda.current_stream(dev).cuda_stream)
+        build.check(rc, "deform_conv2d_bounded")
+        deform_conv2d_bounded.launches += 1
+        deform_conv2d_bounded.launches_by_shape[(cin, cout, h, w, R)] += 1
+        return out
+
+    def plain(x, offset, mask, weight, bias):
+        return deform_conv2d_bounded_plain(x, offset, mask, weight, bias, R)
+
+    return differentiable(launch, plain, x, offset, mask, weight, bias)
 
 
 def bounded_warp(image: torch.Tensor, flow: torch.Tensor,
                  max_flow: int = 16) -> torch.Tensor:
-    """image (B, H, W, C); flow (B, H, W, 2) channels (dx, dy) in pixels,
-    clipped to [-max_flow, max_flow]. Bilinear, zeros padding."""
+    """image (B, H, W, C), any C; flow (B, H, W, 2) channels (dx, dy) in
+    pixels, clipped to [-max_flow, max_flow]. Bilinear, zeros padding."""
     if image.dim() != 4 or tuple(flow.shape) != tuple(image.shape[:3]) + (2,):
         raise ValueError(f"image {tuple(image.shape)} / flow "
                          f"{tuple(flow.shape)} shapes do not match")
@@ -160,18 +184,22 @@ def bounded_warp(image: torch.Tensor, flow: torch.Tensor,
         return bounded_warp_plain(image, flow, max_flow)
     dev = _cuda_checks("bounded_warp", image=image, flow=flow)
     b, h, w, c = image.shape
-    if c > 4:
-        raise ValueError(f"bounded_warp kernel takes C <= 4, got {c}")
-    out = torch.empty_like(image)
-    lib = build.load()
-    rc = lib.vfi_warp_bounded_bf16(
-        image.data_ptr(), flow.data_ptr(), out.data_ptr(), b, h, w, c,
-        float(max_flow), dev.index,
-        torch.cuda.current_stream(dev).cuda_stream)
-    build.check(rc, "bounded_warp")
-    bounded_warp.launches += 1
-    bounded_warp.launches_by_shape[(c, h, w)] += 1
-    return out
+
+    def launch(image, flow):
+        out = torch.empty_like(image)
+        rc = build.load().vfi_warp_bounded_bf16(
+            image.data_ptr(), flow.data_ptr(), out.data_ptr(), b, h, w, c,
+            float(max_flow), dev.index,
+            torch.cuda.current_stream(dev).cuda_stream)
+        build.check(rc, "bounded_warp")
+        bounded_warp.launches += 1
+        bounded_warp.launches_by_shape[(c, h, w, int(max_flow))] += 1
+        return out
+
+    def plain(image, flow):
+        return bounded_warp_plain(image, flow, max_flow)
+
+    return differentiable(launch, plain, image, flow)
 
 
 deform_conv2d_bounded.launches = 0

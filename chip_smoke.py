@@ -17,7 +17,8 @@ and the script exits non-zero without a result line:
            then timed with CUDA events (median of N_TIMED runs after
            warm-up) beside its plain version, one PyTorch library call
            where one computes the same function, and its bound from bytes
-           and operations; each DCN row names its tile plan;
+           and operations; each DCN and conv row names its tile plan (a
+           one-layer chain runs the conv kernel, csrc/conv2d.cu);
 4. main    the flagship engine (qocc checkpoint + flow prior, bf16,
            dcn_max_offset=1, warp_max_flow=16, cascade_levels=2,
            conv_kernel="pallas") answers three b=1 requests and one b=2
@@ -46,9 +47,10 @@ and the script exits non-zero without a result line:
            bench_kernels' DCN at vga (C=67, R=2) and its warp (C=3 and
            C=64): each kernel within tolerance of its plain version, and
            the conv, DCN and warp kernels launched;
-9. grad    gradients through each kernel wrapper (conv, chain, DCN, warp
-           at C=3 and C=64) against those through its plain version at
-           a small shape (GRAD_SHAPE, tolerance stated there);
+9. grad    gradients through each kernel wrapper (conv, chain of three
+           layers and of one, DCN, warp at C=3 and C=64) against those
+           through its plain version at a small shape (GRAD_SHAPE,
+           tolerance stated there);
 10. profile (only with --profile) torch.profiler over one b=1 request: the
            device's busy share of the request's wall time and device time
            by kernel, split into the port's CUDA kernels and the rest.
@@ -82,7 +84,7 @@ from vfi_tpu_torch.data import load_image
 from vfi_tpu_torch.infer import FrameInterpolator
 from vfi_tpu_torch.ops.cuda import (WRAPPERS, bounded_warp,
                                     bounded_warp_plain, build, conv2d,
-                                    conv2d_plain, conv_chain,
+                                    conv2d_plain, conv2d_plan, conv_chain,
                                     conv_chain_plain, dcn_plan,
                                     deform_conv2d_bounded,
                                     deform_conv2d_bounded_plain,
@@ -136,8 +138,9 @@ SWEEPS = (
 # a wrong tap, channel or route moves the mean by tenths or more.
 PSNR_TOL_DB = 0.05
 SSIM_TOL = 0.002
-# Launches of each kernel per engine launch on the flagship path (the
-# single conv runs only in the kernel tools).
+# Launches of each wrapper per engine launch on the flagship path. The
+# conv2d wrapper runs only in the kernel tools; the three one-layer offset
+# chains run the conv kernel (csrc/conv2d.cu) and count as conv_chain.
 PER_LAUNCH = {"conv_chain": 8, "deform_conv2d_bounded": 3, "bounded_warp": 1,
               "conv2d": 0}
 CHAIN_TPU = "vfi_tpu/ops/pallas/conv.py:543"
@@ -291,14 +294,18 @@ def chain_row(rnd, sd, tag, cin, names, acts, b, h, w, paths) -> dict:
         library = lambda: F.conv2d(xn, wb, bb, padding=1)  # noqa: E731
     chans = tuple([cin] + [wt.shape[0] for wt in ws])
     pk = pack_conv_chain(ws, bs)       # packed once, as the engine does
+    # One layer runs the conv kernel on the chain's packed weights.
+    extra = {} if len(ws) > 1 else {"plan": conv2d_plan(cin, chans[1], 3)}
     return kernel_row(
         row_name(f"conv_chain/{tag}", b, h, w),
-        "vfi_tpu_torch/csrc/conv_chain.cu",
+        "vfi_tpu_torch/csrc/"
+        + ("conv_chain.cu" if len(ws) > 1 else "conv2d.cu"),
         CHAIN_TPU, (paths, "conv_chain", (chans, h, w)),
         lambda: conv_chain(x, ws, bs, acts, packed=pk),
         lambda: conv_chain_plain(x, ws, bs, acts), library,
         nbytes(x) + nbytes(*ws) // 2 + nbytes(*bs),
-        sum(2.0 * b * h * w * 9 * wt.shape[1] * wt.shape[0] for wt in ws))
+        sum(2.0 * b * h * w * 9 * wt.shape[1] * wt.shape[0] for wt in ws),
+        **extra)
 
 
 def conv2d_row(rnd, gen, cin, cout, k, b, h, w, variant, replaces,
@@ -327,7 +334,8 @@ def conv2d_row(rnd, gen, cin, cout, k, b, h, w, variant, replaces,
         lambda: conv2d_plain(x, wt, bt, act), library,
         nbytes(x) + nbytes(wt) // 2 + nbytes(bt),
         2.0 * b * h * w * k * k * cin * cout,
-        library_call="F.conv2d+relu" if act else "F.conv2d")
+        library_call="F.conv2d+relu" if act else "F.conv2d",
+        plan=conv2d_plan(cin, cout, k))
 
 
 def dcn_row(rnd, wt, bt, b, h, w, R, replaces, paths) -> dict:
@@ -811,6 +819,8 @@ def phase_grad(dev) -> dict:
     w3 = [rnd(co, ci, 3, 3, scale=(9 * ci) ** -0.5, dtype=torch.float32)
           for ci, co in ((64, 64), (64, 32), (32, 8))]
     b3 = [rnd(co, scale=0.1, dtype=torch.float32) for co in (64, 32, 8)]
+    w27 = rnd(27, 64, 3, 3, scale=1 / 24, dtype=torch.float32)
+    b27 = rnd(27, scale=0.1, dtype=torch.float32)
     off = rnd(b, h, w, 18, scale=1.5)
     mask = torch.sigmoid(rnd(b, h, w, 9, scale=2.0).float()).to(
         torch.bfloat16)
@@ -825,6 +835,10 @@ def phase_grad(dev) -> dict:
                   lambda x, *p: conv_chain(x, p[:3], p[3:], acts),
                   lambda x, *p: conv_chain_plain(x, p[:3], p[3:], acts),
                   [x, *w3, *b3]),
+        grad_case("conv_chain/L1",
+                  lambda x, w, b: conv_chain(x, [w], [b], (False,)),
+                  lambda x, w, b: conv_chain_plain(x, [w], [b], (False,)),
+                  [x, w27, b27]),
         grad_case("deform_conv2d_bounded",
                   lambda *a: deform_conv2d_bounded(*a, 2),
                   lambda *a: deform_conv2d_bounded_plain(*a, 2),

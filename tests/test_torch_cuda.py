@@ -2,7 +2,8 @@
 shapes with ragged edges (the main paths' full-size shapes run in
 chip_smoke.py): the DCN under v4's contract (C in {64, 67} x R 1..4, with
 and without a mask) and at radii that need smaller tiles or channel
-chunks, the chains with a 67-wide first layer, the single conv at k 1..9,
+chunks, the chains with a 67-wide first layer (one layer through the conv
+kernel), the single conv at k 1..9 with its tile cut at every edge,
 the warp at C=3 and wide C, gradients through every kernel wrapper
 against those through its plain version, and q12 (the 67-channel
 topology) through the engine with both conv_kernel settings. Needs an
@@ -78,8 +79,27 @@ def test_conv_chain_kernel(dev, hw, chans, acts):
     bs = [torch.randn(co, generator=gen, device=dev) * 0.1 for co in chans[1:]]
     reset_launch_counts()
     got = conv_chain(x, ws, bs, acts)
+    # one layer runs the conv kernel (csrc/conv2d.cu), counted as the chain
     assert launch_counts()["conv_chain"] == 1
+    assert launch_counts()["conv2d"] == 0
     _close(got, conv_chain_plain(x, ws, bs, acts))
+
+
+def test_conv_chain_entry_refuses_one_layer(dev):
+    """The chain kernel's C entry takes 2..4 layers; `conv_chain` sends a
+    single layer to the conv kernel instead."""
+    from vfi_tpu_torch.ops.cuda import build, pack_conv_chain
+
+    x = torch.zeros(1, 8, 16, 64, dtype=torch.bfloat16, device=dev)
+    w = [torch.zeros(27, 64, 3, 3, device=dev)]
+    wpk, bpk = pack_conv_chain(w, [None])
+    out = torch.empty(1, 8, 16, 27, dtype=torch.bfloat16, device=dev)
+    args = (x.data_ptr(), wpk.data_ptr(), bpk.data_ptr(), out.data_ptr(),
+            1, 8, 16)
+    tail = (0, dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    lib = build.load()
+    assert lib.vfi_conv_chain_bf16(*args, 1, 64, 27, 0, 0, 0, *tail) != 0
+    assert lib.vfi_conv_chain_bf16(*args, 5, 64, 27, 27, 27, 27, *tail) != 0
 
 
 @pytest.mark.parametrize("hw", [(8, 16), (13, 37), (24, 130)])
@@ -174,15 +194,19 @@ def test_deform_conv2d_bounded_refuses_what_no_plan_holds(dev, cin, cout, R):
     assert launch_counts()["deform_conv2d_bounded"] == 0
 
 
-@pytest.mark.parametrize("hw", [(8, 16), (13, 37), (17, 130)])
+# The conv kernel's 16 x 16 output tile cut at every edge: H and W not
+# multiples of it, W below one tile, and (100, 300) at B = 3: 399 tiles,
+# more than the persistent grid's blocks (at most 2 a SM, 264 on an H100).
+@pytest.mark.parametrize("hw", [(8, 16), (13, 37), (17, 130), (9, 7),
+                                (100, 300)])
 @pytest.mark.parametrize("cin,cout,k,act", [
     (64, 64, 3, True), (128, 64, 3, True), (64, 32, 3, False),
     (6, 64, 3, True), (64, 32, 1, False), (16, 128, 1, True),
     (64, 64, 5, True), (67, 5, 5, False), (24, 3, 7, True),
-    (200, 40, 9, True)])
+    (200, 40, 9, True), (64, 27, 3, False), (67, 27, 3, False)])
 def test_conv2d_kernel(dev, hw, cin, cout, k, act):
     gen = torch.Generator(device=dev).manual_seed(8)
-    x = _rnd(gen, dev, 2, *hw, cin)
+    x = _rnd(gen, dev, 3, *hw, cin)
     w = torch.randn(cout, cin, k, k, generator=gen, device=dev) / (
         k * k * cin) ** .5
     b = torch.randn(cout, generator=gen, device=dev) * 0.1

@@ -1,6 +1,6 @@
 """The port's kernel tools (`vfi_tpu_torch.tools.bench_conv`,
-`bench_kernels`) in their `--device cpu --smoke` mode, which runs every
-kernel name through its CPU route (the plain versions), and
+`bench_kernels`, `conv_turns`) in their `--device cpu --smoke` mode, which
+runs every kernel name through its CPU route (the plain versions), and
 `utils/profiling` (`StepTimer`, `trace`) against the reference's
 `vfi_tpu/utils/profiling.py`."""
 
@@ -13,7 +13,8 @@ import torch
 
 from vfi_tpu.utils.profiling import StepTimer as JaxStepTimer
 from vfi_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
-from vfi_tpu_torch.tools import bench_conv, bench_kernels, time_interleaved
+from vfi_tpu_torch.tools import (bench_conv, bench_kernels, conv_turns,
+                                 time_interleaved)
 from vfi_tpu_torch.utils.profiling import StepTimer, trace
 
 
@@ -155,3 +156,17 @@ def test_trace_writes_a_chrome_trace(tmp_path):
     events = json.load(open(tmp_path / "prof" / "trace.json"))
     assert os.path.getsize(tmp_path / "prof" / "trace.json") > 0
     assert events["traceEvents"]
+
+
+def test_conv_turns_smoke_times_each_tree_in_turn(capsys):
+    """Two turns of this checkout: one row per (turn, shape), the same
+    outputs in both (the plain versions on the CPU), a median per tree."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = conv_turns.main(["--trees", f"{root},{root}", "--device", "cpu",
+                           "--smoke", "--shapes", "16x8,16x27c"])
+    assert _last_json(capsys) == res
+    assert [(r["turn"], r["shape"]) for r in res["rows"]] == [
+        (0, "16x8"), (0, "16x27c"), (1, "16x8"), (1, "16x27c")]
+    assert res["rows"][0]["checksum"] == res["rows"][2]["checksum"]
+    assert all(r["ms"] > 0 for r in res["rows"])
+    assert set(res["median_ms"][root]) == {"16x8", "16x27c"}

@@ -3,211 +3,382 @@
 //
 // Replaces: vfi_tpu/ops/pallas/conv.py::_conv_kernel (conv2d_pallas, the
 // "im2col" and "direct" variants) and ::_conv_kernel_v2 (conv2d_pallas_v2,
-// the packed-lane layout): the TPU kernels of the ConvBlock trunk outside
-// fused mode and of tools/bench_conv.py. They compute one function; the
-// variants are TPU layouts (a VMEM im2col buffer, one dot per tap, two
-// pixels packed per 128-lane row) and none carries over: here each tap's
-// A operand is read straight from the input tile in shared memory.
+// the packed-lane layout), and through `conv_chain`'s one-layer route the
+// one-layer instances of ::_chain_kernel (conv_chain_pallas at L = 1: the
+// DCN blocks' offset convs). They compute one function; the TPU variants
+// are VMEM layouts (an im2col buffer, one dot per tap, two pixels packed
+// per 128-lane row) and none carries over.
 //
-// What bounds it on this card: operations for the trunk's 3x3 layers (a
-// 720p 64->64 layer does 68 GFLOP against ~0.24 GB of input and output,
-// near the ~295 FLOP/byte ridge, and 128->64 twice the work), bytes for
-// k = 1 and for narrow layers.
+// What bounds it on this card: a 720p 64->64 3x3 layer does 68 GFLOP
+// against ~0.24 GB of input and output, near the ~295 FLOP/byte ridge
+// (128->64 twice the work; narrow outputs such as the 27-channel offset
+// conv and k = 1 lean to bytes). So the kernel must keep the tensor cores
+// fed without moving more than the layer's own bytes: no weight traffic
+// per output tile, no barrier per tap, few shared-memory loads per MMA.
 //
-// Design: an implicit GEMM on the tensor cores (WMMA bf16 16x16x16, float32
-// accumulators kept in registers over all taps and channels). A block owns
-// PX = 64 output pixels of one row and every output channel (Cout16 <= 128:
-// 4 x Cout16/16 fragments over 8 warps, at most 4 a warp). It walks the
-// input channels in chunks of at most CK = 64 (Cin padded to a multiple of
-// 16, the WMMA depth, with zero channels): per chunk it copies the input
-// rows py - m .. py + m, columns px0 - m .. px0 + 63 + m of those channels
-// into shared memory once (cp.async; zeros outside the image), then for
-// each of the k*k taps (i, j) multiplies the tile by the tap's weight
-// slice W[t][chunk][Cout16]. The 16 pixels of an output m-tile read 16
-// consecutive tile columns starting at column j of tile row i, so the A
-// operand is the tile itself at an offset, with the channel pitch as its
-// leading dimension: no im2col buffer. Weight slices stream into shared
-// memory double-buffered (cp.async) while the previous tap multiplies.
-// Epilogue: the bias (float32 of its bf16 value), the ReLU, one rounding
-// to bf16. Cin must be a multiple of 8 (16-byte copies); the wrapper pads
-// another input with zero channels. Making it fast (wgmma, TMA, several
-// rows a block) is later work.
+// Design: an implicit GEMM on the tensor cores (mma.sync m16n8k16 bf16,
+// float32 accumulators in registers), weight-stationary and persistent.
+// - The grid is (SMs x resident blocks per SM); each block walks output
+//   tiles of TH x TW = 16 x 16 pixels (all Cout) with a stride of the
+//   grid.
+// - The plan (`conv2d_plan` in ops/cuda/conv.py, passed in) keeps the
+//   whole packed weight set [K*K*Cin16][Cout16] in shared memory, copied
+//   once per block (every k = 3 layer of the model fits), or, where it
+//   does not fit, streams groups of taps of one channel chunk, double-
+//   buffered with the input.
+// - A block's work is a sequence of steps (tile, channel chunk, tap group).
+//   Step s + 1's input tile (rows and columns of the halo, zeros outside
+//   the image, cp.async with zero fill) and, when streamed, its weight
+//   group are copied into the other of two buffers while step s
+//   multiplies: one barrier per step, so one per tile for the model's
+//   layers.
+// - 16 consecutive output pixels of a tile row read 16 consecutive tile
+//   columns for every tap, so the A operand of each m16 fragment is the
+//   tile itself at an offset (ldmatrix with one row address per pixel): no
+//   im2col buffer. Rows of the tile and of the weights are padded by 8
+//   channels (an odd multiple of 16 bytes), so ldmatrix's eight rows fall
+//   in distinct banks.
+// - 8 warps as 4 (pixels) x 2 (Cout): a warp owns four tile rows (64
+//   pixels) and Cout16 / 2 channels (NF n8 fragments). Per k-step it loads
+//   4 A fragments and NF B fragments (ldmatrix.trans) and issues 4 * NF
+//   MMAs, each A reused across the warp's n-fragments and each B across
+//   its four m-fragments; the next k-step's fragments load while this one
+//   multiplies (two register sets). Of three tilings timed in turns on an
+//   H100 (8 x 16 pixels with two m-fragments a warp, this one, and 16 x 16
+//   over 16 warps of two), this was fastest at every 720p layer but 6->64.
+// - Epilogue from registers: the bias (float32 of its bf16 value), the
+//   ReLU, one rounding to bf16; a 4x4 transpose within each quad of lanes
+//   (shuffles) gives each lane 8 consecutive channels, stored as 16 bytes
+//   where Cout % 8 == 0.
+// Cin must be a multiple of 8 (16-byte copies); the wrapper pads another
+// input with zero channels, and the packed weights carry zero rows up to
+// Cin16.
 
-#include <mma.h>
 #include <stdint.h>
 
 #include "common.cuh"
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int PX = 64;            // output pixels per block (one row segment)
-constexpr int CK = 64;            // input channels per staged chunk
+constexpr int TH = 16;            // output tile rows (ops/cuda/conv.py TILE_H)
+constexpr int TW = 16;            // output tile columns (TILE_W): one m16 fragment
 constexpr int NWARPS = 8;
 constexpr int NTHREADS = NWARPS * 32;
-constexpr int XPAD = 16;          // tile channel-pitch padding (bank spread, 32 B rows)
-constexpr int WPAD = 8;           // weight-row padding (bank spread)
+constexpr int WM = 4;             // warps along the tile's rows
+constexpr int WN = 2;             // warps along Cout
+constexpr int MF = TH / WM;       // m16 fragments (tile rows) per warp
+constexpr int PAD = 8;            // row padding of the tile and weights (bf16; ROW_PAD)
 constexpr int MAX_COUT = 128;
 constexpr int MAX_K = 9;
-constexpr int MAXJ = (PX / 16) * (MAX_COUT / 16) / NWARPS;  // accumulators per warp
-constexpr int SCRATCH_BYTES = NWARPS * 256 * 4;             // epilogue, 16x16 f32 a warp
 
 struct ConvParams {
   const bf16* x;        // (B, H, W, Cin)
   const bf16* w;        // (K * K * Cin16, Cout16), row t * Cin16 + c, zero padded
   const float* bias;    // (Cout16,), zero padded
   bf16* out;            // (B, H, W, Cout)
-  int B, H, W, Cin, Cout, K, Cin16, Cout16, ck, act;
-  int x_bytes;          // the tile region; the weight slices follow it
+  int B, H, W, Cin, Cout, K, Cin16, Cout16, act;
+  int ck;               // tile channels per chunk (multiple of 16)
+  int tg;               // taps per streamed weight group; 0: weights resident
+  int x_bytes;          // one input-tile buffer; the weights follow both
+  int tiles_x, tiles_y, tiles;
 };
 
-struct ConvSmem {
-  int ck, x_bytes, w_bytes, total;
-};
-
-__host__ inline ConvSmem conv_smem(int Cin, int Cout, int K) {
-  ConvSmem m;
-  const int cin16 = pad16(Cin), cout16 = pad16(Cout);
-  m.ck = cin16 < CK ? cin16 : CK;
-  m.x_bytes = round128(K * (PX + K - 1) * (m.ck + XPAD) * 2);
-  const int wb = round128(2 * m.ck * (cout16 + WPAD) * 2);
-  m.w_bytes = wb > SCRATCH_BYTES ? wb : SCRATCH_BYTES;
-  m.total = m.x_bytes + m.w_bytes;
-  return m;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__global__ void __launch_bounds__(NTHREADS)
+// n / d for n * d < 2^32 and d >= 2, with m = fast_div_magic(d).
+__device__ __forceinline__ uint32_t fast_div_magic(uint32_t d) { return 0xFFFFFFFFu / d + 1; }
+__device__ __forceinline__ int fast_div(int n, uint32_t m) { return (int)__umulhi((uint32_t)n, m); }
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&b0)[2], uint32_t (&b1)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(b0[0]), "=r"(b0[1]), "=r"(b1[0]), "=r"(b1[1]) : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x2_t(uint32_t (&b)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(b[0]), "=r"(b[1]) : "r"(addr));
+}
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Within each quad of lanes (q = lane & 3), u[j] holds channels 2q, 2q + 1
+// of n8 fragment j of one pixel. Afterwards lane q holds all 8 channels of
+// fragment q, in order.
+__device__ __forceinline__ void quad_transpose(uint32_t (&u)[4], int q) {
+  const bool hi2 = q & 2, hi1 = q & 1;
+  uint32_t r0 = __shfl_xor_sync(0xffffffffu, hi2 ? u[0] : u[2], 2);
+  uint32_t r1 = __shfl_xor_sync(0xffffffffu, hi2 ? u[1] : u[3], 2);
+  const uint32_t v0 = hi2 ? r0 : u[0], v1 = hi2 ? r1 : u[1];
+  const uint32_t v2 = hi2 ? u[2] : r0, v3 = hi2 ? u[3] : r1;
+  r0 = __shfl_xor_sync(0xffffffffu, hi1 ? v0 : v1, 1);
+  r1 = __shfl_xor_sync(0xffffffffu, hi1 ? v2 : v3, 1);
+  u[0] = hi1 ? r0 : v0;
+  u[1] = hi1 ? v1 : r0;
+  u[2] = hi1 ? r1 : v2;
+  u[3] = hi1 ? v3 : r1;
+}
+
+template <int NF>  // n8 fragments per warp: Cout16 = WN * NF * 8
+__global__ void __launch_bounds__(NTHREADS, NF <= 4 ? 2 : 1)
 conv2d_kernel(const ConvParams p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int K = p.K, m = K / 2, taps = K * K;
-  const int tcols = PX + K - 1;
-  const int ck = p.ck, xp = ck + XPAD;
-  const int Cin = p.Cin, Cin16 = p.Cin16, Cout16 = p.Cout16, wp = Cout16 + WPAD;
-  bf16* X = reinterpret_cast<bf16*>(smem);                  // [K * tcols][xp]
-  bf16* Wt = reinterpret_cast<bf16*>(smem + p.x_bytes);     // [2][ck][wp]
-
-  const int px0 = blockIdx.x * PX, py = blockIdx.y, b = blockIdx.z;
-  const int H = p.H, W = p.W;
-  const int nsteps = (Cin16 + ck - 1) / ck * taps;          // (chunk, tap) pairs
-
-  auto chunk_width = [&](int c) { return min(ck, Cin16 - c * ck); };
-
-  // Chunk c of the input tile: rows py-m .. py+m, columns px0-m ..
-  // px0+PX-1+m; zeros outside the image and past Cin.
-  auto stage_x = [&](int c) {
-    const int pieces = chunk_width(c) / 8;
-    const bf16* xb = p.x + (size_t)b * H * W * Cin;
-    for (int it = threadIdx.x; it < K * tcols * pieces; it += NTHREADS) {
-      const int pix = it / pieces, pc = it - (it / pieces) * pieces;
-      const int gy = py - m + pix / tcols, gx = px0 - m + pix % tcols;
-      const int ch = c * ck + pc * 8;
-      bf16* dst = X + (size_t)pix * xp + pc * 8;
-      if (ch < Cin && gy >= 0 && gy < H && gx >= 0 && gx < W)
-        cp_async16(dst, xb + ((size_t)gy * W + gx) * Cin + ch);
-      else
-        *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
-    }
-    cp_async_commit();
-  };
-  // The weight slice of step s = (chunk, tap): rows t * Cin16 + c * ck ...
-  auto stage_w = [&](int s, int buf) {
-    const int c = s / taps, t = s - (s / taps) * taps;
-    const bf16* src = p.w + ((size_t)t * Cin16 + c * ck) * Cout16;
-    bf16* dst = Wt + buf * ck * wp;
-    const int rc = Cout16 / 8;
-    for (int i = threadIdx.x; i < chunk_width(c) * rc; i += NTHREADS) {
-      const int k = i / rc, j = i - (i / rc) * rc;
-      cp_async16(dst + k * wp + j * 8, src + (size_t)k * Cout16 + j * 8);
-    }
-    cp_async_commit();
-  };
+  const int K = p.K, taps = K * K, m = K / 2;
+  const int tcols = TW + K - 1, tpx = (TH + K - 1) * tcols;
+  const int ck = p.ck, xp = ck + PAD, Cin16 = p.Cin16, Cout16 = p.Cout16, wp = Cout16 + PAD;
+  const int nchunks = (Cin16 + ck - 1) / ck;
+  const bool resident = p.tg == 0;
+  const int tg = resident ? taps : p.tg;
+  const int ngroups = (taps + tg - 1) / tg;
+  const int wslot = tg * ck * wp;                     // one streamed group, elements
+  bf16* const xs = reinterpret_cast<bf16*>(smem);     // 2 x [tpx][xp]
+  bf16* const ws = reinterpret_cast<bf16*>(smem + 2 * p.x_bytes);
+  const int xslot_elems = p.x_bytes / 2;
+  const uint32_t mag_tcols = fast_div_magic(tcols);
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int ntn = Cout16 / 16, items = (PX / 16) * ntn;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[MAXJ];
-#pragma unroll
-  for (int j = 0; j < MAXJ; ++j) wmma::fill_fragment(acc[j], 0.0f);
+  const int wm = warp >> 1, wn = warp & 1;
+  const int n0 = wn * NF * 8;
+  const int g8 = lane >> 2, q4 = lane & 3;
+  // Lane offsets of the ldmatrix row addresses (elements): A rows are the
+  // 16 pixels of an m16 fragment, 8 channels apart for the upper lanes; B
+  // rows are 16 k-rows of the weights at the warp's columns.
+  const int a_lane = (wm * MF * tcols + (lane & 15)) * xp + (lane >> 4) * 8;
+  const int b_lane = (lane & 15) * wp + n0 + (lane >> 4) * 8;
 
-  stage_w(0, 0);
-  for (int s = 0; s < nsteps; ++s) {
-    const int c = s / taps, t = s - (s / taps) * taps;
-    // The previous step ended at a barrier: the tile and the other weight
-    // buffer are free.
-    if (t == 0) stage_x(c);
-    if (s + 1 < nsteps) {
-      stage_w(s + 1, (s + 1) & 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  auto tile_origin = [&](int tile, int& b, int& ty, int& tx) {
+    const int per_img = p.tiles_x * p.tiles_y;
+    b = tile / per_img;
+    const int r = tile - b * per_img;
+    ty = r / p.tiles_x;
+    tx = r - ty * p.tiles_x;
+  };
+  auto chunk_width = [&](int c) { return min(ck, Cin16 - c * ck); };
+
+  // Chunk c of tile `tile`'s input with its halo into buffer `slot`.
+  auto stage_x = [&](int tile, int c, int slot) {
+    int b, ty, tx;
+    tile_origin(tile, b, ty, tx);
+    const int y0 = ty * TH - m, x0 = tx * TW - m;
+    const int pieces = chunk_width(c) / 8;
+    const uint32_t mag_p = fast_div_magic(pieces);
+    const bf16* xb = p.x + (size_t)b * p.H * p.W * p.Cin;
+    bf16* dst0 = xs + slot * xslot_elems;
+    for (int it = threadIdx.x; it < tpx * pieces; it += NTHREADS) {
+      const int pix = fast_div(it, mag_p);
+      const int pc = it - pix * pieces;
+      const int row = fast_div(pix, mag_tcols), col = pix - row * tcols;
+      const int gy = y0 + row, gx = x0 + col, ch = c * ck + pc * 8;
+      const bool ok = ch < p.Cin && gy >= 0 && gy < p.H && gx >= 0 && gx < p.W;
+      cp_async16_zfill(dst0 + pix * xp + pc * 8,
+                       ok ? xb + ((size_t)gy * p.W + gx) * p.Cin + ch : p.x, ok);
     }
-    __syncthreads();
-    const int ti = t / K, tj = t - (t / K) * K, ckw = chunk_width(c);
-    const bf16* wb = Wt + (s & 1) * ck * wp;
-    const bf16* xa = X + (size_t)(ti * tcols + tj) * xp;
+  };
+  // Streamed weights: taps g*tg .. of chunk c, as [tap][ck][wp] in `slot`.
+  auto stage_w = [&](int c, int g, int slot) {
+    const int t0 = g * tg, tn = min(tg, taps - t0), ckw = chunk_width(c);
+    const int pieces = Cout16 / 8;
+    bf16* dst0 = ws + slot * wslot;
+    for (int it = threadIdx.x; it < tn * ckw * pieces; it += NTHREADS) {
+      const int row = it / pieces, pc = it - row * pieces;
+      const int tr = row / ckw, kk = row - tr * ckw;
+      cp_async16(dst0 + (tr * ck + kk) * wp + pc * 8,
+                 p.w + ((size_t)(t0 + tr) * Cin16 + c * ck + kk) * Cout16 + pc * 8);
+    }
+  };
+
+  int tile = blockIdx.x, c = 0, g = 0, xslot = 0, wbuf = 0;
+  if (tile >= p.tiles) return;
+  if (resident) {  // the whole weight set, once per block
+    const int pieces = Cout16 / 8;
+    for (int it = threadIdx.x; it < taps * Cin16 * pieces; it += NTHREADS) {
+      const int row = it / pieces, pc = it - row * pieces;
+      cp_async16(ws + row * wp + pc * 8, p.w + (size_t)row * Cout16 + pc * 8);
+    }
+  } else {
+    stage_w(0, 0, 0);
+  }
+  stage_x(tile, 0, 0);
+  cp_async_commit();
+
+  float2 bias[NF];
 #pragma unroll
-    for (int j = 0; j < MAXJ; ++j) {
-      const int item = warp + j * NWARPS;
-      if (item < items) {
-        const int mt = item / ntn, nt = item - (item / ntn) * ntn;
-        for (int k0 = 0; k0 < ckw; k0 += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> afr;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr;
-          wmma::load_matrix_sync(afr, xa + (size_t)mt * 16 * xp + k0, xp);
-          wmma::load_matrix_sync(bfr, wb + k0 * wp + nt * 16, wp);
-          wmma::mma_sync(acc[j], afr, bfr, acc[j]);
+  for (int j = 0; j < NF; ++j)
+    bias[j] = *reinterpret_cast<const float2*>(p.bias + n0 + j * 8 + q4 * 2);
+
+  float acc[MF][NF][4];
+#pragma unroll
+  for (int i = 0; i < MF; ++i)
+#pragma unroll
+    for (int j = 0; j < NF; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+
+  while (true) {
+    cp_async_wait<0>();
+    __syncthreads();  // this step's buffers are in; the last step's are free
+    int nt = tile, nc = c, ng = g + 1;
+    if (ng == ngroups) {
+      ng = 0;
+      if (++nc == nchunks) { nc = 0; nt += gridDim.x; }
+    }
+    const bool more = nt < p.tiles;
+    if (more) {
+      if (ng == 0) stage_x(nt, nc, xslot ^ 1);
+      if (!resident) stage_w(nc, ng, wbuf ^ 1);
+      cp_async_commit();
+    }
+
+    // This step: taps t0 .. t1 - 1 of chunk c, kst k-steps of 16 channels
+    // per tap, as one flat loop of nq k-steps.
+    const int t0 = g * tg, t1 = min(taps, t0 + tg), kst = chunk_width(c) / 16;
+    const int nq = (t1 - t0) * kst;
+    const int wt_stride = resident ? Cin16 : ck;     // weight rows per tap
+    const bf16* wsrc = resident ? ws + c * ck * wp : ws + wbuf * wslot;
+    const uint32_t a_base = smem_u32(xs + xslot * xslot_elems + a_lane);
+    const uint32_t b_base = smem_u32(wsrc + b_lane);
+    int lt = 0, lk = 0, lti = t0 / K, ltj = t0 - (t0 / K) * K;
+
+    uint32_t fa0[MF][4], fb0[NF][2], fa1[MF][4], fb1[NF][2];
+    auto load = [&](uint32_t (&fa)[MF][4], uint32_t (&fb)[NF][2]) {
+      const uint32_t ao = a_base + ((lti * tcols + ltj) * xp + lk * 16) * 2;
+#pragma unroll
+      for (int i = 0; i < MF; ++i) ldsm_x4(fa[i], ao + i * tcols * xp * 2);
+      const uint32_t bo = b_base + (lt * wt_stride + lk * 16) * wp * 2;
+#pragma unroll
+      for (int j = 0; j + 1 < NF; j += 2) ldsm_x4_t(fb[j], fb[j + 1], bo + j * 16);
+      if (NF & 1) ldsm_x2_t(fb[NF - 1], bo + (NF - 1) * 16);
+      if (++lk == kst) {
+        lk = 0;
+        ++lt;
+        if (++ltj == K) { ltj = 0; ++lti; }
+      }
+    };
+    auto mma_all = [&](const uint32_t (&fa)[MF][4], const uint32_t (&fb)[NF][2]) {
+#pragma unroll
+      for (int i = 0; i < MF; ++i)
+#pragma unroll
+        for (int j = 0; j < NF; ++j) mma_bf16(acc[i][j], fa[i], fb[j]);
+    };
+    load(fa0, fb0);
+    for (int q = 0; q < nq; q += 2) {
+      if (q + 1 < nq) load(fa1, fb1);
+      mma_all(fa0, fb0);
+      if (q + 1 < nq) {
+        if (q + 2 < nq) load(fa0, fb0);
+        mma_all(fa1, fb1);
+      }
+    }
+
+    if (g == ngroups - 1 && c == nchunks - 1) {
+      // Epilogue of this tile: bias, ReLU, one rounding, bf16 out.
+      int b, ty, tx;
+      tile_origin(tile, b, ty, tx);
+      const bool vec = (p.Cout % 8) == 0;
+#pragma unroll
+      for (int i = 0; i < MF; ++i) {
+        const int gy = ty * TH + wm * MF + i;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int gx = tx * TW + g8 + 8 * h;
+          const bool inimg = gy < p.H && gx < p.W;
+          bf16* orow = p.out + (((size_t)b * p.H + gy) * p.W + gx) * p.Cout;
+#pragma unroll
+          for (int j0 = 0; j0 < NF; j0 += 4) {
+            uint32_t u[4];
+#pragma unroll
+            for (int jj = 0; jj < 4; ++jj) {
+              const int j = j0 + jj < NF ? j0 + jj : NF - 1;
+              float v0 = acc[i][j][2 * h] + bias[j].x, v1 = acc[i][j][2 * h + 1] + bias[j].y;
+              if (p.act) { v0 = fmaxf(v0, 0.0f); v1 = fmaxf(v1, 0.0f); }
+              u[jj] = pack_bf16x2(v0, v1);
+            }
+            quad_transpose(u, q4);
+            const int ch0 = n0 + (j0 + q4) * 8;
+            if (inimg && j0 + q4 < NF && ch0 < p.Cout) {
+              if (vec) {
+                *reinterpret_cast<uint4*>(orow + ch0) = make_uint4(u[0], u[1], u[2], u[3]);
+              } else {
+#pragma unroll
+                for (int e = 0; e < 8; ++e)
+                  if (ch0 + e < p.Cout)
+                    orow[ch0 + e] = __ushort_as_bfloat16(
+                        static_cast<unsigned short>(u[e >> 1] >> (16 * (e & 1))));
+              }
+            }
+          }
         }
       }
+#pragma unroll
+      for (int i = 0; i < MF; ++i)
+#pragma unroll
+        for (int j = 0; j < NF; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
     }
-    __syncthreads();
+    if (!more) break;
+    if (ng == 0) xslot ^= 1;
+    if (!resident) wbuf ^= 1;
+    tile = nt;
+    c = nc;
+    g = ng;
   }
+}
 
-  // Epilogue: bias, ReLU, one rounding, bf16 out at Cout channels. The
-  // weight buffers are free: scratch.
-  float* scr = reinterpret_cast<float*>(Wt) + warp * 256;
-  const int r = lane >> 1, c8 = (lane & 1) * 8;
-  const bool vec_out = (p.Cout % 8) == 0;
-  const size_t row0 = ((size_t)b * H + py) * W;
-#pragma unroll
-  for (int j = 0; j < MAXJ; ++j) {
-    const int item = warp + j * NWARPS;
-    if (item >= items) continue;
-    const int mt = item / ntn, nt = item - (item / ntn) * ntn;
-    wmma::store_matrix_sync(scr, acc[j], 16, wmma::mem_row_major);
-    __syncwarp();
-    const int px = px0 + mt * 16 + r;
-    const int ch0 = nt * 16 + c8;
-    if (px < W && ch0 < p.Cout) {
-      __align__(16) bf16 o[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const float v = scr[r * 16 + c8 + e] + p.bias[ch0 + e];
-        o[e] = __float2bfloat16_rn(p.act ? fmaxf(v, 0.0f) : v);
-      }
-      bf16* dst = p.out + (row0 + px) * p.Cout + ch0;
-      if (vec_out) {
-        *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(o);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          if (ch0 + e < p.Cout) dst[e] = o[e];
-      }
-    }
-    __syncwarp();
-  }
+template <int NF>
+int launch(const ConvParams& p, int smem, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(conv2d_kernel<NF>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  int per_sm = 0, sms = 0, dev = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, conv2d_kernel<NF>, NTHREADS,
+                                                      smem);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const int grid = min(p.tiles, per_sm * sms);
+  conv2d_kernel<NF><<<grid, NTHREADS, smem, stream>>>(p);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Launch one conv (odd K <= 9, Cin % 8 == 0, 1 <= Cout <= 128; act != 0
-// fuses the ReLU). Returns the cudaError_t of the launch; the kernel runs
-// on `stream`.
+// fuses the ReLU) on the plan of `conv2d_plan` (ops/cuda/conv.py): ck
+// channels per input chunk, tg taps per streamed weight group (0: the
+// whole weight set resident), x_bytes per input-tile buffer, smem bytes in
+// all. Returns the cudaError_t of the launch (cudaErrorInvalidValue for a
+// shape or plan outside the contract); the kernel runs on `stream`.
 extern "C" int vfi_conv2d_bf16(const void* x, const void* w, const void* bias, void* out,
                                int B, int H, int W, int Cin, int Cout, int K, int act,
+                               int ck, int tg, int x_bytes, int smem,
                                int device, void* stream) {
   if (Cin < 8 || Cin % 8 != 0 || Cout < 1 || Cout > MAX_COUT || K < 1 || K % 2 == 0 ||
-      K > MAX_K)
+      K > MAX_K || B < 0 || H < 0 || W < 0)
+    return (int)cudaErrorInvalidValue;
+  const int cin16 = pad16(Cin), cout16 = pad16(Cout), wp = cout16 + PAD;
+  const int tpx = (TH + K - 1) * (TW + K - 1);
+  const long long wbytes = tg == 0 ? 2LL * K * K * cin16 * wp : 2LL * 2 * tg * ck * wp;
+  if (ck < 16 || ck % 16 != 0 || ck > cin16 || tg < 0 || tg > K * K || x_bytes % 128 != 0 ||
+      x_bytes < tpx * (ck + PAD) * 2 || smem < 2LL * x_bytes + wbytes)
     return (int)cudaErrorInvalidValue;
   ConvParams p{};
   p.x = static_cast<const bf16*>(x);
@@ -215,16 +386,23 @@ extern "C" int vfi_conv2d_bf16(const void* x, const void* w, const void* bias, v
   p.bias = static_cast<const float*>(bias);
   p.out = static_cast<bf16*>(out);
   p.B = B; p.H = H; p.W = W; p.Cin = Cin; p.Cout = Cout; p.K = K;
-  p.Cin16 = pad16(Cin); p.Cout16 = pad16(Cout); p.act = act ? 1 : 0;
-  const ConvSmem m = conv_smem(Cin, Cout, K);
-  p.ck = m.ck;
-  p.x_bytes = m.x_bytes;
+  p.Cin16 = cin16; p.Cout16 = cout16; p.act = act ? 1 : 0;
+  p.ck = ck; p.tg = tg; p.x_bytes = x_bytes;
+  p.tiles_x = (W + TW - 1) / TW;
+  p.tiles_y = (H + TH - 1) / TH;
+  p.tiles = B * p.tiles_x * p.tiles_y;
+  if (p.tiles == 0) return (int)cudaSuccess;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(conv2d_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             m.total);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((W + PX - 1) / PX, H, B);
-  conv2d_kernel<<<grid, NTHREADS, m.total, static_cast<cudaStream_t>(stream)>>>(p);
-  return (int)cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (cout16 / 16) {
+    case 1: return launch<1>(p, smem, s);
+    case 2: return launch<2>(p, smem, s);
+    case 3: return launch<3>(p, smem, s);
+    case 4: return launch<4>(p, smem, s);
+    case 5: return launch<5>(p, smem, s);
+    case 6: return launch<6>(p, smem, s);
+    case 7: return launch<7>(p, smem, s);
+    default: return launch<8>(p, smem, s);
+  }
 }

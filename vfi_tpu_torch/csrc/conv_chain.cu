@@ -1,8 +1,10 @@
 // Fused stride-1 3x3 conv chain, bf16 NHWC, float32 accumulation.
 //
 // Replaces: vfi_tpu/ops/pallas/conv.py::_chain_kernel (conv_chain_pallas),
-// the TPU kernel behind every trunk chain of EMAVFI (feature blocks,
-// motion estimation, reconstruction, each DCN's offset conv as L = 1).
+// the TPU kernel behind EMAVFI's fused trunk chains of 2..4 layers (feature
+// blocks, motion estimation, reconstruction). A chain of one layer is one
+// conv: `conv_chain` launches csrc/conv2d.cu for it, and this entry refuses
+// L = 1.
 //
 // What bounds it on this card: arithmetic. The 720p chains do 34-136
 // GFLOP per layer against 0.1-0.3 GB of traffic, far above the card's
@@ -238,14 +240,14 @@ extern "C" const char* vfi_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Launch one chain. c0..c4 are the channel counts (c0 = input, c[l+1] =
-// layer l's output); entries past L are ignored. Returns the cudaError_t of
-// the launch (0 = launched); the kernel runs on `stream`.
+// Launch one chain of 2..4 layers. c0..c4 are the channel counts (c0 =
+// input, c[l+1] = layer l's output); entries past L are ignored. Returns the
+// cudaError_t of the launch (0 = launched); the kernel runs on `stream`.
 extern "C" int vfi_conv_chain_bf16(const void* x, const void* w, const void* bias,
                                    void* out, int B, int H, int W, int L,
                                    int c0, int c1, int c2, int c3, int c4,
                                    int act_mask, int device, void* stream) {
-  if (L < 1 || L > MAXL) return (int)cudaErrorInvalidValue;
+  if (L < 2 || L > MAXL) return (int)cudaErrorInvalidValue;
   const int c[MAXL + 1] = {c0, c1, c2, c3, c4};
   if (c0 < 8 || c0 % 8 != 0) return (int)cudaErrorInvalidValue;
   ChainParams p{};

@@ -12,9 +12,9 @@ launch (`build.load`).
 
 from typing import Callable, NamedTuple
 
-from vfi_tpu_torch.ops.cuda.conv import (conv2d, conv2d_plain, conv_chain,
-                                         conv_chain_plain, pack_conv2d,
-                                         pack_conv_chain)
+from vfi_tpu_torch.ops.cuda.conv import (conv2d, conv2d_plain, conv2d_plan,
+                                         conv_chain, conv_chain_plain,
+                                         pack_conv2d, pack_conv_chain)
 from vfi_tpu_torch.ops.cuda.sampling import (bounded_warp, bounded_warp_plain,
                                              dcn_plan, deform_conv2d_bounded,
                                              deform_conv2d_bounded_plain,
@@ -48,7 +48,8 @@ def launch_counts() -> dict:
 
 
 __all__ = ["KERNELS", "Ops", "PLAIN", "WRAPPERS", "bounded_warp",
-           "bounded_warp_plain", "conv2d", "conv2d_plain", "conv_chain",
-           "conv_chain_plain", "dcn_plan", "deform_conv2d_bounded",
+           "bounded_warp_plain", "conv2d", "conv2d_plain", "conv2d_plan",
+           "conv_chain", "conv_chain_plain", "dcn_plan",
+           "deform_conv2d_bounded",
            "deform_conv2d_bounded_plain", "launch_counts", "pack_conv2d",
            "pack_conv_chain", "pack_dcn", "reset_launch_counts"]

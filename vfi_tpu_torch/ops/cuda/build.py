@@ -38,8 +38,10 @@ SIGNATURES = {
     # x, w, bias, out, B, H, W, L, c0..c4, act_mask, device, stream
     "vfi_conv_chain_bf16": [_P, _P, _P, _P, _I, _I, _I, _I,
                             _I, _I, _I, _I, _I, _I, _I, _P],
-    # x, w, bias, out, B, H, W, Cin, Cout, K, act, device, stream
-    "vfi_conv2d_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, w, bias, out, B, H, W, Cin, Cout, K, act, ck, taps_per_group,
+    # x_bytes, smem_bytes (conv2d_plan), device, stream
+    "vfi_conv2d_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                        _I, _I, _I, _I, _I, _P],
     # x, offset, mask, w, bias, out, B, H, W, Cin, Cout, R, device, stream
     "vfi_dcn_bounded_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                              _I, _I, _P],

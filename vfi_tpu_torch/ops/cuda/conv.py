@@ -13,13 +13,15 @@ PyTorch versions.
   time, or None to pack on this call. On the card: bf16, contiguous, 1..4
   layers, every cout <= 64; the first layer takes any width (an input
   whose channels are not a multiple of 8 is zero-padded to one first,
-  `pad_channels8`).
+  `pad_channels8`). One layer (the DCN blocks' offset convs) is one 3x3
+  conv: it launches the single-conv kernel on the chain's packed weights,
+  which are `pack_conv2d`'s; two to four launch the chain kernel.
 - `conv2d` replaces `conv2d_pallas` (kernel `_conv_kernel`, variants
   "im2col" and "direct") and `conv2d_pallas_v2` (`_conv_kernel_v2`,
   variant "v2"): one stride-1 square odd-k conv, zeros padding k // 2, an
   optional bias and an optional fused ReLU, NHWC, float32 accumulation and
   one rounding of the output. On the card: bf16, contiguous, k <= 9,
-  Cout <= 128, any Cin.
+  Cout <= 128, any Cin, on the tile plan of `conv2d_plan`.
 
 A CPU tensor runs the plain version; a CUDA tensor launches the kernel or
 raises. On the card the result carries autograd when an input requires
@@ -30,6 +32,7 @@ the conv's the closed form of the reference's `conv2d_fast`
 
 from __future__ import annotations
 
+import functools
 from collections import Counter
 from typing import Optional, Sequence
 
@@ -46,6 +49,11 @@ CONV2D_MAX_K = 9
 # conv2d_pallas's variants and conv2d_pallas_v2 ("v2"): TPU layouts of one
 # function. They do not change the result; "v2" keeps v2's contract.
 CONV2D_VARIANTS = ("im2col", "direct", "v2")
+# The conv kernel's output tile (`csrc/conv2d.cu` TH x TW) and the padding
+# of its shared-memory rows, in bf16 elements (PAD there).
+TILE_H, TILE_W, ROW_PAD = 16, 16, 8
+# Dynamic shared memory one block may opt into on an H100 (227 KB).
+H100_SMEM_PER_BLOCK = 232448
 
 
 def conv_chain_plain(x: torch.Tensor, weights: Sequence[torch.Tensor],
@@ -70,6 +78,76 @@ def conv_chain_plain(x: torch.Tensor, weights: Sequence[torch.Tensor],
 
 def _pad16(c: int) -> int:
     return -(-c // 16) * 16
+
+
+def _round128(n: int) -> int:
+    return -(-n // 128) * 128
+
+
+@functools.lru_cache(maxsize=None)
+def conv2d_plan(cin: int, cout: int, k: int,
+                limit: int = H100_SMEM_PER_BLOCK) -> dict:
+    """The conv kernel's plan (`csrc/conv2d.cu`) for Cin -> Cout at k x k
+    within `limit` bytes of shared memory per block: two input-tile
+    buffers of (TILE_H + k - 1) x (TILE_W + k - 1) pixels x `ck` channels,
+    then either the whole packed weight set (`resident`, copied once per
+    block) or two buffers of `taps_per_group` taps x `ck` rows. It takes
+    the first that fits of: resident weights with the whole Cin16, then
+    with chunks of 64, 32, 16 channels; streamed tap groups (as few as fit,
+    of equal size) with the whole Cin16, then chunks of 64, 32, 16. Raises
+    ValueError past Cout 128 or k 9, or where nothing fits `limit`."""
+    if not (1 <= cout <= CONV2D_MAX_COUT and 1 <= k <= CONV2D_MAX_K
+            and k % 2 == 1 and cin >= 1):
+        raise ValueError(f"conv2d kernel takes Cout <= {CONV2D_MAX_COUT} "
+                         f"and odd k <= {CONV2D_MAX_K}, got Cin={cin}, "
+                         f"Cout={cout}, k={k}")
+    cin16, taps = _pad16(cin), k * k
+    wrow = (_pad16(cout) + ROW_PAD) * 2
+    tile_px = (TILE_H + k - 1) * (TILE_W + k - 1)
+    cks = [cin16] + [c for c in (64, 32, 16) if c < cin16]
+
+    def plan(ck, tg, resident):
+        x_bytes = _round128(tile_px * (ck + ROW_PAD) * 2)
+        w_bytes = (taps * cin16 if resident else 2 * tg * ck) * wrow
+        return {"tile": f"{TILE_H}x{TILE_W}", "ck": ck,
+                "chunks": -(-cin16 // ck), "resident": resident,
+                "taps_per_group": tg, "groups": -(-taps // tg),
+                "x_bytes": x_bytes, "smem_bytes": 2 * x_bytes + w_bytes}
+
+    for ck in cks:
+        p = plan(ck, taps, True)
+        if p["smem_bytes"] <= limit:
+            return p
+    for ck in cks:
+        free = limit - 2 * _round128(tile_px * (ck + ROW_PAD) * 2)
+        fit = min(taps, free // (2 * ck * wrow))
+        if fit >= 1:
+            tg = -(-taps // -(-taps // fit))
+            return plan(ck, tg, False)
+    raise ValueError(f"conv2d kernel: no plan for Cin={cin}, Cout={cout}, "
+                     f"k={k} fits {limit} bytes of shared memory per block")
+
+
+@functools.lru_cache(maxsize=None)
+def _smem_limit(index: int) -> int:
+    return torch.cuda.get_device_properties(
+        index).shared_memory_per_block_optin
+
+
+def _launch_conv2d(xp: torch.Tensor, wpk: torch.Tensor, bpk: torch.Tensor,
+                   out: torch.Tensor, k: int, act: bool, what: str) -> None:
+    """One launch of the conv kernel: xp (B, H, W, Cin % 8 == 0) bf16,
+    wpk [k*k*Cin16][Cout16] and bpk [Cout16] as `pack_conv2d` makes them,
+    into `out` (B, H, W, Cout), on the plan of `conv2d_plan`."""
+    (b, h, w, cin), cout, dev = xp.shape, out.shape[-1], xp.device
+    plan = conv2d_plan(cin, cout, k, _smem_limit(dev.index))
+    rc = build.load().vfi_conv2d_bf16(
+        xp.data_ptr(), wpk.data_ptr(), bpk.data_ptr(), out.data_ptr(),
+        b, h, w, cin, cout, k, int(act), plan["ck"],
+        0 if plan["resident"] else plan["taps_per_group"], plan["x_bytes"],
+        plan["smem_bytes"], dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
+    build.check(rc, what)
 
 
 def pad_channels8(x: torch.Tensor) -> torch.Tensor:
@@ -154,13 +232,18 @@ def conv_chain(x: torch.Tensor, weights: Sequence[torch.Tensor],
         out = torch.empty(b, h, w, chans[-1], dtype=torch.bfloat16,
                           device=x.device)
         xp = pad_channels8(x)
-        cs = [xp.shape[-1]] + chans[1:] + [0] * (MAX_LAYERS + 1 - len(chans))
-        act_mask = sum(1 << i for i, a in enumerate(acts) if a)
-        rc = build.load().vfi_conv_chain_bf16(
-            xp.data_ptr(), wpk.data_ptr(), bpk.data_ptr(), out.data_ptr(),
-            b, h, w, L, *cs, act_mask, x.device.index,
-            torch.cuda.current_stream(x.device).cuda_stream)
-        build.check(rc, "conv_chain")
+        if L == 1:   # one 3x3 conv: pack_conv_chain([w], [b]) is pack_conv2d
+            _launch_conv2d(xp, wpk.view(-1, _pad16(chans[1])), bpk, out, 3,
+                           acts[0], "conv_chain")
+        else:
+            cs = ([xp.shape[-1]] + chans[1:]
+                  + [0] * (MAX_LAYERS + 1 - len(chans)))
+            act_mask = sum(1 << i for i, a in enumerate(acts) if a)
+            rc = build.load().vfi_conv_chain_bf16(
+                xp.data_ptr(), wpk.data_ptr(), bpk.data_ptr(),
+                out.data_ptr(), b, h, w, L, *cs, act_mask, x.device.index,
+                torch.cuda.current_stream(x.device).cuda_stream)
+            build.check(rc, "conv_chain")
         conv_chain.launches += 1
         conv_chain.launches_by_shape[(tuple(chans), h, w)] += 1
         return out
@@ -277,12 +360,7 @@ def conv2d(x: torch.Tensor, weight: torch.Tensor,
     def launch(x, *_):
         out = torch.empty(b, h, w, cout, dtype=torch.bfloat16,
                           device=x.device)
-        xp = pad_channels8(x)
-        rc = build.load().vfi_conv2d_bf16(
-            xp.data_ptr(), wpk.data_ptr(), bpk.data_ptr(), out.data_ptr(),
-            b, h, w, xp.shape[-1], cout, k, int(act), x.device.index,
-            torch.cuda.current_stream(x.device).cuda_stream)
-        build.check(rc, "conv2d")
+        _launch_conv2d(pad_channels8(x), wpk, bpk, out, k, act, "conv2d")
         conv2d.launches += 1
         conv2d.launches_by_shape[(cin, cout, k, h, w)] += 1
         return out

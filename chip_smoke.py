@@ -14,11 +14,14 @@ and the script exits non-zero without a result line:
            C=67 R=4 and R=8 and C=128 R=4 and R=8, the conv at k=1 and
            k=5, the wide warp at R=4) in bf16, held against its plain
            PyTorch version (max abs error within the stated tolerance),
-           then timed with CUDA events (median of N_TIMED runs after
-           warm-up) beside its plain version, one PyTorch library call
-           where one computes the same function, and its bound from bytes
-           and operations; each DCN and conv row names its tile plan (a
-           one-layer chain runs the conv kernel, csrc/conv2d.cu);
+           then timed with CUDA events (`ms`: median of N_TIMED
+           synchronised calls after warm-up, the wrapper's host path
+           included; `device_ms`: per launch of N_BACK_TO_BACK launches
+           queued back to back) beside its plain version, one PyTorch
+           library call where one computes the same function (`library_ms`,
+           `library_device_ms`), and its bound from bytes and operations;
+           each DCN and conv row names its tile plan (a one-layer chain
+           runs the conv kernel, csrc/conv2d.cu);
 4. main    the flagship engine (qocc checkpoint + flow prior, bf16,
            dcn_max_offset=1, warp_max_flow=16, cascade_levels=2,
            conv_kernel="pallas") answers three b=1 requests and one b=2
@@ -103,6 +106,8 @@ H, W = 720, 1280
 EH, EW, EB = 480, 640, 4
 SEED = 0
 N_TIMED = 20
+# Back-to-back launches a row's device time averages over.
+N_BACK_TO_BACK = 100
 # H100 SXM published peaks (dense): HBM bytes/s, bf16 tensor-core FLOP/s,
 # float32 FLOP/s outside the tensor cores. They assume the 700 W limit.
 PEAK_BYTES = 3.35e12
@@ -198,6 +203,31 @@ def median_ms(fn, n: int = N_TIMED, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
+def device_ms(fn, n: int = N_BACK_TO_BACK, warmup: int = 3) -> float:
+    """Device time per launch of `n` back-to-back launches between two
+    events, as tools/conv_turns.py times them: the launches are queued
+    behind a spin of the card (`torch.cuda._sleep`), so the host's launch
+    path does not pace a launch shorter than itself; the spin doubles
+    until every launch was queued before the first event ran."""
+    for _ in range(warmup):
+        fn()
+    spin = 1 << 22
+    while True:
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin)
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        queued_first = not a.query()
+        b.synchronize()
+        if queued_first:
+            return a.elapsed_time(b) / n
+        spin *= 2
+
+
 def bound(nbytes: float, flops_bf16: float, flops_f32: float = 0.0):
     """Least time in ms: the largest of the bytes over the memory rate and
     each type's operations over its own peak (the tensor cores and the
@@ -273,8 +303,11 @@ def kernel_row(name, source, replaces, key, kernel, plain, library,
     row = {"name": name, "route": "cuda", "source": source,
            "replaces": replaces, **extra, **check_close(name, got, plain())}
     row["ms"] = median_ms(kernel)
+    row["device_ms"] = device_ms(kernel)
     row["plain_ms"] = median_ms(plain)
     row["library_ms"] = None if library is None else median_ms(library)
+    row["library_device_ms"] = (None if library is None
+                                else device_ms(library))
     row["bound_ms"], row["bound_by"] = bound(io_bytes + nbytes(got),
                                              flops_bf16, flops_f32)
     emit({"phase": "kernel", **row})
@@ -342,7 +375,8 @@ def dcn_row(rnd, wt, bt, b, h, w, R, replaces, paths) -> dict:
     """Bounded DCN at a fusion stack's shape with weights `wt`, `bt`;
     offsets reach past R so the clamp is exercised. No single PyTorch call
     computes it (torchvision is absent), so no library time. The row names
-    the tile plan the launch picks."""
+    the plan the launch runs: its design ("tile", the weight-stationary
+    GEMM, or "strip" where no tile plan fits) and tiles."""
     c = wt.shape[1]
     x = rnd(b, h, w, c)
     off = rnd(b, h, w, 18, scale=0.8 * R)
@@ -359,7 +393,8 @@ def dcn_row(rnd, wt, bt, b, h, w, R, replaces, paths) -> dict:
         lambda: deform_conv2d_bounded_plain(x, off, mask, wt, bt, R), None,
         nbytes(x, off, mask) + nbytes(wt) // 2 + nbytes(bt),
         2.0 * n * 9 * c * wt.shape[0], 8.0 * n * 9 * c,
-        plan=dcn_plan(c, wt.shape[0], R, x.device))
+        plan=dcn_plan(c, wt.shape[0], R, torch.cuda.get_device_properties(
+            x.device).shared_memory_per_block_optin))
 
 
 def warp_row(rnd, b, h, w, paths, dev, c=3, R=16, replaces=WARP_TPU) -> dict:

@@ -160,11 +160,14 @@ def test_deform_conv2d_bounded_kernel_channel_counts(dev, cin, cout, R):
     (128, 128, 6, 16, 1), (67, 67, 20, 16, 3)])
 def test_deform_conv2d_bounded_kernel_any_radius(dev, cin, cout, R, px,
                                                  chunks):
-    """Radii whose whole-Cin 64-pixel tile exceeds the per-block shared
-    memory run on smaller tiles (32 or 16 pixels) and, past 16 pixels, on
-    the input tile in channel chunks; the plan is the one named."""
-    plan = dcn_plan(cin, cout, R, dev)
-    assert (plan["px"], plan["chunks"]) == (px, chunks)
+    """Shapes no tile plan holds run the strip design: radii whose
+    whole-Cin 64-pixel strip exceeds the per-block shared memory run on
+    smaller strips (32 or 16 pixels) and, past 16 pixels, on the input
+    tile in channel chunks; the plan is the one named."""
+    plan = dcn_plan(cin, cout, R, torch.cuda.get_device_properties(
+        dev).shared_memory_per_block_optin)
+    assert (plan["design"], plan["px"], plan["chunks"]) == ("strip", px,
+                                                            chunks)
     gen = torch.Generator(device=dev).manual_seed(7)
     hw = (2 * R + 9, 70)
     x = _rnd(gen, dev, 1, *hw, cin)
@@ -177,6 +180,90 @@ def test_deform_conv2d_bounded_kernel_any_radius(dev, cin, cout, R, px,
     got = deform_conv2d_bounded(x, off, mask, w, b, R)
     assert launch_counts()["deform_conv2d_bounded"] == 1
     _close(got, deform_conv2d_bounded_plain(x, off, mask, w, b, R))
+
+
+def _dcn_case(dev, seed, b, hw, cin, cout, R, with_mask=True):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = _rnd(gen, dev, b, *hw, cin)
+    off = _rnd(gen, dev, b, *hw, 18, scale=0.8 * max(R, 1))
+    mask = (torch.sigmoid(_rnd(gen, dev, b, *hw, 9, scale=2.0).float()).to(
+        torch.bfloat16) if with_mask else None)
+    w = torch.randn(cout, cin, 3, 3, generator=gen, device=dev) / (
+        9 * cin) ** .5
+    bias = torch.randn(cout, generator=gen, device=dev) * 0.1
+    return x, off, mask, w, bias
+
+
+# Every branch of the tile design's plan: 16 x 16 output tiles with two
+# input buffers and with one, 8 x 16 tiles with one, each at H and W below
+# one tile, ragged edges, and (100, 300) at B = 3: more tiles than the
+# persistent grid's blocks (one a SM, 132 on an H100).
+@pytest.mark.parametrize("hw", [(5, 7), (13, 37), (100, 300)])
+@pytest.mark.parametrize("cin,cout,R,tile,nbuf", [
+    (64, 64, 1, "16x16", 2), (64, 64, 3, "16x16", 1), (67, 67, 2, "16x16", 1),
+    (64, 64, 5, "16x16", 1), (64, 64, 8, "8x16", 1), (67, 67, 4, "8x16", 1)])
+def test_deform_conv2d_bounded_tile_plans(dev, hw, cin, cout, R, tile, nbuf):
+    plan = dcn_plan(cin, cout, R, torch.cuda.get_device_properties(
+        dev).shared_memory_per_block_optin)
+    assert (plan["design"], plan["tile"], plan["nbuf"]) == ("tile", tile,
+                                                            nbuf)
+    x, off, mask, w, b = _dcn_case(dev, 11, 3, hw, cin, cout, R)
+    reset_launch_counts()
+    got = deform_conv2d_bounded(x, off, mask, w, b, R)
+    assert launch_counts()["deform_conv2d_bounded"] == 1
+    _close(got, deform_conv2d_bounded_plain(x, off, mask, w, b, R))
+
+
+@pytest.mark.parametrize("with_mask", [True, False])
+@pytest.mark.parametrize("R", [0, 1, 2, 3, 4])
+@pytest.mark.parametrize("cout", [27, 64, 67])
+def test_deform_conv2d_bounded_tile_channels_and_radii(dev, cout, R,
+                                                       with_mask):
+    """The tile design at Cout 27 and 67 (2-byte stores), R 0..4, B = 3,
+    with and without a mask."""
+    x, off, mask, w, b = _dcn_case(dev, 12, 3, (19, 45), 64, cout, R,
+                                   with_mask)
+    assert dcn_plan(64, cout, R)["design"] == "tile"
+    _close(deform_conv2d_bounded(x, off, mask, w, b, R),
+           deform_conv2d_bounded_plain(x, off, mask, w, b, R))
+
+
+def test_deform_conv2d_bounded_takes_an_offset_view_off_word_alignment(dev):
+    """The tile design reads a tap's (dy, dx) as one 4-byte word; an offset
+    tensor one element into its storage is copied to an aligned one first,
+    and the result is the plain version's."""
+    x, off, mask, w, b = _dcn_case(dev, 14, 2, (13, 37), 64, 64, 1)
+    store = torch.empty(off.numel() + 1, dtype=off.dtype, device=dev)
+    store[1:] = off.reshape(-1)
+    view = store[1:].view(off.shape)
+    assert view.is_contiguous() and view.data_ptr() % 4
+    _close(deform_conv2d_bounded(x, view, mask, w, b, 1),
+           deform_conv2d_bounded_plain(x, off, mask, w, b, 1))
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("hw", [(7, 9), (13, 37), (31, 33), (176, 1000),
+                                (181, 1001)])
+@pytest.mark.parametrize("c", [1, 2, 3, 4])
+def test_bounded_warp_rgb_instance_is_bit_exact(dev, c, hw, aligned):
+    """The RGB instance (two pixels a thread, 16 x 32 pixel tiles) equals
+    its plain version bit for bit at odd W, B = 3, C = 1..4, ragged tiles
+    and a grid of over 1,000 blocks, with the flow and output on their
+    vector alignment and (a view one element into its storage) off it,
+    which takes the 2-byte path."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    img = torch.rand(3, *hw, c, generator=gen, device=dev).to(torch.bfloat16)
+    flow = _rnd(gen, dev, 3, *hw, 2, scale=12.0)
+    if not aligned:
+        store = torch.empty(flow.numel() + 1, dtype=flow.dtype, device=dev)
+        store[1:] = flow.reshape(-1)
+        flow = store[1:].view(flow.shape)
+        assert flow.is_contiguous() and flow.data_ptr() % 16
+    reset_launch_counts()
+    got = bounded_warp(img, flow, 16)
+    assert launch_counts()["bounded_warp"] == 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, bounded_warp_plain(img, flow, 16))
 
 
 @pytest.mark.parametrize("cin,cout,R", [(64, 129, 1), (16, 16, 37),

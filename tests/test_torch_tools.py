@@ -14,7 +14,7 @@ import torch
 from vfi_tpu.utils.profiling import StepTimer as JaxStepTimer
 from vfi_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
 from vfi_tpu_torch.tools import (bench_conv, bench_kernels, conv_turns,
-                                 time_interleaved)
+                                 launch_path, time_interleaved)
 from vfi_tpu_torch.utils.profiling import StepTimer, trace
 
 
@@ -170,3 +170,29 @@ def test_conv_turns_smoke_times_each_tree_in_turn(capsys):
     assert res["rows"][0]["checksum"] == res["rows"][2]["checksum"]
     assert all(r["ms"] > 0 for r in res["rows"])
     assert set(res["median_ms"][root]) == {"16x8", "16x27c"}
+
+
+def test_conv_turns_times_the_dcn_and_warp_tokens(capsys):
+    """`dcnCrR` and `warpCrR` drive the bounded DCN (C -> C at radius R)
+    and the bounded warp of a C-channel image; on the CPU their plain
+    versions, the same output in every turn."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    shapes = ["dcn64r1", "dcn67r2", "warp3r16"]
+    reset_launch_counts()
+    res = conv_turns.main(["--trees", f"{root},{root}", "--device", "cpu",
+                           "--smoke", "--shapes", ",".join(shapes)])
+    assert _last_json(capsys) == res
+    assert [r["shape"] for r in res["rows"]] == shapes * 2
+    for a, b in zip(res["rows"][:3], res["rows"][3:]):
+        assert a["checksum"] == b["checksum"] and a["checksum"] > 0
+    assert set(res["median_ms"][root]) == set(shapes)
+    assert sum(launch_counts().values()) == 0   # children, not this process
+
+
+def test_launch_path_needs_a_card():
+    """The host-path breakdown times the kernel's launch: without a card
+    it fails, naming the tree."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with pytest.raises(RuntimeError, match="needs a card"):
+        launch_path.main(["--trees", root, "--calls", "2"])
+

@@ -285,7 +285,7 @@ extern "C" int vfi_conv_chain_bf16(const void* x, const void* w, const void* bia
   p.bufB_bytes = bytesB;
   const int smem = bytesA + bytesB + bytesW;
 
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
   err = cudaFuncSetAttribute(conv_chain_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

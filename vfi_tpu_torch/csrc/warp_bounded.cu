@@ -7,12 +7,25 @@
 // C <= 4, the RGB frame. Replaces vfi_tpu/ops/pallas/sampling.py::
 // _warp_kernel_v2 (bounded_warp_pallas_v2), the TPU kernel that warps
 // EMAVFI's RGB frame. The TPU version packed the 3-channel image into 128
-// column strips to fill its vector lanes; a GPU thread per pixel needs
-// none of that. One thread per output pixel, all channels. Coordinates
-// are float32; the fractional weights, their products, each corner term
-// and each partial sum are rounded to bf16 in the order ops/warp.py
-// applies them to a bf16 image, so the kernel computes the plain
-// version's values.
+// column strips to fill its vector lanes; a GPU needs none of that. A
+// thread owns PPT = 2 horizontally adjacent output pixels: it reads their
+// flows as one 8-byte vector, the four corners of each pixel with 2-byte
+// loads, and writes the pair's 2 x C channels as C aligned 4-byte words.
+// A block owns a 2-D tile of 16 rows x 32 columns, so that the corners its
+// threads read, within R rows and columns of the tile, stay in L1 (a
+// block of consecutive pixels of one row reaches over 2R + 2 full rows).
+// Coordinates are float32; the fractional weights, their products, each
+// corner term and each partial sum are rounded to bf16 in the order
+// ops/warp.py applies them to a bf16 image, so the kernel computes the
+// plain version's values. Odd W, a flow or output pointer off its vector
+// alignment, and a row's ragged last pixel take 2-byte loads and stores
+// instead. Index arithmetic is 32-bit where every element index fits, and
+// a thread issues the corner loads of both its pixels before it blends.
+// On an H100 at R = 16 with random flows (tools/conv_turns.py, in turns):
+// 2-D tiles took 0.0191 ms at 720p where blocks of 1,024 consecutive pixels
+// took 0.0255;
+// among tiles of four pixels a thread, 32 x 32 beat 16 x 64 and 8 x 128 by
+// 3% and 7%; two pixels a thread beat four by 6-18% at every path shape.
 //
 // C > 4, feature maps. Replaces ::_warp_kernel (bounded_warp_pallas, v1),
 // which padded the channels to 128 lanes and blended in a float32 tile:
@@ -24,10 +37,11 @@
 // channels and 2 flow values and writes 3 channels (~16 bytes) for ~40
 // operations, far below the ridge, and a wide warp moves 4 bytes a channel
 // for 8 operations; the four corner reads hit L1/L2, since neighbouring
-// threads sample neighbouring pixels (|flow| <= R).
+// threads sample neighbouring pixels (|flow| <= R). At the main path's
+// sizes (5-20 MB, a few microseconds) the host's launch path outweighs the
+// device work: the entry sets the device only when it differs.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
+#include "common.cuh"
 
 typedef __nv_bfloat16 bf16;
 
@@ -35,50 +49,117 @@ namespace {
 
 constexpr int NTHREADS = 256;
 constexpr int MAXC = 4;          // the RGB instance's channels
+constexpr int PPT = 2;           // the RGB instance's pixels a thread
+constexpr int TX = 16;           // its threads along a tile row (32 columns)
+constexpr int ROWS = NTHREADS / TX;   // its tile rows (16)
 constexpr int VEC = 8;           // the wide instance's channels a thread
 
 __device__ __forceinline__ float rb(float v) {  // round to bf16 and back
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
+// A block owns a 2-D output tile of ROWS x (TX * PPT) pixels of one image;
+// thread (r, t) the PPT pixels at columns t * PPT ... of row r. It runs in
+// three phases so that the loads of both its pixels are in flight
+// together: positions and weights, the 4 x C corner loads of each pixel,
+// the blends. I: the index type, 32-bit where every element index fits.
+// `vec`: W % PPT == 0, the flow 8-byte and the output 4-byte aligned.
+template <int C, typename I>
 __global__ void __launch_bounds__(NTHREADS)
 warp_bounded_kernel(const bf16* __restrict__ image, const bf16* __restrict__ flow,
-                    bf16* __restrict__ out, int B, int H, int W, int C, float R) {
-  const long long n = (long long)B * H * W;
-  const long long pix = (long long)blockIdx.x * NTHREADS + threadIdx.x;
-  if (pix >= n) return;
-  const int x = (int)(pix % W);
-  const int y = (int)((pix / W) % H);
-  const long long base = pix - ((long long)y * W + x);   // flat index of (b, 0, 0)
+                    bf16* __restrict__ out, int H, int W, float R, bool vec) {
+  const int y = blockIdx.y * ROWS + threadIdx.x / TX;
+  const int x0 = (blockIdx.x * TX + threadIdx.x % TX) * PPT;
+  if (y >= H || x0 >= W) return;
+  const int cnt = min(PPT, W - x0);
+  const bool full = vec && cnt == PPT;
+  const I base = (I)blockIdx.z * H * W;      // flat index of (b, 0, 0)
+  const I p0 = base + (I)y * W + x0;
 
-  const float fx = fminf(fmaxf(__bfloat162float(flow[2 * pix]), -R), R);
-  const float fy = fminf(fmaxf(__bfloat162float(flow[2 * pix + 1]), -R), R);
-  const float xs = (float)x + fx, ys = (float)y + fy;
-  const float x0f = floorf(xs), y0f = floorf(ys);
-  const int x0 = (int)x0f, y0 = (int)y0f, x1 = x0 + 1, y1 = y0 + 1;
-  const float wx1 = rb(xs - x0f), wy1 = rb(ys - y0f);
-  const float wx0 = rb(1.0f - wx1), wy0 = rb(1.0f - wy1);
-  const float w00 = rb(wy0 * wx0), w01 = rb(wy0 * wx1);
-  const float w10 = rb(wy1 * wx0), w11 = rb(wy1 * wx1);
+  float fx[PPT], fy[PPT];
+  if (full) {
+    const uint2 raw = __ldg(reinterpret_cast<const uint2*>(flow + 2 * p0));
+    const uint32_t words[PPT] = {raw.x, raw.y};
+#pragma unroll
+    for (int k = 0; k < PPT; ++k) {
+      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&words[k]));
+      fx[k] = f.x;
+      fy[k] = f.y;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < PPT; ++k) {
+      fx[k] = k < cnt ? __bfloat162float(flow[2 * (p0 + k)]) : 0.0f;
+      fy[k] = k < cnt ? __bfloat162float(flow[2 * (p0 + k) + 1]) : 0.0f;
+    }
+  }
 
-  const bool in00 = y0 >= 0 && y0 < H && x0 >= 0 && x0 < W;
-  const bool in01 = y0 >= 0 && y0 < H && x1 >= 0 && x1 < W;
-  const bool in10 = y1 >= 0 && y1 < H && x0 >= 0 && x0 < W;
-  const bool in11 = y1 >= 0 && y1 < H && x1 >= 0 && x1 < W;
-  const bf16* p00 = image + (base + (long long)y0 * W + x0) * C;
-  const bf16* p01 = image + (base + (long long)y0 * W + x1) * C;
-  const bf16* p10 = image + (base + (long long)y1 * W + x0) * C;
-  const bf16* p11 = image + (base + (long long)y1 * W + x1) * C;
+  // Positions and bilinear weights, rounded as ops/warp.py rounds them.
+  float w[PPT][4];
+  I src[PPT][4];
+  bool in[PPT][4];
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) {
+    const float ux = fminf(fmaxf(fx[k], -R), R), uy = fminf(fmaxf(fy[k], -R), R);
+    const float xs = (float)(x0 + k) + ux, ys = (float)y + uy;
+    const float x0f = floorf(xs), y0f = floorf(ys);
+    const int cx = (int)x0f, cy = (int)y0f;
+    const float wx1 = rb(xs - x0f), wy1 = rb(ys - y0f);
+    const float wx0 = rb(1.0f - wx1), wy0 = rb(1.0f - wy1);
+    w[k][0] = rb(wy0 * wx0);
+    w[k][1] = rb(wy0 * wx1);
+    w[k][2] = rb(wy1 * wx0);
+    w[k][3] = rb(wy1 * wx1);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int yy = cy + (q >> 1), xx = cx + (q & 1);
+      in[k][q] = k < cnt && yy >= 0 && yy < H && xx >= 0 && xx < W;
+      src[k][q] = in[k][q] ? (base + (I)yy * W + xx) * C : 0;
+    }
+  }
+  // The corners, C channels each, with 2-byte loads.
+  float v[PPT][4][C];
+#pragma unroll
+  for (int k = 0; k < PPT; ++k)
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+        v[k][q][c] = in[k][q] ? __bfloat162float(__ldg(image + src[k][q] + c)) : 0.0f;
+  // The blends: ((v00 w00 + v01 w01) + v10 w10) + v11 w11, each product
+  // and partial sum rounded to bf16. A full group's PPT x C values go out
+  // as C aligned words of PPT * 2 bytes.
+  uint32_t words[PPT * C / 2];
+#pragma unroll
+  for (int i = 0; i < PPT * C / 2; ++i) words[i] = 0u;
+#pragma unroll
+  for (int k = 0; k < PPT; ++k)
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      float s = rb(rb(v[k][0][c] * w[k][0]) + rb(v[k][1][c] * w[k][1]));
+      s = rb(s + rb(v[k][2][c] * w[k][2]));
+      s = rb(s + rb(v[k][3][c] * w[k][3]));
+      const bf16 o = __float2bfloat16_rn(s);
+      const int i = k * C + c;
+      words[i >> 1] |= (uint32_t)__bfloat16_as_ushort(o) << (16 * (i & 1));
+      if (!full && k < cnt) out[(p0 + k) * C + c] = o;
+    }
+  if (full) {
+    uint32_t* dst = reinterpret_cast<uint32_t*>(out + p0 * C);
+#pragma unroll
+    for (int k = 0; k < C; ++k) dst[k] = words[k];
+  }
+}
 
-  for (int c = 0; c < C && c < MAXC; ++c) {
-    const float v00 = in00 ? __bfloat162float(p00[c]) : 0.0f;
-    const float v01 = in01 ? __bfloat162float(p01[c]) : 0.0f;
-    const float v10 = in10 ? __bfloat162float(p10[c]) : 0.0f;
-    const float v11 = in11 ? __bfloat162float(p11[c]) : 0.0f;
-    float s = rb(rb(v00 * w00) + rb(v01 * w01));
-    s = rb(s + rb(v10 * w10));
-    s = rb(s + rb(v11 * w11));
-    out[pix * C + c] = __float2bfloat16_rn(s);
+template <typename I>
+void launch_rgb(const bf16* im, const bf16* fl, bf16* o, int B, int H, int W, int C, float R,
+                bool vec, cudaStream_t st) {
+  const dim3 grid((W + TX * PPT - 1) / (TX * PPT), (H + ROWS - 1) / ROWS, B);
+  switch (C) {
+    case 1: warp_bounded_kernel<1, I><<<grid, NTHREADS, 0, st>>>(im, fl, o, H, W, R, vec); break;
+    case 2: warp_bounded_kernel<2, I><<<grid, NTHREADS, 0, st>>>(im, fl, o, H, W, R, vec); break;
+    case 3: warp_bounded_kernel<3, I><<<grid, NTHREADS, 0, st>>>(im, fl, o, H, W, R, vec); break;
+    default: warp_bounded_kernel<4, I><<<grid, NTHREADS, 0, st>>>(im, fl, o, H, W, R, vec); break;
   }
 }
 
@@ -154,17 +235,22 @@ warp_bounded_wide_kernel(const bf16* __restrict__ image, const bf16* __restrict_
 extern "C" int vfi_warp_bounded_bf16(const void* image, const void* flow, void* out,
                                      int B, int H, int W, int C, float R,
                                      int device, void* stream) {
-  if (C < 1) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
+  if (C < 1 || B < 0 || H < 0 || W < 0) return (int)cudaErrorInvalidValue;
+  const long long n = (long long)B * H * W;
+  if (n == 0) return (int)cudaSuccess;
+  const cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bf16* im = static_cast<const bf16*>(image);
   const bf16* fl = static_cast<const bf16*>(flow);
   bf16* o = static_cast<bf16*>(out);
-  const long long n = (long long)B * H * W;
   if (C <= MAXC) {
-    const unsigned blocks = (unsigned)((n + NTHREADS - 1) / NTHREADS);
-    warp_bounded_kernel<<<blocks, NTHREADS, 0, st>>>(im, fl, o, B, H, W, C, R);
+    const bool vec = W % PPT == 0 && reinterpret_cast<uintptr_t>(flow) % 8 == 0 &&
+                     reinterpret_cast<uintptr_t>(out) % 4 == 0;
+    if (n * 4 < (1LL << 31))   // every element index fits 32 bits
+      launch_rgb<int>(im, fl, o, B, H, W, C, R, vec, st);
+    else
+      launch_rgb<long long>(im, fl, o, B, H, W, C, R, vec, st);
   } else {
     const long long items = n * ((C + VEC - 1) / VEC);
     const unsigned blocks = (unsigned)((items + NTHREADS - 1) / NTHREADS);

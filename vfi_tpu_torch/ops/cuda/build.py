@@ -22,6 +22,8 @@ import sys
 import time
 from pathlib import Path
 
+import torch
+
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC = PKG_DIR / "csrc"
 BUILD_ROOT = PKG_DIR.parent / "build" / "vfi_tpu_torch"
@@ -42,16 +44,16 @@ SIGNATURES = {
     # x_bytes, smem_bytes (conv2d_plan), device, stream
     "vfi_conv2d_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                         _I, _I, _I, _I, _I, _P],
-    # x, offset, mask, w, bias, out, B, H, W, Cin, Cout, R, device, stream
+    # x, offset, mask, w, bias, out, B, H, W, Cin, Cout, R, design, rows,
+    # chans, nbuf, x_bytes, smem_bytes (dcn_plan), device, stream
     "vfi_dcn_bounded_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                             _I, _I, _P],
-    # Cin, Cout, R, limit, px_ck (int[2] out) -> bytes of the picked plan
-    "vfi_dcn_bounded_smem_bytes": [_I, _I, _I, _I, _P],
+                             _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # image, flow, out, B, H, W, C, R, device, stream
     "vfi_warp_bounded_bf16": [_P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
 }
 
 _lib = None
+_entries: dict = {}
 build_info: dict = {}
 
 
@@ -137,6 +139,21 @@ def load():
         lib.vfi_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def entry(name: str):
+    """The C entry point `name` of `SIGNATURES`, bound once: the wrappers
+    call it without a lookup on the library. Builds on first use."""
+    fn = _entries.get(name)
+    if fn is None:
+        fn = _entries[name] = getattr(load(), name)
+    return fn
+
+
+def current_stream(index: int) -> int:
+    """The raw `cudaStream_t` of PyTorch's current stream on device
+    `index`, without building a `torch.cuda.Stream`."""
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def check(rc: int, what: str) -> None:

@@ -141,13 +141,13 @@ def _launch_conv2d(xp: torch.Tensor, wpk: torch.Tensor, bpk: torch.Tensor,
     into `out` (B, H, W, Cout), on the plan of `conv2d_plan`."""
     (b, h, w, cin), cout, dev = xp.shape, out.shape[-1], xp.device
     plan = conv2d_plan(cin, cout, k, _smem_limit(dev.index))
-    rc = build.load().vfi_conv2d_bf16(
+    rc = build.entry("vfi_conv2d_bf16")(
         xp.data_ptr(), wpk.data_ptr(), bpk.data_ptr(), out.data_ptr(),
         b, h, w, cin, cout, k, int(act), plan["ck"],
         0 if plan["resident"] else plan["taps_per_group"], plan["x_bytes"],
-        plan["smem_bytes"], dev.index,
-        torch.cuda.current_stream(dev).cuda_stream)
-    build.check(rc, what)
+        plan["smem_bytes"], dev.index, build.current_stream(dev.index))
+    if rc:
+        build.check(rc, what)
 
 
 def pad_channels8(x: torch.Tensor) -> torch.Tensor:
@@ -239,11 +239,12 @@ def conv_chain(x: torch.Tensor, weights: Sequence[torch.Tensor],
             cs = ([xp.shape[-1]] + chans[1:]
                   + [0] * (MAX_LAYERS + 1 - len(chans)))
             act_mask = sum(1 << i for i, a in enumerate(acts) if a)
-            rc = build.load().vfi_conv_chain_bf16(
+            rc = build.entry("vfi_conv_chain_bf16")(
                 xp.data_ptr(), wpk.data_ptr(), bpk.data_ptr(),
                 out.data_ptr(), b, h, w, L, *cs, act_mask, x.device.index,
-                torch.cuda.current_stream(x.device).cuda_stream)
-            build.check(rc, "conv_chain")
+                build.current_stream(x.device.index))
+            if rc:
+                build.check(rc, "conv_chain")
         conv_chain.launches += 1
         conv_chain.launches_by_shape[(tuple(chans), h, w)] += 1
         return out

@@ -7,9 +7,9 @@
   and `deform_conv2d_pallas` (v3, `_sampling_kernel`), which compute one
   function: modulated DCNv2, stride 1, 3x3, padding 1, one offset group,
   offsets clamped to [-R, R], any Cin, Cout up to 128, an optional mask
-  (None: weight 1) and an optional bias. Any R whose smallest tile plan
-  fits the card's shared memory (on an H100 R <= 35 at any Cout;
-  `dcn_plan`). Plain version:
+  (None: weight 1) and an optional bias. Any R for which a plan fits the
+  card's shared memory (on an H100 R <= 35 at any Cout; `dcn_plan`, pure
+  Python, picks the kernel's design and tiles). Plain version:
   `ops/deform_conv_shifts.deform_conv2d_shifts`.
 - `bounded_warp` replaces `bounded_warp_pallas_v2` (kernel
   `_warp_kernel_v2`, C <= 4) and `bounded_warp_pallas` (v1, `_warp_kernel`,
@@ -21,22 +21,26 @@
 A CPU tensor runs the plain version; a CUDA tensor launches the kernel
 (bf16, contiguous) or raises. On the card the result carries autograd
 when an input requires grad: autograd of the plain version (`grad.py`), as
-the reference's `deform_conv2d_fast` and `warp_fast`. `tile_w` is accepted
+the reference's `deform_conv2d_fast` and `warp_fast`; without grad the
+launch builds no closure. A launch calls its C entry bound once
+(`build.entry`) on PyTorch's raw current stream. `tile_w` is accepted
 for API parity with the JAX wrappers (a TPU skip-predicate tiling knob)
 and has no effect on the output.
 """
 
 from __future__ import annotations
 
-import ctypes
+import functools
 from collections import Counter
 from typing import Optional
 
 import torch
 
 from vfi_tpu_torch.ops.cuda import build
-from vfi_tpu_torch.ops.cuda.conv import _pad16, pack_conv2d, pad_channels8
-from vfi_tpu_torch.ops.cuda.grad import differentiable
+from vfi_tpu_torch.ops.cuda.conv import (H100_SMEM_PER_BLOCK, ROW_PAD, _pad16,
+                                         _round128, _smem_limit, pack_conv2d,
+                                         pad_channels8)
+from vfi_tpu_torch.ops.cuda.grad import ThroughPlain, needs_grad
 from vfi_tpu_torch.ops.deform_conv_shifts import deform_conv2d_shifts
 from vfi_tpu_torch.ops.warp import warp
 
@@ -48,6 +52,13 @@ WARP_RGB_MAX_C = 4
 DCN_K, DCN_PADDING = 3, 1
 # The DCN kernel reads `pack_conv2d`'s tap-major layout.
 pack_dcn = pack_conv2d
+# The DCN kernel's warps a block (strip design), and its tile design's
+# output tiles of rows x DCN_TILE_W pixels with two or one input buffers,
+# in the order the plan tries them. Within an H100's shared memory, 8 x 16
+# tiles with two buffers fit no shape that 16 x 16 with one does not
+# (tests/test_torch_dcn_plan.py), so they are not tried.
+DCN_WARPS = 8
+DCN_TILE_PLANS, DCN_TILE_W = ((16, 2), (16, 1), (8, 1)), 16
 
 
 def deform_conv2d_bounded_plain(x, offset, mask, weight, bias=None,
@@ -69,43 +80,121 @@ def bounded_warp_plain(image: torch.Tensor, flow: torch.Tensor,
     return warp(image.float(), flow.clamp(-r, r)).to(image.dtype)
 
 
-def _cuda_checks(name: str, **tensors) -> torch.device:
+def _cuda_checks(name: str, **tensors) -> int:
+    """The index of the card the tensors lie on; raises unless each is a
+    contiguous bf16 CUDA tensor on one card (None entries are skipped)."""
     dev = None
     for k, t in tensors.items():
         if t is None:
             continue
-        if t.device.type != "cuda":
+        if not t.is_cuda:
             raise ValueError(f"{name}: {k} on {t.device}, expected cuda")
         if t.dtype != torch.bfloat16:
             raise TypeError(f"{name} kernel takes bfloat16 {k}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} kernel takes a contiguous {k}")
-        if dev is not None and t.device != dev:
+        d = t.get_device()
+        if dev is not None and d != dev:
             raise ValueError(f"{name}: tensors on different devices")
-        dev = t.device
+        dev = d
     return dev
 
 
+def _dcn_xu(cin8: int) -> int:
+    """The tile design's input-tile pixel stride in 16-byte units: the
+    pixel's cin8 / 8 pieces, plus one where that count is even, so that
+    16-byte reads of neighbouring pixels fall in distinct banks
+    (`dcn_xu` in csrc/dcn_bounded.cu)."""
+    return cin8 // 8 + (cin8 // 8 % 2 == 0)
+
+
+def _strip_plan_at(px: int, ck: int, cout16: int, R: int) -> dict:
+    """The strip design's shared memory (`strip_plan_at` in
+    csrc/dcn_bounded.cu): the input tile of (3 + 2R) rows of px + 2 + 2R
+    pixels x ck channels, two sample slabs, two weight slices, and the
+    taps' corner indices and weights."""
+    x_bytes = _round128((3 + 2 * R) * (px + 2 + 2 * R) * ck * 2)
+    s_bytes = _round128(max(2 * px * (ck + 16) * 2, DCN_WARPS * 256 * 4))
+    w_bytes = _round128(2 * ck * (cout16 + ROW_PAD) * 2)
+    return {"design": "strip", "px": px, "ck": ck, "rows": px, "chans": ck,
+            "nbuf": 1, "x_bytes": x_bytes,
+            "smem_bytes": x_bytes + s_bytes + w_bytes + px * 9 * 4 * 8}
+
+
+@functools.lru_cache(maxsize=None)
 def dcn_plan(cin: int, cout: int, max_offset: int,
-             device: torch.device) -> dict:
-    """The DCN kernel's tile plan on `device` (`csrc/dcn_bounded.cu`):
-    pixels per block, tile channels per chunk, chunks, and its dynamic
-    shared memory in bytes. Raises ValueError where no plan fits the
-    card's per-block limit."""
-    limit = torch.cuda.get_device_properties(
-        device).shared_memory_per_block_optin
-    px_ck = (ctypes.c_int * 2)()
-    smem = build.load().vfi_dcn_bounded_smem_bytes(
-        _pad16(cin), cout, int(max_offset), limit, px_ck)
-    if smem == 0:
-        raise ValueError(
-            f"deform_conv2d_bounded kernel: no tile plan for C={cin}->{cout} "
-            f"at R={max_offset} fits the card's {limit} bytes of shared "
-            f"memory per block (the smallest plan, 16 pixels and 16 "
-            f"channels a chunk, holds (3 + 2R)(18 + 2R) * 32 bytes of "
-            f"tile; on an H100 R <= 35 at any Cout)")
-    return {"px": px_ck[0], "ck": px_ck[1],
-            "chunks": -(-_pad16(cin) // px_ck[1]), "smem_bytes": smem}
+             limit: int = H100_SMEM_PER_BLOCK) -> dict:
+    """The DCN kernel's plan (`csrc/dcn_bounded.cu`) for Cin -> Cout at
+    radius R within `limit` bytes of shared memory per block.
+
+    Design "tile" (weight-stationary, persistent): the packed weights
+    [9 * Cin16][Cout16 + 8] resident, `nbuf` input-tile buffers of
+    (rows + 2 + 2R) x (18 + 2R) pixels, and one sample slab a warp of
+    2 * rows pixels x (chans + 8) channels. It takes the first that fits of
+    16 x 16 output tiles with two buffers, with one, then 8 x 16 tiles with
+    one, each with the widest slab (a multiple of 16 channels up to Cin16)
+    that fits.
+    Where none fits (the resident weights or one buffer too large), design
+    "strip": one row of `px` = 64, 32 or 16 pixels a block with the whole
+    Cin16, else 16 pixels with the input tile in channel chunks of `ck`.
+    Raises ValueError past Cout 128 or R < 0, or where nothing fits."""
+    R = int(max_offset)
+    if not 1 <= cout <= DCN_MAX_COUT or R < 0 or cin < 1:
+        raise ValueError(f"deform_conv2d_bounded kernel takes Cout in "
+                         f"1..{DCN_MAX_COUT} and R >= 0, got Cin={cin}, "
+                         f"Cout={cout}, R={max_offset}")
+    cin8 = -(-cin // 8) * 8
+    cin16, cout16 = _pad16(cin), _pad16(cout)
+    w_bytes = 9 * cin16 * (cout16 + ROW_PAD) * 2
+    for rows, nbuf in DCN_TILE_PLANS:
+        tpx = (rows + 2 + 2 * R) * (DCN_TILE_W + 2 + 2 * R)
+        x_bytes = _round128(tpx * _dcn_xu(cin8) * 16)
+        free = limit - w_bytes - nbuf * x_bytes
+        for chans in range(cin16, 0, -16):
+            s_bytes = rows * DCN_TILE_W * (chans + ROW_PAD) * 2
+            if s_bytes <= free:
+                return {"design": "tile",
+                        "tile": f"{rows}x{DCN_TILE_W}", "rows": rows,
+                        "nbuf": nbuf, "chans": chans,
+                        "passes": -(-cin16 // chans),
+                                "x_bytes": x_bytes, "w_bytes": w_bytes,
+                        "s_bytes": s_bytes,
+                        "smem_bytes": w_bytes + nbuf * x_bytes + s_bytes}
+    cks = [cin16] + sorted({_pad16(-(-cin16 // n))
+                            for n in range(2, cin16 // 16 + 1)} - {cin16},
+                           reverse=True)
+    for px, ck in [(px, cin16) for px in (64, 32, 16)] + [
+            (16, ck) for ck in cks[1:]]:
+        plan = _strip_plan_at(px, ck, cout16, R)
+        if plan["smem_bytes"] <= limit:
+            plan["chunks"] = -(-cin16 // ck)
+            return plan
+    raise ValueError(
+        f"deform_conv2d_bounded kernel: no plan for C={cin}->{cout} at "
+        f"R={max_offset} fits {limit} bytes of shared memory per block "
+        f"(the smallest, 16 pixels and 16 channels a chunk, holds "
+        f"(3 + 2R)(18 + 2R) * 32 bytes of tile; on an H100 R <= 35 at any "
+        f"Cout)")
+
+
+def _dcn_launch(x, offset, mask, wpk, bpk, cout, R, plan, dev):
+    b, h, w, cin = x.shape
+    out = torch.empty(b, h, w, cout, dtype=torch.bfloat16, device=x.device)
+    xp = pad_channels8(x)
+    if offset.data_ptr() % 4:   # the tile design reads (dy, dx) as one word
+        offset = offset.clone()
+    rc = build.entry("vfi_dcn_bounded_bf16")(
+        xp.data_ptr(), offset.data_ptr(),
+        None if mask is None else mask.data_ptr(), wpk.data_ptr(),
+        bpk.data_ptr(), out.data_ptr(), b, h, w, xp.shape[-1], cout, R,
+        0 if plan["design"] == "tile" else 1, plan["rows"], plan["chans"],
+        plan["nbuf"], plan["x_bytes"], plan["smem_bytes"], dev,
+        build.current_stream(dev))
+    if rc:
+        build.check(rc, "deform_conv2d_bounded")
+    deform_conv2d_bounded.launches += 1
+    deform_conv2d_bounded.launches_by_shape[(cin, cout, h, w, R)] += 1
+    return out
 
 
 def deform_conv2d_bounded(x: torch.Tensor, offset: torch.Tensor,
@@ -144,62 +233,60 @@ def deform_conv2d_bounded(x: torch.Tensor, offset: torch.Tensor,
         raise ValueError(f"deform_conv2d_bounded kernel takes Cout in "
                          f"1..{DCN_MAX_COUT} and R >= 0, got Cout={cout}, "
                          f"R={max_offset}")
-    if weight.device != dev or (bias is not None and bias.device != dev):
+    if weight.get_device() != dev or (bias is not None
+                                      and bias.get_device() != dev):
         raise ValueError("weight and bias must be on the input's device")
-    dcn_plan(cin, cout, max_offset, dev)   # raises where no plan fits
+    R = int(max_offset)
+    plan = dcn_plan(cin, cout, R, _smem_limit(dev))  # raises where none fits
     wpk, bpk = packed or pack_dcn(weight, bias)
     if (tuple(wpk.shape) != (9 * _pad16(cin), _pad16(cout))
-            or wpk.device != dev):
+            or wpk.get_device() != dev):
         raise ValueError("packed weights do not match this DCN's channels "
                          "or device")
-    R = int(max_offset)
+    if not needs_grad(x, offset, mask, weight, bias):
+        return _dcn_launch(x, offset, mask, wpk, bpk, cout, R, plan, dev)
+    return ThroughPlain.apply(
+        lambda x, offset, mask, *_: _dcn_launch(x, offset, mask, wpk, bpk,
+                                                cout, R, plan, dev),
+        lambda x, offset, mask, weight, bias: deform_conv2d_bounded_plain(
+            x, offset, mask, weight, bias, R),
+        x, offset, mask, weight, bias)
 
-    def launch(x, offset, mask, *_):
-        out = torch.empty(b, h, w, cout, dtype=torch.bfloat16, device=dev)
-        xp = pad_channels8(x)
-        rc = build.load().vfi_dcn_bounded_bf16(
-            xp.data_ptr(), offset.data_ptr(),
-            None if mask is None else mask.data_ptr(), wpk.data_ptr(),
-            bpk.data_ptr(), out.data_ptr(), b, h, w, xp.shape[-1], cout, R,
-            dev.index, torch.cuda.current_stream(dev).cuda_stream)
-        build.check(rc, "deform_conv2d_bounded")
-        deform_conv2d_bounded.launches += 1
-        deform_conv2d_bounded.launches_by_shape[(cin, cout, h, w, R)] += 1
-        return out
 
-    def plain(x, offset, mask, weight, bias):
-        return deform_conv2d_bounded_plain(x, offset, mask, weight, bias, R)
-
-    return differentiable(launch, plain, x, offset, mask, weight, bias)
+def _warp_launch(image, flow, max_flow, dev):
+    b, h, w, c = image.shape
+    out = torch.empty_like(image)
+    rc = build.entry("vfi_warp_bounded_bf16")(
+        image.data_ptr(), flow.data_ptr(), out.data_ptr(), b, h, w, c,
+        float(max_flow), dev, build.current_stream(dev))
+    if rc:
+        build.check(rc, "bounded_warp")
+    bounded_warp.launches += 1
+    bounded_warp.launches_by_shape[(c, h, w, int(max_flow))] += 1
+    return out
 
 
 def bounded_warp(image: torch.Tensor, flow: torch.Tensor,
                  max_flow: int = 16) -> torch.Tensor:
     """image (B, H, W, C), any C; flow (B, H, W, 2) channels (dx, dy) in
     pixels, clipped to [-max_flow, max_flow]. Bilinear, zeros padding."""
-    if image.dim() != 4 or tuple(flow.shape) != tuple(image.shape[:3]) + (2,):
+    if image.dim() != 4 or flow.shape != (*image.shape[:3], 2):
         raise ValueError(f"image {tuple(image.shape)} / flow "
                          f"{tuple(flow.shape)} shapes do not match")
-    if image.device.type == "cpu":
+    if not image.is_cuda and image.device.type == "cpu":
         return bounded_warp_plain(image, flow, max_flow)
-    dev = _cuda_checks("bounded_warp", image=image, flow=flow)
-    b, h, w, c = image.shape
-
-    def launch(image, flow):
-        out = torch.empty_like(image)
-        rc = build.load().vfi_warp_bounded_bf16(
-            image.data_ptr(), flow.data_ptr(), out.data_ptr(), b, h, w, c,
-            float(max_flow), dev.index,
-            torch.cuda.current_stream(dev).cuda_stream)
-        build.check(rc, "bounded_warp")
-        bounded_warp.launches += 1
-        bounded_warp.launches_by_shape[(c, h, w, int(max_flow))] += 1
-        return out
-
-    def plain(image, flow):
-        return bounded_warp_plain(image, flow, max_flow)
-
-    return differentiable(launch, plain, image, flow)
+    dev = image.get_device()
+    if not (flow.get_device() == dev >= 0 and image.dtype is flow.dtype
+            is torch.bfloat16 and image.is_contiguous()
+            and flow.is_contiguous()):   # the common case in one test
+        dev = _cuda_checks("bounded_warp", image=image, flow=flow)
+    if not (torch.is_grad_enabled()
+            and (image.requires_grad or flow.requires_grad)):
+        return _warp_launch(image, flow, max_flow, dev)
+    return ThroughPlain.apply(
+        lambda image, flow: _warp_launch(image, flow, max_flow, dev),
+        lambda image, flow: bounded_warp_plain(image, flow, max_flow),
+        image, flow)
 
 
 deform_conv2d_bounded.launches = 0

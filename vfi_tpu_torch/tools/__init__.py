@@ -7,6 +7,9 @@
 They run on the card (`--device cuda`, the default) and on the CPU only
 when asked (`--device cpu --smoke`: a tiny shape through the plain
 versions, for the tests). `time_interleaved` is their shared timer.
+Two more compare checkouts on the card, one process a turn:
+`conv_turns` (device time of the conv, DCN and warp kernels) and
+`launch_path` (the RGB warp's host launch path, piece by piece).
 """
 
 from __future__ import annotations

@@ -1,8 +1,9 @@
-"""Device time of the conv kernels of several checkouts, taking turns.
+"""Device time of the port's kernels in several checkouts, taking turns.
 
     python -m vfi_tpu_torch.tools.conv_turns --trees A,B,B,A
-        [--shapes 64x64,128x64,64x32,6x64,64x27c] [--b 1] [--h 720]
-        [--w 1280] [--launches 100] [--device cuda|cpu] [--smoke]
+        [--shapes 64x64,128x64,64x32,6x64,64x27c,dcn64r1,dcn67r2,warp3r16]
+        [--b 1] [--h 720] [--w 1280] [--launches 100] [--device cuda|cpu]
+        [--smoke]
 
 Each entry of `--trees` is the root of a checkout of this repository (for
 example a parent commit unpacked with `git archive`, and the change). In
@@ -10,11 +11,23 @@ the order given, one Python process per entry imports that checkout's
 `vfi_tpu_torch`, which builds its own kernels into its own `build/`, and
 for each shape records `--launches` back-to-back launches between two
 CUDA events after a warm-up: device time per launch, no synchronise
-between launches. A shape `CinxCout` is a 3x3 conv + bias + ReLU through
-`ops.cuda.conv2d`; `CinxCoutc` is a one-layer `conv_chain` without the
-ReLU (the DCN blocks' offset conv). Inputs and weights come from a seeded
-numpy generator, the same in every process. Give the trees in turns
-(A, B, B, A) to cancel drift of the card's clocks.
+between launches. The card first spins (`torch.cuda._sleep`) until every
+launch is queued, so a launch shorter than its host path is timed on the
+device too. Shapes:
+
+- `CinxCout`: a 3x3 conv + bias + ReLU through `ops.cuda.conv2d`;
+- `CinxCoutc`: a one-layer `conv_chain` without the ReLU (the DCN blocks'
+  offset conv);
+- `dcnCrR`: the bounded DCN `ops.cuda.deform_conv2d_bounded`, C -> C
+  channels at radius R, weights packed once as the engine does, offsets
+  reaching past R, a sigmoid mask (`dcn64r1`: qocc's `fusion_dcn0`;
+  `dcn67r2`: q12's);
+- `warpCrR`: the bounded warp `ops.cuda.bounded_warp` of a C-channel
+  image, flows reaching past R (`warp3r16`: the RGB frame).
+
+Inputs and weights come from a seeded numpy generator, the same in every
+process. Give the trees in turns (A, B, B, A) to cancel drift of the
+card's clocks.
 
 Prints one line per (turn, shape); the last line is one JSON object with
 every row and, per tree and shape, the median over that tree's turns.
@@ -42,38 +55,76 @@ import numpy as np
 import torch
 args = json.loads(sys.argv[1])
 sys.path.insert(0, args["tree"])
-from vfi_tpu_torch.ops.cuda import conv2d, conv_chain
+from vfi_tpu_torch.ops.cuda import (bounded_warp, conv2d, conv_chain,
+                                    deform_conv2d_bounded, pack_dcn)
 dev = torch.device(args["device"])
 cuda = dev.type == "cuda"
 if not cuda:
     torch.set_num_threads(1)
 b, h, w, n = args["b"], args["h"], args["w"], args["launches"]
 rows = []
-for shape in args["shapes"]:
-    chain = shape.endswith("c")
-    cin, cout = (int(v) for v in shape.rstrip("c").split("x"))
-    rng = np.random.default_rng(0)
-    x = torch.from_numpy(rng.standard_normal((b, h, w, cin), np.float32)).to(
-        dev, torch.bfloat16)
-    wt = torch.from_numpy((rng.standard_normal((cout, cin, 3, 3)) * 0.05
-                           ).astype(np.float32)).to(dev)
-    bs = torch.from_numpy(rng.standard_normal((cout,)).astype(np.float32)
-                          ).to(dev)
-    if chain:
-        fn = lambda: conv_chain(x, [wt], [bs], (False,))
-    else:
-        fn = lambda: conv2d(x, wt, bs, True)
-    for _ in range(3):
-        fn()
-    if cuda:
+
+
+def bf(a):
+    return torch.from_numpy(np.asarray(a, np.float32)).to(dev, torch.bfloat16)
+
+
+def f32(a):
+    return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+
+
+# ms per launch of n back-to-back launches, queued behind a spin of the
+# card so that the host's launch path does not pace them; the spin doubles
+# until it outlasts the queueing.
+def device_ms(fn):
+    spin = 1 << 22
+    while True:
         torch.cuda.synchronize()
         e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda._sleep(spin)
         e0.record()
         for _ in range(n):
             fn()
         e1.record()
+        queued_first = not e0.query()
         e1.synchronize()
-        ms = e0.elapsed_time(e1) / n
+        if queued_first:
+            return e0.elapsed_time(e1) / n
+        spin *= 2
+
+
+for shape in args["shapes"]:
+    rng = np.random.default_rng(0)
+    if shape.startswith("dcn"):
+        c, r = (int(v) for v in shape[3:].split("r"))
+        x = bf(rng.standard_normal((b, h, w, c)))
+        off = bf(rng.standard_normal((b, h, w, 18)) * 0.8 * r)
+        mask = torch.sigmoid(f32(rng.standard_normal((b, h, w, 9)) * 2.0)
+                             ).to(torch.bfloat16)
+        wt = f32(rng.standard_normal((c, c, 3, 3)) / (9 * c) ** 0.5)
+        bs = f32(rng.standard_normal((c,)) * 0.1)
+        pk = pack_dcn(wt, bs)
+        fn = lambda: deform_conv2d_bounded(x, off, mask, wt, bs, r,
+                                           packed=pk)
+    elif shape.startswith("warp"):
+        c, r = (int(v) for v in shape[4:].split("r"))
+        img = bf(rng.uniform(0.0, 1.0, (b, h, w, c)))
+        flow = bf(rng.standard_normal((b, h, w, 2)) * 10.0 * r / 16)
+        fn = lambda: bounded_warp(img, flow, r)
+    else:
+        chain = shape.endswith("c")
+        cin, cout = (int(v) for v in shape.rstrip("c").split("x"))
+        x = bf(rng.standard_normal((b, h, w, cin), np.float32))
+        wt = f32(rng.standard_normal((cout, cin, 3, 3)) * 0.05)
+        bs = f32(rng.standard_normal((cout,)))
+        if chain:
+            fn = lambda: conv_chain(x, [wt], [bs], (False,))
+        else:
+            fn = lambda: conv2d(x, wt, bs, True)
+    for _ in range(3):
+        fn()
+    if cuda:
+        ms = device_ms(fn)
     else:
         import time
         t0 = time.perf_counter()
@@ -92,8 +143,9 @@ def parse_args(argv=None):
     ap.add_argument("--trees", required=True,
                     help="comma list of checkout roots, in turn order")
     ap.add_argument("--shapes", default=SHAPES,
-                    help="comma list of CinxCout (conv2d + ReLU) or "
-                         "CinxCoutc (one-layer conv_chain)")
+                    help="comma list of CinxCout (conv2d + ReLU), "
+                         "CinxCoutc (one-layer conv_chain), dcnCrR "
+                         "(bounded DCN) or warpCrR (bounded warp)")
     ap.add_argument("--b", type=int, default=1)
     ap.add_argument("--h", type=int, default=720)
     ap.add_argument("--w", type=int, default=1280)

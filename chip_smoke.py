@@ -21,7 +21,11 @@ and the script exits non-zero without a result line:
            library call where one computes the same function (`library_ms`,
            `library_device_ms`), and its bound from bytes and operations;
            each DCN and conv row names its tile plan (a one-layer chain
-           runs the conv kernel, csrc/conv2d.cu);
+           runs the conv kernel, csrc/conv2d.cu); a chain of 2-4 layers
+           has a row for each route (`chain_route` "fused": the chain
+           kernel; "layers": one conv-kernel launch a layer) beside the
+           route `chain_plan` picks (`plan_route`), and cuDNN layer by
+           layer as its library time (a sequence of calls);
 4. main    the flagship engine (qocc checkpoint + flow prior, bf16,
            dcn_max_offset=1, warp_max_flow=16, cascade_levels=2,
            conv_kernel="pallas") answers three b=1 requests and one b=2
@@ -86,7 +90,8 @@ from vfi_tpu_torch.cli.eval import sweep
 from vfi_tpu_torch.data import load_image
 from vfi_tpu_torch.infer import FrameInterpolator
 from vfi_tpu_torch.ops.cuda import (WRAPPERS, bounded_warp,
-                                    bounded_warp_plain, build, conv2d,
+                                    bounded_warp_plain, build, chain_plan,
+                                    conv2d,
                                     conv2d_plain, conv2d_plan, conv_chain,
                                     conv_chain_plain, dcn_plan,
                                     deform_conv2d_bounded,
@@ -94,6 +99,7 @@ from vfi_tpu_torch.ops.cuda import (WRAPPERS, bounded_warp,
                                     launch_counts, pack_conv2d,
                                     pack_conv_chain, pack_dcn,
                                     reset_launch_counts)
+from vfi_tpu_torch.ops.cuda.conv import ROUTES
 from vfi_tpu_torch.tools import bench_conv, bench_kernels
 from vfi_tpu_torch.utils.convert import load_params_npz, params_from_jax
 
@@ -208,7 +214,10 @@ def device_ms(fn, n: int = N_BACK_TO_BACK, warmup: int = 3) -> float:
     events, as tools/conv_turns.py times them: the launches are queued
     behind a spin of the card (`torch.cuda._sleep`), so the host's launch
     path does not pace a launch shorter than itself; the spin doubles
-    until every launch was queued before the first event ran."""
+    until every launch was queued before the first event ran. A call of
+    many kernels (a sequence of library calls) can fill the card's launch
+    queue, which then blocks the host until the spin ends: past a spin of
+    2^26 cycles the launch count halves instead."""
     for _ in range(warmup):
         fn()
     spin = 1 << 22
@@ -223,9 +232,12 @@ def device_ms(fn, n: int = N_BACK_TO_BACK, warmup: int = 3) -> float:
         b.record()
         queued_first = not a.query()
         b.synchronize()
-        if queued_first:
+        if queued_first or n == 1:
             return a.elapsed_time(b) / n
-        spin *= 2
+        if spin < 1 << 26:
+            spin *= 2
+        else:
+            n //= 2
 
 
 def bound(nbytes: float, flops_bf16: float, flops_f32: float = 0.0):
@@ -292,19 +304,24 @@ def row_name(base: str, b: int, h: int, w: int) -> str:
 
 
 def kernel_row(name, source, replaces, key, kernel, plain, library,
-               io_bytes, flops_bf16, flops_f32=0.0, **extra) -> dict:
+               io_bytes, flops_bf16, flops_f32=0.0, ref=None, plain_ms=None,
+               **extra) -> dict:
     """Check one kernel call against its plain version, then time the
     kernel, the plain version and (where one exists) a library call.
     `key` = (paths, wrapper name, launch shape): the paths whose runs
     launch the wrapper at this shape (their counts are this row's
-    launches), or () for a shape no path of this run takes. `extra`
-    fields go into the row as they are."""
+    launches), or () for a shape no path of this run takes. `ref` and
+    `plain_ms`, where given, are the plain version's result and time on
+    these inputs, shared by two rows. `extra` fields go into the row as
+    they are."""
     got = kernel()
+    if ref is None:
+        ref = plain()
     row = {"name": name, "route": "cuda", "source": source,
-           "replaces": replaces, **extra, **check_close(name, got, plain())}
+           "replaces": replaces, **extra, **check_close(name, got, ref)}
     row["ms"] = median_ms(kernel)
     row["device_ms"] = device_ms(kernel)
-    row["plain_ms"] = median_ms(plain)
+    row["plain_ms"] = median_ms(plain) if plain_ms is None else plain_ms
     row["library_ms"] = None if library is None else median_ms(library)
     row["library_device_ms"] = (None if library is None
                                 else device_ms(library))
@@ -315,30 +332,53 @@ def kernel_row(name, source, replaces, key, kernel, plain, library,
     return row
 
 
-def chain_row(rnd, sd, tag, cin, names, acts, b, h, w, paths) -> dict:
+def chain_rows(rnd, sd, tag, cin, names, acts, b, h, w, paths) -> list:
+    """The chain at one shape with the checkpoint's weights, packed once as
+    the engine does: one row a route ("fused", the chain kernel; "layers",
+    one conv-kernel launch a layer; a chain of one layer has only the
+    latter), both checked against one plain result. `plan_route` names
+    the route `chain_plan` picks; the paths' launches count on that
+    route's row (the other's key has no path). Library: cuDNN layer by
+    layer (`F.conv2d` in bf16, then `relu` where the layer has one), the
+    "xla" route's trunk: a sequence of calls where the chain has more than
+    one layer."""
     ws = [sd[f"{n}.weight"].cuda() for n in names]
     bs = [sd[f"{n}.bias"].cuda() for n in names]
     acts = tuple(bool(a) for a in acts)
     x = rnd(b, h, w, cin)
-    library = None
-    if len(ws) == 1:  # one conv: cuDNN computes the same function
-        xn, wb, bb = (x.permute(0, 3, 1, 2), ws[0].to(torch.bfloat16),
-                      bs[0].to(torch.bfloat16))
-        library = lambda: F.conv2d(xn, wb, bb, padding=1)  # noqa: E731
+    wb = [t.to(torch.bfloat16) for t in ws + bs]
+
+    def library():
+        y = x.permute(0, 3, 1, 2)
+        for wt, bt, a in zip(wb[:len(ws)], wb[len(ws):], acts):
+            y = F.conv2d(y, wt, bt, padding=1)
+            y = torch.relu(y) if a else y
+        return y
+
     chans = tuple([cin] + [wt.shape[0] for wt in ws])
-    pk = pack_conv_chain(ws, bs)       # packed once, as the engine does
-    # One layer runs the conv kernel on the chain's packed weights.
-    extra = {} if len(ws) > 1 else {"plan": conv2d_plan(cin, chans[1], 3)}
-    return kernel_row(
-        row_name(f"conv_chain/{tag}", b, h, w),
-        "vfi_tpu_torch/csrc/"
-        + ("conv_chain.cu" if len(ws) > 1 else "conv2d.cu"),
-        CHAIN_TPU, (paths, "conv_chain", (chans, h, w)),
-        lambda: conv_chain(x, ws, bs, acts, packed=pk),
-        lambda: conv_chain_plain(x, ws, bs, acts), library,
-        nbytes(x) + nbytes(*ws) // 2 + nbytes(*bs),
-        sum(2.0 * b * h * w * 9 * wt.shape[1] * wt.shape[0] for wt in ws),
-        **extra)
+    pk = pack_conv_chain(ws, bs)
+    plan = chain_plan(chans, acts, b, h, w, torch.cuda.get_device_properties(
+        x.device).shared_memory_per_block_optin)
+    plain = lambda: conv_chain_plain(x, ws, bs, acts)  # noqa: E731
+    ref, plain_ms = plain(), median_ms(plain)
+    calls = " -> ".join(f"F.conv2d{'+relu' if a else ''}" for a in acts)
+    rows = []
+    for route in ROUTES if len(ws) > 1 else ("layers",):
+        suffix = "/layers" if len(ws) > 1 and route == "layers" else ""
+        rows.append(kernel_row(
+            row_name(f"conv_chain/{tag}{suffix}", b, h, w),
+            "vfi_tpu_torch/csrc/"
+            + ("conv_chain.cu" if route == "fused" else "conv2d.cu"),
+            CHAIN_TPU, (paths if route == plan["route"] else (),
+                        "conv_chain", (route, chans, h, w)),
+            lambda: conv_chain(x, ws, bs, acts, packed=pk, route=route),
+            plain, library, nbytes(x) + nbytes(*ws) // 2 + nbytes(*bs),
+            sum(2.0 * b * h * w * 9 * wt.shape[1] * wt.shape[0]
+                for wt in ws),
+            ref=ref, plain_ms=plain_ms, chain_route=route,
+            plan_route=plan["route"], library_call=calls,
+            plan=plan["fused"] if route == "fused" else plan["layers"]))
+    return rows
 
 
 def conv2d_row(rnd, gen, cin, cout, k, b, h, w, variant, replaces,
@@ -437,18 +477,18 @@ def phase_kernels(sd: dict, sd12: dict, dev) -> list:
     main, q12, ev = ("main",), ("q12",), ("eval",)
     for h, w, chain in ([(H, W, c) for c in chains]
                         + [(H // 2, W // 2, c) for c in chains[:2]]):
-        rows.append(chain_row(rnd, sd, *chain, 1, h, w, main))
+        rows += chain_rows(rnd, sd, *chain, 1, h, w, main)
     # The q12 phase's chains on its batch of val frames: the 64-wide trunk
     # chains at native and cascade resolution, and the reference
     # topology's 67-wide offset and reconstruction chains.
     for h, w in ((EH, EW), (EH // 2, EW // 2)):
         for chain in chains[:2]:
-            rows.append(chain_row(rnd, sd12, *chain, EB, h, w, q12))
-    rows.append(chain_row(rnd, sd12, "offset67", 67,
-                          ["fusion_dcn0.offset_conv"], (0,), EB, EH, EW, q12))
-    rows.append(chain_row(rnd, sd12, "rec67", 67,
-                          [f"rec_conv{i}.conv" for i in (1, 2, 3)],
-                          (1, 1, 0), EB, EH, EW, q12))
+            rows += chain_rows(rnd, sd12, *chain, EB, h, w, q12)
+    rows += chain_rows(rnd, sd12, "offset67", 67,
+                       ["fusion_dcn0.offset_conv"], (0,), EB, EH, EW, q12)
+    rows += chain_rows(rnd, sd12, "rec67", 67,
+                       [f"rec_conv{i}.conv" for i in (1, 2, 3)],
+                       (1, 1, 0), EB, EH, EW, q12)
 
     dcn, dcn12 = [(d["fusion_dcn0.weight"].cuda(), d["fusion_dcn0.bias"].cuda())
                   for d in (sd, sd12)]
@@ -526,7 +566,7 @@ def phase_main(params, flow_params) -> dict:
         times.append(time.perf_counter() - t0)
         outs.append(out)
     counts = launch_counts()
-    by_shape = {fn.__name__: dict(fn.launches_by_shape) for fn in WRAPPERS}
+    by_shape = shapes_now()
 
     n_launch = len(requests)
     for k, per in PER_LAUNCH.items():
@@ -559,7 +599,12 @@ def phase_main(params, flow_params) -> dict:
 
 
 def shapes_now() -> dict:
-    return {fn.__name__: Counter(fn.launches_by_shape) for fn in WRAPPERS}
+    """Launches by wrapper and shape since the last reset; the chain's by
+    route and shape (`launches_by_plan`), so that each route's row is
+    checked against the launches that took it."""
+    return {fn.__name__: Counter(fn.launches_by_plan if fn is conv_chain
+                                 else fn.launches_by_shape)
+            for fn in WRAPPERS}
 
 
 def decode_val() -> dict:
@@ -870,6 +915,11 @@ def phase_grad(dev) -> dict:
                   lambda x, *p: conv_chain(x, p[:3], p[3:], acts),
                   lambda x, *p: conv_chain_plain(x, p[:3], p[3:], acts),
                   [x, *w3, *b3]),
+        grad_case("conv_chain/fused",
+                  lambda x, *p: conv_chain(x, p[:3], p[3:], acts,
+                                           route="fused"),
+                  lambda x, *p: conv_chain_plain(x, p[:3], p[3:], acts),
+                  [x, *w3, *b3]),
         grad_case("conv_chain/L1",
                   lambda x, w, b: conv_chain(x, [w], [b], (False,)),
                   lambda x, w, b: conv_chain_plain(x, [w], [b], (False,)),
@@ -915,8 +965,9 @@ def kernel_launches(rows: list, by_path: dict) -> list:
     return kernels
 
 
-PORT_KERNELS = ("conv_chain_kernel", "conv2d_kernel", "dcn_bounded_kernel",
-                "warp_bounded_kernel", "warp_bounded_wide_kernel")
+PORT_KERNELS = ("conv_chain_kernel", "conv2d_kernel", "dcn_tile_kernel",
+                "dcn_strip_kernel", "warp_bounded_kernel",
+                "warp_bounded_wide_kernel")
 
 
 def phase_profile(eng, request) -> dict:

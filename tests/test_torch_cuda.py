@@ -27,7 +27,8 @@ import pytest
 import torch
 
 from vfi_tpu_torch.ops.cuda import (bounded_warp, bounded_warp_plain,
-                                    conv2d, conv2d_plain, conv_chain,
+                                    chain_plan, conv2d, conv2d_plain,
+                                    conv_chain,
                                     conv_chain_plain, dcn_plan,
                                     deform_conv2d_bounded,
                                     deform_conv2d_bounded_plain,
@@ -59,6 +60,7 @@ def _rnd(gen, dev, *shape, scale=1.0):
         torch.bfloat16)
 
 
+@pytest.mark.parametrize("route", [None, "fused", "layers"])
 @pytest.mark.parametrize("hw", [(8, 16), (13, 37), (40, 72)])
 @pytest.mark.parametrize("chans,acts", [
     ((64, 64, 64, 64), (True, True, True)),
@@ -70,18 +72,30 @@ def _rnd(gen, dev, *shape, scale=1.0):
     ((67, 27), (False,)),
     ((3, 16), (True,)),
     ((24, 8), (False,)),
+    ((128, 64, 64, 64, 64), (True, True, True, False)),
+    ((8, 27, 19, 64), (True, False, True)),
 ])
-def test_conv_chain_kernel(dev, hw, chans, acts):
+def test_conv_chain_kernel(dev, hw, chans, acts, route):
+    """Every chain through the plan's route and through each route forced
+    (one layer runs the conv kernel, csrc/conv2d.cu, and refuses "fused");
+    one launch counted either way, by route in `launches_by_plan`."""
     gen = torch.Generator(device=dev).manual_seed(0)
     x = _rnd(gen, dev, 2, *hw, chans[0])
     ws = [torch.randn(co, ci, 3, 3, generator=gen, device=dev) / (9 * ci) ** .5
           for ci, co in zip(chans[:-1], chans[1:])]
     bs = [torch.randn(co, generator=gen, device=dev) * 0.1 for co in chans[1:]]
     reset_launch_counts()
-    got = conv_chain(x, ws, bs, acts)
-    # one layer runs the conv kernel (csrc/conv2d.cu), counted as the chain
+    if route == "fused" and len(ws) == 1:
+        with pytest.raises(ValueError, match="fused"):
+            conv_chain(x, ws, bs, acts, route=route)
+        return
+    got = conv_chain(x, ws, bs, acts, route=route)
     assert launch_counts()["conv_chain"] == 1
     assert launch_counts()["conv2d"] == 0
+    want = route or chain_plan(chans, acts, 2, *hw,
+                               torch.cuda.get_device_properties(dev)
+                               .shared_memory_per_block_optin)["route"]
+    assert dict(conv_chain.launches_by_plan) == {(want, chans, *hw): 1}
     _close(got, conv_chain_plain(x, ws, bs, acts))
 
 
@@ -96,10 +110,42 @@ def test_conv_chain_entry_refuses_one_layer(dev):
     out = torch.empty(1, 8, 16, 27, dtype=torch.bfloat16, device=dev)
     args = (x.data_ptr(), wpk.data_ptr(), bpk.data_ptr(), out.data_ptr(),
             1, 8, 16)
-    tail = (0, dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    tail = (0, 8, 16, 9, 9, 9, 9, 1 << 16, 1 << 15, 1 << 17, dev.index,
+            torch.cuda.current_stream(dev).cuda_stream)
     lib = build.load()
     assert lib.vfi_conv_chain_bf16(*args, 1, 64, 27, 0, 0, 0, *tail) != 0
     assert lib.vfi_conv_chain_bf16(*args, 5, 64, 27, 27, 27, 27, *tail) != 0
+
+
+def test_conv_chain_entry_refuses_a_plan_that_overruns(dev):
+    """The C entry recomputes the plan's buffers and refuses one whose
+    shared memory is short, as the conv kernel's entry does."""
+    from vfi_tpu_torch.ops.cuda import build, pack_conv_chain
+    from vfi_tpu_torch.ops.cuda.conv import chain_fused_plan
+
+    chans = (64, 64, 64, 64)
+    x = torch.zeros(1, 16, 16, 64, dtype=torch.bfloat16, device=dev)
+    w = [torch.zeros(64, 64, 3, 3, device=dev)] * 3
+    wpk, bpk = pack_conv_chain(w, [None] * 3)
+    out = torch.empty(1, 16, 16, 64, dtype=torch.bfloat16, device=dev)
+    p = chain_fused_plan(chans)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib = build.load()
+
+    def call(buf, slot, smem, tg=p["taps_per_group"]):
+        return lib.vfi_conv_chain_bf16(
+            x.data_ptr(), wpk.data_ptr(), bpk.data_ptr(), out.data_ptr(),
+            1, 16, 16, 3, *chans, 0, 7, p["th"], p["tw"], *tg, 0, buf,
+            slot, smem, dev.index, stream)
+
+    assert call(p["buf_bytes"], p["slot_bytes"], p["smem_bytes"]) == 0
+    torch.cuda.synchronize()
+    assert call(p["buf_bytes"] - 128, p["slot_bytes"], p["smem_bytes"]) != 0
+    assert call(p["buf_bytes"], p["slot_bytes"] - 128,
+                p["smem_bytes"]) != 0
+    assert call(p["buf_bytes"], p["slot_bytes"], p["smem_bytes"] - 1) != 0
+    assert call(p["buf_bytes"], p["slot_bytes"], p["smem_bytes"],
+                [9, 9, 9]) != 0
 
 
 @pytest.mark.parametrize("hw", [(8, 16), (13, 37), (24, 130)])
@@ -360,6 +406,12 @@ def _grad_cases(dev):
             lambda x, *p: conv_chain_plain(x, p[:2], p[2:], (True, False)),
             [x, ws[0], torch.randn(8, 64, 3, 3, generator=gen, device=dev)
              / 24, bs[0], None]),
+        "conv_chain_fused": (
+            lambda x, *p: conv_chain(x, p[:2], p[2:], (True, False),
+                                     route="fused"),
+            lambda x, *p: conv_chain_plain(x, p[:2], p[2:], (True, False)),
+            [x, ws[0], torch.randn(8, 64, 3, 3, generator=gen, device=dev)
+             / 24, bs[0], None]),
         "deform_conv2d_bounded": (
             lambda *a: deform_conv2d_bounded(*a, 2),
             lambda *a: deform_conv2d_bounded_plain(*a, 2),
@@ -379,7 +431,7 @@ def _grad_cases(dev):
 
 
 @pytest.mark.parametrize("name", [
-    "conv2d", "conv_chain", "deform_conv2d_bounded",
+    "conv2d", "conv_chain", "conv_chain_fused", "deform_conv2d_bounded",
     "deform_conv2d_bounded_no_mask", "bounded_warp", "bounded_warp_wide"])
 def test_gradients_through_the_kernels_match_the_plain_versions(dev, name):
     """The kernel's output carries a grad_fn whenever an input requires

@@ -172,6 +172,30 @@ def test_conv_turns_smoke_times_each_tree_in_turn(capsys):
     assert set(res["median_ms"][root]) == {"16x8", "16x27c"}
 
 
+def test_conv_turns_times_the_chain_tokens(capsys):
+    """`chain_NAME[:HOW]` drives a trunk chain (feat, motion, rec, rec67)
+    on the checkout's route, each route forced, and cuDNN layer by layer;
+    on the CPU the kernel routes run the plain version (the same output in
+    every turn and route) and the cuDNN sequence runs bf16 convs."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    shapes = [f"chain_{n}{how}" for n in ("feat", "motion", "rec", "rec67")
+              for how in ("", ":fused", ":layers", ":cudnn")]
+    reset_launch_counts()
+    res = conv_turns.main(["--trees", f"{root},{root}", "--device", "cpu",
+                           "--smoke", "--shapes", ",".join(shapes)])
+    assert _last_json(capsys) == res
+    rows = res["rows"]
+    assert [r["shape"] for r in rows] == shapes * 2
+    for a, b in zip(rows[:len(shapes)], rows[len(shapes):]):
+        assert a["checksum"] == b["checksum"] and a["checksum"] > 0
+    for i in range(0, len(shapes), 4):
+        own, fused, layers, cudnn = (r["checksum"] for r in rows[i:i + 4])
+        assert own == fused == layers
+        assert cudnn == pytest.approx(own, rel=2e-2)
+    assert set(res["median_ms"][root]) == set(shapes)
+    assert sum(launch_counts().values()) == 0   # children, not this process
+
+
 def test_conv_turns_times_the_dcn_and_warp_tokens(capsys):
     """`dcnCrR` and `warpCrR` drive the bounded DCN (C -> C at radius R)
     and the bounded warp of a C-channel image; on the CPU their plain

@@ -4,233 +4,326 @@
 // the TPU kernel behind EMAVFI's fused trunk chains of 2..4 layers (feature
 // blocks, motion estimation, reconstruction). A chain of one layer is one
 // conv: `conv_chain` launches csrc/conv2d.cu for it, and this entry refuses
-// L = 1.
+// L = 1. `chain_plan` (ops/cuda/conv.py) routes each chain shape either
+// here or through one conv2d.cu launch a layer, whichever ran faster on
+// the card; this kernel computes the same function either way.
 //
-// What bounds it on this card: arithmetic. The 720p chains do 34-136
-// GFLOP per layer against 0.1-0.3 GB of traffic, far above the card's
-// ~295 FLOP/byte ridge, so the tensor cores are the limit; a layer-by-layer
-// version would add an HBM round trip of every intermediate.
+// What bounds it on this card: arithmetic. A 720p 64->64 layer is 68 GFLOP
+// (0.069 ms at the bf16 peak) against 0.24 GB of its own input and output;
+// the TPU kernel keeps the intermediates out of device memory with full-
+// width row slabs in megabytes of VMEM. 227 KB of shared memory holds only
+// a small tile with its halo, so fusion here pays in recomputed halo
+// (1.56x the work for three layers on a 16 x 16 output tile) and in weights
+// re-read from L2 for every tile, what the unfused layers do not pay.
 //
-// Design: one launch per chain. A block owns a TH x TW output tile and
-// keeps the tile's input with its 2L-pixel halo in shared memory, then
-// each layer's output (halo shrinking by one pixel per layer) in a second
-// buffer, ping-ponging; only the last layer writes to device memory.
-// Every layer is an implicit GEMM on the tensor cores (WMMA bf16 16x16x16,
-// float32 accumulators): rows are tile pixels, K runs over 9 taps x Cin,
-// N over Cout. All layers use one pixel pitch Wp = TW + 2L, so a run of 16
-// consecutive output rows reads 16 consecutive input pixels for every tap
-// (the flat-shift trick); the few junk columns this computes are never
-// read back. Intermediates at positions outside the image are stored as
-// 0, not relu(bias): each layer of the unfused chain zero-pads its own
-// input, and the TPU kernel re-zeroes those rows for the same reason.
-// The first layer's width is zero-padded to a multiple of 16 (the WMMA
-// depth) in the shared tile, and the packed weights carry zero rows for
-// the padded channels. The tile is staged in 16-byte rows of 8 channels,
-// so the input takes c0 % 8 == 0: the reference topology's 67-channel
-// fusion stack (134-byte rows) is padded to 72 channels by the wrapper
-// (2-byte loads in the kernel instead were 1.4-1.5x slower for the
-// 67-wide chains).
-// Each warp keeps the accumulators of up to three 16-row tiles across the
-// whole K loop; all warps walk the 9 taps in step while the next tap's
-// weight slice streams into shared memory (cp.async, double-buffered), so
-// both WMMA operands come from shared memory. Making this kernel fast for
-// real (wgmma, TMA, warp specialisation) is later work.
+// Design: the conv kernel's GEMM core (csrc/conv2d.cu), one layer at a time
+// over a tile that stays in shared memory.
+// - Persistent blocks (as many as fit, by the occupancy API) walk output
+//   tiles of TH x TW pixels (the plan's) with a stride of the grid. A
+//   block's work is a sequence of steps (tile, layer, tap group), with one
+//   block barrier a step: one a layer where its weights fit in one group.
+// - Flat pixel pitch: every layer of a tile uses one row pitch P = TW + 2L.
+//   Layer l computes the (TH + 2(L-1-l)) x P positions of its output region
+//   (its halo shrinking by one pixel a layer) as m16 fragments of 16
+//   consecutive positions; tap (di, dj) of position q reads input position
+//   q + di * P + dj, so an A fragment is the activation buffer itself at a
+//   flat offset (ldmatrix, one row address a position): no im2col. The
+//   columns past TW + 2(L-1-l) compute junk that no valid position reads.
+// - Two activation buffers hold a layer's input and output in turn (rows
+//   of the widest layer input + 8 bf16 channels, an odd multiple of 16
+//   bytes, so ldmatrix's eight rows fall in distinct banks). The next
+//   tile's input (with its L-pixel halo, zeros outside the image, cp.async
+//   with zero fill) copies into the buffer the last layer does not read,
+//   while the last layer multiplies.
+// - Weights: two slots of one tap group of one layer ([taps][Cin16] rows of
+//   Cout16 + 8); the next step's group (the rest of this layer, the next
+//   layer's first, or the next tile's first layer) copies with cp.async
+//   into the other slot while this one multiplies.
+// - 8 warps; warp w owns the layer's m16 fragments w, w + 8, ... (at most
+//   MF) and all of Cout: per k-step it loads its A fragments (ldsm_x4) and
+//   Cout16 / 16 pairs of B fragments (ldsm_x4_t), and issues MF x NF
+//   mma_bf16 (m16n8k16, float32 accumulators in registers), each A reused
+//   across the n-fragments and each B across the m-fragments.
+// - Epilogue from registers: the bias (float32 of its bf16 value), the
+//   ReLU, one rounding to bf16. An intermediate goes straight into the
+//   other activation buffer, stored as 0 at positions outside the image
+//   (each layer of the unfused chain zero-pads its own input; the TPU
+//   kernel re-zeroes those rows for the same reason) and in the junk
+//   columns. The last layer goes to device memory, 8 channels a lane after
+//   a transpose within each quad of lanes, 16-byte stores where
+//   Cout % 8 == 0.
+// The input takes C0 % 8 == 0 (16-byte copies): the wrapper zero-pads
+// another width (the reference topology's 67 channels to 72); the tile
+// zero-fills the channels up to Cin16, and the packed weights carry zero
+// rows for them. Later work: wgmma, TMA, clusters.
 
-#include <mma.h>
-#include <stdint.h>
+#include <algorithm>
 
 #include "common.cuh"
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int TH = 8;            // output tile rows
-constexpr int TW = 16;           // output tile columns
-constexpr int NWARPS = 8;
+constexpr int NWARPS = 8;           // ops/cuda/conv.py CHAIN_WARPS
 constexpr int NTHREADS = NWARPS * 32;
 constexpr int MAXL = 4;
-constexpr int SLACK_PX = 32;     // reads of the last 16-row tile run past the region
-constexpr int CPAD = 16;         // channel-pitch padding (bank spread, 32 B aligned)
-constexpr int WPAD = 8;          // weight-row padding in shared memory (bank spread)
-constexpr int MT_MAX = 3;        // m-tiles per warp: (TH + 2L - 2) * Wp <= 16 * NWARPS * MT_MAX
+constexpr int MF = 4;               // m16 fragments a warp at most (CHAIN_MF)
+constexpr int NFMAX = 8;            // n8 fragments: Cout16 <= 64
+constexpr int PAD = 8;              // row padding, bf16 elements (ROW_PAD)
 
 struct ChainParams {
-  const bf16* x;                 // (B, H, W, c[0])
-  const bf16* w;                 // per layer [9][cinp][coutp]
-  const float* bias;             // per layer [coutp]
-  bf16* out;                     // (B, H, W, c[L])
-  int B, H, W, L, Wp;
-  int cin[MAXL], cinp[MAXL], cout[MAXL], coutp[MAXL];
-  int cpitch[MAXL];              // smem channel pitch of layer l's input
+  const bf16* x;                    // (B, H, W, C0)
+  const bf16* w;                    // per layer [9][cinp][coutp]
+  const float* bias;                // per layer [coutp]
+  bf16* out;                        // (B, H, W, cout[L - 1])
+  int B, H, W, L, C0, TH, TW, P;    // P = TW + 2L, the flat pixel pitch
+  int cinp[MAXL], coutp[MAXL], cout[MAXL], tg[MAXL], groups[MAXL], frags[MAXL];
   long long w_off[MAXL];
   int b_off[MAXL];
   int act_mask;
-  int bufA_bytes, bufB_bytes;
+  int pitch;                        // activation row, elements
+  int buf_px, buf_bytes, slot_bytes;
+  int tiles_x, tiles_y, tiles;
 };
 
-// One layer. Every warp owns the m-tiles warp, warp + NWARPS, ... (at most
-// MT_MAX) and keeps their accumulators across the whole K loop; all warps
-// walk the 9 taps in step while the next tap's weight slice [cinp][coutp]
-// streams into the other half of `wbuf` (cp.async, double-buffered).
-template <int NT>
-__device__ void chain_layer(const ChainParams& p, int l, const bf16* __restrict__ in,
-                            bf16* __restrict__ obuf, bf16* wbuf,
-                            int ty0, int tx0, int b) {
-  const int L = p.L, Wp = p.Wp;
-  const int halo = L - 1 - l;
-  const int rows_out = TH + 2 * halo;
-  const int wout = TW + 2 * halo;
-  const int mvalid = rows_out * Wp;
-  const int mtiles = (mvalid + 15) / 16;
-  const int cinp = p.cinp[l], coutp = p.coutp[l];
-  const int wpitch = coutp + WPAD;
-  const int slice = cinp * wpitch;
-  const int cp_in = p.cpitch[l];
-  const bool last = (l == L - 1);
-  const int cp_out = last ? 0 : p.cpitch[l + 1];
-  const bool act = (p.act_mask >> l) & 1;
-  const bf16* __restrict__ w = p.w + p.w_off[l];
-  const float* __restrict__ bias = p.bias + p.b_off[l];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nmine = warp < mtiles ? min(MT_MAX, (mtiles - warp + NWARPS - 1) / NWARPS) : 0;
-
-  const int row_chunks = coutp / 8;
-  const int nchunks = cinp * row_chunks;
-  auto stage = [&](int t, int buf) {
-    const bf16* src = w + (size_t)t * cinp * coutp;
-    bf16* dst = wbuf + buf * slice;
-    for (int c = threadIdx.x; c < nchunks; c += NTHREADS) {
-      const int k = c / row_chunks, j = c - (c / row_chunks) * row_chunks;
-      cp_async16(dst + k * wpitch + j * 8, src + (size_t)k * coutp + j * 8);
-    }
-    cp_async_commit();
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[MT_MAX][NT];
+// Taps t0 .. t0 + tn - 1 of one layer: k-steps of 16 channels, each over
+// the warp's nmine m-fragments and NF n-fragments.
+template <int NF>
+__device__ __forceinline__ void layer_mma(float (&acc)[MF][NFMAX][4], uint32_t a_base,
+                                          uint32_t b_base, int t0, int tn, int ksteps,
+                                          int P, int pitch, int wp, int nmine) {
+  const uint32_t a_frag = NWARPS * 16 * pitch * 2;  // bytes between a warp's fragments
+  for (int t = 0; t < tn; ++t) {
+    const int tap = t0 + t, di = tap / 3, dj = tap - 3 * di;
+    const uint32_t ao = a_base + (di * P + dj) * pitch * 2;
+    const uint32_t bo = b_base + t * ksteps * 16 * wp * 2;
+    for (int kk = 0; kk < ksteps; ++kk) {
+      uint32_t fa[MF][4], fb[NF][2];
 #pragma unroll
-  for (int m = 0; m < MT_MAX; ++m)
+      for (int i = 0; i < MF; ++i)
+        if (i < nmine) ldsm_x4(fa[i], ao + i * a_frag + kk * 32);
 #pragma unroll
-    for (int n = 0; n < NT; ++n) wmma::fill_fragment(acc[m][n], 0.0f);
-
-  stage(0, 0);
-  for (int t = 0; t < 9; ++t) {
-    if (t + 1 < 9) {
-      stage(t + 1, (t + 1) & 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* wt = wbuf + (t & 1) * slice;
-    const int di = t / 3, dj = t - 3 * (t / 3);
-    const bf16* abase = in + (size_t)(warp * 16 + di * Wp + dj) * cp_in;
-    for (int k0 = 0; k0 < cinp; k0 += 16) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr[NT];
+      for (int j = 0; j < NF; j += 2) ldsm_x4_t(fb[j], fb[j + 1], bo + kk * 16 * wp * 2 + j * 16);
 #pragma unroll
-      for (int n = 0; n < NT; ++n)
-        wmma::load_matrix_sync(bfr[n], wt + k0 * wpitch + n * 16, wpitch);
+      for (int i = 0; i < MF; ++i)
+        if (i < nmine) {
 #pragma unroll
-      for (int m = 0; m < MT_MAX; ++m) {
-        if (m < nmine) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> afr;
-          wmma::load_matrix_sync(
-              afr, abase + (size_t)m * NWARPS * 16 * cp_in + k0, cp_in);
-#pragma unroll
-          for (int n = 0; n < NT; ++n) wmma::mma_sync(acc[m][n], afr, bfr[n], acc[m][n]);
+          for (int j = 0; j < NF; ++j) mma_bf16(acc[i][j], fa[i], fb[j]);
         }
-      }
-    }
-    __syncthreads();  // all warps are done with this tap's slice
-  }
-
-  // Epilogue: bias, ReLU, zero outside the image, round to bf16. The weight
-  // buffer is free now and serves as each warp's 16x16 f32 scratch.
-  float* scratch = reinterpret_cast<float*>(wbuf) + warp * 256;
-  const int r = lane >> 1, c8 = (lane & 1) * 8;
-#pragma unroll
-  for (int m = 0; m < MT_MAX; ++m) {
-    if (m >= nmine) continue;
-    const int q = (warp + m * NWARPS) * 16 + r;
-    const int py = q / Wp, px = q - (q / Wp) * Wp;
-    const int gy = ty0 - halo + py, gx = tx0 - halo + px;
-    const bool inimg = gy >= 0 && gy < p.H && gx >= 0 && gx < p.W;
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      wmma::store_matrix_sync(scratch, acc[m][n], 16, wmma::mem_row_major);
-      __syncwarp();
-      float v[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        float f = scratch[r * 16 + c8 + e] + bias[n * 16 + c8 + e];
-        v[e] = act ? fmaxf(f, 0.0f) : f;
-      }
-      if (!last) {
-        if (q < mvalid) {
-          const bool keep = inimg && px < wout;
-          __align__(16) bf16 o[8];
-#pragma unroll
-          for (int e = 0; e < 8; ++e) o[e] = __float2bfloat16_rn(keep ? v[e] : 0.0f);
-          *reinterpret_cast<uint4*>(obuf + (size_t)q * cp_out + n * 16 + c8) =
-              *reinterpret_cast<const uint4*>(o);
-        }
-      } else if (q < mvalid && px < wout && inimg) {
-        const int cl = p.cout[l];
-        bf16* dst = p.out + (((size_t)b * p.H + gy) * p.W + gx) * cl;
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const int ch = n * 16 + c8 + e;
-          if (ch < cl) dst[ch] = __float2bfloat16_rn(v[e]);
-        }
-      }
-      __syncwarp();
     }
   }
 }
 
-__global__ void __launch_bounds__(NTHREADS)
-conv_chain_kernel(const ChainParams p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* bufA = reinterpret_cast<bf16*>(smem);
-  bf16* bufB = reinterpret_cast<bf16*>(smem + p.bufA_bytes);
-  bf16* wbuf = reinterpret_cast<bf16*>(smem + p.bufA_bytes + p.bufB_bytes);
-  const int tx0 = blockIdx.x * TW, ty0 = blockIdx.y * TH, b = blockIdx.z;
-  const int L = p.L, Wp = p.Wp;
-
-  // Stage the input tile with its L-pixel halo (zeros outside the image,
-  // and in the channels from cin up to the padded width cinp), in
-  // 16-byte rows of 8 channels.
-  {
-    const int cin = p.cin[0], cp = p.cpitch[0];
-    const int chunks = p.cinp[0] / 8;
-    const int npx = (TH + 2 * L) * Wp;
-    const int total = (npx + SLACK_PX) * chunks;
-    for (int idx = threadIdx.x; idx < total; idx += NTHREADS) {
-      const int pix = idx / chunks, ch = idx - (idx / chunks) * chunks;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (pix < npx && ch * 8 < cin) {
-        const int rr = pix / Wp, cc = pix - (pix / Wp) * Wp;
-        const int gy = ty0 - L + rr, gx = tx0 - L + cc;
-        if (gy >= 0 && gy < p.H && gx >= 0 && gx < p.W)
-          v = __ldg(reinterpret_cast<const uint4*>(
-              p.x + (((size_t)b * p.H + gy) * p.W + gx) * cin + ch * 8));
+// Layer l < L - 1: bias, ReLU, one rounding, into the next activation
+// buffer; 0 outside the image and in the junk columns and rows.
+template <int NF>
+__device__ __forceinline__ void store_intermediate(const ChainParams& p, const float (&acc)[MF][NFMAX][4],
+                                                   int l, bf16* obuf, int oy, int ox,
+                                                   int wout, int nmine, uint32_t magP) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g8 = lane >> 2, q4 = lane & 3;
+  const int M = (p.TH + 2 * (p.L - 1 - l)) * p.P;
+  const bool act = (p.act_mask >> l) & 1;
+  float2 bv[NF];
+#pragma unroll
+  for (int j = 0; j < NF; ++j)
+    bv[j] = *reinterpret_cast<const float2*>(p.bias + p.b_off[l] + j * 8 + q4 * 2);
+#pragma unroll
+  for (int i = 0; i < MF; ++i) {
+    if (i >= nmine) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int q = (warp + i * NWARPS) * 16 + g8 + 8 * h;
+      const int r = fast_div(q, magP), c = q - r * p.P;
+      const int gy = oy + r, gx = ox + c;
+      const bool keep = q < M && c < wout && gy >= 0 && gy < p.H && gx >= 0 && gx < p.W;
+      bf16* dst = obuf + q * p.pitch + q4 * 2;
+#pragma unroll
+      for (int j = 0; j < NF; ++j) {
+        float v0 = acc[i][j][2 * h] + bv[j].x, v1 = acc[i][j][2 * h + 1] + bv[j].y;
+        if (act) { v0 = fmaxf(v0, 0.0f); v1 = fmaxf(v1, 0.0f); }
+        *reinterpret_cast<uint32_t*>(dst + j * 8) = keep ? pack_bf16x2(v0, v1) : 0u;
       }
-      *reinterpret_cast<uint4*>(bufA + (size_t)pix * cp + ch * 8) = v;
     }
   }
-  __syncthreads();
+}
 
-  for (int l = 0; l < L; ++l) {
-    const bf16* in = (l & 1) ? bufB : bufA;
-    bf16* ob = (l & 1) ? bufA : bufB;
-    switch (p.coutp[l] / 16) {
-      case 1: chain_layer<1>(p, l, in, ob, wbuf, ty0, tx0, b); break;
-      case 2: chain_layer<2>(p, l, in, ob, wbuf, ty0, tx0, b); break;
-      case 3: chain_layer<3>(p, l, in, ob, wbuf, ty0, tx0, b); break;
-      default: chain_layer<4>(p, l, in, ob, wbuf, ty0, tx0, b); break;
+// The last layer: bias, ReLU, one rounding, into (B, H, W, Cout).
+template <int NF>
+__device__ __forceinline__ void store_output(const ChainParams& p, const float (&acc)[MF][NFMAX][4],
+                                             int b, int ty0, int tx0, int nmine, uint32_t magP) {
+  const int l = p.L - 1, Cout = p.cout[l];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g8 = lane >> 2, q4 = lane & 3;
+  const int M = p.TH * p.P;
+  const bool act = (p.act_mask >> l) & 1, vec = Cout % 8 == 0;
+  float2 bv[NF];
+#pragma unroll
+  for (int j = 0; j < NF; ++j)
+    bv[j] = *reinterpret_cast<const float2*>(p.bias + p.b_off[l] + j * 8 + q4 * 2);
+#pragma unroll
+  for (int i = 0; i < MF; ++i) {
+    if (i >= nmine) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int q = (warp + i * NWARPS) * 16 + g8 + 8 * h;
+      const int r = fast_div(q, magP), c = q - r * p.P;
+      const int gy = ty0 + r, gx = tx0 + c;
+      const bool inimg = q < M && c < p.TW && gy < p.H && gx < p.W;
+      bf16* orow = p.out + (((size_t)b * p.H + gy) * p.W + gx) * Cout;
+#pragma unroll
+      for (int j0 = 0; j0 < NF; j0 += 4) {
+        uint32_t u[4];
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const int j = j0 + jj < NF ? j0 + jj : NF - 1;
+          float v0 = acc[i][j][2 * h] + bv[j].x, v1 = acc[i][j][2 * h + 1] + bv[j].y;
+          if (act) { v0 = fmaxf(v0, 0.0f); v1 = fmaxf(v1, 0.0f); }
+          u[jj] = pack_bf16x2(v0, v1);
+        }
+        quad_transpose(u, q4);
+        const int ch0 = (j0 + q4) * 8;
+        if (inimg && j0 + q4 < NF && ch0 < Cout) {
+          if (vec) {
+            *reinterpret_cast<uint4*>(orow + ch0) = make_uint4(u[0], u[1], u[2], u[3]);
+          } else {
+#pragma unroll
+            for (int e = 0; e < 8; ++e)
+              if (ch0 + e < Cout)
+                orow[ch0 + e] = __ushort_as_bfloat16(
+                    static_cast<unsigned short>(u[e >> 1] >> (16 * (e & 1))));
+          }
+        }
+      }
     }
-    __syncthreads();
+  }
+}
+
+// One step: this warp's MMAs over a tap group of layer l, then, after the
+// layer's last group, its epilogue.
+template <int NF>
+__device__ __forceinline__ void chain_step(const ChainParams& p, float (&acc)[MF][NFMAX][4],
+                                           int l, int g, const bf16* in, const bf16* wslot,
+                                           bf16* obuf, int b, int ty, int tx, uint32_t magP) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int frags = p.frags[l];
+  const int nmine = frags > warp ? min(MF, (frags - warp + NWARPS - 1) / NWARPS) : 0;
+  const int wp = p.coutp[l] + PAD, t0 = g * p.tg[l], tn = min(p.tg[l], 9 - t0);
+  const uint32_t a_base =
+      smem_u32(in + (warp * 16 + (lane & 15)) * p.pitch + (lane >> 4) * 8);
+  const uint32_t b_base = smem_u32(wslot + (lane & 15) * wp + (lane >> 4) * 8);
+  layer_mma<NF>(acc, a_base, b_base, t0, tn, p.cinp[l] / 16, p.P, p.pitch, wp, nmine);
+  if (g != p.groups[l] - 1) return;
+  if (l == p.L - 1) {
+    store_output<NF>(p, acc, b, ty * p.TH, tx * p.TW, nmine, magP);
+  } else {
+    const int halo = p.L - 1 - l;
+    store_intermediate<NF>(p, acc, l, obuf, ty * p.TH - halo, tx * p.TW - halo,
+                           p.TW + 2 * halo, nmine, magP);
+  }
+#pragma unroll
+  for (int i = 0; i < MF; ++i)
+#pragma unroll
+    for (int j = 0; j < NFMAX; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+}
+
+__global__ void __launch_bounds__(NTHREADS, 1)
+conv_chain_kernel(const ChainParams p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int L = p.L, P = p.P;
+  const uint32_t magP = fast_div_magic(P);
+  auto buf = [&](int i) { return reinterpret_cast<bf16*>(smem + i * p.buf_bytes); };
+  auto slot = [&](int i) {
+    return reinterpret_cast<bf16*>(smem + 2 * p.buf_bytes + i * p.slot_bytes);
+  };
+  auto tile_origin = [&](int tile, int& b, int& ty, int& tx) {
+    const int per_img = p.tiles_x * p.tiles_y;
+    b = tile / per_img;
+    const int r = tile - b * per_img;
+    ty = r / p.tiles_x;
+    tx = r - ty * p.tiles_x;
+  };
+
+  // Tile `tile`'s input with its L-pixel halo into buffer `s`: buf_px
+  // positions of Cin16 channels, zeros outside the image, past C0 and in
+  // the slack past the region.
+  auto stage_x = [&](int tile, int s) {
+    int b, ty, tx;
+    tile_origin(tile, b, ty, tx);
+    const int y0 = ty * p.TH - L, x0 = tx * p.TW - L, rows = p.TH + 2 * L;
+    const int pieces = p.cinp[0] / 8;
+    const uint32_t mag_pc = fast_div_magic(pieces);
+    const bf16* xb = p.x + (size_t)b * p.H * p.W * p.C0;
+    bf16* dst = buf(s);
+    for (int it = threadIdx.x; it < p.buf_px * pieces; it += NTHREADS) {
+      const int pix = fast_div(it, mag_pc), pc = it - pix * pieces;
+      const int row = fast_div(pix, magP), col = pix - row * P;
+      const int gy = y0 + row, gx = x0 + col, ch = pc * 8;
+      const bool ok = row < rows && ch < p.C0 && gy >= 0 && gy < p.H && gx >= 0 && gx < p.W;
+      cp_async16_zfill(dst + pix * p.pitch + ch,
+                       ok ? xb + ((size_t)gy * p.W + gx) * p.C0 + ch : p.x, ok);
+    }
+  };
+  // Group g of layer l's weights into slot `s`, as [taps][cinp][coutp + PAD].
+  auto stage_w = [&](int l, int g, int s) {
+    const int t0 = g * p.tg[l], tn = min(p.tg[l], 9 - t0);
+    const int pieces = p.coutp[l] / 8, wp = p.coutp[l] + PAD;
+    const uint32_t mag_pc = fast_div_magic(pieces);
+    const bf16* src = p.w + p.w_off[l] + (size_t)t0 * p.cinp[l] * p.coutp[l];
+    bf16* dst = slot(s);
+    for (int it = threadIdx.x; it < tn * p.cinp[l] * pieces; it += NTHREADS) {
+      const int row = fast_div(it, mag_pc), pc = it - row * pieces;
+      cp_async16(dst + row * wp + pc * 8, src + (size_t)row * p.coutp[l] + pc * 8);
+    }
+  };
+
+  int tile = blockIdx.x, l = 0, g = 0, s = 0, ws = 0;
+  if (tile >= p.tiles) return;
+  stage_w(0, 0, 0);
+  stage_x(tile, 0);
+  cp_async_commit();
+
+  float acc[MF][NFMAX][4];
+#pragma unroll
+  for (int i = 0; i < MF; ++i)
+#pragma unroll
+    for (int j = 0; j < NFMAX; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+
+  while (true) {
+    cp_async_wait<0>();
+    __syncthreads();  // this step's input and weights are in; the last step's slot is free
+    int nt = tile, nl = l, ng = g + 1;
+    if (ng == p.groups[l]) {
+      ng = 0;
+      if (++nl == L) { nl = 0; nt += gridDim.x; }
+    }
+    const bool more = nt < p.tiles;
+    if (more) {
+      stage_w(nl, ng, ws ^ 1);
+      // The last layer reads buffer (s + L - 1) & 1: the other is free.
+      if (nl == 0 && ng == 0) stage_x(nt, (s + L) & 1);
+      cp_async_commit();
+    }
+
+    int b, ty, tx;
+    tile_origin(tile, b, ty, tx);
+    const bf16* in = buf((s + l) & 1);
+    bf16* obuf = buf((s + l + 1) & 1);
+    switch (p.coutp[l] / 16) {
+      case 1: chain_step<2>(p, acc, l, g, in, slot(ws), obuf, b, ty, tx, magP); break;
+      case 2: chain_step<4>(p, acc, l, g, in, slot(ws), obuf, b, ty, tx, magP); break;
+      case 3: chain_step<6>(p, acc, l, g, in, slot(ws), obuf, b, ty, tx, magP); break;
+      default: chain_step<8>(p, acc, l, g, in, slot(ws), obuf, b, ty, tx, magP); break;
+    }
+    if (!more) break;
+    ws ^= 1;
+    if (nl == 0 && ng == 0) s = (s + L) & 1;
+    tile = nt;
+    l = nl;
+    g = ng;
   }
 }
 
@@ -240,57 +333,75 @@ extern "C" const char* vfi_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Launch one chain of 2..4 layers. c0..c4 are the channel counts (c0 =
-// input, c[l+1] = layer l's output); entries past L are ignored. Returns the
-// cudaError_t of the launch (0 = launched); the kernel runs on `stream`.
-extern "C" int vfi_conv_chain_bf16(const void* x, const void* w, const void* bias,
-                                   void* out, int B, int H, int W, int L,
-                                   int c0, int c1, int c2, int c3, int c4,
-                                   int act_mask, int device, void* stream) {
-  if (L < 2 || L > MAXL) return (int)cudaErrorInvalidValue;
+// Launch one chain of 2..4 layers on the plan of `chain_fused_plan`
+// (ops/cuda/conv.py): c0..c4 the widths (c0 the input's, a multiple of 8;
+// c[l + 1] layer l's output, 1..64; entries past L ignored), act_mask bit l
+// layer l's ReLU, a th x tw output tile, tg0..tg3 taps per weight group of
+// each layer, buf_bytes per activation buffer, slot_bytes per weight slot,
+// smem bytes in all. Returns the cudaError_t of the launch
+// (cudaErrorInvalidValue for a shape or plan outside the contract); the
+// kernel runs on `stream`.
+extern "C" int vfi_conv_chain_bf16(const void* x, const void* w, const void* bias, void* out,
+                                   int B, int H, int W, int L, int c0, int c1, int c2, int c3,
+                                   int c4, int act_mask, int th, int tw, int tg0, int tg1,
+                                   int tg2, int tg3, int buf_bytes, int slot_bytes, int smem,
+                                   int device, void* stream) {
+  if (L < 2 || L > MAXL || c0 < 8 || c0 % 8 != 0 || th < 1 || tw < 1 || B < 0 || H < 0 ||
+      W < 0)
+    return (int)cudaErrorInvalidValue;
   const int c[MAXL + 1] = {c0, c1, c2, c3, c4};
-  if (c0 < 8 || c0 % 8 != 0) return (int)cudaErrorInvalidValue;
+  const int tgs[MAXL] = {tg0, tg1, tg2, tg3};
   ChainParams p{};
   p.x = static_cast<const bf16*>(x);
   p.w = static_cast<const bf16*>(w);
   p.bias = static_cast<const float*>(bias);
   p.out = static_cast<bf16*>(out);
-  p.B = B; p.H = H; p.W = W; p.L = L; p.Wp = TW + 2 * L;
+  p.B = B; p.H = H; p.W = W; p.L = L; p.C0 = c0;
+  p.TH = th; p.TW = tw; p.P = tw + 2 * L;
   p.act_mask = act_mask;
   long long woff = 0;
-  int boff = 0;
+  int boff = 0, widest = 0, slot_need = 0;
   for (int l = 0; l < L; ++l) {
-    p.cin[l] = c[l];
-    p.cinp[l] = l == 0 ? (c[0] + 15) / 16 * 16 : p.coutp[l - 1];
+    if (c[l + 1] < 1 || c[l + 1] > NFMAX * 8 || tgs[l] < 1 || tgs[l] > 9)
+      return (int)cudaErrorInvalidValue;
+    p.cinp[l] = pad16(c[l]);
+    p.coutp[l] = pad16(c[l + 1]);
     p.cout[l] = c[l + 1];
-    p.coutp[l] = (c[l + 1] + 15) / 16 * 16;
-    if (p.coutp[l] > 64 || c[l + 1] < 1) return (int)cudaErrorInvalidValue;
-    p.cpitch[l] = p.cinp[l] + CPAD;
+    p.tg[l] = tgs[l];
+    p.groups[l] = (9 + tgs[l] - 1) / tgs[l];
+    p.frags[l] = ((th + 2 * (L - 1 - l)) * p.P + 15) / 16;
+    if (p.frags[l] > NWARPS * MF) return (int)cudaErrorInvalidValue;
     p.w_off[l] = woff;
     p.b_off[l] = boff;
     woff += 9LL * p.cinp[l] * p.coutp[l];
     boff += p.coutp[l];
+    widest = std::max(widest, p.cinp[l]);
+    slot_need = std::max(slot_need, tgs[l] * p.cinp[l] * (p.coutp[l] + PAD) * 2);
   }
-  if ((TH + 2 * (L - 1)) * p.Wp > 16 * NWARPS * MT_MAX) return (int)cudaErrorInvalidValue;
-  int bytesA = 0, bytesB = 0, bytesW = NWARPS * 256 * 4;  // W doubles as epilogue scratch
-  for (int l = 0; l < L; ++l) {
-    const int wbytes = 2 * p.cinp[l] * (p.coutp[l] + WPAD) * 2;
-    bytesW = bytesW > wbytes ? bytesW : wbytes;
-    const int rows_in = TH + 2 * (L - l);
-    const int bytes = ((rows_in * p.Wp + SLACK_PX) * p.cpitch[l] * 2 + 127) / 128 * 128;
-    if (l & 1) bytesB = bytesB > bytes ? bytesB : bytes;
-    else bytesA = bytesA > bytes ? bytesA : bytes;
-  }
-  p.bufA_bytes = bytesA;
-  p.bufB_bytes = bytesB;
-  const int smem = bytesA + bytesB + bytesW;
+  p.pitch = widest + PAD;
+  p.buf_px = p.frags[0] * 16 + 2 * p.P + 2;
+  if (buf_bytes % 128 != 0 || slot_bytes % 128 != 0 ||
+      (long long)buf_bytes < 2LL * p.buf_px * p.pitch || slot_bytes < slot_need ||
+      (long long)smem < 2LL * buf_bytes + 2LL * slot_bytes)
+    return (int)cudaErrorInvalidValue;
+  p.buf_bytes = buf_bytes;
+  p.slot_bytes = slot_bytes;
+  p.tiles_x = (W + tw - 1) / tw;
+  p.tiles_y = (H + th - 1) / th;
+  p.tiles = B * p.tiles_x * p.tiles_y;
+  if (p.tiles == 0) return (int)cudaSuccess;
 
   cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(conv_chain_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  err = cudaFuncSetAttribute(conv_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
+  int per_sm = 0, sms = 0, dev = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, conv_chain_kernel, NTHREADS, smem);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const int grid = std::min(p.tiles, per_sm * sms);
   conv_chain_kernel<<<grid, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
 }

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from vfi_tpu_torch.data.dataset import IMAGENET_MEAN, IMAGENET_STD
@@ -37,6 +38,31 @@ TTA_SYMMETRIES = (
     (lambda a, b: (a.flip(1), b.flip(1)), lambda o: o.flip(1)),
     (lambda a, b: (b, a), lambda o: o),
 )
+
+
+def percentile_linear(x: torch.Tensor, q: float) -> float:
+    """The q-th percentile (0 <= q <= 100) of all of x's elements by
+    linear interpolation between the two nearest ranks, the default method
+    of `jnp.percentile` (the reference's `p95_flow`) and
+    `numpy.percentile`: for n sorted values v and the rank r = q / 100 *
+    (n - 1), v[floor(r)] * (1 - frac(r)) + v[ceil(r)] * frac(r), with the
+    rank, weights and sum in float32 as `jnp.percentile` computes them.
+    The two values come from `torch.kthvalue`, so any element count is
+    taken (`torch.quantile` refuses more than 2^24)."""
+    v = x.detach().flatten().float()
+    n = v.numel()
+    if n == 0:
+        raise ValueError("percentile of an empty tensor")
+    if not 0.0 <= q <= 100.0:
+        raise ValueError(f"percentile q must lie in [0, 100], got {q}")
+    f32 = np.float32
+    r = f32(q) / f32(100.0) * (f32(n) - f32(1.0))
+    hw = r - np.floor(r)
+    lo = min(int(np.floor(r)), n - 1)
+    hi = min(int(np.ceil(r)), n - 1)
+    a = f32(v.kthvalue(lo + 1).values.item())
+    b = a if hi == lo else f32(v.kthvalue(hi + 1).values.item())
+    return float(a * (f32(1.0) - hw) + b * hw)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -178,8 +204,7 @@ class FrameInterpolator:
         default) of the flow estimator's motion magnitude over the pairs."""
         fl = self.flow_module(self._normalize(f0), self._normalize(f1))
         mag = torch.sqrt(fl[..., 0].square() + fl[..., 1].square())
-        return torch.quantile(mag.float().flatten(), 0.95,
-                              interpolation="linear").item()
+        return percentile_linear(mag, 95.0)
 
     def _probe_scaled(self, f0, f1) -> bool:
         """One auto_scale probe on at most the first guard chunk's pairs:

@@ -4,7 +4,8 @@ Each wrapper launches its kernel for a CUDA tensor and runs its plain
 PyTorch version, defined or imported in the same module, only for a tensor
 that lies on the CPU. Every wrapper keeps a plain integer `launches` that
 it raises by one where it launches its kernel, and nowhere else; each also
-counts per call shape in `launches_by_shape`.
+counts per call shape in `launches_by_shape` (`conv_chain` also per
+route and shape in `launches_by_plan`).
 
 Nothing here builds at import: the shared library is compiled on the first
 launch (`build.load`).
@@ -12,9 +13,10 @@ launch (`build.load`).
 
 from typing import Callable, NamedTuple
 
-from vfi_tpu_torch.ops.cuda.conv import (conv2d, conv2d_plain, conv2d_plan,
-                                         conv_chain, conv_chain_plain,
-                                         pack_conv2d, pack_conv_chain)
+from vfi_tpu_torch.ops.cuda.conv import (chain_plan, conv2d, conv2d_plain,
+                                         conv2d_plan, conv_chain,
+                                         conv_chain_plain, pack_conv2d,
+                                         pack_conv_chain)
 from vfi_tpu_torch.ops.cuda.sampling import (bounded_warp, bounded_warp_plain,
                                              dcn_plan, deform_conv2d_bounded,
                                              deform_conv2d_bounded_plain,
@@ -41,6 +43,7 @@ def reset_launch_counts() -> None:
     for fn in WRAPPERS:
         fn.launches = 0
         fn.launches_by_shape.clear()
+    conv_chain.launches_by_plan.clear()
 
 
 def launch_counts() -> dict:
@@ -48,7 +51,7 @@ def launch_counts() -> dict:
 
 
 __all__ = ["KERNELS", "Ops", "PLAIN", "WRAPPERS", "bounded_warp",
-           "bounded_warp_plain", "conv2d", "conv2d_plain", "conv2d_plan",
+           "bounded_warp_plain", "chain_plan", "conv2d", "conv2d_plain", "conv2d_plan",
            "conv_chain", "conv_chain_plain", "dcn_plan",
            "deform_conv2d_bounded",
            "deform_conv2d_bounded_plain", "launch_counts", "pack_conv2d",

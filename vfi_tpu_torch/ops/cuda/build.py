@@ -37,9 +37,11 @@ _F = ctypes.c_float
 # C entry points: name -> argtypes. Every entry returns an int: the
 # cudaError_t of its launch (0 = launched), or the count it names.
 SIGNATURES = {
-    # x, w, bias, out, B, H, W, L, c0..c4, act_mask, device, stream
+    # x, w, bias, out, B, H, W, L, c0..c4, act_mask, th, tw, tg0..tg3,
+    # buf_bytes, slot_bytes, smem_bytes (chain_fused_plan), device, stream
     "vfi_conv_chain_bf16": [_P, _P, _P, _P, _I, _I, _I, _I,
-                            _I, _I, _I, _I, _I, _I, _I, _P],
+                            _I, _I, _I, _I, _I, _I, _I, _I,
+                            _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, w, bias, out, B, H, W, Cin, Cout, K, act, ck, taps_per_group,
     # x_bytes, smem_bytes (conv2d_plan), device, stream
     "vfi_conv2d_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

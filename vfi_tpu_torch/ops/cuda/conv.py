@@ -8,14 +8,16 @@ PyTorch versions.
   is rounded to the working dtype first and every layer's output is
   rounded to it, as the JAX chain (`vfi_tpu/models/layers.py::
   apply_conv_chain`) does. `conv_chain(x, weights, biases, acts,
-  packed=None)`: x NHWC, weights OIHW (`nn.Conv2d.weight`), biases (cout,)
-  or None; `packed` is `pack_conv_chain(weights, biases)` made ahead of
-  time, or None to pack on this call. On the card: bf16, contiguous, 1..4
-  layers, every cout <= 64; the first layer takes any width (an input
-  whose channels are not a multiple of 8 is zero-padded to one first,
-  `pad_channels8`). One layer (the DCN blocks' offset convs) is one 3x3
-  conv: it launches the single-conv kernel on the chain's packed weights,
-  which are `pack_conv2d`'s; two to four launch the chain kernel.
+  packed=None, route=None)`: x NHWC, weights OIHW (`nn.Conv2d.weight`),
+  biases (cout,) or None; `packed` is `pack_conv_chain(weights, biases)`
+  made ahead of time, or None to pack on this call. On the card: bf16,
+  contiguous, 1..4 layers, every cout <= 64; the first layer takes any
+  width (an input whose channels are not a multiple of 8 is zero-padded
+  to one first, `pad_channels8`). `chain_plan` picks the route of each
+  shape: "layers" runs each layer as one launch of the single-conv kernel
+  on that layer's slice of the packed weights (a chain of one layer
+  always does: the DCN blocks' offset convs), "fused" one launch of the
+  chain kernel. `route` overrides the plan's pick, for tests and timing.
 - `conv2d` replaces `conv2d_pallas` (kernel `_conv_kernel`, variants
   "im2col" and "direct") and `conv2d_pallas_v2` (`_conv_kernel_v2`,
   variant "v2"): one stride-1 square odd-k conv, zeros padding k // 2, an
@@ -190,21 +192,162 @@ def pack_conv_chain(weights: Sequence[torch.Tensor],
             torch.cat([b for _, b in packs]))
 
 
+def _pad8(c: int) -> int:
+    return -(-c // 8) * 8
+
+
+# The fused chain kernel (`csrc/conv_chain.cu`): output tiles it may take,
+# largest first, its warps, and the m16 fragments a warp holds at most.
+CHAIN_TILES = ((16, 16), (8, 16), (8, 8))
+CHAIN_WARPS = 8
+CHAIN_MF = 4
+ROUTES = ("fused", "layers")
+
+
+def chain_fused_plan(chans: Sequence[int],
+                     limit: int = H100_SMEM_PER_BLOCK) -> Optional[dict]:
+    """The fused kernel's plan for a chain of widths `chans` (chans[0]
+    the input's, which the kernel reads padded to a multiple of 8), or
+    None where no tile fits.
+
+    All layers share one flat pixel pitch P = TW + 2L (the tile's columns
+    and halo); layer l computes the (TH + 2(L-1-l)) x P positions of its
+    output region as m16 fragments of consecutive positions, which a tap
+    reads at a flat offset in its input. Two activation buffers of
+    `buf_px` positions (each position one row of Cin16 + 8 bf16 channels
+    of the widest layer input) hold a layer's input and output in turn,
+    and the next tile's input copies into the free one during the last
+    layer; two weight slots hold `taps_per_group[l]` taps of layer l
+    (Cin16 rows of Cout16 + 8) each, the next group copying while this
+    one multiplies. The first tile of `CHAIN_TILES` whose layers need at
+    most CHAIN_MF fragments a warp and whose buffers and slots (at least
+    one tap of every layer) fit `limit` is taken; each layer's group is
+    the most taps the slot holds, evened over its groups. (A 16 x 32 tile,
+    1.34x the work of its outputs at L = 3 against 1.56x at 16 x 16, needs
+    48 fragments a layer: more than 8 warps of CHAIN_MF hold.)"""
+    L = len(chans) - 1
+    cins = [_pad16(c) for c in chans[:-1]]
+    couts = [_pad16(c) for c in chans[1:]]
+    tap_bytes = [ci * (co + ROW_PAD) * 2 for ci, co in zip(cins, couts)]
+    pitch = max(cins) + ROW_PAD
+    for th, tw in CHAIN_TILES:
+        p_px = tw + 2 * L
+        frags = [-(-(th + 2 * (L - 1 - l)) * p_px // 16) for l in range(L)]
+        if max(frags) > CHAIN_WARPS * CHAIN_MF:
+            continue
+        buf_px = frags[0] * 16 + 2 * p_px + 2
+        buf_bytes = _round128(buf_px * pitch * 2)
+        slot = (limit - 2 * buf_bytes) // 2 // 128 * 128
+        if slot < max(tap_bytes):
+            continue
+        tg = []
+        for tb in tap_bytes:
+            fit = min(9, slot // tb)
+            tg.append(-(-9 // -(-9 // fit)))
+        slot_bytes = _round128(max(t * tb for t, tb in zip(tg, tap_bytes)))
+        return {"tile": f"{th}x{tw}", "th": th, "tw": tw, "pitch_px": p_px,
+                "frags": frags, "buf_px": buf_px, "buf_bytes": buf_bytes,
+                "taps_per_group": tg, "groups": [-(-9 // t) for t in tg],
+                "slot_bytes": slot_bytes,
+                "smem_bytes": 2 * buf_bytes + 2 * slot_bytes}
+    return None
+
+
+@functools.lru_cache(maxsize=None)
+def chain_plan(chans: tuple, acts: tuple, b: int, h: int, w: int,
+               limit: int = H100_SMEM_PER_BLOCK) -> dict:
+    """The route of one chain shape: chans = (Cin, Cout_1, ..., Cout_L),
+    `acts` the layers' ReLUs, a (b, h, w) input, `limit` bytes of shared
+    memory a block. Pure and deterministic: nothing is timed at run time.
+
+    Returns {"route": "fused" | "layers", "fused": `chain_fused_plan` (or
+    None where no tile fits, and for one layer), "layers": each layer's
+    `conv2d_plan` (the input width padded to 8; an intermediate's width
+    too, its padding channels computed as exact zeros from the packed
+    weights' zero columns)}. Raises ValueError past the contract:
+    1..MAX_LAYERS layers, every Cout in 1..MAX_COUT.
+
+    Rule: "layers" at every shape. It rests on device time per launch in
+    turns on an H100 (`tools/conv_turns.py`, PERF.md section 6): the
+    layers route beat the fused kernel at every chain shape a path
+    launches (720p feat 0.727 / 1.255 ms, motion 0.916 / 2.688, rec 0.527
+    / 0.834; 360x640, 4x480x640 incl. rec67 and 4x240x320 alike) and on
+    1x16x32, 1x64x128 and 1x128x256 frames (0.028-0.048 / 0.033-0.104
+    ms). A fused tile recomputes its halo (1.56x the work for three layers
+    on 16 x 16 outputs) and re-reads every layer's weights a tile; the
+    layers pay one device-memory round trip of each intermediate, which
+    at these widths costs less. `route="fused"` still runs the kernel."""
+    L = len(chans) - 1
+    if not 1 <= L <= MAX_LAYERS:
+        raise ValueError(f"conv_chain takes 1..{MAX_LAYERS} layers, got "
+                         f"{L}")
+    if len(acts) != L:
+        raise ValueError(f"{len(acts)} acts for {L} layers")
+    if chans[0] < 1 or not all(1 <= c <= MAX_COUT for c in chans[1:]):
+        raise ValueError(f"conv_chain takes cout <= {MAX_COUT} (and every "
+                         f"width >= 1), got channels {chans}")
+    if min(b, h, w) < 0:
+        raise ValueError(f"negative shape {(b, h, w)}")
+    widths = [_pad8(c) for c in chans[:-1]] + [chans[-1]]
+    layers = [conv2d_plan(ci, co, 3, limit)
+              for ci, co in zip(widths[:-1], widths[1:])]
+    fused = chain_fused_plan(chans, limit) if L > 1 else None
+    return {"route": "layers", "fused": fused, "layers": layers}
+
+
+def chain_layer_packs(wpk: torch.Tensor, bpk: torch.Tensor,
+                      chans: Sequence[int]) -> list:
+    """The "layers" route's weights: views of `pack_conv_chain`'s buffers,
+    one (wpk [9 * Cin16][Cout16], bpk [Cout16]) per layer, each exactly
+    that layer's `pack_conv2d` block."""
+    packs, wo, bo = [], 0, 0
+    for ci, co in zip(map(_pad16, chans[:-1]), map(_pad16, chans[1:])):
+        packs.append((wpk[wo:wo + 9 * ci * co].view(9 * ci, co),
+                      bpk[bo:bo + co]))
+        wo, bo = wo + 9 * ci * co, bo + co
+    return packs
+
+
+def _launch_chain_fused(xp: torch.Tensor, wpk: torch.Tensor,
+                        bpk: torch.Tensor, out: torch.Tensor,
+                        chans: Sequence[int], acts: Sequence[bool],
+                        plan: dict) -> None:
+    """One launch of the fused chain kernel on `chain_fused_plan`'s plan:
+    xp (B, H, W, C0 % 8 == 0) bf16, the packed chain, into `out`."""
+    (b, h, w, _), dev = xp.shape, xp.device
+    L = len(chans) - 1
+    cs = [xp.shape[-1]] + list(chans[1:]) + [0] * (MAX_LAYERS - L)
+    tg = plan["taps_per_group"] + [0] * (MAX_LAYERS - L)
+    act_mask = sum(1 << i for i, a in enumerate(acts) if a)
+    rc = build.entry("vfi_conv_chain_bf16")(
+        xp.data_ptr(), wpk.data_ptr(), bpk.data_ptr(), out.data_ptr(),
+        b, h, w, L, *cs, act_mask, plan["th"], plan["tw"], *tg,
+        plan["buf_bytes"], plan["slot_bytes"], plan["smem_bytes"],
+        dev.index, build.current_stream(dev.index))
+    if rc:
+        build.check(rc, "conv_chain")
+
+
 def conv_chain(x: torch.Tensor, weights: Sequence[torch.Tensor],
                biases: Sequence[Optional[torch.Tensor]],
                acts: Sequence[bool],
-               packed: Optional[tuple] = None) -> torch.Tensor:
+               packed: Optional[tuple] = None,
+               route: Optional[str] = None) -> torch.Tensor:
     weights, biases, acts = list(weights), list(biases), tuple(acts)
     if not (len(weights) == len(biases) == len(acts)):
         raise ValueError("weights, biases and acts differ in length")
     if x.dim() != 4:
         raise ValueError(f"x must be NHWC, got shape {tuple(x.shape)}")
+    if route is not None and route not in ROUTES:
+        raise ValueError(f"route must be one of {ROUTES} or None, got "
+                         f"{route!r}")
     chans = [x.shape[3]]
     for w in weights:
         if w.dim() != 4 or w.shape[2:] != (3, 3) or w.shape[1] != chans[-1]:
             raise ValueError(f"layer weight {tuple(w.shape)} is not OIHW "
                              f"3x3 with cin={chans[-1]}")
         chans.append(w.shape[0])
+    chans = tuple(chans)
     if x.device.type == "cpu":
         return conv_chain_plain(x, weights, biases, acts)
     if x.device.type != "cuda":
@@ -213,40 +356,38 @@ def conv_chain(x: torch.Tensor, weights: Sequence[torch.Tensor],
         raise TypeError(f"conv_chain kernel takes bfloat16, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("conv_chain kernel takes a contiguous NHWC tensor")
-    L = len(weights)
-    if not 1 <= L <= MAX_LAYERS:
-        raise ValueError(f"conv_chain kernel takes 1..{MAX_LAYERS} layers")
-    if max(chans[1:]) > MAX_COUT:
-        raise ValueError(f"conv_chain kernel takes cout <= {MAX_COUT}")
+    b, h, w, _ = x.shape
+    plan = chain_plan(chans, acts, b, h, w, _smem_limit(x.device.index))
+    L, use = len(weights), route or plan["route"]
+    if use == "fused" and plan["fused"] is None:
+        raise ValueError(f"conv_chain: no fused plan for channels {chans} "
+                         f"(one layer runs the conv kernel; wider inputs "
+                         f"overrun shared memory)")
     if any(w.device != x.device for w in weights):
         raise ValueError("weights must be on the input's device")
     wpk, bpk = packed or pack_conv_chain(weights, biases)
     n_w = sum(9 * _pad16(ci) * _pad16(co) for ci, co in
-              zip([chans[0]] + chans[1:-1], chans[1:]))
+              zip(chans[:-1], chans[1:]))
     if wpk.numel() != n_w or wpk.device != x.device:
         raise ValueError("packed weights do not match this chain's "
                          "channels or device")
 
     def launch(x, *_):
-        b, h, w, _ = x.shape
-        out = torch.empty(b, h, w, chans[-1], dtype=torch.bfloat16,
-                          device=x.device)
         xp = pad_channels8(x)
-        if L == 1:   # one 3x3 conv: pack_conv_chain([w], [b]) is pack_conv2d
-            _launch_conv2d(xp, wpk.view(-1, _pad16(chans[1])), bpk, out, 3,
-                           acts[0], "conv_chain")
+        if use == "fused":
+            out = x.new_empty(b, h, w, chans[-1])
+            _launch_chain_fused(xp, wpk, bpk, out, chans, acts,
+                                plan["fused"])
         else:
-            cs = ([xp.shape[-1]] + chans[1:]
-                  + [0] * (MAX_LAYERS + 1 - len(chans)))
-            act_mask = sum(1 << i for i, a in enumerate(acts) if a)
-            rc = build.entry("vfi_conv_chain_bf16")(
-                xp.data_ptr(), wpk.data_ptr(), bpk.data_ptr(),
-                out.data_ptr(), b, h, w, L, *cs, act_mask, x.device.index,
-                build.current_stream(x.device.index))
-            if rc:
-                build.check(rc, "conv_chain")
+            for l, (wl, bl) in enumerate(chain_layer_packs(wpk, bpk,
+                                                           chans)):
+                co = chans[l + 1] if l == L - 1 else _pad8(chans[l + 1])
+                out = x.new_empty(b, h, w, co)
+                _launch_conv2d(xp, wl, bl, out, 3, acts[l], "conv_chain")
+                xp = out
         conv_chain.launches += 1
-        conv_chain.launches_by_shape[(tuple(chans), h, w)] += 1
+        conv_chain.launches_by_shape[(chans, h, w)] += 1
+        conv_chain.launches_by_plan[(use, chans, h, w)] += 1
         return out
 
     def plain(x, *wb):
@@ -257,6 +398,8 @@ def conv_chain(x: torch.Tensor, weights: Sequence[torch.Tensor],
 
 conv_chain.launches = 0
 conv_chain.launches_by_shape = Counter()
+# Launches by (route, chans, h, w): which route each call ran.
+conv_chain.launches_by_plan = Counter()
 
 
 def conv2d_plain(x: torch.Tensor, weight: torch.Tensor,

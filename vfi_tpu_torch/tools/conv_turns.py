@@ -1,7 +1,8 @@
 """Device time of the port's kernels in several checkouts, taking turns.
 
     python -m vfi_tpu_torch.tools.conv_turns --trees A,B,B,A
-        [--shapes 64x64,128x64,64x32,6x64,64x27c,dcn64r1,dcn67r2,warp3r16]
+        [--shapes 64x64,128x64,64x32,6x64,64x27c,dcn64r1,dcn67r2,warp3r16,
+                  chain_feat,chain_motion:fused,chain_rec:layers,...]
         [--b 1] [--h 720] [--w 1280] [--launches 100] [--device cuda|cpu]
         [--smoke]
 
@@ -23,7 +24,17 @@ device too. Shapes:
   reaching past R, a sigmoid mask (`dcn64r1`: qocc's `fusion_dcn0`;
   `dcn67r2`: q12's);
 - `warpCrR`: the bounded warp `ops.cuda.bounded_warp` of a C-channel
-  image, flows reaching past R (`warp3r16`: the RGB frame).
+  image, flows reaching past R (`warp3r16`: the RGB frame);
+- `chain_NAME[:HOW]`: a chain of the model's trunk (`CHAINS`: `feat`
+  64->64->64->64 with three ReLUs, `motion` 128->64->64->2 and `rec`
+  64->64->32->3 with ReLU, ReLU, none, `rec67` the reference topology's
+  67->64->32->3), weights packed once. HOW: none, `conv_chain` on the
+  checkout's own route for the shape; `fused` / `layers`, that route
+  forced (a checkout whose `conv_chain` has no `route` runs its fused
+  kernel for `fused`, and for `layers` one one-layer `conv_chain` a
+  layer, which launches the conv kernel the same way); `cudnn`,
+  `F.conv2d` in bf16 then `relu` where the layer has one, layer by layer
+  (a sequence of library calls, the "xla" route's trunk).
 
 Inputs and weights come from a seeded numpy generator, the same in every
 process. Give the trees in turns (A, B, B, A) to cancel drift of the
@@ -45,18 +56,27 @@ import sys
 import numpy as np
 
 LAUNCHES = 100
+# A turn that has not ended by then raises (subprocess.TimeoutExpired).
+TURN_TIMEOUT_S = 900
 SHAPES = "64x64,128x64,64x32,6x64,64x27c"
 
 # Run in each checkout: its own package, the API every checkout with the
 # port's conv wrappers shares.
 CHILD = r"""
-import json, sys
+import inspect, json, sys
 import numpy as np
 import torch
+import torch.nn.functional as F
 args = json.loads(sys.argv[1])
 sys.path.insert(0, args["tree"])
 from vfi_tpu_torch.ops.cuda import (bounded_warp, conv2d, conv_chain,
-                                    deform_conv2d_bounded, pack_dcn)
+                                    deform_conv2d_bounded, pack_conv_chain,
+                                    pack_dcn)
+routed = "route" in inspect.signature(conv_chain).parameters
+CHAINS = {"feat": ((64, 64, 64, 64), (1, 1, 1)),
+          "motion": ((128, 64, 64, 2), (1, 1, 0)),
+          "rec": ((64, 64, 32, 3), (1, 1, 0)),
+          "rec67": ((67, 64, 32, 3), (1, 1, 0))}
 dev = torch.device(args["device"])
 cuda = dev.type == "cuda"
 if not cuda:
@@ -73,24 +93,29 @@ def f32(a):
     return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
 
 
-# ms per launch of n back-to-back launches, queued behind a spin of the
+# ms per launch of k back-to-back launches, queued behind a spin of the
 # card so that the host's launch path does not pace them; the spin doubles
-# until it outlasts the queueing.
+# until it outlasts the queueing. A call of many kernels (a sequence of
+# library calls) can fill the card's launch queue, which then blocks the
+# host until the spin ends: past a spin of 2^26 cycles k halves instead.
 def device_ms(fn):
-    spin = 1 << 22
+    spin, k = 1 << 22, n
     while True:
         torch.cuda.synchronize()
         e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         torch.cuda._sleep(spin)
         e0.record()
-        for _ in range(n):
+        for _ in range(k):
             fn()
         e1.record()
         queued_first = not e0.query()
         e1.synchronize()
-        if queued_first:
-            return e0.elapsed_time(e1) / n
-        spin *= 2
+        if queued_first or k == 1:
+            return e0.elapsed_time(e1) / k
+        if spin < 1 << 26:
+            spin *= 2
+        else:
+            k //= 2
 
 
 for shape in args["shapes"]:
@@ -111,6 +136,32 @@ for shape in args["shapes"]:
         img = bf(rng.uniform(0.0, 1.0, (b, h, w, c)))
         flow = bf(rng.standard_normal((b, h, w, 2)) * 10.0 * r / 16)
         fn = lambda: bounded_warp(img, flow, r)
+    elif shape.startswith("chain_"):
+        name, _, how = shape[6:].partition(":")
+        chans, acts = CHAINS[name]
+        acts = tuple(bool(a) for a in acts)
+        x = bf(rng.standard_normal((b, h, w, chans[0])))
+        ws = [f32(rng.standard_normal((co, ci, 3, 3)) / (9 * ci) ** 0.5)
+              for ci, co in zip(chans[:-1], chans[1:])]
+        bs = [f32(rng.standard_normal((co,)) * 0.1) for co in chans[1:]]
+        if how == "cudnn":
+            wb = [t.to(torch.bfloat16) for t in ws + bs]
+            def fn(xn=x.permute(0, 3, 1, 2), n=len(ws)):
+                for wt, bt, a in zip(wb[:n], wb[n:], acts):
+                    xn = F.conv2d(xn, wt, bt, padding=1)
+                    xn = torch.relu(xn) if a else xn
+                return xn.permute(0, 2, 3, 1)
+        elif how == "layers" and not routed:
+            pks = [pack_conv_chain([wt], [bt]) for wt, bt in zip(ws, bs)]
+            def fn():
+                y = x
+                for wt, bt, a, pk in zip(ws, bs, acts, pks):
+                    y = conv_chain(y, [wt], [bt], (a,), packed=pk)
+                return y
+        else:
+            pk = pack_conv_chain(ws, bs)
+            kw = {"route": how} if how and routed else {}
+            fn = lambda: conv_chain(x, ws, bs, acts, packed=pk, **kw)
     else:
         chain = shape.endswith("c")
         cin, cout = (int(v) for v in shape.rstrip("c").split("x"))
@@ -145,7 +196,8 @@ def parse_args(argv=None):
     ap.add_argument("--shapes", default=SHAPES,
                     help="comma list of CinxCout (conv2d + ReLU), "
                          "CinxCoutc (one-layer conv_chain), dcnCrR "
-                         "(bounded DCN) or warpCrR (bounded warp)")
+                         "(bounded DCN), warpCrR (bounded warp) or "
+                         "chain_NAME[:fused|layers|cudnn] (a trunk chain)")
     ap.add_argument("--b", type=int, default=1)
     ap.add_argument("--h", type=int, default=720)
     ap.add_argument("--w", type=int, default=1280)
@@ -168,7 +220,8 @@ def main(argv=None) -> dict:
         child = {"tree": tree, "device": args.device, "b": b, "h": h,
                  "w": w, "launches": launches, "shapes": shapes}
         res = subprocess.run([sys.executable, "-c", CHILD, json.dumps(child)],
-                             cwd=tree, capture_output=True, text=True)
+                             cwd=tree, capture_output=True, text=True,
+                             timeout=TURN_TIMEOUT_S)
         if res.returncode != 0:
             raise RuntimeError(f"conv_turns: {tree} failed:\n{res.stderr}")
         for row in json.loads(res.stdout.strip().splitlines()[-1]):

@@ -12,15 +12,19 @@ and the script exits non-zero without a result line:
 3. kernels each CUDA kernel at every shape a path below launches (and
            the shapes of the kernels' contracts that none does: the DCN at
            C=67 R=4 and R=8 and C=128 R=4 and R=8, the conv at k=1 and
-           k=5, the wide warp at R=4) in bf16, held against its plain
-           PyTorch version (max abs error within the stated tolerance),
+           k=5, the wide warp at R=4 and at C=67) in bf16, held against
+           its plain PyTorch version (max abs error within the stated
+           tolerance; the warps bit for bit),
            then timed with CUDA events (`ms`: median of N_TIMED
            synchronised calls after warm-up, the wrapper's host path
            included; `device_ms`: per launch of N_BACK_TO_BACK launches
            queued back to back) beside its plain version, one PyTorch
            library call where one computes the same function (`library_ms`,
-           `library_device_ms`), and its bound from bytes and operations;
-           each DCN and conv row names its tile plan (a one-layer chain
+           `library_device_ms`), and its bound from bytes and operations
+           (`x_bound`: device_ms over it); each DCN row names its design
+           ("tile" or "stream") and plan, each warp row its instance
+           ("rgb", or "wide16" / "wide2b": the wide kernel's 16-byte or
+           2-byte instance), each conv row its tile plan (a one-layer chain
            runs the conv kernel, csrc/conv2d.cu); a chain of 2-4 layers
            has a row for each route (`chain_route` "fused": the chain
            kernel; "layers": one conv-kernel launch a layer) beside the
@@ -37,6 +41,9 @@ and the script exits non-zero without a result line:
            with conv_kernel="pallas" on one b=4 batch of Middlebury val
            frames: 8 / 3 / 1 launches, PSNR against its plain-version
            engine (the 67-wide chains and DCN run in the kernels);
+           then `q12_r8`: the same batch at dcn_max_offset=8 (a radius
+           the JAX engine takes too), whose three DCNs run the stream
+           design, counted by shape, against its plain-version engine;
 6. eval    the Middlebury eval entry point (`vfi_tpu_torch.cli.eval.sweep`)
            over data/processed/val at batch 4, bf16, conv_kernel="xla"
            and use_pallas, as the JAX package's records were made: qocc
@@ -55,7 +62,8 @@ and the script exits non-zero without a result line:
            C=64): each kernel within tolerance of its plain version, and
            the conv, DCN and warp kernels launched;
 9. grad    gradients through each kernel wrapper (conv, chain of three
-           layers and of one, DCN, warp at C=3 and C=64) against those
+           layers and of one, DCN on the tile and the stream design, warp
+           at C=3 and C=64) against those
            through its plain version at a small shape (GRAD_SHAPE,
            tolerance stated there);
 10. profile (only with --profile) torch.profiler over one b=1 request: the
@@ -132,6 +140,10 @@ FLAGSHIP = dict(bf16=True, dcn_max_offset=1, warp_max_flow=16,
                 cascade_levels=2, conv_kernel="pallas")
 Q12_ENGINE = dict(bf16=True, dcn_max_offset=2, warp_max_flow=16,
                   cascade_levels=2)
+# The q12_r8 request's DCN radius: q12's weights at a radius past the tile
+# design's (the stream design's path; the checkpoint was trained at R=2,
+# so its quality there is no record).
+Q12_R8 = 8
 # The eval records' route (`eval.py --use_pallas`: the v4 DCN, the bounded
 # warp, the conv trunk on plain XLA convs, the JAX CLI's only setting);
 # flow prior, warp bound 16, cascade 2 (tools/queueAF.sh:33-40,
@@ -254,7 +266,10 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def check_close(name: str, got: torch.Tensor, ref: torch.Tensor) -> dict:
+def check_close(name: str, got: torch.Tensor, ref: torch.Tensor,
+                exact: bool = False) -> dict:
+    """Max abs error of `got` against `ref`, within REL_TOL * max|ref| (0
+    where `exact`)."""
     torch.cuda.synchronize()
     if got.shape != ref.shape or got.dtype != ref.dtype:
         raise AssertionError(f"{name}: {got.shape}/{got.dtype} vs "
@@ -262,7 +277,7 @@ def check_close(name: str, got: torch.Tensor, ref: torch.Tensor) -> dict:
     if not torch.isfinite(got.float()).all():
         raise AssertionError(f"{name}: non-finite kernel output")
     err = (got.float() - ref.float()).abs().max().item()
-    tol = REL_TOL * ref.float().abs().max().item()
+    tol = 0.0 if exact else REL_TOL * ref.float().abs().max().item()
     if not err <= tol:
         raise AssertionError(f"{name}: max abs err {err} > tol {tol}")
     return {"max_abs_err": err, "tol": tol}
@@ -305,20 +320,22 @@ def row_name(base: str, b: int, h: int, w: int) -> str:
 
 def kernel_row(name, source, replaces, key, kernel, plain, library,
                io_bytes, flops_bf16, flops_f32=0.0, ref=None, plain_ms=None,
-               **extra) -> dict:
+               exact=False, **extra) -> dict:
     """Check one kernel call against its plain version, then time the
     kernel, the plain version and (where one exists) a library call.
     `key` = (paths, wrapper name, launch shape): the paths whose runs
     launch the wrapper at this shape (their counts are this row's
     launches), or () for a shape no path of this run takes. `ref` and
     `plain_ms`, where given, are the plain version's result and time on
-    these inputs, shared by two rows. `extra` fields go into the row as
-    they are."""
+    these inputs, shared by two rows; `exact`: the kernel must equal its
+    plain version bit for bit. `extra` fields go into the row as they
+    are."""
     got = kernel()
     if ref is None:
         ref = plain()
     row = {"name": name, "route": "cuda", "source": source,
-           "replaces": replaces, **extra, **check_close(name, got, ref)}
+           "replaces": replaces, **extra,
+           **check_close(name, got, ref, exact)}
     row["ms"] = median_ms(kernel)
     row["device_ms"] = device_ms(kernel)
     row["plain_ms"] = median_ms(plain) if plain_ms is None else plain_ms
@@ -327,6 +344,7 @@ def kernel_row(name, source, replaces, key, kernel, plain, library,
                                 else device_ms(library))
     row["bound_ms"], row["bound_by"] = bound(io_bytes + nbytes(got),
                                              flops_bf16, flops_f32)
+    row["x_bound"] = row["device_ms"] / row["bound_ms"]
     emit({"phase": "kernel", **row})
     row["_key"] = key
     return row
@@ -416,7 +434,8 @@ def dcn_row(rnd, wt, bt, b, h, w, R, replaces, paths) -> dict:
     offsets reach past R so the clamp is exercised. No single PyTorch call
     computes it (torchvision is absent), so no library time. The row names
     the plan the launch runs: its design ("tile", the weight-stationary
-    GEMM, or "strip" where no tile plan fits) and tiles."""
+    GEMM, or "stream", the same core with the weights streamed, where no
+    tile plan fits) and tiles."""
     c = wt.shape[1]
     x = rnd(b, h, w, c)
     off = rnd(b, h, w, 18, scale=0.8 * R)
@@ -424,6 +443,8 @@ def dcn_row(rnd, wt, bt, b, h, w, R, replaces, paths) -> dict:
         torch.bfloat16)
     pk = pack_dcn(wt, bt)
     n = b * h * w
+    plan = dcn_plan(c, wt.shape[0], R, torch.cuda.get_device_properties(
+        x.device).shared_memory_per_block_optin)
     return kernel_row(
         row_name("deform_conv2d_bounded" if b == 1 and c == 64 and R == 1
                  else f"deform_conv2d_bounded/C{c}R{R}", b, h, w),
@@ -433,8 +454,7 @@ def dcn_row(rnd, wt, bt, b, h, w, R, replaces, paths) -> dict:
         lambda: deform_conv2d_bounded_plain(x, off, mask, wt, bt, R), None,
         nbytes(x, off, mask) + nbytes(wt) // 2 + nbytes(bt),
         2.0 * n * 9 * c * wt.shape[0], 8.0 * n * 9 * c,
-        plan=dcn_plan(c, wt.shape[0], R, torch.cuda.get_device_properties(
-            x.device).shared_memory_per_block_optin))
+        design=plan["design"], plan=plan)
 
 
 def warp_row(rnd, b, h, w, paths, dev, c=3, R=16, replaces=WARP_TPU) -> dict:
@@ -455,7 +475,18 @@ def warp_row(rnd, b, h, w, paths, dev, c=3, R=16, replaces=WARP_TPU) -> dict:
         lambda: bounded_warp_plain(img, flow, R),
         lambda: F.grid_sample(imn, grid, mode="bilinear",
                               padding_mode="zeros", align_corners=True),
-        nbytes(img, flow), 0.0, (16.0 + 8.0 * c) * b * h * w)
+        nbytes(img, flow), 0.0, (16.0 + 8.0 * c) * b * h * w, exact=True,
+        design=warp_instance(img))
+
+
+def warp_instance(img: torch.Tensor) -> str:
+    """The instance of csrc/warp_bounded.cu a warp of `img` runs (the C
+    entry picks it by the same test; the output is a fresh, aligned
+    tensor)."""
+    if img.shape[-1] <= 4:
+        return "rgb"
+    aligned = img.shape[-1] % 8 == 0 and img.data_ptr() % 16 == 0
+    return "wide16" if aligned else "wide2b"
 
 
 def phase_kernels(sd: dict, sd12: dict, dev) -> list:
@@ -475,6 +506,7 @@ def phase_kernels(sd: dict, sd12: dict, dev) -> list:
         ("rec", 64, [f"rec_conv{i}.conv" for i in (1, 2, 3)], (1, 1, 0)),
     ]
     main, q12, ev = ("main",), ("q12",), ("eval",)
+    q12s = q12 + ("q12_r8",)    # both q12 requests' chains and warp
     for h, w, chain in ([(H, W, c) for c in chains]
                         + [(H // 2, W // 2, c) for c in chains[:2]]):
         rows += chain_rows(rnd, sd, *chain, 1, h, w, main)
@@ -483,28 +515,30 @@ def phase_kernels(sd: dict, sd12: dict, dev) -> list:
     # topology's 67-wide offset and reconstruction chains.
     for h, w in ((EH, EW), (EH // 2, EW // 2)):
         for chain in chains[:2]:
-            rows += chain_rows(rnd, sd12, *chain, EB, h, w, q12)
+            rows += chain_rows(rnd, sd12, *chain, EB, h, w, q12s)
     rows += chain_rows(rnd, sd12, "offset67", 67,
-                       ["fusion_dcn0.offset_conv"], (0,), EB, EH, EW, q12)
+                       ["fusion_dcn0.offset_conv"], (0,), EB, EH, EW, q12s)
     rows += chain_rows(rnd, sd12, "rec67", 67,
                        [f"rec_conv{i}.conv" for i in (1, 2, 3)],
-                       (1, 1, 0), EB, EH, EW, q12)
+                       (1, 1, 0), EB, EH, EW, q12s)
 
     dcn, dcn12 = [(d["fusion_dcn0.weight"].cuda(), d["fusion_dcn0.bias"].cuda())
                   for d in (sd, sd12)]
     rows.append(dcn_row(rnd, *dcn, 1, H, W, 1, DCN_TPU, main))
     # The v4 route's shapes on the eval path: qocc (C=64, R=1) at native
     # and auto_scale's half resolution, q12 (C=67, R=2, also the q12
-    # phase's); and C=67 at R=4 (the training config's radius), which no
-    # path of this run takes.
+    # phase's); C=67 at R=4 (the training config's radius), which no path
+    # of this run takes; and at R=8, the q12_r8 request's (stream design).
     rows.append(dcn_row(rnd, *dcn, EB, EH, EW, 1, DCN_V4_TPU, ev))
     rows.append(dcn_row(rnd, *dcn, EB, EH // 2, EW // 2, 1, DCN_V4_TPU, ev))
     rows.append(dcn_row(rnd, *dcn12, EB, EH, EW, 2, DCN_V4_TPU, q12 + ev))
     rows.append(dcn_row(rnd, *dcn12, EB, EH, EW, 4, DCN_V4_TPU, ()))
+    rows.append(dcn_row(rnd, *dcn12, EB, EH, EW, Q12_R8, DCN_V4_TPU,
+                        ("q12_r8",)))
 
     # Bounded warp of the RGB frame; flows reach past R = 16. The library
     # call is grid_sample on the clamped flow's normalized grid.
-    for b, h, w, paths in ((1, H, W, main), (EB, EH, EW, q12 + ev),
+    for b, h, w, paths in ((1, H, W, main), (EB, EH, EW, q12s + ev),
                            (EB, EH // 2, EW // 2, ev)):
         rows.append(warp_row(rnd, b, h, w, paths, dev))
     return rows + tool_rows(rnd, gen, dcn12, dev)
@@ -515,7 +549,7 @@ def tool_rows(rnd, gen, dcn12, dev) -> list:
     paths ("tools",)), and the shapes of the contracts this slice added
     that no path takes (key paths ()): the conv at k = 1 and 5, the DCN at
     radii that need smaller tiles or channel chunks, the wide warp at
-    R = 4."""
+    R = 4 and, on its 2-byte instance, at C = 67."""
     tools = ("tools",)
     rows = [conv2d_row(rnd, gen, cin, cout, 3, 1, H, W, "im2col", CONV_TPU,
                        tools) for cin, cout in bench_conv.ALL_SHAPES]
@@ -535,7 +569,8 @@ def tool_rows(rnd, gen, dcn12, dev) -> list:
     for R in (4, 8):
         rows.append(dcn_row(rnd, w128, b128, 1, eh, ew, R, DCN_V3_TPU, ()))
     for c, R, paths in ((3, bench_kernels.WARP_R, tools),
-                        (64, bench_kernels.WARP_R, tools), (64, 4, ())):
+                        (64, bench_kernels.WARP_R, tools), (64, 4, ()),
+                        (67, bench_kernels.WARP_R, ())):
         rows.append(warp_row(rnd, 1, eh, ew, paths, dev, c, R,
                              WARP_TPU if c == 3 else WARP_V1_TPU))
     return rows
@@ -623,15 +658,17 @@ def val_batch(frames: dict, scene: str) -> tuple:
     return tuple(np.stack([frames[t[k]] for t in trip]) for k in range(3))
 
 
-def phase_q12(frames: dict) -> dict:
+def phase_q12(frames: dict, R: int = 2) -> dict:
     """q12, the 67-channel reference topology, with conv_kernel="pallas"
     on one b=4 val batch: the 67-wide offset and reconstruction chains and
-    the 67-channel R=2 DCN run in the kernels."""
+    the 67-channel DCN at radius R run in the kernels. At R = Q12_R8 its
+    three DCNs must run the stream design."""
     params = load_params_npz(Q12 + ".npz")
     flow = load_params_npz(Q12 + ".flow.npz")
     f0, gt, f1 = val_batch(frames, "Urban")
+    kw = dict(Q12_ENGINE, dcn_max_offset=R)
     eng = FrameInterpolator(params, flow_params=flow, device="cuda",
-                            conv_kernel="pallas", **Q12_ENGINE)
+                            conv_kernel="pallas", **kw)
     eng.midpoints(f0, f1)                  # warm-up
     torch.cuda.synchronize()
     reset_launch_counts()
@@ -641,18 +678,28 @@ def phase_q12(frames: dict) -> dict:
     secs = time.perf_counter() - t0
     counts, by_shape = launch_counts(), shapes_now()
     if counts != PER_LAUNCH:
-        raise AssertionError(f"q12 launches {counts}, expected {PER_LAUNCH}")
+        raise AssertionError(f"q12 R={R} launches {counts}, expected "
+                             f"{PER_LAUNCH}")
+    dcn_key = (67, 67, EH, EW, R)
+    design = dcn_plan(67, 67, R, torch.cuda.get_device_properties(
+        0).shared_memory_per_block_optin)["design"]
+    if by_shape["deform_conv2d_bounded"][dcn_key] != 3 or (
+            R == Q12_R8 and design != "stream"):
+        raise AssertionError(f"q12 R={R}: DCN launches "
+                             f"{dict(by_shape['deform_conv2d_bounded'])} on "
+                             f"the {design} design, expected 3 at {dcn_key}")
     if tuple(out.shape) != f0.shape or not torch.isfinite(out).all():
-        raise AssertionError("q12: bad output")
+        raise AssertionError(f"q12 R={R}: bad output")
     plain = FrameInterpolator(params, flow_params=flow, device="cuda",
                               conv_kernel="pallas", use_kernels=False,
-                              **Q12_ENGINE).midpoints(f0, f1)
+                              **kw).midpoints(f0, f1)
     vs_plain = psnr(out, plain)
     if not vs_plain >= PSNR_FLOOR_DB:
-        raise AssertionError(f"q12 PSNR vs plain engine {vs_plain} below "
-                             f"{PSNR_FLOOR_DB} dB")
-    return {"phase": "q12", "batch": list(f0.shape), "launches": counts,
-            "launch_seconds": secs, "psnr_vs_plain_db": vs_plain,
+        raise AssertionError(f"q12 R={R} PSNR vs plain engine {vs_plain} "
+                             f"below {PSNR_FLOOR_DB} dB")
+    return {"phase": "q12" if R == 2 else f"q12_r{R}", "batch": list(f0.shape),
+            "dcn_max_offset": R, "dcn_design": design, "launches": counts,
+            "request_seconds": secs, "psnr_vs_plain_db": vs_plain,
             "psnr_vs_gt_db": psnr(out, torch.from_numpy(gt).cuda()),
             "_by_shape": by_shape}
 
@@ -906,6 +953,10 @@ def phase_grad(dev) -> dict:
         torch.bfloat16)
     img3, img64 = rnd(b, h, w, 3), rnd(b, h, w, 64)
     flow = rnd(b, h, w, 2, scale=3.0)
+    # The stream design's width (no tile plan holds C=128).
+    x128 = rnd(b, h, w, 128)
+    w128 = rnd(128, 128, 3, 3, scale=1 / 34, dtype=torch.float32)
+    b128 = rnd(128, scale=0.1, dtype=torch.float32)
     acts = (True, True, False)
     cases = [
         grad_case("conv2d", lambda x, wt, bt: conv2d(x, wt, bt, True),
@@ -928,6 +979,10 @@ def phase_grad(dev) -> dict:
                   lambda *a: deform_conv2d_bounded(*a, 2),
                   lambda *a: deform_conv2d_bounded_plain(*a, 2),
                   [x, off, mask, w3[0], b3[0]]),
+        grad_case("deform_conv2d_bounded/stream C128R4",
+                  lambda *a: deform_conv2d_bounded(*a, 4),
+                  lambda *a: deform_conv2d_bounded_plain(*a, 4),
+                  [x128, off, mask, w128, b128]),
         grad_case("bounded_warp/C3", lambda i, f: bounded_warp(i, f, 4),
                   lambda i, f: bounded_warp_plain(i, f, 4), [img3, flow]),
         grad_case("bounded_warp/C64", lambda i, f: bounded_warp(i, f, 4),
@@ -966,8 +1021,8 @@ def kernel_launches(rows: list, by_path: dict) -> list:
 
 
 PORT_KERNELS = ("conv_chain_kernel", "conv2d_kernel", "dcn_tile_kernel",
-                "dcn_strip_kernel", "warp_bounded_kernel",
-                "warp_bounded_wide_kernel")
+                "dcn_stream_kernel", "warp_bounded_kernel",
+                "warp_bounded_wide_kernel", "warp_bounded_wide_2b_kernel")
 
 
 def phase_profile(eng, request) -> dict:
@@ -1054,11 +1109,12 @@ def main() -> int:
     frames = decode_val()
     emit({"phase": "decode", "seconds": time.perf_counter() - t0,
           "pngs": len(frames)})
-    t0 = time.perf_counter()
-    q12_res = phase_q12(frames)
-    by_path["q12"] = q12_res.pop("_by_shape")
-    q12_res["seconds"] = time.perf_counter() - t0
-    emit(q12_res)
+    for R, path in ((2, "q12"), (Q12_R8, "q12_r8")):
+        t0 = time.perf_counter()
+        q12_res = phase_q12(frames, R)
+        by_path[path] = q12_res.pop("_by_shape")
+        q12_res["seconds"] = time.perf_counter() - t0
+        emit(q12_res)
     eval_res = phase_eval(frames)
     by_path["eval"] = eval_res.pop("_by_shape")
     emit(eval_res)

@@ -1,9 +1,9 @@
 """The port's CUDA kernels vs their plain versions on the card, at small
 shapes with ragged edges (the main paths' full-size shapes run in
 chip_smoke.py): the DCN under v4's contract (C in {64, 67} x R 1..4, with
-and without a mask) and at radii that need smaller tiles or channel
-chunks, the chains with a 67-wide first layer (one layer through the conv
-kernel), the single conv at k 1..9 with its tile cut at every edge,
+and without a mask) and, on the stream design, at widths and radii no
+tile plan holds, the chains with a 67-wide first layer (one layer through
+the conv kernel), the single conv at k 1..9 with its tile cut at every edge,
 the warp at C=3 and wide C, gradients through every kernel wrapper
 against those through its plain version, and q12 (the 67-channel
 topology) through the engine with both conv_kernel settings. Needs an
@@ -201,19 +201,19 @@ def test_deform_conv2d_bounded_kernel_channel_counts(dev, cin, cout, R):
            deform_conv2d_bounded_plain(x, off, mask, w, b, R))
 
 
-@pytest.mark.parametrize("cin,cout,R,px,chunks", [
-    (67, 67, 8, 32, 1), (128, 128, 4, 32, 1), (128, 128, 8, 16, 2),
-    (128, 128, 6, 16, 1), (67, 67, 20, 16, 3)])
-def test_deform_conv2d_bounded_kernel_any_radius(dev, cin, cout, R, px,
+@pytest.mark.parametrize("cin,cout,R,tile,chunks", [
+    (67, 67, 8, "8x16", 1), (128, 128, 4, "8x16", 1),
+    (128, 128, 8, "8x16", 2), (128, 128, 6, "8x16", 2),
+    (67, 67, 20, "8x16", 5)])
+def test_deform_conv2d_bounded_kernel_any_radius(dev, cin, cout, R, tile,
                                                  chunks):
-    """Shapes no tile plan holds run the strip design: radii whose
-    whole-Cin 64-pixel strip exceeds the per-block shared memory run on
-    smaller strips (32 or 16 pixels) and, past 16 pixels, on the input
-    tile in channel chunks; the plan is the one named."""
+    """Shapes no tile plan holds run the stream design (weights streamed a
+    tap at a time, the input in channel chunks): the plan is the one
+    named."""
     plan = dcn_plan(cin, cout, R, torch.cuda.get_device_properties(
         dev).shared_memory_per_block_optin)
-    assert (plan["design"], plan["px"], plan["chunks"]) == ("strip", px,
-                                                            chunks)
+    assert (plan["design"], plan["tile"], plan["chunks"]) == ("stream", tile,
+                                                              chunks)
     gen = torch.Generator(device=dev).manual_seed(7)
     hw = (2 * R + 9, 70)
     x = _rnd(gen, dev, 1, *hw, cin)
@@ -226,6 +226,41 @@ def test_deform_conv2d_bounded_kernel_any_radius(dev, cin, cout, R, px,
     got = deform_conv2d_bounded(x, off, mask, w, b, R)
     assert launch_counts()["deform_conv2d_bounded"] == 1
     _close(got, deform_conv2d_bounded_plain(x, off, mask, w, b, R))
+
+
+# The stream design at ragged sizes: H and W odd and below one 8 x 16
+# tile, ragged edges, and (100, 300) at B = 3 (more tiles than the
+# persistent grid's blocks); one chunk and several, Cout below 16 and off
+# a multiple of 8, the odd pixel stride and the unpadded one, and 4 x 16
+# tiles up to R = 35.
+@pytest.mark.parametrize("hw", [(5, 7), (13, 37), (100, 300)])
+@pytest.mark.parametrize("cin,cout,R,tile,chunks", [
+    (128, 128, 4, "8x16", 1), (67, 67, 8, "8x16", 1),
+    (128, 128, 8, "8x16", 2), (128, 27, 6, "8x16", 2),
+    (128, 64, 1, "8x16", 1), (128, 8, 10, "8x16", 2),
+    (67, 128, 12, "8x16", 2), (64, 64, 9, "8x16", 1),
+    (128, 8, 29, "8x16", 8), (128, 8, 28, "4x16", 8),
+    (128, 128, 35, "4x16", 8)])
+def test_deform_conv2d_bounded_stream_plans(dev, hw, cin, cout, R, tile,
+                                            chunks):
+    plan = dcn_plan(cin, cout, R, torch.cuda.get_device_properties(
+        dev).shared_memory_per_block_optin)
+    assert (plan["design"], plan["tile"], plan["nbuf"],
+            plan["chunks"]) == ("stream", tile, 1, chunks)
+    x, off, mask, w, b = _dcn_case(dev, 15, 3, hw, cin, cout, R)
+    reset_launch_counts()
+    got = deform_conv2d_bounded(x, off, mask, w, b, R)
+    assert launch_counts()["deform_conv2d_bounded"] == 1
+    _close(got, deform_conv2d_bounded_plain(x, off, mask, w, b, R))
+
+
+@pytest.mark.parametrize("with_mask", [True, False])
+def test_deform_conv2d_bounded_stream_without_a_mask(dev, with_mask):
+    x, off, mask, w, b = _dcn_case(dev, 16, 2, (19, 45), 128, 128, 4,
+                                   with_mask)
+    assert dcn_plan(128, 128, 4)["design"] == "stream"
+    _close(deform_conv2d_bounded(x, off, mask, w, b, 4),
+           deform_conv2d_bounded_plain(x, off, mask, w, b, 4))
 
 
 def _dcn_case(dev, seed, b, hw, cin, cout, R, with_mask=True):
@@ -312,12 +347,39 @@ def test_bounded_warp_rgb_instance_is_bit_exact(dev, c, hw, aligned):
     assert torch.equal(got, bounded_warp_plain(img, flow, 16))
 
 
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("hw", [(3, 5), (7, 31), (9, 33), (40, 17),
+                                (37, 70), (2, 7)])
+@pytest.mark.parametrize("c", [8, 64, 67, 128, 24])
+def test_bounded_warp_wide_instance_is_bit_exact(dev, c, hw, aligned):
+    """The wide instance (4 x 8 pixel tiles, two 8-channel groups a thread
+    with 16-byte corner reads where C % 8 == 0; one thread per pixel and
+    group with 2-byte reads otherwise) equals its plain version bit for
+    bit at B = 3, on images narrower and shorter than a tile and with
+    ragged tiles, at C = 8, 24, 64, 67 and 128, with the image on its
+    16-byte alignment and (a view one element into its storage) off it,
+    which takes the 2-byte reads."""
+    gen = torch.Generator(device=dev).manual_seed(17)
+    img = torch.rand(3, *hw, c, generator=gen, device=dev).to(torch.bfloat16)
+    flow = _rnd(gen, dev, 3, *hw, 2, scale=12.0)
+    if not aligned:
+        store = torch.empty(img.numel() + 1, dtype=img.dtype, device=dev)
+        store[1:] = img.reshape(-1)
+        img = store[1:].view(img.shape)
+        assert img.is_contiguous() and img.data_ptr() % 16
+    reset_launch_counts()
+    got = bounded_warp(img, flow, 16)
+    assert launch_counts()["bounded_warp"] == 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, bounded_warp_plain(img, flow, 16))
+
+
 @pytest.mark.parametrize("cin,cout,R", [(64, 129, 1), (16, 16, 37),
                                         (128, 128, 36)])
 def test_deform_conv2d_bounded_refuses_what_no_plan_holds(dev, cin, cout, R):
-    """Cout > 128, or an R whose 16-pixel, 16-channel tile exceeds the
-    per-block shared memory, raises ValueError before any launch; no plain
-    route is taken."""
+    """Cout > 128, or an R whose 4 x 16 tile in 16-channel chunks exceeds
+    the per-block shared memory, raises ValueError before any launch; no
+    plain route is taken."""
     x = torch.zeros(1, 8, 16, cin, dtype=torch.bfloat16, device=dev)
     off = torch.zeros(1, 8, 16, 18, dtype=torch.bfloat16, device=dev)
     w = torch.zeros(cout, cin, 3, 3, device=dev)
@@ -397,6 +459,7 @@ def _grad_cases(dev):
         torch.bfloat16)
     flow = _rnd(gen, dev, 2, 13, 37, 2, scale=3.0)
     img3 = _rnd(gen, dev, 2, 13, 37, 3)
+    x128 = _rnd(gen, dev, 2, 13, 37, 128)   # the stream design's width
     return {
         "conv2d": (lambda x, w, b: conv2d(x, w, b, True),
                    lambda x, w, b: conv2d_plain(x, w, b, True),
@@ -421,6 +484,12 @@ def _grad_cases(dev):
             lambda x, o, w: deform_conv2d_bounded_plain(x, o, None, w, None,
                                                         1),
             [x, off, ws[0]]),
+        "deform_conv2d_bounded_stream": (
+            lambda *a: deform_conv2d_bounded(*a, 4),
+            lambda *a: deform_conv2d_bounded_plain(*a, 4),
+            [x128, off, mask,
+             torch.randn(128, 128, 3, 3, generator=gen, device=dev) / 34,
+             bs[0].repeat(2)]),
         "bounded_warp": (lambda i, f: bounded_warp(i, f, 4),
                          lambda i, f: bounded_warp_plain(i, f, 4),
                          [img3, flow]),
@@ -432,7 +501,8 @@ def _grad_cases(dev):
 
 @pytest.mark.parametrize("name", [
     "conv2d", "conv_chain", "conv_chain_fused", "deform_conv2d_bounded",
-    "deform_conv2d_bounded_no_mask", "bounded_warp", "bounded_warp_wide"])
+    "deform_conv2d_bounded_no_mask", "deform_conv2d_bounded_stream",
+    "bounded_warp", "bounded_warp_wide"])
 def test_gradients_through_the_kernels_match_the_plain_versions(dev, name):
     """The kernel's output carries a grad_fn whenever an input requires
     grad, and every gradient matches the one through the plain version and

@@ -134,12 +134,13 @@ def test_warp_plain_matches_pallas_v2(rng, interpret_mode, shape, R):
 
 @pytest.mark.parametrize("c,R,with_mask,with_bias", [
     (4, 2, True, True), (4, 3, False, False), (67, 2, False, True),
-    (67, 3, True, False)])
+    (67, 3, True, False), (128, 2, True, True)])
 def test_dcn_plain_matches_pallas_v3(rng, interpret_mode, c, R, with_mask,
                                      with_bias):
     """v3's contract (`deform_conv2d_pallas`, the kernel of
     tools/bench_kernels.py): 3x3, padding 1, a mask or none (weight 1), a
-    bias or none."""
+    bias or none; 128 channels, the width the card runs on the stream
+    design at any R."""
     x, off, mask, wt, bias = _dcn_case(rng, 1, 8, 16, c, c, R, 0.7 * R, 0.1)
     mask = mask if with_mask else None
     bias = bias if with_bias else None
@@ -155,7 +156,7 @@ def test_dcn_plain_matches_pallas_v3(rng, interpret_mode, c, R, with_mask,
     np.testing.assert_allclose(got, ref, rtol=2e-4, atol=2e-4)
 
 
-@pytest.mark.parametrize("c,R", [(3, 2), (3, 3), (64, 2), (64, 3)])
+@pytest.mark.parametrize("c,R", [(3, 2), (3, 3), (64, 2), (64, 3), (128, 2)])
 def test_warp_plain_matches_pallas_v1(rng, interpret_mode, c, R):
     """v1's contract (`bounded_warp_pallas`): any channel count. Small R:
     interpret mode loops over the (2R + 1)^2 shifts."""

@@ -172,6 +172,20 @@ def test_conv_turns_smoke_times_each_tree_in_turn(capsys):
     assert set(res["median_ms"][root]) == {"16x8", "16x27c"}
 
 
+def test_conv_turns_times_the_warp_and_copy_tokens(capsys):
+    """`warpCrR` warps a C-channel image by random flows, `:zero` by a
+    zero flow, which returns the image itself; `copyC` clones the same
+    image (the seeded inputs are the same in every token)."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    shapes = ["warp64r16", "warp64r16:zero", "copy64"]
+    res = conv_turns.main(["--trees", root, "--device", "cpu", "--smoke",
+                           "--shapes", ",".join(shapes)])
+    assert _last_json(capsys) == res
+    sums = {r["shape"]: r["checksum"] for r in res["rows"]}
+    assert list(sums) == shapes and all(r["ms"] > 0 for r in res["rows"])
+    assert sums["warp64r16:zero"] == sums["copy64"] != sums["warp64r16"]
+
+
 def test_conv_turns_times_the_chain_tokens(capsys):
     """`chain_NAME[:HOW]` drives a trunk chain (feat, motion, rec, rec67)
     on the checkout's route, each route forced, and cuDNN layer by layer;
@@ -198,17 +212,19 @@ def test_conv_turns_times_the_chain_tokens(capsys):
 
 def test_conv_turns_times_the_dcn_and_warp_tokens(capsys):
     """`dcnCrR` and `warpCrR` drive the bounded DCN (C -> C at radius R)
-    and the bounded warp of a C-channel image; on the CPU their plain
-    versions, the same output in every turn."""
+    and the bounded warp of a C-channel image, `dcnCrR:stream` the DCN on
+    the stream design at a shape the plan gives the tile design; on the
+    CPU their plain versions, the same output in every turn and design."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    shapes = ["dcn64r1", "dcn67r2", "warp3r16"]
+    shapes = ["dcn64r1", "dcn67r2", "warp3r16", "dcn64r1:stream"]
     reset_launch_counts()
     res = conv_turns.main(["--trees", f"{root},{root}", "--device", "cpu",
                            "--smoke", "--shapes", ",".join(shapes)])
     assert _last_json(capsys) == res
     assert [r["shape"] for r in res["rows"]] == shapes * 2
-    for a, b in zip(res["rows"][:3], res["rows"][3:]):
+    for a, b in zip(res["rows"][:4], res["rows"][4:]):
         assert a["checksum"] == b["checksum"] and a["checksum"] > 0
+    assert res["rows"][0]["checksum"] == res["rows"][3]["checksum"]
     assert set(res["median_ms"][root]) == set(shapes)
     assert sum(launch_counts().values()) == 0   # children, not this process
 

@@ -28,10 +28,32 @@
 // 3% and 7%; two pixels a thread beat four by 6-18% at every path shape.
 //
 // C > 4, feature maps. Replaces ::_warp_kernel (bounded_warp_pallas, v1),
-// which padded the channels to 128 lanes and blended in a float32 tile:
-// one thread per (pixel, 8 channels), the corner reads 16-byte vectors
-// where C % 8 == 0, the blend in float32 in ops/warp.py's order and one
-// rounding of the output, as v1 does.
+// which padded the channels to 128 lanes and blended in a float32 tile.
+// Where C % 8 == 0 and the image and output are 16-byte aligned (the
+// 16-byte instance, "wide16" in chip_smoke.py's rows), a block owns a 2-D tile of 4 x 8 output pixels and
+// a few threads a pixel: a thread takes WIDE_IPT = 2 of its pixel's
+// 8-channel groups and starts all eight 16-byte corner reads before it
+// blends. Each thread computes its pixel's clamped position, corners and
+// weights itself. Short-lived threads in small blocks keep
+// the work in flight to a band of rows in image order, so that an image
+// line can stay in L2 while the rows that sample it run (inferred, not
+// measured: it is where this design gains most, at C = 128, whose image,
+// 79 MB at 480x640, outgrows the 50 MB L2). The output goes out as
+// streaming stores (evict first); the flow is read once (__ldcs).
+// The blend is float32 in ops/warp.py's order, ((v00 w00 + v01 w01) +
+// v10 w10) + v11 w11, no fused multiply-add, one rounding of the output,
+// as v1 does. Index arithmetic is 32-bit where every element index fits.
+// Any other C (e.g. 67) or alignment takes the 2-byte instance
+// ("wide2b"), one thread per (pixel, 8-channel group) in image order with
+// 2-byte reads.
+// On an H100 at 480x640 with random flows (tools/conv_turns.py, in
+// turns): two groups a thread took 0.0370 ms at C=64 R=16, one 0.0421
+// and four 0.0675; long-lived warps of 8 x 32-pixel tiles that compute a
+// pixel once and share it by __shfl_sync took 0.0480 (0.1143 at C=128,
+// whose image they keep in flight whole, against 0.0692). At C=67 the
+// 2-byte instance took 0.0953 ms where the 4 x 8 tiles with 2-byte reads
+// took 0.1049 (one group a thread) and 0.1582 (two; 0.0988 for the 2-byte
+// instance in those turns), so C % 8 != 0 keeps its own kernel.
 //
 // What bounds both on this card: bytes. Per pixel the RGB warp reads 3
 // channels and 2 flow values and writes 3 channels (~16 bytes) for ~40
@@ -52,7 +74,17 @@ constexpr int MAXC = 4;          // the RGB instance's channels
 constexpr int PPT = 2;           // the RGB instance's pixels a thread
 constexpr int TX = 16;           // its threads along a tile row (32 columns)
 constexpr int ROWS = NTHREADS / TX;   // its tile rows (16)
-constexpr int VEC = 8;           // the wide instance's channels a thread
+constexpr int VEC = 8;           // the wide instance's channels an item
+constexpr int WIDE_TH = 4;       // the wide instance's tile: 4 x 8 pixels,
+constexpr int WIDE_TW = 8;
+constexpr int WIDE_IPT = 2;      // 8-channel groups a thread
+
+// The 16-byte instance's threads a pixel for G 8-channel groups: WIDE_IPT
+// groups a thread, at most 32 threads.
+__host__ __device__ inline int wide_lanes(int G) {
+  const int n = (G + WIDE_IPT - 1) / WIDE_IPT;
+  return n < 32 ? n : 32;
+}
 
 __device__ __forceinline__ float rb(float v) {  // round to bf16 and back
   return __bfloat162float(__float2bfloat16_rn(v));
@@ -163,10 +195,86 @@ void launch_rgb(const bf16* im, const bf16* fl, bf16* o, int B, int H, int W, in
   }
 }
 
-// One thread per (pixel, group of VEC channels), float32 blend.
-__global__ void __launch_bounds__(NTHREADS)
+// The wide instance with 16-byte reads (above). I: the index type.
+template <typename I>
+__global__ void __launch_bounds__(1024)
 warp_bounded_wide_kernel(const bf16* __restrict__ image, const bf16* __restrict__ flow,
-                         bf16* __restrict__ out, int B, int H, int W, int C, float R) {
+                         bf16* __restrict__ out, int H, int W, int C, float R) {
+  const int G = C / VEC;                            // 8-channel groups of a pixel
+  const int GL = wide_lanes(G);                     // threads a pixel
+  const int q = GL > 1 ? fast_div(threadIdx.x, fast_div_magic(GL)) : threadIdx.x;
+  const int y = blockIdx.y * WIDE_TH + q / WIDE_TW, x = blockIdx.x * WIDE_TW + q % WIDE_TW;
+  if (y >= H || x >= W) return;
+  const I base = (I)blockIdx.z * H * W;             // flat index of (b, 0, 0)
+  const I p = base + (I)y * W + x;
+
+  const float fx = fminf(fmaxf(__bfloat162float(__ldcs(flow + 2 * p)), -R), R);
+  const float fy = fminf(fmaxf(__bfloat162float(__ldcs(flow + 2 * p + 1)), -R), R);
+  const float xs = (float)x + fx, ys = (float)y + fy;
+  const float x0f = floorf(xs), y0f = floorf(ys);
+  const int x0 = (int)x0f, y0 = (int)y0f;
+  const float wx1 = xs - x0f, wy1 = ys - y0f;
+  const float wx0 = 1.0f - wx1, wy0 = 1.0f - wy1;
+  const float w[4] = {__fmul_rn(wy0, wx0), __fmul_rn(wy0, wx1), __fmul_rn(wy1, wx0),
+                      __fmul_rn(wy1, wx1)};
+  bool in[4];
+  I src[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int yy = y0 + (k >> 1), xx = x0 + (k & 1);
+    in[k] = yy >= 0 && yy < H && xx >= 0 && xx < W;
+    src[k] = in[k] ? (base + (I)yy * W + xx) * C : 0;
+  }
+
+  for (int g0 = threadIdx.x - q * GL; g0 < G; g0 += GL * WIDE_IPT) {
+    // Groups g0, g0 + GL, ...: every corner read in flight first.
+    uint4 raw[WIDE_IPT][4];
+#pragma unroll
+    for (int i = 0; i < WIDE_IPT; ++i)
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        raw[i][k] = in[k] && g0 + i * GL < G
+                        ? __ldg(reinterpret_cast<const uint4*>(image + src[k] + (g0 + i * GL) * VEC))
+                        : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+    for (int i = 0; i < WIDE_IPT; ++i) {
+      if (g0 + i * GL >= G) break;
+      // sum = ((v00 w00 + v01 w01) + v10 w10) + v11 w11, no fused multiply-add.
+      float acc[VEC];
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) acc[e] = 0.0f;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const __nv_bfloat162* v2 = reinterpret_cast<const __nv_bfloat162*>(&raw[i][k]);
+#pragma unroll
+        for (int e = 0; e < VEC / 2; ++e) {
+          const float2 f = __bfloat1622float2(v2[e]);
+          acc[2 * e] = __fadd_rn(acc[2 * e], __fmul_rn(f.x, w[k]));
+          acc[2 * e + 1] = __fadd_rn(acc[2 * e + 1], __fmul_rn(f.y, w[k]));
+        }
+      }
+      __align__(16) bf16 o[VEC];
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) o[e] = __float2bfloat16_rn(acc[e]);
+      __stcs(reinterpret_cast<uint4*>(out + p * C + (g0 + i * GL) * VEC),
+             *reinterpret_cast<const uint4*>(o));
+    }
+  }
+}
+
+template <typename I>
+void launch_wide(const bf16* im, const bf16* fl, bf16* o, int B, int H, int W, int C, float R,
+                 cudaStream_t st) {
+  const dim3 grid((W + WIDE_TW - 1) / WIDE_TW, (H + WIDE_TH - 1) / WIDE_TH, B);
+  warp_bounded_wide_kernel<I><<<grid, WIDE_TW * WIDE_TH * wide_lanes(C / VEC), 0, st>>>(
+      im, fl, o, H, W, C, R);
+}
+
+// The wide instance with 2-byte reads: one thread per (pixel, group of VEC
+// channels), float32 blend in the order above.
+__global__ void __launch_bounds__(NTHREADS)
+warp_bounded_wide_2b_kernel(const bf16* __restrict__ image, const bf16* __restrict__ flow,
+                            bf16* __restrict__ out, int B, int H, int W, int C, float R) {
   const int groups = (C + VEC - 1) / VEC;
   const long long n = (long long)B * H * W * groups;
   const long long i = (long long)blockIdx.x * NTHREADS + threadIdx.x;
@@ -194,37 +302,17 @@ warp_bounded_wide_kernel(const bf16* __restrict__ image, const bf16* __restrict_
                  ? image + (base + (long long)cy[k] * W + cx[k]) * C + c0
                  : nullptr;
 
-  // sum = ((v00 w00 + v01 w01) + v10 w10) + v11 w11, no fused multiply-add.
   float acc[VEC];
 #pragma unroll
   for (int e = 0; e < VEC; ++e) acc[e] = 0.0f;
   bf16* dst = out + pix * C + c0;
-  if (C % VEC == 0) {
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      if (!src[k]) continue;
-      const uint4 raw = __ldg(reinterpret_cast<const uint4*>(src[k]));
-      const __nv_bfloat162* v2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-      for (int e = 0; e < VEC / 2; ++e) {
-        const float2 f = __bfloat1622float2(v2[e]);
-        acc[2 * e] = __fadd_rn(acc[2 * e], __fmul_rn(f.x, w[k]));
-        acc[2 * e + 1] = __fadd_rn(acc[2 * e + 1], __fmul_rn(f.y, w[k]));
-      }
-    }
-    __align__(16) bf16 o[VEC];
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) o[e] = __float2bfloat16_rn(acc[e]);
-    *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(o);
-  } else {
-    const int nc = min(VEC, C - c0);
-    for (int k = 0; k < 4; ++k) {
-      if (!src[k]) continue;
-      for (int e = 0; e < nc; ++e)
-        acc[e] = __fadd_rn(acc[e], __fmul_rn(__bfloat162float(src[k][e]), w[k]));
-    }
-    for (int e = 0; e < nc; ++e) dst[e] = __float2bfloat16_rn(acc[e]);
+  const int nc = min(VEC, C - c0);
+  for (int k = 0; k < 4; ++k) {
+    if (!src[k]) continue;
+    for (int e = 0; e < nc; ++e)
+      acc[e] = __fadd_rn(acc[e], __fmul_rn(__bfloat162float(src[k][e]), w[k]));
   }
+  for (int e = 0; e < nc; ++e) dst[e] = __float2bfloat16_rn(acc[e]);
 }
 
 }  // namespace
@@ -251,10 +339,16 @@ extern "C" int vfi_warp_bounded_bf16(const void* image, const void* flow, void* 
       launch_rgb<int>(im, fl, o, B, H, W, C, R, vec, st);
     else
       launch_rgb<long long>(im, fl, o, B, H, W, C, R, vec, st);
+  } else if (C % VEC == 0 && reinterpret_cast<uintptr_t>(image) % 16 == 0 &&
+             reinterpret_cast<uintptr_t>(out) % 16 == 0) {
+    if (n * C < (1LL << 31))   // every element index fits 32 bits
+      launch_wide<int>(im, fl, o, B, H, W, C, R, st);
+    else
+      launch_wide<long long>(im, fl, o, B, H, W, C, R, st);
   } else {
     const long long items = n * ((C + VEC - 1) / VEC);
     const unsigned blocks = (unsigned)((items + NTHREADS - 1) / NTHREADS);
-    warp_bounded_wide_kernel<<<blocks, NTHREADS, 0, st>>>(im, fl, o, B, H, W, C, R);
+    warp_bounded_wide_2b_kernel<<<blocks, NTHREADS, 0, st>>>(im, fl, o, B, H, W, C, R);
   }
   return (int)cudaGetLastError();
 }

@@ -47,9 +47,9 @@ SIGNATURES = {
     "vfi_conv2d_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                         _I, _I, _I, _I, _I, _P],
     # x, offset, mask, w, bias, out, B, H, W, Cin, Cout, R, design, rows,
-    # chans, nbuf, x_bytes, smem_bytes (dcn_plan), device, stream
+    # chans, nbuf, xu, x_bytes, smem_bytes (dcn_plan), device, stream
     "vfi_dcn_bounded_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                             _I, _I, _I, _I, _I, _I, _I, _I, _P],
+                             _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # image, flow, out, B, H, W, C, R, device, stream
     "vfi_warp_bounded_bf16": [_P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
 }

@@ -52,13 +52,15 @@ WARP_RGB_MAX_C = 4
 DCN_K, DCN_PADDING = 3, 1
 # The DCN kernel reads `pack_conv2d`'s tap-major layout.
 pack_dcn = pack_conv2d
-# The DCN kernel's warps a block (strip design), and its tile design's
-# output tiles of rows x DCN_TILE_W pixels with two or one input buffers,
-# in the order the plan tries them. Within an H100's shared memory, 8 x 16
-# tiles with two buffers fit no shape that 16 x 16 with one does not
-# (tests/test_torch_dcn_plan.py), so they are not tried.
-DCN_WARPS = 8
+# The DCN kernel's tile design: output tiles of rows x DCN_TILE_W pixels
+# with two or one input buffers, in the order the plan tries them. Within
+# an H100's shared memory, 8 x 16 tiles with two buffers fit no shape that
+# 16 x 16 with one does not (tests/test_torch_dcn_plan.py), so they are
+# not tried. Its stream design: the tile rows it tries, in order (on an
+# H100 8 x 16 beat 16 x 16 by 3-9% at every shape measured:
+# csrc/dcn_bounded.cu).
 DCN_TILE_PLANS, DCN_TILE_W = ((16, 2), (16, 1), (8, 1)), 16
+DCN_STREAM_ROWS = (8, 4)
 
 
 def deform_conv2d_bounded_plain(x, offset, mask, weight, bias=None,
@@ -108,17 +110,43 @@ def _dcn_xu(cin8: int) -> int:
     return cin8 // 8 + (cin8 // 8 % 2 == 0)
 
 
-def _strip_plan_at(px: int, ck: int, cout16: int, R: int) -> dict:
-    """The strip design's shared memory (`strip_plan_at` in
-    csrc/dcn_bounded.cu): the input tile of (3 + 2R) rows of px + 2 + 2R
-    pixels x ck channels, two sample slabs, two weight slices, and the
-    taps' corner indices and weights."""
-    x_bytes = _round128((3 + 2 * R) * (px + 2 + 2 * R) * ck * 2)
-    s_bytes = _round128(max(2 * px * (ck + 16) * 2, DCN_WARPS * 256 * 4))
-    w_bytes = _round128(2 * ck * (cout16 + ROW_PAD) * 2)
-    return {"design": "strip", "px": px, "ck": ck, "rows": px, "chans": ck,
-            "nbuf": 1, "x_bytes": x_bytes,
-            "smem_bytes": x_bytes + s_bytes + w_bytes + px * 9 * 4 * 8}
+def _dcn_chunks(cin16: int) -> list:
+    """The stream design's chunk widths, widest first: Cin16 split into
+    n = 1, 2, ... chunks of one multiple of 16 (the last may be narrower)."""
+    return sorted({_pad16(-(-cin16 // n)) for n in range(1, cin16 // 16 + 1)},
+                  reverse=True)
+
+
+def _stream_plan(cin: int, cout: int, R: int, limit: int) -> Optional[dict]:
+    """The stream design's plan (`csrc/dcn_bounded.cu`), or None where no
+    tile of 4 rows holds a chunk of 16 channels: output tiles of `rows` x
+    16 pixels (`DCN_STREAM_ROWS`), two weight slices of
+    `chans` x (Cout16 + 8) channels, one input-tile buffer of
+    (rows + 2 + 2R) x (18 + 2R) pixels x `xu` 16-byte units, and one slab a
+    warp of 16 pixels x (chans + 8) channels. It takes the larger tile,
+    then the widest chunk, with the odd pixel stride of the tile design
+    (`_dcn_xu` of the chunk's pieces) and, where none fits, with the
+    pieces unpadded."""
+    cin8 = -(-cin // 8) * 8
+    cin16, cout16 = _pad16(cin), _pad16(cout)
+    for padded in (True, False):
+        for rows in DCN_STREAM_ROWS:
+            tpx = (rows + 2 + 2 * R) * (DCN_TILE_W + 2 + 2 * R)
+            for chans in _dcn_chunks(cin16):
+                pieces = min(chans, cin8) // 8
+                xu = _dcn_xu(pieces * 8) if padded else pieces
+                x_bytes = _round128(tpx * xu * 16)
+                w_bytes = 2 * chans * (cout16 + ROW_PAD) * 2
+                s_bytes = rows * DCN_TILE_W * (chans + ROW_PAD) * 2
+                smem = w_bytes + x_bytes + s_bytes
+                if smem <= limit:
+                    return {"design": "stream",
+                            "tile": f"{rows}x{DCN_TILE_W}", "rows": rows,
+                            "nbuf": 1, "chans": chans,
+                            "chunks": -(-cin16 // chans), "xu": xu,
+                            "x_bytes": x_bytes, "w_bytes": w_bytes,
+                            "s_bytes": s_bytes, "smem_bytes": smem}
+    return None
 
 
 @functools.lru_cache(maxsize=None)
@@ -134,10 +162,14 @@ def dcn_plan(cin: int, cout: int, max_offset: int,
     16 x 16 output tiles with two buffers, with one, then 8 x 16 tiles with
     one, each with the widest slab (a multiple of 16 channels up to Cin16)
     that fits.
-    Where none fits (the resident weights or one buffer too large), design
-    "strip": one row of `px` = 64, 32 or 16 pixels a block with the whole
-    Cin16, else 16 pixels with the input tile in channel chunks of `ck`.
-    Raises ValueError past Cout 128 or R < 0, or where nothing fits."""
+    Where none fits (the resident weights and one buffer too large), design
+    "stream" (`_stream_plan`): 8 x 16 or 4 x 16 tiles on the same GEMM core
+    with the weights streamed a (chunk, tap) slice at a time and the input
+    in channel chunks. On an H100 the tile design holds C = 64
+    up to R = 8 and C = 67 up to R = 6; the stream design runs C = 64 from
+    R = 9, C = 67 from R = 7 and C = 128 at every R.
+    Raises ValueError past Cout 128 or R < 0, or where nothing fits (on an
+    H100 R <= 35 fits at any Cin <= 128 and Cout <= 128)."""
     R = int(max_offset)
     if not 1 <= cout <= DCN_MAX_COUT or R < 0 or cin < 1:
         raise ValueError(f"deform_conv2d_bounded kernel takes Cout in "
@@ -156,39 +188,33 @@ def dcn_plan(cin: int, cout: int, max_offset: int,
                 return {"design": "tile",
                         "tile": f"{rows}x{DCN_TILE_W}", "rows": rows,
                         "nbuf": nbuf, "chans": chans,
-                        "passes": -(-cin16 // chans),
-                                "x_bytes": x_bytes, "w_bytes": w_bytes,
+                        "passes": -(-cin16 // chans), "xu": _dcn_xu(cin8),
+                        "x_bytes": x_bytes, "w_bytes": w_bytes,
                         "s_bytes": s_bytes,
                         "smem_bytes": w_bytes + nbuf * x_bytes + s_bytes}
-    cks = [cin16] + sorted({_pad16(-(-cin16 // n))
-                            for n in range(2, cin16 // 16 + 1)} - {cin16},
-                           reverse=True)
-    for px, ck in [(px, cin16) for px in (64, 32, 16)] + [
-            (16, ck) for ck in cks[1:]]:
-        plan = _strip_plan_at(px, ck, cout16, R)
-        if plan["smem_bytes"] <= limit:
-            plan["chunks"] = -(-cin16 // ck)
-            return plan
-    raise ValueError(
-        f"deform_conv2d_bounded kernel: no plan for C={cin}->{cout} at "
-        f"R={max_offset} fits {limit} bytes of shared memory per block "
-        f"(the smallest, 16 pixels and 16 channels a chunk, holds "
-        f"(3 + 2R)(18 + 2R) * 32 bytes of tile; on an H100 R <= 35 at any "
-        f"Cout)")
+    plan = _stream_plan(cin, cout, R, limit)
+    if plan is None:
+        raise ValueError(
+            f"deform_conv2d_bounded kernel: no plan for C={cin}->{cout} at "
+            f"R={max_offset} fits {limit} bytes of shared memory per block "
+            f"(the smallest, a 4 x 16 tile and 16 channels a chunk, holds "
+            f"(6 + 2R)(18 + 2R) * 32 bytes of input; on an H100 R <= 35 at "
+            f"any Cout)")
+    return plan
 
 
 def _dcn_launch(x, offset, mask, wpk, bpk, cout, R, plan, dev):
     b, h, w, cin = x.shape
     out = torch.empty(b, h, w, cout, dtype=torch.bfloat16, device=x.device)
     xp = pad_channels8(x)
-    if offset.data_ptr() % 4:   # the tile design reads (dy, dx) as one word
+    if offset.data_ptr() % 4:   # the kernel reads (dy, dx) as one word
         offset = offset.clone()
     rc = build.entry("vfi_dcn_bounded_bf16")(
         xp.data_ptr(), offset.data_ptr(),
         None if mask is None else mask.data_ptr(), wpk.data_ptr(),
         bpk.data_ptr(), out.data_ptr(), b, h, w, xp.shape[-1], cout, R,
         0 if plan["design"] == "tile" else 1, plan["rows"], plan["chans"],
-        plan["nbuf"], plan["x_bytes"], plan["smem_bytes"], dev,
+        plan["nbuf"], plan["xu"], plan["x_bytes"], plan["smem_bytes"], dev,
         build.current_stream(dev))
     if rc:
         build.check(rc, "deform_conv2d_bounded")

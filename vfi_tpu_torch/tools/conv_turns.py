@@ -1,7 +1,7 @@
 """Device time of the port's kernels in several checkouts, taking turns.
 
     python -m vfi_tpu_torch.tools.conv_turns --trees A,B,B,A
-        [--shapes 64x64,128x64,64x32,6x64,64x27c,dcn64r1,dcn67r2,warp3r16,
+        [--shapes 64x64,128x64,64x32,6x64,64x27c,dcn64r1,dcn128r4,warp64r16,
                   chain_feat,chain_motion:fused,chain_rec:layers,...]
         [--b 1] [--h 720] [--w 1280] [--launches 100] [--device cuda|cpu]
         [--smoke]
@@ -22,9 +22,16 @@ device too. Shapes:
 - `dcnCrR`: the bounded DCN `ops.cuda.deform_conv2d_bounded`, C -> C
   channels at radius R, weights packed once as the engine does, offsets
   reaching past R, a sigmoid mask (`dcn64r1`: qocc's `fusion_dcn0`;
-  `dcn67r2`: q12's);
-- `warpCrR`: the bounded warp `ops.cuda.bounded_warp` of a C-channel
-  image, flows reaching past R (`warp3r16`: the RGB frame);
+  `dcn67r2`: q12's; both on the tile design; `dcn67r8`, `dcn128r4`,
+  `dcn128r8`: the stream design); with `:stream` the stream design at a
+  shape the plan gives the tile design (the checkout's `dcn_plan`
+  replaced by its `_stream_plan` for that shape);
+- `warpCrR[:zero]`: the bounded warp `ops.cuda.bounded_warp` of a
+  C-channel image, flows reaching past R (`warp3r16`: the RGB frame;
+  `warp64r16`, the tools' feature map, and `warp64r4`: the wide
+  instance), or with `:zero` a zero flow (every sample on its own pixel);
+- `copyC`: `clone()` of a C-channel bf16 image, the bytes a warp of it
+  moves at the least (its memory floor, no kernel of the port);
 - `chain_NAME[:HOW]`: a chain of the model's trunk (`CHAINS`: `feat`
   64->64->64->64 with three ReLUs, `motion` 128->64->64->2 and `rec`
   64->64->32->3 with ReLU, ReLU, none, `rec67` the reference topology's
@@ -72,6 +79,7 @@ sys.path.insert(0, args["tree"])
 from vfi_tpu_torch.ops.cuda import (bounded_warp, conv2d, conv_chain,
                                     deform_conv2d_bounded, pack_conv_chain,
                                     pack_dcn)
+from vfi_tpu_torch.ops.cuda import sampling
 routed = "route" in inspect.signature(conv_chain).parameters
 CHAINS = {"feat": ((64, 64, 64, 64), (1, 1, 1)),
           "motion": ((128, 64, 64, 2), (1, 1, 0)),
@@ -83,6 +91,7 @@ if not cuda:
     torch.set_num_threads(1)
 b, h, w, n = args["b"], args["h"], args["w"], args["launches"]
 rows = []
+plan = sampling.dcn_plan
 
 
 def bf(a):
@@ -121,7 +130,10 @@ def device_ms(fn):
 for shape in args["shapes"]:
     rng = np.random.default_rng(0)
     if shape.startswith("dcn"):
-        c, r = (int(v) for v in shape[3:].split("r"))
+        spec, _, how = shape[3:].partition(":")
+        c, r = (int(v) for v in spec.split("r"))
+        sampling.dcn_plan = (sampling._stream_plan if how == "stream"
+                             else plan)
         x = bf(rng.standard_normal((b, h, w, c)))
         off = bf(rng.standard_normal((b, h, w, 18)) * 0.8 * r)
         mask = torch.sigmoid(f32(rng.standard_normal((b, h, w, 9)) * 2.0)
@@ -132,10 +144,15 @@ for shape in args["shapes"]:
         fn = lambda: deform_conv2d_bounded(x, off, mask, wt, bs, r,
                                            packed=pk)
     elif shape.startswith("warp"):
-        c, r = (int(v) for v in shape[4:].split("r"))
+        spec, _, how = shape[4:].partition(":")
+        c, r = (int(v) for v in spec.split("r"))
         img = bf(rng.uniform(0.0, 1.0, (b, h, w, c)))
-        flow = bf(rng.standard_normal((b, h, w, 2)) * 10.0 * r / 16)
+        flow = bf(rng.standard_normal((b, h, w, 2)) * 10.0 * r / 16
+                  * (how != "zero"))
         fn = lambda: bounded_warp(img, flow, r)
+    elif shape.startswith("copy"):
+        img = bf(rng.uniform(0.0, 1.0, (b, h, w, int(shape[4:]))))
+        fn = img.clone
     elif shape.startswith("chain_"):
         name, _, how = shape[6:].partition(":")
         chans, acts = CHAINS[name]
@@ -195,8 +212,9 @@ def parse_args(argv=None):
                     help="comma list of checkout roots, in turn order")
     ap.add_argument("--shapes", default=SHAPES,
                     help="comma list of CinxCout (conv2d + ReLU), "
-                         "CinxCoutc (one-layer conv_chain), dcnCrR "
-                         "(bounded DCN), warpCrR (bounded warp) or "
+                         "CinxCoutc (one-layer conv_chain), dcnCrR[:stream] "
+                         "(bounded DCN), warpCrR[:zero] (bounded warp), "
+                         "copyC (an image's clone) or "
                          "chain_NAME[:fused|layers|cudnn] (a trunk chain)")
     ap.add_argument("--b", type=int, default=1)
     ap.add_argument("--h", type=int, default=720)

@@ -8,7 +8,8 @@ and the script exits non-zero without a result line:
 
 1. card    the card's name and power limit (nvidia-smi);
 2. build   the `nvcc` build of `vfi_tpu_torch/csrc/*.cu` (one process per
-           source, in parallel, then one link);
+           source, in parallel, then one link), and the C++ build of the
+           PNG codec (`vfi_tpu_torch/native/png.cpp`);
 3. kernels each CUDA kernel at every shape a path below launches (and
            the shapes of the kernels' contracts that none does: the DCN at
            C=67 R=4 and R=8 and C=128 R=4 and R=8, the conv at k=1 and
@@ -37,14 +38,30 @@ and the script exits non-zero without a result line:
            3 DCN, 1 warp per engine launch), finite outputs in [0, 1], PSNR
            against the same engine run through the plain versions on the
            card, frames/s;
-5. q12     the 67-channel reference topology (q12: no fuse_proj, R=2)
+5. serve   (a) the flagship engine with io_uint8 behind the HTTP server
+           (`vfi_tpu_torch.serve`, the serve CLI's batcher defaults:
+           max_batch 8, 5 ms, 5M px a launch), warmed for 720p pairs and
+           5-frame sequences, under a fixed mix from the load generator
+           (`tools.bench_serve.run_load`) at 1280x720: 32 raw requests
+           from 8 clients, 8 PNG pairs from 4, 4 five-frame sequences
+           from 2. Every response 200, 8 / 3 / 1 launches per engine
+           launch, every midpoint within PSNR_FLOOR_DB of the same pair
+           through the plain-version engine, PNG and raw responses of one
+           pair within SERVE_PNG_RAW_LEVELS; per route requests/s,
+           midpoints/s, p50 / p99 latency, the batcher's snapshot, and
+           the share of the route's wall time the batcher's worker spent
+           in launches (stacking, upload, engine, download).
+           (b) the serve CLI's own server (`cli.serve.build_server`) at
+           the JAX CLI's defaults (exact DCN, unbounded warp): two raw
+           requests at 640x480, uint8 midpoints, no kernel launched;
+6. q12     the 67-channel reference topology (q12: no fuse_proj, R=2)
            with conv_kernel="pallas" on one b=4 batch of Middlebury val
            frames: 8 / 3 / 1 launches, PSNR against its plain-version
            engine (the 67-wide chains and DCN run in the kernels);
            then `q12_r8`: the same batch at dcn_max_offset=8 (a radius
            the JAX engine takes too), whose three DCNs run the stream
            design, counted by shape, against its plain-version engine;
-6. eval    the Middlebury eval entry point (`vfi_tpu_torch.cli.eval.sweep`)
+7. eval    the Middlebury eval entry point (`vfi_tpu_torch.cli.eval.sweep`)
            over data/processed/val at batch 4, bf16, conv_kernel="xla"
            and use_pallas, as the JAX package's records were made: qocc
            native, qocc with auto_scale 9.0 + TTA, and q12. Each mean PSNR
@@ -52,26 +69,26 @@ and the script exits non-zero without a result line:
            (`artifacts/*_eval.json`), 3 DCN and 1 warp launches per model
            forward and no chain launch; per-scene rows, the auto_scale
            probes, seconds and pairs/s;
-7. conv_compare conv_kernel "xla" against "pallas", taking turns, on the
+8. conv_compare conv_kernel "xla" against "pallas", taking turns, on the
            flagship's b=1 720p requests and on the three eval sweeps:
            seconds, which is faster, launches per forward, and each
            sweep's quality under "pallas" against its record;
-8. tools   the kernel tools in-process (`vfi_tpu_torch.tools`,
+9. tools   the kernel tools in-process (`vfi_tpu_torch.tools`,
            `TOOL_RUNS`): bench_conv over its four shapes at 720p,
            bench_kernels' DCN at vga (C=67, R=2) and its warp (C=3 and
            C=64): each kernel within tolerance of its plain version, and
            the conv, DCN and warp kernels launched;
-9. grad    gradients through each kernel wrapper (conv, chain of three
+10. grad   gradients through each kernel wrapper (conv, chain of three
            layers and of one, DCN on the tile and the stream design, warp
            at C=3 and C=64) against those
            through its plain version at a small shape (GRAD_SHAPE,
            tolerance stated there);
-10. profile (only with --profile) torch.profiler over one b=1 request: the
+11. profile (only with --profile) torch.profiler over one b=1 request: the
            device's busy share of the request's wall time and device time
            by kernel, split into the port's CUDA kernels and the rest.
 
-Each kernel row's `launches` is its count over the paths (main, q12,
-eval, tools) that launch its shape; the run fails when a path launches a
+Each kernel row's `launches` is its count over the paths (main, serve,
+q12, eval, tools) that launch its shape; the run fails when a path launches a
 (kernel, shape) that no row checks.
 
 The lines before the last are the `kernels` JSON line and the card's
@@ -94,6 +111,8 @@ import torch
 import torch.nn.functional as F
 
 import vfi_tpu_torch
+from vfi_tpu_torch import native
+from vfi_tpu_torch.cli import serve as serve_cli
 from vfi_tpu_torch.cli.eval import sweep
 from vfi_tpu_torch.data import load_image
 from vfi_tpu_torch.infer import FrameInterpolator
@@ -108,7 +127,11 @@ from vfi_tpu_torch.ops.cuda import (WRAPPERS, bounded_warp,
                                     pack_conv_chain, pack_dcn,
                                     reset_launch_counts)
 from vfi_tpu_torch.ops.cuda.conv import ROUTES
+from vfi_tpu_torch.serve import (BatcherStats, InterpolationServer,
+                                 encode_pair_body, encode_raw_body,
+                                 encode_seq_body)
 from vfi_tpu_torch.tools import bench_conv, bench_kernels
+from vfi_tpu_torch.tools.bench_serve import run_load
 from vfi_tpu_torch.utils.convert import load_params_npz, params_from_jax
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(vfi_tpu_torch.__file__)))
@@ -174,6 +197,18 @@ DCN_V4_TPU = "vfi_tpu/ops/pallas/sampling.py:379"
 DCN_V3_TPU = "vfi_tpu/ops/pallas/sampling.py:135"
 WARP_TPU = "vfi_tpu/ops/pallas/sampling.py:739"
 WARP_V1_TPU = "vfi_tpu/ops/pallas/sampling.py:883"
+# The serve phase: the serve CLI's batcher defaults; per route (wire
+# route, clients, requests); midpoints a sequence request asks for. A PNG
+# response and a raw one of the same pair go through one engine in other
+# batches: they may differ where bf16 rounding moves a midpoint across a
+# level, by a level or two, no more.
+SERVE_BATCHER = dict(max_batch=8, max_delay_ms=5.0,
+                     max_px_per_launch=5_000_000)
+SERVE_MIX = (("raw", 8, 32), ("png", 4, 8), ("seq", 2, 4))
+SERVE_SEQ = 4
+SERVE_PNG_RAW_LEVELS = 2
+# The serve CLI's own server: frame size and requests.
+CLI_H, CLI_W, CLI_REQUESTS = 480, 640, 2
 # The kernel tools' runs in the tools phase: few iterations each.
 TOOL_RUNS = (
     (bench_conv, ["--shapes", "all", "--kernels", "xla,im2col,direct,v2,plain",
@@ -307,9 +342,11 @@ def phase_build() -> dict:
     info = dict(build.build_info)
     ptxas = [ln.strip() for ln in info.pop("log", "").splitlines()
              if "registers" in ln or "spill" in ln]
+    t1 = time.perf_counter()
+    native.load()               # the PNG codec, before any route is timed
     return {"phase": "build", "seconds": time.perf_counter() - t0,
             "nvcc_seconds": info["seconds"], "cached": info["cached"],
-            "ptxas": ptxas}
+            "png_codec_seconds": time.perf_counter() - t1, "ptxas": ptxas}
 
 
 def row_name(base: str, b: int, h: int, w: int) -> str:
@@ -505,7 +542,8 @@ def phase_kernels(sd: dict, sd12: dict, dev) -> list:
         ("offset", 64, ["fusion_dcn0.offset_conv"], (0,)),
         ("rec", 64, [f"rec_conv{i}.conv" for i in (1, 2, 3)], (1, 1, 0)),
     ]
-    main, q12, ev = ("main",), ("q12",), ("eval",)
+    # The serve phase's engine is the flagship at 720p: the same shapes.
+    main, q12, ev = ("main", "serve"), ("q12",), ("eval",)
     q12s = q12 + ("q12_r8",)    # both q12 requests' chains and warp
     for h, w, chain in ([(H, W, c) for c in chains]
                         + [(H // 2, W // 2, c) for c in chains[:2]]):
@@ -631,6 +669,176 @@ def phase_main(params, flow_params) -> dict:
             "pairs": pairs, "psnr_vs_plain_db": psnrs,
             "psnr_floor_db": PSNR_FLOOR_DB, "_by_shape": by_shape,
             "_engine": eng, "_request": requests[0]}
+
+
+def u8(frames: np.ndarray) -> np.ndarray:
+    """float32 [0, 1] -> uint8 as the server rounds: x * 255 + 0.5."""
+    return np.clip(frames * 255.0 + 0.5, 0, 255).astype(np.uint8)
+
+
+def psnr_u8(a: np.ndarray, b: np.ndarray) -> float:
+    mse = np.mean(((a.astype(np.float64) - b.astype(np.float64)) / 255.0)
+                  ** 2)
+    return float("inf") if mse == 0 else float(10.0 * np.log10(1.0 / mse))
+
+
+def phase_serve(params, flow_params) -> dict:
+    """(a) The flagship engine (io_uint8) behind the HTTP server under
+    SERVE_MIX; (b) the serve CLI's own server at its defaults. Emits a
+    line per route and returns the phase's summary."""
+    t0 = time.perf_counter()
+    f0, f1 = smooth_frames(np.random.default_rng(SEED), 2)
+    a, b = u8(f0), u8(f1)
+    pairs = [(a[0], b[0]), (b[0], a[0]), (a[1], b[1]), (b[1], a[1])]
+    # Five consecutive frames of a steady motion, from each texture.
+    seqs = [np.stack([np.roll(a[i], (3 * k, 6 * k), axis=(0, 1))
+                      for k in range(SERVE_SEQ + 1)]) for i in range(2)]
+    bodies = {"raw": [encode_raw_body(x, y) for x, y in pairs],
+              "png": [encode_pair_body(native.encode_png_rgb(x),
+                                       native.encode_png_rgb(y))
+                      for x, y in pairs],
+              "seq": [encode_seq_body(fr) for fr in seqs]}
+
+    eng = FrameInterpolator(params, flow_params=flow_params, device="cuda",
+                            io_uint8=True, **FLAGSHIP)
+    forwards = [0]
+    forward = eng._forward
+
+    def counted(x, y):          # engine launches: one model forward each
+        forwards[0] += 1
+        return forward(x, y)
+
+    eng._forward = counted
+    server = InterpolationServer(eng, port=0, **SERVE_BATCHER)
+    busy = [0.0]                # the batcher worker's seconds in launches
+    for name in ("_launch", "_launch_seq"):
+        def timed(*args, _launch=getattr(server.batcher, name)):
+            t = time.perf_counter()
+            try:
+                return _launch(*args)
+            finally:
+                busy[0] += time.perf_counter() - t
+        setattr(server.batcher, name, timed)
+    server.start()
+    url = f"http://127.0.0.1:{server.port}"
+    routes, by_shape = [], {fn.__name__: Counter() for fn in WRAPPERS}
+    try:
+        t1 = time.perf_counter()
+        server.warmup([(H, W), (SERVE_SEQ + 1, H, W)])
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t1
+        for route, clients, total in SERVE_MIX:
+            server.batcher.stats = BatcherStats()
+            forwards[0], busy[0] = 0, 0.0
+            reset_launch_counts()
+            res = run_load(url, bodies[route], clients, total, 120.0,
+                           raw=route == "raw",
+                           seq=SERVE_SEQ if route == "seq" else 0, keep=True)
+            counts = launch_counts()
+            for fn, c in shapes_now().items():
+                by_shape[fn].update(c)
+            res.update(route=route, requests=total,
+                       engine_launches=forwards[0], launches=counts,
+                       worker_busy_s=busy[0],
+                       worker_busy_share=busy[0] / res["wall_s"])
+            routes.append(res)
+    finally:
+        server.shutdown()
+
+    plain = FrameInterpolator(params, flow_params=flow_params, device="cuda",
+                              io_uint8=True, use_kernels=False, **FLAGSHIP)
+    ref_pairs = plain.midpoints(np.stack([x for x, _ in pairs]),
+                                np.stack([y for _, y in pairs])).cpu().numpy()
+    ref_seqs = [plain.midpoints_sequence(fr).cpu().numpy() for fr in seqs]
+
+    failures = []
+    for res in routes:
+        route, responses = res["route"], res.pop("responses")
+        bad = [(st, data) for st, data in responses if st != 200]
+        if bad or res["errors"]:
+            failures.append(f"{route}: statuses "
+                            f"{sorted({st for st, _ in bad})}, the first "
+                            f"answer {bad[0][1][:300]!r}")
+            continue
+        for k, v in res["launches"].items():
+            if v != PER_LAUNCH[k] * res["engine_launches"]:
+                failures.append(f"{route}: {k} {v} launches over "
+                                f"{res['engine_launches']} engine launches")
+        outs, psnrs = [], []
+        for i, (_, data) in enumerate(responses):
+            if route == "seq":
+                got = np.frombuffer(data, np.uint8).reshape(SERVE_SEQ, H, W, 3)
+                psnrs += [psnr_u8(g, r) for g, r in
+                          zip(got, ref_seqs[i % len(seqs)])]
+            else:
+                got = (native.decode_png_rgb(data) if route == "png" else
+                       np.frombuffer(data, np.uint8).reshape(H, W, 3))
+                psnrs.append(psnr_u8(got, ref_pairs[i % len(pairs)]))
+            outs.append(got)
+        res["psnr_vs_plain_db_min"] = min(psnrs)
+        res["midpoints_checked"] = len(psnrs)
+        if not min(psnrs) >= PSNR_FLOOR_DB:
+            failures.append(f"{route}: PSNR vs plain engine {min(psnrs)} "
+                            f"below {PSNR_FLOOR_DB} dB")
+        res["_outs"] = outs
+    by_route = {r["route"]: r for r in routes}
+    png_raw = None
+    if "_outs" in by_route["png"] and "_outs" in by_route["raw"]:
+        png_raw = max(int(np.abs(p.astype(np.int16) - r.astype(np.int16))
+                          .max()) for p, r in zip(by_route["png"]["_outs"],
+                                                  by_route["raw"]["_outs"]))
+        if png_raw > SERVE_PNG_RAW_LEVELS:
+            failures.append(f"PNG vs raw responses differ by {png_raw} "
+                            f"levels, more than {SERVE_PNG_RAW_LEVELS}")
+    for res in routes:
+        res.pop("_outs", None)
+        emit({"phase": "serve_route", **res})
+
+    cli = phase_serve_cli()
+    emit(cli)
+    if cli["failures"]:
+        failures += cli["failures"]
+    if failures:
+        raise AssertionError("serve: " + "; ".join(failures))
+    return {"phase": "serve", "seconds": time.perf_counter() - t0,
+            "warmup_seconds": warm_s, "batcher": SERVE_BATCHER,
+            "png_vs_raw_max_levels": png_raw,
+            "routes": {r["route"]: {k: r[k] for k in (
+                "requests_per_s", "midpoints_per_s", "latency_ms_p50",
+                "latency_ms_p99", "engine_launches", "worker_busy_share",
+                "wall_s")}
+                for r in routes},
+            "_by_shape": by_shape}
+
+
+def phase_serve_cli() -> dict:
+    """The serve CLI's own server at the JAX CLI's defaults (exact DCN,
+    unbounded warp, io_uint8, no kernel): CLI_REQUESTS raw requests at
+    CLI_H x CLI_W, answered 200 with uint8 midpoints of that shape, and
+    no kernel launched."""
+    t0 = time.perf_counter()
+    server = serve_cli.build_server(["--model_path", CKPT + ".npz",
+                                     "--flow_prior", "--port", "0"]).start()
+    gen = np.random.default_rng(SEED + 2)
+    body = encode_raw_body(*(gen.integers(0, 256, (CLI_H, CLI_W, 3))
+                             .astype(np.uint8) for _ in range(2)))
+    try:
+        reset_launch_counts()
+        res = run_load(f"http://127.0.0.1:{server.port}", body, CLI_REQUESTS,
+                       CLI_REQUESTS, 300.0, raw=True, keep=True)
+        counts = launch_counts()
+    finally:
+        server.shutdown()
+    failures = []
+    for status, data in res.pop("responses"):
+        if status != 200 or len(data) != CLI_H * CLI_W * 3:
+            failures.append(f"cli: status {status}, {len(data)} bytes")
+    if any(counts.values()):
+        failures.append(f"cli: kernels launched {counts}")
+    return {"phase": "serve_cli", "seconds": time.perf_counter() - t0,
+            "size": [CLI_H, CLI_W], "launches": counts,
+            "engine": "exact DCN, unbounded warp, io_uint8, bf16",
+            "failures": failures, **res}
 
 
 def shapes_now() -> dict:
@@ -1104,6 +1312,10 @@ def main() -> int:
     main_res["seconds"] = time.perf_counter() - t0
     main_res["card"] = card
     emit(main_res)
+
+    serve_res = phase_serve(params, flow_params)
+    by_path["serve"] = serve_res.pop("_by_shape")
+    emit(serve_res)
 
     t0 = time.perf_counter()
     frames = decode_val()

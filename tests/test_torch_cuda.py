@@ -5,8 +5,9 @@ and without a mask) and, on the stream design, at widths and radii no
 tile plan holds, the chains with a 67-wide first layer (one layer through
 the conv kernel), the single conv at k 1..9 with its tile cut at every edge,
 the warp at C=3 and wide C, gradients through every kernel wrapper
-against those through its plain version, and q12 (the 67-channel
-topology) through the engine with both conv_kernel settings. Needs an
+against those through its plain version, q12 (the 67-channel
+topology) through the engine with both conv_kernel settings, and the
+flagship engine (io_uint8) behind the HTTP server. Needs an
 NVIDIA GPU and nvcc; skips without a GPU. Run on
 the card with `python -m pytest --noconftest tests/test_torch_cuda.py -m cuda`
 (tests/conftest.py imports jax, which a GPU host that runs only the port
@@ -594,4 +595,48 @@ def test_q12_engine_runs_the_kernels(dev, conv_kernel, chains):
     assert got.device.type == "cuda" and torch.isfinite(got).all()
     ref = FrameInterpolator(params, use_kernels=False, **kw).midpoints(f0, f1)
     mse = (got - ref).pow(2).mean().item()
+    assert mse == 0 or 10 * np.log10(1 / mse) >= 40.0
+
+
+def test_server_runs_the_kernels_on_a_raw_request(dev):
+    """A 2x64x96 raw request through the port's HTTP server over the qocc
+    engine at the flagship settings with io_uint8 and the kernels on: one
+    engine launch with 8 conv-chain, 3 DCN and 1 warp kernel launches,
+    a uint8 midpoint within 40 dB of the plain-version engine's."""
+    import urllib.request
+
+    from vfi_tpu_torch.infer import FrameInterpolator
+    from vfi_tpu_torch.serve import (RAW_CONTENT_TYPE, InterpolationServer,
+                                     encode_raw_body)
+    from vfi_tpu_torch.utils.convert import load_params_npz
+
+    ckpt = os.path.join(REPO, "artifacts", "emavfi_qocc_best")
+    params = load_params_npz(ckpt + ".npz")
+    kw = dict(flow_params=load_params_npz(ckpt + ".flow.npz"), bf16=True,
+              dcn_max_offset=1, warp_max_flow=16, cascade_levels=2,
+              conv_kernel="pallas", io_uint8=True, device="cuda")
+    rng = np.random.default_rng(7)
+    a = rng.integers(0, 256, (64, 96, 3)).astype(np.uint8)
+    b = np.roll(a, (2, -3), axis=(0, 1))
+    server = InterpolationServer(FrameInterpolator(params, **kw),
+                                 port=0).start()
+    try:
+        reset_launch_counts()
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{server.port}/v1/interpolate",
+            data=encode_raw_body(a, b),
+            headers={"Content-Type": RAW_CONTENT_TYPE})
+        with urllib.request.urlopen(req, timeout=300) as r:
+            status, data = r.status, r.read()
+        counts = launch_counts()
+        batches = server.batcher.stats.snapshot()["batches"]
+    finally:
+        server.shutdown()
+    assert status == 200 and batches == 1
+    assert counts == {"conv_chain": 8, "deform_conv2d_bounded": 3,
+                      "bounded_warp": 1, "conv2d": 0}
+    got = np.frombuffer(data, np.uint8).reshape(64, 96, 3)
+    ref = FrameInterpolator(params, use_kernels=False, **kw).midpoints(
+        a[None], b[None])[0].cpu().numpy()
+    mse = np.mean(((got.astype(np.float64) - ref) / 255.0) ** 2)
     assert mse == 0 or 10 * np.log10(1 / mse) >= 40.0

@@ -116,8 +116,9 @@ def test_each_scanline_filter():
 
 @pytest.mark.parametrize("data", [
     b"not a png at all",
-    _png(2, 2, b"\x00" + b"\x00" * 12 + b"\x00" + b"\x00" * 12, depth=16),
-    _png(2, 2, b"\x00" * 14, interlace=1),
+    _png(2, 2, b"\x00" + b"\x00" * 12 + b"\x00" + b"\x00" * 12,
+         depth=16, color_type=3),                  # no 16-bit palettes
+    _png(2, 2, b"\x00" * 14, interlace=1),         # Adam7 needs 15 bytes
     _png(2, 2, b"\x00" * 5),                       # short scanlines
     _png(2, 1, b"\x07" + b"\x00" * 6),             # unknown filter
 ])

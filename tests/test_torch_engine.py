@@ -170,8 +170,7 @@ def test_auto_scale_needs_flow_params(qocc):
                           auto_scale=9.0)
 
 
-@pytest.mark.parametrize("kw", [dict(io_uint8=True), dict(spatial=True),
-                                dict(mesh="data"),
+@pytest.mark.parametrize("kw", [dict(spatial=True), dict(mesh="data"),
                                 dict(reference_compat=True)])
 def test_unported_options_raise(qocc, kw):
     with pytest.raises(NotImplementedError):

@@ -44,7 +44,9 @@ def test_no_jax_or_reference_imports(path):
 def test_import_leaves_jax_out():
     code = ("import sys, vfi_tpu_torch, vfi_tpu_torch.infer, "
             "vfi_tpu_torch.ops.cuda, vfi_tpu_torch.models, "
-            "vfi_tpu_torch.data, vfi_tpu_torch.cli.eval;"
+            "vfi_tpu_torch.data, vfi_tpu_torch.cli.eval, "
+            "vfi_tpu_torch.serve, vfi_tpu_torch.cli.serve, "
+            "vfi_tpu_torch.tools.bench_serve;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'vfi_tpu', 'triton', 'PIL', 'cv2')];"
             "assert not bad, bad")
@@ -79,6 +81,20 @@ def test_eval_cli_needs_a_card_unless_asked_for_cpu(monkeypatch):
                     "--model_path", ckpt + ".npz", "--dcn_max_offset", "1"])
     with pytest.raises(RuntimeError):
         teval.main(["--data-dir", ".", "--flow_model", ckpt + ".flow.npz"])
+
+
+def test_serve_cli_needs_a_card_unless_asked_for_cpu(monkeypatch):
+    from vfi_tpu_torch.cli import serve as tserve
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = ["--model_path", os.path.join(REPO, "artifacts",
+                                         "emavfi_qocc_best.npz"),
+            "--port", "0"]
+    with pytest.raises(RuntimeError):
+        tserve.build_server(argv)
+    server = tserve.build_server(argv + ["--device", "cpu"]).start()
+    server.shutdown()
+    assert server.batcher.engine.device == torch.device("cpu")
 
 
 def test_engine_needs_a_card_unless_asked_for_cpu(monkeypatch):

@@ -178,8 +178,6 @@ def test_modulated_deform_conv_matches_jax(rng, R):
 
 def test_unported_modes_raise():
     with pytest.raises(NotImplementedError):
-        EMAVFI(dcn_max_offset=None)
-    with pytest.raises(NotImplementedError):
         EMAVFI(dcn_max_offset=1, spatial_axis="spatial")
     with pytest.raises(ValueError):
         EMAVFI(dcn_max_offset=1, cascade_levels=0)

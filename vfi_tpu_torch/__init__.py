@@ -7,14 +7,18 @@ Hopper card (H100, `sm_90a`). Plain tensor code is PyTorch; every TPU
 bound with `ctypes` (`ops/cuda/build.py`).
 
 Layout mirrors `vfi_tpu` so each module's counterpart is easy to find:
-  ops/        warp, resize, the plain bounded DCN; ops/cuda/ the kernel
-              wrappers (each with its plain PyTorch version beside it)
+  ops/        warp, resize, the exact and the plain bounded DCN; ops/cuda/
+              the kernel wrappers (each with its plain PyTorch version
+              beside it)
   csrc/       CUDA C++ kernels
   models/     EMAVFI, SimpleFlowNet, the flow-prior pre-warp
   infer/      the frame-pair engine (`FrameInterpolator`)
+  serve/      the micro-batcher and the HTTP server (cli/serve.py)
+  native/     the PNG codec (C++ unfilter, built on first use)
   utils/      checkpoint loading and the JAX-tree -> torch mapping,
               profiling (`trace`, `StepTimer`)
-  tools/      the kernel microbenchmarks (bench_conv, bench_kernels)
+  tools/      the kernel microbenchmarks (bench_conv, bench_kernels) and
+              the serving load generator (bench_serve)
 
 Public functions take NHWC tensors, like the JAX package. Entry points run
 on `cuda` unless the caller passes `device="cpu"`. Importing the package

@@ -1,17 +1,18 @@
 """Frame-pair interpolation engine, port of `vfi_tpu/infer/pair.py`.
 
 `FrameInterpolator.midpoints(f0, f1)` takes (B, H, W, 3) float32 frames in
-[0, 1], ImageNet-normalizes them on the device, optionally pre-warps frame1
-by the SimpleFlowNet flow prior, and runs EMAVFI, split into launches of at
-most `max_px_per_launch` pixels. `tta` averages four symmetry-transformed
-forwards; `auto_scale` routes a call at half resolution when the flow
-estimator's p95 motion exceeds the threshold. It runs on `cuda` unless the
-caller passes `device="cpu"`; without a card and without that argument it
-raises.
+[0, 1] (uint8 in [0, 255] with `io_uint8`), ImageNet-normalizes them on
+the device, optionally pre-warps frame1 by the SimpleFlowNet flow prior,
+and runs EMAVFI, split into launches of at most `max_px_per_launch`
+pixels. `midpoints_sequence(frames)` does the same for every consecutive
+pair of a sequence, shipping each frame to the device once. `tta`
+averages four symmetry-transformed forwards; `auto_scale` routes a call at
+half resolution when the flow estimator's p95 motion exceeds the
+threshold. It runs on `cuda` unless the caller passes `device="cpu"`;
+without a card and without that argument it raises.
 
-Not ported yet (each raises when asked for): `io_uint8`,
-`reference_compat`, mesh / spatial sharding, and the `recursive` /
-`midpoints_sequence` entry points.
+Not ported yet (each raises when asked for): `reference_compat`, mesh /
+spatial sharding, and the `recursive` entry point.
 """
 
 from __future__ import annotations
@@ -91,7 +92,12 @@ class FrameInterpolator:
     percentile of the flow estimator's motion magnitude exceeds the
     threshold, the whole call runs on frames resized to half and the
     midpoints are resized back. `auto_scale_stats` records every probe and
-    the count of calls routed at half resolution."""
+    the count of calls routed at half resolution.
+
+    `io_uint8=True` takes and returns uint8 [0, 255] frames (`io_dtype`):
+    they go to the device as they are, a quarter of the float32 bytes,
+    and convert there (`/ 255`); the midpoints come back as clip(x * 255 +
+    0.5, 0, 255) in uint8. Not with auto_scale, as in the JAX engine."""
 
     def __init__(self, params, in_channels: Optional[int] = None,
                  mid_channels: Optional[int] = None,
@@ -111,7 +117,7 @@ class FrameInterpolator:
                  use_kernels: bool = True,
                  io_uint8: bool = False, spatial: bool = False,
                  mesh=None, reference_compat: bool = False):
-        for name, val in (("io_uint8", io_uint8), ("spatial", spatial),
+        for name, val in (("spatial", spatial),
                           ("mesh", mesh is not None),
                           ("reference_compat", reference_compat)):
             if val:
@@ -119,6 +125,10 @@ class FrameInterpolator:
         if auto_scale is not None and flow_params is None:
             raise ValueError("auto_scale needs flow_params (the flow "
                              "estimator provides the motion-magnitude probe)")
+        if auto_scale is not None and io_uint8:
+            raise ValueError("auto_scale is not supported with io_uint8")
+        self.io_uint8 = io_uint8
+        self.io_dtype = np.uint8 if io_uint8 else np.float32
         self.device = resolve_device(device)
         if self.device.type == "cuda" and use_kernels and not bf16:
             raise ValueError("the CUDA kernels run in bfloat16 only; float32 "
@@ -175,7 +185,18 @@ class FrameInterpolator:
         return torch.stack(outs).mean(dim=0)
 
     def _to_device(self, f) -> torch.Tensor:
+        """Frames in the io dtype -> float32 [0, 1] on the device; uint8
+        frames go up as they are and convert there."""
+        if self.io_uint8:
+            return torch.as_tensor(f).to(self.device).float() / 255.0
         return torch.as_tensor(f).to(self.device, torch.float32)
+
+    def _from_forward(self, out: torch.Tensor) -> torch.Tensor:
+        """The forward's [0, 1] midpoints in the io dtype."""
+        if not self.io_uint8:
+            return out
+        return torch.clamp(out.float() * 255.0 + 0.5, 0.0, 255.0).to(
+            torch.uint8)
 
     def _guard_cap(self, f0) -> Optional[int]:
         """Pairs per launch under `max_px_per_launch` (None: no guard)."""
@@ -184,8 +205,9 @@ class FrameInterpolator:
         return max(1, self.max_px_per_launch // (f0.shape[1] * f0.shape[2]))
 
     def midpoints(self, f0, f1) -> torch.Tensor:
-        """Midpoint of each pair: (B, H, W, 3) float32 [0, 1] arrays or
-        tensors in, a (B, H, W, 3) float32 tensor on the device out."""
+        """Midpoint of each pair: (B, H, W, 3) arrays or tensors in the io
+        dtype in, a (B, H, W, 3) tensor in the io dtype on the device
+        out."""
         b = f0.shape[0]
         # auto_scale decides once per call, so every guard chunk of one
         # batch takes the same route.
@@ -197,6 +219,34 @@ class FrameInterpolator:
                                                      f1[i:i + cap], scaled)
                               for i in range(0, b, cap)])
         return self._midpoints_launch(f0, f1, scaled)
+
+    @torch.inference_mode()
+    def midpoints_sequence(self, frames) -> torch.Tensor:
+        """Midpoints of every consecutive pair of an (N+1, H, W, 3)
+        sequence in the io dtype -> (N, H, W, 3) on the device, the same
+        numbers as `midpoints(frames[:-1], frames[1:])`. Each frame goes
+        to the device once and the pairs are sliced there (the pair route
+        ships every interior frame twice). Past the pixel budget the
+        frames go in chunks of `cap` frames that overlap by one; when one
+        pair alone exceeds it, through `midpoints`, whose guard splits by
+        pairs (chunking by frames cannot shrink below two, and recursing
+        on a two-frame chunk never ends)."""
+        n1 = frames.shape[0]
+        if n1 < 2:
+            raise ValueError("midpoints_sequence needs >= 2 frames")
+        px = frames.shape[1] * frames.shape[2]
+        if (self.max_px_per_launch is not None
+                and n1 * px > self.max_px_per_launch):
+            if 2 * px > self.max_px_per_launch:
+                return self.midpoints(frames[:-1], frames[1:])
+            cap = max(2, self.max_px_per_launch // px)
+            return torch.cat([self.midpoints_sequence(frames[i:i + cap])
+                              for i in range(0, n1 - 1, cap - 1)])
+        if self.auto_scale is not None:
+            # the probe decides per call over the pairs, as in midpoints
+            return self.midpoints(frames[:-1], frames[1:])
+        fr = self._to_device(frames)
+        return self._from_forward(self._forward(fr[:-1], fr[1:]))
 
     @torch.inference_mode()
     def _flow_p95(self, f0: torch.Tensor, f1: torch.Tensor) -> float:
@@ -224,7 +274,7 @@ class FrameInterpolator:
                           ) -> torch.Tensor:
         f0, f1 = self._to_device(f0), self._to_device(f1)
         if not scaled:
-            return self._forward(f0, f1)
+            return self._from_forward(self._forward(f0, f1))
         # Large motion: halve the resolution (halves the apparent flow,
         # back inside the trunk's receptive field) and resize the
         # midpoints back to the native size.

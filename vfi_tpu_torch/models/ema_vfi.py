@@ -13,8 +13,10 @@ conv_kernel="pallas"):
   3. motion: chain cat(feat, ctx) 2M -> M -> M -> 2, flow channels (dx, dy);
   4. backward warp of frame2 (RGB) by the flow, bounded to warp_max_flow
      (CUDA kernel) or exact (unbounded);
-  5. fusion: optional 1x1 projection M + C -> M, then `num_blocks` bounded
-     modulated DCNs, each with its offset conv as a chain of one layer;
+  5. fusion: optional 1x1 projection M + C -> M, then `num_blocks`
+     modulated DCNs, each with its offset conv as a chain of one layer,
+     offsets bounded to dcn_max_offset (CUDA kernel) or exact (None:
+     unbounded, plain PyTorch);
   6. reconstruction chain M -> M -> M/2 -> C, tanh, (x + 1) / 2.
 
 `conv_kernel` ("xla", the JAX default, or "pallas") picks how the trunk
@@ -57,10 +59,6 @@ class EMAVFI(nn.Module):
         if spatial_axis is not None:
             raise NotImplementedError(
                 "spatial (H-sharded) mode is not ported yet")
-        if dcn_max_offset is None:
-            raise NotImplementedError(
-                "the exact unbounded DCN (dcn_max_offset=None) is not "
-                "ported yet; pass a bound such as dcn_max_offset=1")
         if cascade_levels < 1:
             raise ValueError(f"cascade_levels must be >= 1, got "
                              f"{cascade_levels}")

@@ -23,6 +23,7 @@ from torch import nn
 
 from vfi_tpu_torch.ops.cuda import (KERNELS, Ops, pack_conv_chain,
                                     pack_dcn)
+from vfi_tpu_torch.ops.deform_conv import deform_conv2d
 
 CONV_KERNELS = ("xla", "pallas")
 
@@ -74,7 +75,7 @@ def apply_conv_chain(x: torch.Tensor, blocks: Sequence[ConvBlock],
 
 
 class ModulatedDeformConv(nn.Module):
-    """Offset-predicting modulated deformable conv, bounded offsets
+    """Offset-predicting modulated deformable conv
     (`vfi_tpu/models/layers.py:224`).
 
     The offset conv (Cin -> 27, a chain of one layer) output splits into
@@ -82,9 +83,12 @@ class ModulatedDeformConv(nn.Module):
     cat(static, dynamic), read as torchvision (dy, dx) pairs per tap, and
     the mask is sigmoided. Output channels == input channels. The offset
     conv runs as a plain conv (conv_kernel="xla") or as a one-layer
-    conv-chain kernel launch ("pallas")."""
+    conv-chain kernel launch ("pallas"). With `max_offset` an integer R
+    the offsets are clamped to [-R, R] and the DCN runs through the `ops`
+    triple (the bounded kernel); with None it is the exact unbounded op
+    (`ops/deform_conv.py`, plain PyTorch, as in the JAX package)."""
 
-    def __init__(self, channels: int, max_offset: int,
+    def __init__(self, channels: int, max_offset: Optional[int],
                  conv_kernel: str = "xla"):
         super().__init__()
         check_conv_kernel(conv_kernel)
@@ -107,7 +111,8 @@ class ModulatedDeformConv(nn.Module):
         oc = self.offset_conv
         self.packed = (pack_conv_chain([oc.weight], [oc.bias])
                        if self.conv_kernel == "pallas" else None,
-                       pack_dcn(self.weight, self.bias))
+                       None if self.max_offset is None
+                       else pack_dcn(self.weight, self.bias))
 
     def forward(self, x: torch.Tensor, ops: Ops = KERNELS) -> torch.Tensor:
         if self.conv_kernel == "pallas":
@@ -119,6 +124,8 @@ class ModulatedDeformConv(nn.Module):
         off_static, mask, off_dynamic = torch.split(raw, 9, dim=-1)
         offset = torch.cat([off_static, off_dynamic], dim=-1).contiguous()
         mask = torch.sigmoid(mask).contiguous()
+        if self.max_offset is None:
+            return deform_conv2d(x, offset, mask, self.weight, self.bias)
         return ops.deform_conv2d_bounded(x, offset, mask, self.weight,
                                          self.bias, self.max_offset,
                                          packed=self.packed[1])

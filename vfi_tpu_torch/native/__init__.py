@@ -1,6 +1,11 @@
-"""The port's PNG decoder: chunk parsing and inflate in Python (the
-standard `zlib` module), scanline unfilter and RGB expansion in C++
-(`png.cpp`), bound with ctypes.
+"""The port's PNG codec.
+
+`decode_png_rgb`: chunk parsing and inflate in Python (the standard `zlib`
+module), scanline unfilter, Adam7 and RGB expansion in C++ (`png.cpp`),
+bound with ctypes. It takes every bit depth and colour type the format
+allows, interlaced or not, and gives what Pillow's `convert("RGB")` gives
+(`png.cpp` lists the rules). `encode_png_rgb`: filter type 0 and `zlib`
+at a given level, in Python.
 
 The library is compiled from `png.cpp` with the host's C++ compiler on
 first use into `build/vfi_tpu_torch/native/<key>/` beside the package (a
@@ -16,6 +21,7 @@ import os
 import shutil
 import struct
 import subprocess
+import threading
 import zlib
 from pathlib import Path
 
@@ -26,8 +32,15 @@ BUILD_ROOT = SRC.parents[2] / "build" / "vfi_tpu_torch" / "native"
 LIB_NAME = "libvfi_png.so"
 CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
 PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
+# Samples per pixel of each colour type; Adam7's passes (x0, y0, dx, dy).
+CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+         (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+# Largest image taken: 2^28 pixels (16K x 16K).
+MAX_PX = 1 << 28
 
 _lib = None
+_load_lock = threading.Lock()
 
 
 def _compiler() -> str:
@@ -59,24 +72,42 @@ def build() -> Path:
 
 
 def load():
-    """The loaded library, building it on first use."""
+    """The loaded library, building it on first use. Thread-safe: the
+    server's handler threads decode at once, and one build (to one
+    temporary file a process) must serve them all."""
     global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        fn = lib.vfi_png_unfilter_rgb
-        fn.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_char_p,
-                       ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _lib = lib
+    with _load_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            fn = lib.vfi_png_decode_rgb
+            fn.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int,
+                           ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_int, ctypes.c_char_p, ctypes.c_int,
+                           ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            _lib = lib
     return _lib
 
 
+def _raw_size(w: int, h: int, bits: int, interlace: int) -> int:
+    """Bytes of the inflated IDAT stream: each pass's scanlines, a filter
+    byte and the packed pixels of `bits` bits each."""
+    passes = ADAM7 if interlace else ((0, 0, 1, 1),)
+    total = 0
+    for x0, y0, dx, dy in passes:
+        pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+        if pw > 0 and ph > 0:
+            total += ph * ((pw * bits + 7) // 8 + 1)
+    return total
+
+
 def decode_png_rgb(data: bytes) -> np.ndarray:
-    """PNG bytes -> (H, W, 3) uint8 RGB. 8-bit non-interlaced gray, RGB,
-    palette, gray + alpha and RGBA; anything else raises ValueError."""
+    """PNG bytes -> (H, W, 3) uint8 RGB: every bit depth (1, 2, 4, 8, 16),
+    colour type (0, 2, 3, 4, 6) and Adam7 interlacing, expanded as
+    Pillow's `Image.open(...).convert("RGB")` expands them. A file that is
+    not a PNG, or one that is malformed, raises ValueError."""
     if data[:8] != PNG_MAGIC:
-        raise ValueError("not a PNG file")
+        raise ValueError("not a PNG file (only PNG frames are taken)")
     off, ihdr, palette, idat = 8, None, b"", []
     while off + 8 <= len(data):
         length, kind = struct.unpack(">I4s", data[off:off + 8])
@@ -84,6 +115,8 @@ def decode_png_rgb(data: bytes) -> np.ndarray:
         if len(body) != length:
             raise ValueError("truncated PNG chunk")
         if kind == b"IHDR":
+            if length != 13:
+                raise ValueError(f"IHDR of {length} bytes")
             ihdr = struct.unpack(">IIBBBBB", body)
         elif kind == b"PLTE":
             palette = body
@@ -95,18 +128,48 @@ def decode_png_rgb(data: bytes) -> np.ndarray:
     if ihdr is None:
         raise ValueError("PNG without an IHDR chunk")
     w, h, depth, color_type, _, _, interlace = ihdr
-    if depth != 8 or interlace != 0:
-        raise ValueError(f"unsupported PNG: bit depth {depth}, interlace "
-                         f"{interlace} (8-bit non-interlaced only)")
-    raw = zlib.decompress(b"".join(idat))
+    chans = CHANNELS.get(color_type)
+    if chans is None or interlace not in (0, 1) or not 0 < w * h <= MAX_PX:
+        raise ValueError(f"unsupported PNG: {w}x{h}, colour type "
+                         f"{color_type}, interlace {interlace}")
+    need = _raw_size(w, h, chans * depth, interlace)
+    inflate = zlib.decompressobj()
+    try:
+        # at most one byte past what the header needs: no inflate bomb
+        raw = inflate.decompress(b"".join(idat), need + 1)
+    except zlib.error as e:
+        raise ValueError(f"corrupt PNG image data: {e}") from e
     out = np.empty((h, w, 3), np.uint8)
-    rc = load().vfi_png_unfilter_rgb(raw, len(raw), w, h, color_type,
-                                     palette, len(palette) // 3,
-                                     out.ctypes.data)
+    rc = load().vfi_png_decode_rgb(raw, len(raw), w, h, color_type, depth,
+                                   interlace, palette, len(palette) // 3,
+                                   out.ctypes.data)
     if rc != 0:
         raise ValueError(f"unsupported or malformed PNG (colour type "
-                         f"{color_type}, decoder code {rc})")
+                         f"{color_type}, bit depth {depth}, interlace "
+                         f"{interlace}, decoder code {rc})")
     return out
 
 
-__all__ = ["build", "decode_png_rgb", "load"]
+def encode_png_rgb(frame: np.ndarray, compress_level: int = 1) -> bytes:
+    """(H, W, 3) uint8 RGB -> PNG bytes: 8-bit RGB, not interlaced, every
+    scanline filter type 0, the stream deflated by `zlib` at
+    `compress_level` (0-9), CRCs from `zlib.crc32`."""
+    frame = np.asarray(frame)
+    if frame.dtype != np.uint8 or frame.ndim != 3 or frame.shape[2] != 3:
+        raise ValueError(f"need an (H, W, 3) uint8 frame, got "
+                         f"{frame.shape} {frame.dtype}")
+    h, w = frame.shape[:2]
+    rows = np.zeros((h, 1 + 3 * w), np.uint8)
+    rows[:, 1:] = frame.reshape(h, 3 * w)
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    return (PNG_MAGIC
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), compress_level))
+            + chunk(b"IEND", b""))
+
+
+__all__ = ["build", "decode_png_rgb", "encode_png_rgb", "load"]

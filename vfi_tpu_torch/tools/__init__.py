@@ -10,6 +10,8 @@ versions, for the tests). `time_interleaved` is their shared timer.
 Two more compare checkouts on the card, one process a turn:
 `conv_turns` (device time of the conv, DCN and warp kernels) and
 `launch_path` (the RGB warp's host launch path, piece by piece).
+`bench_serve` is the serving load generator (closed-loop clients against
+`python -m vfi_tpu_torch.cli.serve` or an in-process server).
 """
 
 from __future__ import annotations

@@ -54,14 +54,39 @@ and the script exits non-zero without a result line:
            (b) the serve CLI's own server (`cli.serve.build_server`) at
            the JAX CLI's defaults (exact DCN, unbounded warp): two raw
            requests at 640x480, uint8 midpoints, no kernel launched;
-6. q12     the 67-channel reference topology (q12: no fuse_proj, R=2)
+6. video   the flagship engine (float io, as the JAX video path runs it)
+           behind `infer.video.interpolate_video`, with a source and a
+           sink held in memory (the card's machine has no cv2): VIDEO_FRAMES
+           smooth 1280x720 BGR frames of a steady shift at VIDEO_FPS
+           (factor 3: two bisection levels of `recursive`), VIDEO_BATCH
+           pairs a batch (the engine's 4M-pixel guard runs each as two b=4
+           launches). 9 + 8 x 3 frames written in order, each source frame
+           bit-equal to its input, each engine output finite, each inserted
+           frame within PSNR_FLOOR_DB of the same pipeline through the
+           plain-version engine, 8 / 3 / 1 launches per engine launch;
+           frames written per second (the pipeline's wall time) and the
+           share of it the engine's forwards span on the device. Then one
+           reference_compat pass over VIDEO_COMPAT_FRAMES frames: the
+           reference CLI's order, duplicates and shift;
+7. videos  VIDEOS_CLIPS clips of VIDEOS_FRAMES 1280x720 frames at 30 fps
+           (factor 1) through `infer.multi.interpolate_videos` and the
+           port's MicroBatcher (VIDEOS_BATCHER): every midpoint within
+           PSNR_FLOOR_DB of the plain-version engine, source frames
+           bit-equal, launches holding pairs of both clips, 8 / 3 / 1
+           launches per engine launch; midpoints/s;
+8. infer_cli `cli.infer.main(["two-frame", ...])` with the flagship flags
+           on a Middlebury val pair (640x480) decoded by the port, then
+           with `--size 360 640`: the written PNG, decoded again, equals
+           the engine's own midpoint truncated to uint8 bit for bit, one
+           engine launch with 8 / 3 / 1 kernel launches;
+9. q12     the 67-channel reference topology (q12: no fuse_proj, R=2)
            with conv_kernel="pallas" on one b=4 batch of Middlebury val
            frames: 8 / 3 / 1 launches, PSNR against its plain-version
            engine (the 67-wide chains and DCN run in the kernels);
            then `q12_r8`: the same batch at dcn_max_offset=8 (a radius
            the JAX engine takes too), whose three DCNs run the stream
            design, counted by shape, against its plain-version engine;
-7. eval    the Middlebury eval entry point (`vfi_tpu_torch.cli.eval.sweep`)
+10. eval   the Middlebury eval entry point (`vfi_tpu_torch.cli.eval.sweep`)
            over data/processed/val at batch 4, bf16, conv_kernel="xla"
            and use_pallas, as the JAX package's records were made: qocc
            native, qocc with auto_scale 9.0 + TTA, and q12. Each mean PSNR
@@ -69,26 +94,26 @@ and the script exits non-zero without a result line:
            (`artifacts/*_eval.json`), 3 DCN and 1 warp launches per model
            forward and no chain launch; per-scene rows, the auto_scale
            probes, seconds and pairs/s;
-8. conv_compare conv_kernel "xla" against "pallas", taking turns, on the
+11. conv_compare conv_kernel "xla" against "pallas", taking turns, on the
            flagship's b=1 720p requests and on the three eval sweeps:
            seconds, which is faster, launches per forward, and each
            sweep's quality under "pallas" against its record;
-9. tools   the kernel tools in-process (`vfi_tpu_torch.tools`,
+12. tools  the kernel tools in-process (`vfi_tpu_torch.tools`,
            `TOOL_RUNS`): bench_conv over its four shapes at 720p,
            bench_kernels' DCN at vga (C=67, R=2) and its warp (C=3 and
            C=64): each kernel within tolerance of its plain version, and
            the conv, DCN and warp kernels launched;
-10. grad   gradients through each kernel wrapper (conv, chain of three
+13. grad   gradients through each kernel wrapper (conv, chain of three
            layers and of one, DCN on the tile and the stream design, warp
            at C=3 and C=64) against those
            through its plain version at a small shape (GRAD_SHAPE,
            tolerance stated there);
-11. profile (only with --profile) torch.profiler over one b=1 request: the
+14. profile (only with --profile) torch.profiler over one b=1 request: the
            device's busy share of the request's wall time and device time
            by kernel, split into the port's CUDA kernels and the rest.
 
 Each kernel row's `launches` is its count over the paths (main, serve,
-q12, eval, tools) that launch its shape; the run fails when a path launches a
+video, videos, infer_cli, q12, eval, tools) that launch its shape; the run fails when a path launches a
 (kernel, shape) that no row checks.
 
 The lines before the last are the `kernels` JSON line and the card's
@@ -100,9 +125,11 @@ from __future__ import annotations
 
 import glob
 import json
+import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from collections import Counter
 
@@ -112,10 +139,17 @@ import torch.nn.functional as F
 
 import vfi_tpu_torch
 from vfi_tpu_torch import native
+from vfi_tpu_torch.cli import infer as infer_cli
 from vfi_tpu_torch.cli import serve as serve_cli
 from vfi_tpu_torch.cli.eval import sweep
 from vfi_tpu_torch.data import load_image
 from vfi_tpu_torch.infer import FrameInterpolator
+from vfi_tpu_torch.infer.multi import interpolate_videos
+from vfi_tpu_torch.infer.video import interpolate_video
+from vfi_tpu_torch.infer.video_io import (CAP_PROP_FPS, CAP_PROP_FRAME_COUNT,
+                                          CAP_PROP_FRAME_HEIGHT,
+                                          CAP_PROP_FRAME_WIDTH, to_float,
+                                          to_u8)
 from vfi_tpu_torch.ops.cuda import (WRAPPERS, bounded_warp,
                                     bounded_warp_plain, build, chain_plan,
                                     conv2d,
@@ -209,6 +243,22 @@ SERVE_SEQ = 4
 SERVE_PNG_RAW_LEVELS = 2
 # The serve CLI's own server: frame size and requests.
 CLI_H, CLI_W, CLI_REQUESTS = 480, 640, 2
+# The video phase: source frames, their rate (pick_interpolation_factor:
+# 3, two bisection levels), pairs a batch; frames of the reference_compat
+# pass.
+VIDEO_FRAMES, VIDEO_FPS, VIDEO_BATCH = 9, 15.0, 8
+VIDEO_COMPAT_FRAMES = 3
+# The videos phase: clips, frames a clip, their rate (factor 1), and the
+# shared batcher (launch size, wait for batch-mates), as the JAX CLI's
+# defaults.
+VIDEOS_CLIPS, VIDEOS_FRAMES, VIDEOS_FPS = 2, 5, 30.0
+VIDEOS_BATCHER = dict(batch_pairs=8, max_delay_ms=50.0)
+# The infer_cli phase: the flagship's flags, the val pair, the resize.
+INFER_FLAGS = ["--dcn_max_offset", "1", "--warp_max_flow", "16",
+               "--cascade_levels", "2", "--flow_prior", "--conv_kernel",
+               "pallas"]
+INFER_PAIR = ("Urban", "frame10.png", "frame11.png")
+INFER_SIZE = (360, 640)
 # The kernel tools' runs in the tools phase: few iterations each.
 TOOL_RUNS = (
     (bench_conv, ["--shapes", "all", "--kernels", "xla,im2col,direct,v2,plain",
@@ -542,18 +592,32 @@ def phase_kernels(sd: dict, sd12: dict, dev) -> list:
         ("offset", 64, ["fusion_dcn0.offset_conv"], (0,)),
         ("rec", 64, [f"rec_conv{i}.conv" for i in (1, 2, 3)], (1, 1, 0)),
     ]
-    # The serve phase's engine is the flagship at 720p: the same shapes.
-    main, q12, ev = ("main", "serve"), ("q12",), ("eval",)
+    # The serve, video and videos phases' engine is the flagship at 720p:
+    # the same shapes (the launch keys hold no batch size). The infer_cli
+    # phase runs the flagship on a 480x640 val pair and at 360x640, whose
+    # cascade level is the 720p request's.
+    main, q12, ev = ("main", "serve", "video", "videos"), ("q12",), ("eval",)
+    cli = ("infer_cli",)
     q12s = q12 + ("q12_r8",)    # both q12 requests' chains and warp
-    for h, w, chain in ([(H, W, c) for c in chains]
-                        + [(H // 2, W // 2, c) for c in chains[:2]]):
+    for h, w, chain in [(H, W, c) for c in chains]:
         rows += chain_rows(rnd, sd, *chain, 1, h, w, main)
+    for chain in chains[:2]:
+        rows += chain_rows(rnd, sd, *chain, 1, H // 2, W // 2, main + cli)
+    # The infer_cli phase's other shapes: the offset and reconstruction
+    # chains at both sizes, the trunk chains at 360x640's cascade level.
+    ih, iw = INFER_SIZE
+    for h, w in ((EH, EW), (ih, iw)):
+        for chain in (chains[2], chains[3]):
+            rows += chain_rows(rnd, sd, *chain, 1, h, w, cli)
+    for chain in chains[:2]:
+        rows += chain_rows(rnd, sd, *chain, 1, ih // 2, iw // 2, cli)
     # The q12 phase's chains on its batch of val frames: the 64-wide trunk
-    # chains at native and cascade resolution, and the reference
-    # topology's 67-wide offset and reconstruction chains.
+    # chains at native and cascade resolution (infer_cli's val pair's
+    # too), and the reference topology's 67-wide offset and reconstruction
+    # chains.
     for h, w in ((EH, EW), (EH // 2, EW // 2)):
         for chain in chains[:2]:
-            rows += chain_rows(rnd, sd12, *chain, EB, h, w, q12s)
+            rows += chain_rows(rnd, sd12, *chain, EB, h, w, q12s + cli)
     rows += chain_rows(rnd, sd12, "offset67", 67,
                        ["fusion_dcn0.offset_conv"], (0,), EB, EH, EW, q12s)
     rows += chain_rows(rnd, sd12, "rec67", 67,
@@ -563,11 +627,13 @@ def phase_kernels(sd: dict, sd12: dict, dev) -> list:
     dcn, dcn12 = [(d["fusion_dcn0.weight"].cuda(), d["fusion_dcn0.bias"].cuda())
                   for d in (sd, sd12)]
     rows.append(dcn_row(rnd, *dcn, 1, H, W, 1, DCN_TPU, main))
+    rows.append(dcn_row(rnd, *dcn, 1, ih, iw, 1, DCN_TPU, cli))
     # The v4 route's shapes on the eval path: qocc (C=64, R=1) at native
-    # and auto_scale's half resolution, q12 (C=67, R=2, also the q12
-    # phase's); C=67 at R=4 (the training config's radius), which no path
-    # of this run takes; and at R=8, the q12_r8 request's (stream design).
-    rows.append(dcn_row(rnd, *dcn, EB, EH, EW, 1, DCN_V4_TPU, ev))
+    # (infer_cli's val pair's too) and auto_scale's half resolution, q12
+    # (C=67, R=2, also the q12 phase's); C=67 at R=4 (the training
+    # config's radius), which no path of this run takes; and at R=8, the
+    # q12_r8 request's (stream design).
+    rows.append(dcn_row(rnd, *dcn, EB, EH, EW, 1, DCN_V4_TPU, ev + cli))
     rows.append(dcn_row(rnd, *dcn, EB, EH // 2, EW // 2, 1, DCN_V4_TPU, ev))
     rows.append(dcn_row(rnd, *dcn12, EB, EH, EW, 2, DCN_V4_TPU, q12 + ev))
     rows.append(dcn_row(rnd, *dcn12, EB, EH, EW, 4, DCN_V4_TPU, ()))
@@ -576,8 +642,8 @@ def phase_kernels(sd: dict, sd12: dict, dev) -> list:
 
     # Bounded warp of the RGB frame; flows reach past R = 16. The library
     # call is grid_sample on the clamped flow's normalized grid.
-    for b, h, w, paths in ((1, H, W, main), (EB, EH, EW, q12s + ev),
-                           (EB, EH // 2, EW // 2, ev)):
+    for b, h, w, paths in ((1, H, W, main), (EB, EH, EW, q12s + ev + cli),
+                           (EB, EH // 2, EW // 2, ev), (1, ih, iw, cli)):
         rows.append(warp_row(rnd, b, h, w, paths, dev))
     return rows + tool_rows(rnd, gen, dcn12, dev)
 
@@ -839,6 +905,297 @@ def phase_serve_cli() -> dict:
             "size": [CLI_H, CLI_W], "launches": counts,
             "engine": "exact DCN, unbounded warp, io_uint8, bf16",
             "failures": failures, **res}
+
+
+class MemorySource:
+    """An open capture over BGR uint8 frames held in memory: the methods
+    `interpolate_video` calls on a `cv2.VideoCapture`."""
+
+    def __init__(self, frames, fps: float):
+        self.frames, self.fps, self.i = frames, fps, 0
+
+    def isOpened(self) -> bool:
+        return True
+
+    def read(self):
+        if self.i >= len(self.frames):
+            return False, None
+        self.i += 1
+        return True, self.frames[self.i - 1]
+
+    def get(self, prop):
+        h, w = self.frames[0].shape[:2]
+        return {CAP_PROP_FPS: self.fps, CAP_PROP_FRAME_WIDTH: w,
+                CAP_PROP_FRAME_HEIGHT: h,
+                CAP_PROP_FRAME_COUNT: len(self.frames)}[prop]
+
+    def release(self) -> None:
+        pass
+
+
+class MemorySink:
+    """An open writer that keeps the frames written, in order."""
+
+    def __init__(self):
+        self.frames = []
+
+    def isOpened(self) -> bool:
+        return True
+
+    def write(self, frame) -> None:
+        self.frames.append(frame)
+
+    def release(self) -> None:
+        pass
+
+
+def tap_forwards(eng) -> list:
+    """Keeps each of `eng`'s model forwards (one an engine launch; the
+    guard splits a call into several) in the returned list, from now until
+    the next tap of `eng`: its output and the device time from its first
+    kernel to its last (CUDA events around it, no synchronisation)."""
+    outs, forward = [], FrameInterpolator._forward.__get__(eng)
+
+    def tapped(x, y):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = forward(x, y)
+        b.record()
+        outs.append((out, a, b))
+        return out
+
+    eng._forward = tapped
+    return outs
+
+
+def engine_device_s(outs: list) -> float:
+    """Seconds of device time the tapped forwards spanned (synchronised
+    first)."""
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for _, a, b in outs) / 1e3
+
+
+def moving_frames(gen: np.random.Generator, n: int) -> list:
+    """n (H, W, 3) uint8 frames of one smooth texture in a steady shift of
+    (3, 6) pixels a frame, as the serve phase's sequences; read as BGR."""
+    base = u8(smooth_frames(gen, 1)[0][0])
+    return [np.ascontiguousarray(np.roll(base, (3 * k, 6 * k), axis=(0, 1)))
+            for k in range(n)]
+
+
+def launch_failures(tag: str, counts: dict, launches: int) -> list:
+    return [f"{tag}: {k} {v} launches over {launches} engine launches"
+            for k, v in counts.items() if v != PER_LAUNCH[k] * launches]
+
+
+def phase_video(eng, plain) -> dict:
+    """The single-clip pipeline over frames in memory: VIDEO_FRAMES at
+    VIDEO_FPS (factor 3) through `eng` (the flagship, float io), held
+    against the same pipeline through `plain` (its plain-version twin);
+    then a reference_compat pass over VIDEO_COMPAT_FRAMES."""
+    t0 = time.perf_counter()
+    frames = moving_frames(np.random.default_rng(SEED + 3), VIDEO_FRAMES)
+    kw = dict(scale=1.0, batch_pairs=VIDEO_BATCH)
+    x = np.stack([to_float(f, (W, H), True) for f in frames])
+    eng.midpoints(x[:4], x[1:5])            # warm-up: the b=4 launch
+    torch.cuda.synchronize()
+    outs = tap_forwards(eng)
+    reset_launch_counts()
+    sink = MemorySink()
+    t1 = time.perf_counter()
+    stats = interpolate_video(MemorySource(frames, VIDEO_FPS), sink, eng,
+                              **kw)
+    wall = time.perf_counter() - t1
+    counts, by_shape = launch_counts(), shapes_now()
+    launches, engine_s = len(outs), engine_device_s(outs)
+    ref = MemorySink()
+    interpolate_video(MemorySource(frames, VIDEO_FPS), ref, plain, **kw)
+
+    failures = launch_failures("video", counts, launches)
+    factor = stats["factor"]
+    n_out = VIDEO_FRAMES + (VIDEO_FRAMES - 1) * factor
+    # one batch of VIDEO_BATCH pairs; three `midpoints` calls (the
+    # midpoint, then both quarter points), each split by the engine's
+    # pixel guard
+    want_launches = 3 * math.ceil(
+        VIDEO_BATCH / (eng.max_px_per_launch // (H * W)))
+    if factor != 3 or stats["frames_written"] != n_out or len(
+            sink.frames) != n_out or launches != want_launches:
+        failures.append(f"video: factor {factor}, {len(sink.frames)} frames "
+                        f"written of {n_out}, {launches} engine launches of "
+                        f"{want_launches}")
+    if not all(torch.isfinite(o).all().item() for o, _, _ in outs):
+        failures.append("video: non-finite engine output")
+    psnrs = []
+    for i, (got, want) in enumerate(zip(sink.frames, ref.frames)):
+        if i % (factor + 1) == 0:           # a source frame, then factor
+            if not np.array_equal(got, frames[i // (factor + 1)]):
+                failures.append(f"video: source frame {i} changed")
+        else:
+            psnrs.append(psnr_u8(got, want))
+    if not psnrs or min(psnrs) < PSNR_FLOOR_DB:
+        failures.append(f"video: PSNR vs plain pipeline {min(psnrs or [0])}"
+                        f" below {PSNR_FLOOR_DB} dB")
+
+    # reference_compat: per pair the shifted midpoint `factor` times, then
+    # the pair's first frame unshifted; BGR frames straight to the engine
+    few = frames[:VIDEO_COMPAT_FRAMES]
+    compat = MemorySink()
+    interpolate_video(MemorySource(few, VIDEO_FPS), compat, eng,
+                      reference_compat=True, **kw)
+    xb = np.stack([to_float(f, (W, H), False) for f in few])
+    mids = eng.midpoints(xb[:-1], xb[1:]).cpu().numpy()
+    want = []
+    for i in range(len(few) - 1):
+        want += [to_u8(mids[i], False, True)] * factor + [few[i]]
+    want.append(few[-1])
+    compat_levels = None
+    if len(compat.frames) != len(want):
+        failures.append(f"video compat: {len(compat.frames)} frames, "
+                        f"expected {len(want)}")
+    else:
+        compat_levels = max(int(np.abs(g.astype(np.int16) - w.astype(
+            np.int16)).max()) for g, w in zip(compat.frames, want))
+        shift = float(np.mean(np.abs(to_u8(mids[0], False, True).astype(
+            np.int16) - to_u8(mids[0], False, False).astype(np.int16))))
+        dup = compat.frames[:factor]
+        if (compat_levels > 1 or shift < 1.0
+                or not all(np.array_equal(d, dup[0]) for d in dup)):
+            failures.append(f"video compat: {compat_levels} levels from the "
+                            f"expected frames, shift {shift} levels")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return {"phase": "video", "seconds": time.perf_counter() - t0,
+            "size": [H, W], "source_fps": VIDEO_FPS, "stats": stats,
+            "pipeline_seconds": wall,
+            "frames_written_per_s": stats["frames_written"] / wall,
+            "midpoints_per_s": (stats["frames_written"] - VIDEO_FRAMES)
+            / wall,
+            "engine_launches": launches, "launches": counts,
+            "engine_device_s": engine_s, "engine_share": engine_s / wall,
+            "psnr_vs_plain_db_min": min(psnrs),
+            "compat_frames": len(compat.frames),
+            "compat_max_levels": compat_levels, "_by_shape": by_shape}
+
+
+def phase_videos(eng, plain) -> dict:
+    """VIDEOS_CLIPS clips in memory through `interpolate_videos` and one
+    shared MicroBatcher over `eng`; each inserted frame against `plain`'s
+    midpoint of its pair. A clip has one pair in flight at a time (its
+    pipeline waits on each), so a launch of more than one pair holds pairs
+    of both clips: the batcher made fewer launches than it took pairs."""
+    t0 = time.perf_counter()
+    gen = np.random.default_rng(SEED + 4)
+    clips = [moving_frames(gen, VIDEOS_FRAMES) for _ in range(VIDEOS_CLIPS)]
+    outs = tap_forwards(eng)
+    reset_launch_counts()
+    sinks = [MemorySink() for _ in clips]
+    t1 = time.perf_counter()
+    stats = interpolate_videos([MemorySource(c, VIDEOS_FPS) for c in clips],
+                               sinks, eng, scale=1.0, **VIDEOS_BATCHER)
+    wall = time.perf_counter() - t1
+    counts, by_shape = launch_counts(), shapes_now()
+    launches, engine_s = len(outs), engine_device_s(outs)
+    snap = stats[0]["batcher"]
+    pairs = VIDEOS_CLIPS * (VIDEOS_FRAMES - 1)
+    failures = launch_failures("videos", counts, launches)
+    if not snap["requests"] == pairs > snap["batches"]:
+        failures.append(f"videos: {snap['requests']} pairs in "
+                        f"{snap['batches']} launches: no launch held both "
+                        f"clips")
+    psnrs = []
+    for frames, sink, st in zip(clips, sinks, stats):
+        x = np.stack([to_float(f, (W, H), True) for f in frames])
+        ref = plain.midpoints(x[:-1], x[1:]).cpu().numpy()
+        if st["factor"] != 1 or len(sink.frames) != 2 * len(frames) - 1:
+            failures.append(f"videos: factor {st['factor']}, "
+                            f"{len(sink.frames)} frames written")
+            continue
+        for i, got in enumerate(sink.frames):
+            if i % 2 == 0:
+                if not np.array_equal(got, frames[i // 2]):
+                    failures.append(f"videos: source frame {i} changed")
+            else:
+                psnrs.append(psnr_u8(got, to_u8(ref[i // 2], True, False)))
+    if not psnrs or min(psnrs) < PSNR_FLOOR_DB:
+        failures.append(f"videos: PSNR vs plain engine {min(psnrs or [0])} "
+                        f"below {PSNR_FLOOR_DB} dB")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return {"phase": "videos", "seconds": time.perf_counter() - t0,
+            "clips": VIDEOS_CLIPS, "frames_per_clip": VIDEOS_FRAMES,
+            "batcher": snap, "pipeline_seconds": wall,
+            "midpoints_per_s": pairs / wall, "engine_launches": launches,
+            "engine_device_s": engine_s, "engine_share": engine_s / wall,
+            "launches": counts, "psnr_vs_plain_db_min": min(psnrs),
+            "_by_shape": by_shape}
+
+
+def phase_infer_cli() -> dict:
+    """`cli.infer.main(["two-frame", ...])` with the flagship flags on a
+    val pair, natively and with `--size`: the PNG it writes, decoded
+    again, equals the engine's own midpoint (kept by a tap on the class)
+    truncated to uint8, bit for bit; one engine launch a request, 8 / 3 /
+    1 kernel launches."""
+    t0 = time.perf_counter()
+    scene, a, b = INFER_PAIR
+    mids, fwds = [], []
+    real_mid, real_fwd = FrameInterpolator.midpoints, FrameInterpolator._forward
+
+    def mid(self, f0, f1):
+        out = real_mid(self, f0, f1)
+        mids.append(out)
+        return out
+
+    def fwd(self, x, y):
+        fwds.append(1)
+        return real_fwd(self, x, y)
+
+    requests, failures = [], []
+    by_shape = {fn.__name__: Counter() for fn in WRAPPERS}
+    with tempfile.TemporaryDirectory() as tmp:
+        for size in (None, INFER_SIZE):
+            out = os.path.join(tmp, f"mid{len(requests)}.png")
+            argv = ["two-frame", "--frame0", os.path.join(VAL, scene, a),
+                    "--frame1", os.path.join(VAL, scene, b), "--output", out,
+                    "--model_path", CKPT + ".npz", *INFER_FLAGS]
+            if size:
+                argv += ["--size", str(size[0]), str(size[1])]
+            mids.clear()
+            fwds.clear()
+            reset_launch_counts()
+            FrameInterpolator.midpoints, FrameInterpolator._forward = mid, fwd
+            t1 = time.perf_counter()
+            try:
+                rc = infer_cli.main(argv)
+            finally:
+                FrameInterpolator.midpoints = real_mid
+                FrameInterpolator._forward = real_fwd
+            secs = time.perf_counter() - t1
+            counts = launch_counts()
+            for fn, c in shapes_now().items():
+                by_shape[fn].update(c)
+            with open(out, "rb") as f:
+                got = native.decode_png_rgb(f.read())
+            want = (np.clip(mids[0][0].float().cpu().numpy(), 0, 1)
+                    * 255).astype(np.uint8)
+            tag = f"infer_cli {size or 'native'}"
+            failures += launch_failures(tag, counts, len(fwds))
+            if rc != 0 or len(mids) != 1 or len(fwds) != 1 or not (
+                    np.array_equal(got, want)):
+                failures.append(f"{tag}: rc {rc}, {len(fwds)} engine "
+                                f"launches, PNG {got.shape} vs the engine's "
+                                f"midpoint {want.shape}")
+            requests.append({"size": list(got.shape[:2]), "seconds": secs,
+                             "launches": counts,
+                             "png_equals_midpoint": bool(
+                                 np.array_equal(got, want))})
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return {"phase": "infer_cli", "seconds": time.perf_counter() - t0,
+            "pair": list(INFER_PAIR), "flags": INFER_FLAGS,
+            "requests": requests, "_by_shape": by_shape}
 
 
 def shapes_now() -> dict:
@@ -1316,6 +1673,19 @@ def main() -> int:
     serve_res = phase_serve(params, flow_params)
     by_path["serve"] = serve_res.pop("_by_shape")
     emit(serve_res)
+
+    veng = FrameInterpolator(params, flow_params=flow_params, device="cuda",
+                             **FLAGSHIP)
+    vplain = FrameInterpolator(params, flow_params=flow_params,
+                               device="cuda", use_kernels=False, **FLAGSHIP)
+    for path, phase in (("video", phase_video), ("videos", phase_videos)):
+        res = phase(veng, vplain)
+        by_path[path] = res.pop("_by_shape")
+        emit(res)
+    del veng, vplain
+    infer_res = phase_infer_cli()
+    by_path["infer_cli"] = infer_res.pop("_by_shape")
+    emit(infer_res)
 
     t0 = time.perf_counter()
     frames = decode_val()

@@ -170,8 +170,7 @@ def test_auto_scale_needs_flow_params(qocc):
                           auto_scale=9.0)
 
 
-@pytest.mark.parametrize("kw", [dict(spatial=True), dict(mesh="data"),
-                                dict(reference_compat=True)])
+@pytest.mark.parametrize("kw", [dict(spatial=True), dict(mesh="data")])
 def test_unported_options_raise(qocc, kw):
     with pytest.raises(NotImplementedError):
         FrameInterpolator(qocc[0], device="cpu", dcn_max_offset=1, **kw)

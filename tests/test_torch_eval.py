@@ -109,10 +109,13 @@ def test_auto_scale_needs_flow_prior(scenes):
                     "--auto_scale", "9.0", "--device", "cpu"])
 
 
-@pytest.mark.parametrize("path,exc", [("ckpt.pth", NotImplementedError),
+@pytest.mark.parametrize("path,exc", [("orbax_dir", NotImplementedError),
                                       ("ckpt.bin", ValueError)])
-def test_load_model_params_takes_npz_only(path, exc):
+def test_load_model_params_takes_npz_only(path, exc, tmp_path):
+    """Orbax checkpoint directories are not ported (an empty directory
+    stands for one); an unknown suffix is refused. `.pth` files load
+    (tests/test_torch_infer_cli.py)."""
     from vfi_tpu_torch.cli.common import load_model_params
 
     with pytest.raises(exc):
-        load_model_params(path)
+        load_model_params(str(tmp_path) if path == "orbax_dir" else path)

@@ -12,10 +12,14 @@ Layout mirrors `vfi_tpu` so each module's counterpart is easy to find:
               beside it)
   csrc/       CUDA C++ kernels
   models/     EMAVFI, SimpleFlowNet, the flow-prior pre-warp
-  infer/      the frame-pair engine (`FrameInterpolator`)
+  infer/      the frame-pair engine (`FrameInterpolator`), the single- and
+              multi-clip video pipelines (video files through cv2,
+              imported only when a file is opened)
   serve/      the micro-batcher and the HTTP server (cli/serve.py)
+  cli/        the eval, serve and infer entry points
   native/     the PNG codec (C++ unfilter, built on first use)
-  utils/      checkpoint loading and the JAX-tree -> torch mapping,
+  utils/      checkpoint I/O (`.npz`, reference `.pth` conversion) and
+              the JAX-tree -> torch mapping,
               profiling (`trace`, `StepTimer`)
   tools/      the kernel microbenchmarks (bench_conv, bench_kernels) and
               the serving load generator (bench_serve)

@@ -5,14 +5,16 @@
 the device, optionally pre-warps frame1 by the SimpleFlowNet flow prior,
 and runs EMAVFI, split into launches of at most `max_px_per_launch`
 pixels. `midpoints_sequence(frames)` does the same for every consecutive
-pair of a sequence, shipping each frame to the device once. `tta`
-averages four symmetry-transformed forwards; `auto_scale` routes a call at
-half resolution when the flow estimator's p95 motion exceeds the
-threshold. It runs on `cuda` unless the caller passes `device="cpu"`;
-without a card and without that argument it raises.
+pair of a sequence, shipping each frame to the device once;
+`recursive(f0, f1, factor)` inserts `factor` frames per pair by repeated
+bisection (`reference_compat`: the one midpoint repeated, as the reference
+CLI writes it). `tta` averages four symmetry-transformed forwards;
+`auto_scale` routes a call at half resolution when the flow estimator's
+p95 motion exceeds the threshold. It runs on `cuda` unless the caller
+passes `device="cpu"`; without a card and without that argument it
+raises.
 
-Not ported yet (each raises when asked for): `reference_compat`, mesh /
-spatial sharding, and the `recursive` entry point.
+Not ported yet (each raises when asked for): mesh / spatial sharding.
 """
 
 from __future__ import annotations
@@ -39,6 +41,26 @@ TTA_SYMMETRIES = (
     (lambda a, b: (a.flip(1), b.flip(1)), lambda o: o.flip(1)),
     (lambda a, b: (b, a), lambda o: o),
 )
+
+
+def pick_interpolation_factor(src_fps: float, target_fps: Optional[float],
+                              max_factor: int = 4) -> tuple[int, float]:
+    """The reference CLI's factor selection: with no target, the f in
+    [1, max_factor] that brings src_fps * (f + 1) closest to 60 (a tie
+    keeps the smaller f: 24 fps gives 1); with a target, round(target /
+    src - 1) clamped to [1, max_factor]. Returns (factor, output fps =
+    src_fps * (factor + 1))."""
+    if target_fps is None:
+        best_f, best_err = 1, float("inf")
+        for f in range(1, max_factor + 1):
+            err = abs(src_fps * (f + 1) - 60.0)
+            if err < best_err:
+                best_f, best_err = f, err
+        factor = best_f
+    else:
+        factor = int(round(target_fps / src_fps - 1))
+        factor = max(1, min(factor, max_factor))
+    return factor, src_fps * (factor + 1)
 
 
 def percentile_linear(x: torch.Tensor, q: float) -> float:
@@ -97,7 +119,10 @@ class FrameInterpolator:
     `io_uint8=True` takes and returns uint8 [0, 255] frames (`io_dtype`):
     they go to the device as they are, a quarter of the float32 bytes,
     and convert there (`/ 255`); the midpoints come back as clip(x * 255 +
-    0.5, 0, 255) in uint8. Not with auto_scale, as in the JAX engine."""
+    0.5, 0, 255) in uint8. Not with auto_scale, as in the JAX engine.
+
+    `reference_compat=True` makes `recursive` repeat the one midpoint
+    `factor` times, as the reference CLI does."""
 
     def __init__(self, params, in_channels: Optional[int] = None,
                  mid_channels: Optional[int] = None,
@@ -117,9 +142,7 @@ class FrameInterpolator:
                  use_kernels: bool = True,
                  io_uint8: bool = False, spatial: bool = False,
                  mesh=None, reference_compat: bool = False):
-        for name, val in (("spatial", spatial),
-                          ("mesh", mesh is not None),
-                          ("reference_compat", reference_compat)):
+        for name, val in (("spatial", spatial), ("mesh", mesh is not None)):
             if val:
                 raise NotImplementedError(f"{name} is not ported yet")
         if auto_scale is not None and flow_params is None:
@@ -127,6 +150,7 @@ class FrameInterpolator:
                              "estimator provides the motion-magnitude probe)")
         if auto_scale is not None and io_uint8:
             raise ValueError("auto_scale is not supported with io_uint8")
+        self.reference_compat = reference_compat
         self.io_uint8 = io_uint8
         self.io_dtype = np.uint8 if io_uint8 else np.float32
         self.device = resolve_device(device)
@@ -283,3 +307,29 @@ class FrameInterpolator:
         out = self._forward(resize_bilinear(f0, half),
                             resize_bilinear(f1, half))
         return resize_bilinear(out, (h, w))
+
+    def recursive(self, f0, f1, factor: int) -> list:
+        """`factor` frames between each pair, as a list of `midpoints`
+        results. For factor = 2^k - 1 this is recursive bisection (3: the
+        midpoint, then the quarter points); other factors take the next
+        level and drop the extras uniformly. With `reference_compat` the
+        one midpoint is repeated `factor` times.
+
+        Each level's midpoints feed the next as the tensors they are (in
+        the io dtype), with no trip through the host. Touches only
+        `self.midpoints` and `self.reference_compat`, so the multi-clip
+        engine (`infer.multi.SharedEngine`) borrows it as it is."""
+        if factor < 1:
+            return []
+        mid = self.midpoints(f0, f1)
+        if factor == 1:
+            return [mid]
+        if self.reference_compat:
+            return [mid] * factor
+        left = self.recursive(f0, mid, factor // 2)
+        right = self.recursive(mid, f1, factor // 2)
+        frames = left + [mid] + right
+        if len(frames) > factor:    # an even factor: drop extras uniformly
+            keep = np.linspace(0, len(frames) - 1, factor).round().astype(int)
+            frames = [frames[i] for i in keep]
+        return frames

@@ -5,6 +5,9 @@ align_corners=False)` semantics and no antialiasing — the port of
 Separable: two small interpolation-matrix products (out x in), the same
 formulation as the JAX op, so a bf16 image resizes with the matrix rounded
 to bf16 on both sides.
+
+`resize_u8` resizes a uint8 image as Pillow's `BILINEAR` does (the JAX
+CLIs' `--size`): antialiased when it shrinks, rounded to uint8.
 """
 
 from __future__ import annotations
@@ -12,7 +15,9 @@ from __future__ import annotations
 import functools
 from typing import Tuple
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 @functools.lru_cache(maxsize=64)
@@ -49,3 +54,13 @@ def resize_bilinear(image: torch.Tensor, size: Tuple[int, int],
     mw = _interp_matrix(ow, w, align_corners, image.device, image.dtype)
     out = torch.einsum("oh,bhwc->bowc", mh, image)
     return torch.einsum("pw,bowc->bopc", mw, out)
+
+
+def resize_u8(frame: np.ndarray, h: int, w: int) -> np.ndarray:
+    """(H, W, 3) uint8 -> (h, w, 3) uint8: bilinear, antialiased when it
+    shrinks (as Pillow's BILINEAR resize), rounded to the nearest level."""
+    t = torch.from_numpy(np.array(frame)).permute(2, 0, 1)[None].float()
+    t = F.interpolate(t, size=(h, w), mode="bilinear", antialias=True,
+                      align_corners=False)
+    return t[0].permute(1, 2, 0).round().clamp(0, 255).to(
+        torch.uint8).numpy()

@@ -33,10 +33,9 @@ import urllib.error
 import urllib.request
 
 import numpy as np
-import torch
-import torch.nn.functional as F
 
 from vfi_tpu_torch import native
+from vfi_tpu_torch.ops.resize import resize_u8
 from vfi_tpu_torch.serve import (RAW_CONTENT_TYPE, SEQ_CONTENT_TYPE,
                                  encode_pair_body, encode_raw_body,
                                  encode_seq_body)
@@ -44,16 +43,6 @@ from vfi_tpu_torch.serve import (RAW_CONTENT_TYPE, SEQ_CONTENT_TYPE,
 DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "data", "processed", "train",
     "RubberWhale")
-
-
-def resize_u8(frame: np.ndarray, h: int, w: int) -> np.ndarray:
-    """(H, W, 3) uint8 -> (h, w, 3) uint8: bilinear, antialiased when it
-    shrinks (as Pillow's BILINEAR resize), rounded to the nearest level."""
-    t = torch.from_numpy(frame).permute(2, 0, 1)[None].float()
-    t = F.interpolate(t, size=(h, w), mode="bilinear", antialias=True,
-                      align_corners=False)
-    return t[0].permute(1, 2, 0).round().clamp(0, 255).to(
-        torch.uint8).numpy()
 
 
 def load_frames(h: int, w: int) -> list:

@@ -93,7 +93,26 @@ and the script exits non-zero without a result line:
            within 0.05 dB and mean SSIM within 0.002 of its record
            (`artifacts/*_eval.json`), 3 DCN and 1 warp launches per model
            forward and no chain launch; per-scene rows, the auto_scale
-           probes, seconds and pairs/s;
+           probes, seconds and pairs/s; then `eval_epe`: the eval CLI's
+           flow-EPE mode (`cli.eval.main`) on the qocc estimator over the
+           8 Middlebury GT scenes (frames from data/processed/train), the
+           mean within EPE_TOL_PX of artifacts/qocc_epe.json;
+10b. train the qocc fine-tune recipe (TRAIN_RECIPE) at full width
+           through `train.Trainer` for one epoch, warm-started from the
+           flagship, random-feature VGG, into a temporary directory:
+           `train_fidelity` (one microbatch's loss and gradient through
+           the kernels against the plain route, from the same params:
+           TRAIN_LOSS_RTOL, TRAIN_GRAD_COS), then the epoch (training
+           samples/s, median optimizer-step ms, the share of the step
+           loop spent waiting for host batches, val seconds / PSNR / SSIM,
+           peak memory; launches counted by taps on the trainer's steps
+           on the paths `train` (2x320x320 microbatches, each twice under
+           remat), `train_val` (16x320x320) and `train_sample`
+           (1x320x320); the params moved, every loss term finite), then
+           `train_export` (the best .npz pair at the flagship settings,
+           one 720p midpoint, 8 / 3 / 1 launches, counted on the main
+           rows) and `train_turns` (one optimizer step a turn on one
+           batch of 16, plain / kernel / kernel / plain);
 11. conv_compare conv_kernel "xla" against "pallas", taking turns, on the
            flagship's b=1 720p requests and on the three eval sweeps:
            seconds, which is faster, launches per forward, and each
@@ -110,11 +129,14 @@ and the script exits non-zero without a result line:
            tolerance stated there);
 14. profile (only with --profile) torch.profiler over one b=1 request: the
            device's busy share of the request's wall time and device time
-           by kernel, split into the port's CUDA kernels and the rest.
+           by kernel, split into the port's CUDA kernels and the rest;
+           the same over one kernel-route optimizer step of the train
+           phase (`train_turns`' `profile_kernel_step`).
 
 Each kernel row's `launches` is its count over the paths (main, serve,
-video, videos, infer_cli, q12, eval, tools) that launch its shape; the run fails when a path launches a
-(kernel, shape) that no row checks.
+video, videos, infer_cli, q12, eval, train, train_val, train_sample,
+train_export, tools) that launch its shape; the run fails when a path
+launches a (kernel, shape) that no row checks.
 
 The lines before the last are the `kernels` JSON line and the card's
 `nvidia-smi --query-gpu=name,power.limit` line; the last line is
@@ -123,7 +145,10 @@ The lines before the last are the `kernels` JSON line and the card's
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import glob
+import io
 import json
 import math
 import os
@@ -139,6 +164,7 @@ import torch.nn.functional as F
 
 import vfi_tpu_torch
 from vfi_tpu_torch import native
+from vfi_tpu_torch.cli import eval as eval_cli
 from vfi_tpu_torch.cli import infer as infer_cli
 from vfi_tpu_torch.cli import serve as serve_cli
 from vfi_tpu_torch.cli.eval import sweep
@@ -150,7 +176,7 @@ from vfi_tpu_torch.infer.video_io import (CAP_PROP_FPS, CAP_PROP_FRAME_COUNT,
                                           CAP_PROP_FRAME_HEIGHT,
                                           CAP_PROP_FRAME_WIDTH, to_float,
                                           to_u8)
-from vfi_tpu_torch.ops.cuda import (WRAPPERS, bounded_warp,
+from vfi_tpu_torch.ops.cuda import (PLAIN, WRAPPERS, bounded_warp,
                                     bounded_warp_plain, build, chain_plan,
                                     conv2d,
                                     conv2d_plain, conv2d_plan, conv_chain,
@@ -166,6 +192,9 @@ from vfi_tpu_torch.serve import (BatcherStats, InterpolationServer,
                                  encode_seq_body)
 from vfi_tpu_torch.tools import bench_conv, bench_kernels
 from vfi_tpu_torch.tools.bench_serve import run_load
+from vfi_tpu_torch.train import (Trainer, TrainState, create_train_state,
+                                 make_train_step)
+from vfi_tpu_torch.utils.config import TrainConfig
 from vfi_tpu_torch.utils.convert import load_params_npz, params_from_jax
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(vfi_tpu_torch.__file__)))
@@ -269,6 +298,42 @@ TOOL_RUNS = (
 )
 # Library calls the tools time beside the kernels (not checked).
 TOOL_LIBRARY = ("xla", "xla-shifts", "plain", "grid_sample")
+# The train phase: the qocc fine-tune that made the flagship checkpoint
+# (tools/queueAC.sh:109-121), at full width, warm-started from it, with
+# random-feature VGG (no pretrained weights in the repository), one epoch
+# on the tracked Middlebury frames: 66 train triplets make 4 optimizer
+# steps of 8 microbatches of 2 at 320x320 (remat: each microbatch's
+# forward runs twice, so every DCN and warp kernel launches twice), 66 val
+# triplets 5 batches of 16, the last padded; the sample dump is 1 pair.
+TRAIN_DATA = os.path.join(ROOT, "data", "processed", "train")
+TRAIN_RECIPE = dict(
+    batch_size=16, accum_steps=8, remat=True, random_rotation=False,
+    consistent_jitter=True, crop_size=(320, 320), target_unit_range=True,
+    best_metric="val_psnr", warp_max_flow=16, use_pallas=True,
+    ema_decay=0.998, flow_prior=True, flow_photo_pyramid=True,
+    fuse_project=True, lr_schedule="cosine", learning_rate=5e-5,
+    cosine_min_lr=5e-6, dcn_max_offset=1, cascade_levels=2,
+    flow_photo_occlusion=True, vgg_weight=0.15, num_epochs=1)
+# The train phase's launch shapes, by batch, each counted on its own path.
+TRAIN_PATHS = {TRAIN_RECIPE["batch_size"] // TRAIN_RECIPE["accum_steps"]:
+               "train", TRAIN_RECIPE["batch_size"]: "train_val",
+               1: "train_sample"}
+# One microbatch's loss and gradient through the kernels against the same
+# through their plain versions, from one set of params: bf16 activations
+# on both routes, rounded in other orders through ~25 layers, the VGG
+# term and the backward. A wrong tap, channel or gradient moves the loss
+# by far more than 1% and turns the gradient away from the plain one.
+TRAIN_LOSS_RTOL = 0.01
+TRAIN_GRAD_COS = 0.99
+# Optimizer steps each route times in the turns (plain, kernel, kernel,
+# plain).
+TRAIN_TURNS = ("plain", "kernel", "kernel", "plain")
+# Flow EPE of the qocc checkpoint's estimator against the Middlebury GT
+# flows (artifacts/qocc_epe.json, made on the TPU in bf16): the card's
+# bf16 rounds in other orders; a wrong level, sign or scale moves the mean
+# by tenths of a pixel.
+GT_FLOW = os.path.join(ROOT, "data", "processed", "other-gt-flow")
+EPE_TOL_PX = 0.02
 # Gradients through a kernel wrapper against those through its plain
 # version. The DCN, warp and chain backward is autograd of the plain
 # version itself, so their gradients differ only where the inputs'
@@ -592,11 +657,13 @@ def phase_kernels(sd: dict, sd12: dict, dev) -> list:
         ("offset", 64, ["fusion_dcn0.offset_conv"], (0,)),
         ("rec", 64, [f"rec_conv{i}.conv" for i in (1, 2, 3)], (1, 1, 0)),
     ]
-    # The serve, video and videos phases' engine is the flagship at 720p:
-    # the same shapes (the launch keys hold no batch size). The infer_cli
+    # The serve, video and videos phases' engine is the flagship at 720p,
+    # as is the train phase's export check (train_export): the same shapes
+    # (the launch keys hold no batch size). The infer_cli
     # phase runs the flagship on a 480x640 val pair and at 360x640, whose
     # cascade level is the 720p request's.
-    main, q12, ev = ("main", "serve", "video", "videos"), ("q12",), ("eval",)
+    main, q12, ev = (("main", "serve", "video", "videos", "train_export"),
+                     ("q12",), ("eval",))
     cli = ("infer_cli",)
     q12s = q12 + ("q12_r8",)    # both q12 requests' chains and warp
     for h, w, chain in [(H, W, c) for c in chains]:
@@ -645,6 +712,13 @@ def phase_kernels(sd: dict, sd12: dict, dev) -> list:
     for b, h, w, paths in ((1, H, W, main), (EB, EH, EW, q12s + ev + cli),
                            (EB, EH // 2, EW // 2, ev), (1, ih, iw, cli)):
         rows.append(warp_row(rnd, b, h, w, paths, dev))
+    # The train phase's DCN (C=64, R=1, the v4 route the JAX trainer takes)
+    # and RGB warp at its three shapes: the microbatches, the val batches,
+    # the sample dump.
+    th, tw = TRAIN_RECIPE["crop_size"]
+    for b, path in TRAIN_PATHS.items():
+        rows.append(dcn_row(rnd, *dcn, b, th, tw, 1, DCN_V4_TPU, (path,)))
+        rows.append(warp_row(rnd, b, th, tw, (path,), dev))
     return rows + tool_rows(rnd, gen, dcn12, dev)
 
 
@@ -1341,6 +1415,271 @@ def sweep_quality(name: str, report: dict, record: dict) -> tuple:
             failures)
 
 
+def phase_epe() -> dict:
+    """The eval CLI's flow-EPE mode (`cli.eval.main`, bf16 on the card) on
+    the qocc checkpoint's estimator over the Middlebury GT scenes, its mean
+    within EPE_TOL_PX of artifacts/qocc_epe.json. No kernel runs (the
+    estimator is plain convs and the plain warp)."""
+    t0 = time.perf_counter()
+    record = json.load(open(os.path.join(ROOT, "artifacts",
+                                         "qocc_epe.json")))
+    reset_launch_counts()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = eval_cli.main(["--data-dir", TRAIN_DATA, "--flow_model",
+                            CKPT + ".flow.npz", "--gt_flow_dir", GT_FLOW,
+                            "--json"])
+    report = json.loads(out.getvalue().strip().splitlines()[-1])
+    diff = report["mean_epe"] - record["mean_epe"]
+    res = {"phase": "eval_epe", "seconds": time.perf_counter() - t0,
+           "mean_epe": report["mean_epe"], "record_epe": record["mean_epe"],
+           "diff_px": diff, "tol_px": EPE_TOL_PX,
+           "scenes": {k: [v, record["scenes"].get(k)]
+                      for k, v in report["scenes"].items()},
+           "launches": launch_counts()}
+    if rc != 0 or sorted(report["scenes"]) != sorted(record["scenes"]) \
+            or not abs(diff) <= EPE_TOL_PX:
+        raise AssertionError(f"eval_epe: rc {rc}, mean EPE "
+                             f"{report['mean_epe']:.4f} px is {diff:+.4f} px "
+                             f"from its record (tol {EPE_TOL_PX})")
+    return res
+
+
+def flat_grads(params) -> torch.Tensor:
+    return torch.cat([p.grad.float().flatten() for p in params.parameters()])
+
+
+def train_fidelity(trainer) -> dict:
+    """One microbatch (2 samples from the train set) through the trainer's
+    step on the kernel route and on the plain route, from the trainer's
+    initial params: the loss within TRAIN_LOSS_RTOL, the flattened
+    gradient's cosine similarity at least TRAIN_GRAD_COS, every gradient
+    float32 and finite."""
+    cfg = trainer.cfg
+    n = cfg.batch_size // cfg.accum_steps
+    items = [trainer.train_data.get(i, np.random.default_rng(i))
+             for i in range(n)]
+    batch = [torch.from_numpy(np.stack([it[k] for it in items])).cuda()
+             for k in range(3)]
+    out = {}
+    for route in ("kernel", "plain"):
+        params = copy.deepcopy(trainer.state.params)
+        if route == "plain":
+            params["model"].ops = PLAIN
+        st = TrainState(params, torch.optim.SGD(params.parameters(), lr=0.0),
+                        grad_clip_norm=float("inf"))
+        step = make_train_step(
+            trainer.vgg_module, trainer.vgg_layer_index, trainer.weights,
+            remat=cfg.remat, joint_flow=True,
+            target_unit_range=cfg.target_unit_range, flow_prior=True,
+            flow_photo_pyramid=cfg.flow_photo_pyramid,
+            flow_photo_occlusion=cfg.flow_photo_occlusion)
+        reset_launch_counts()
+        met = step(st, *batch)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        grads = flat_grads(params)
+        if not all(p.grad.dtype == torch.float32
+                   for p in params.parameters()) \
+                or not torch.isfinite(grads).all():
+            raise AssertionError(f"train fidelity {route}: gradients not all "
+                                 f"finite float32")
+        out[route] = (float(met["loss"]), grads, launches,
+                      {k: float(v) for k, v in met.items()})
+    (lk, gk, nk, mk), (lp, gp, _, mp) = out["kernel"], out["plain"]
+    cos = float(torch.nn.functional.cosine_similarity(gk, gp, dim=0))
+    rel = abs(lk - lp) / abs(lp)
+    if not (rel <= TRAIN_LOSS_RTOL and cos >= TRAIN_GRAD_COS):
+        raise AssertionError(f"train fidelity: loss {lk} vs plain {lp} "
+                             f"({rel:.2e} relative, limit {TRAIN_LOSS_RTOL}),"
+                             f" gradient cosine {cos} (limit "
+                             f"{TRAIN_GRAD_COS})")
+    if nk["deform_conv2d_bounded"] != 2 * trainer.model.num_blocks \
+            or nk["bounded_warp"] != 2:
+        raise AssertionError(f"train fidelity: kernel route launches {nk}")
+    return {"phase": "train_fidelity", "microbatch": list(batch[0].shape),
+            "loss_kernel": lk, "loss_plain": lp, "loss_rel_diff": rel,
+            "loss_rtol": TRAIN_LOSS_RTOL, "grad_cosine": cos,
+            "grad_cos_min": TRAIN_GRAD_COS,
+            "grad_norm_kernel": float(gk.norm()),
+            "grad_norm_plain": float(gp.norm()), "terms_kernel": mk,
+            "terms_plain": mp, "kernel_launches": nk}
+
+
+def train_turns(trainer, batch) -> dict:
+    """One optimizer step on one batch of 16 for each route in turns
+    (TRAIN_TURNS), each from a copy of the trainer's params with its own
+    optimizer: ms per step (synchronised), the median per route."""
+    cfg = trainer.cfg
+    routes = {}
+    for route in ("plain", "kernel"):
+        params = copy.deepcopy(trainer.state.params)
+        if route == "plain":
+            params["model"].ops = PLAIN
+        routes[route] = (create_train_state(params, cfg.learning_rate),
+                         make_train_step(
+                             trainer.vgg_module, trainer.vgg_layer_index,
+                             trainer.weights, remat=cfg.remat,
+                             joint_flow=True,
+                             target_unit_range=cfg.target_unit_range,
+                             flow_prior=True, accum_steps=cfg.accum_steps,
+                             flow_photo_pyramid=cfg.flow_photo_pyramid,
+                             flow_photo_occlusion=cfg.flow_photo_occlusion))
+    for route in routes:                   # warm-up (allocator, cuDNN)
+        st, step = routes[route]
+        step(st, *batch)
+    times = {"plain": [], "kernel": []}
+    for route in TRAIN_TURNS:
+        st, step = routes[route]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        float(step(st, *batch)["loss"])
+        torch.cuda.synchronize()
+        times[route].append((time.perf_counter() - t0) * 1e3)
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    res = {"phase": "train_turns", "order": list(TRAIN_TURNS),
+           "batch": list(batch[0].shape), "step_ms": times,
+           "median_step_ms": med, "faster": min(med, key=med.get),
+           "kernel_over_plain": med["kernel"] / med["plain"]}
+    if "--profile" in sys.argv[1:]:     # one more kernel-route step
+        st, step = routes["kernel"]
+        res["profile_kernel_step"] = profiled(
+            lambda: float(step(st, *batch)["loss"]))
+    return res
+
+
+def phase_train() -> dict:
+    """The qocc fine-tune recipe (TRAIN_RECIPE) through the port's Trainer
+    on the card for one epoch, into a temporary directory. Launches are
+    counted per sub-path (TRAIN_PATHS) by taps on the trainer's step, val
+    step and sample forward. Then: the fidelity of the kernel route, the
+    export served at the flagship settings (720p), the routes' turns."""
+    t0 = time.perf_counter()
+    results = []
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = TrainConfig(
+            **TRAIN_RECIPE, train_data_dir=TRAIN_DATA, val_data_dir=VAL,
+            init_model_path=CKPT + ".npz",
+            init_flow_path=CKPT + ".flow.npz",
+            checkpoint_path=os.path.join(tmp, "ckpt"),
+            best_model_path=os.path.join(tmp, "best"),
+            output_image_path=os.path.join(tmp, "imgs"))
+        trainer = Trainer(cfg, device="cuda")
+        init = {k: v.clone() for k, v in
+                trainer.state.params.state_dict().items()}
+        results.append(train_fidelity(trainer))
+
+        by_path = {p: {fn.__name__: Counter() for fn in WRAPPERS}
+                   for p in TRAIN_PATHS.values()}
+        last = {}
+
+        def tap(fn, path):
+            def counted(*a, **k):
+                before = shapes_now()
+                out = fn(*a, **k)
+                for name, c in shapes_now().items():
+                    by_path[path][name].update(c - before[name])
+                if path == "train":
+                    last.update(out)
+                return out
+            return counted
+
+        micro = cfg.batch_size // cfg.accum_steps
+        trainer.train_step = tap(trainer.train_step, TRAIN_PATHS[micro])
+        trainer.eval_step = tap(trainer.eval_step,
+                                TRAIN_PATHS[cfg.batch_size])
+        trainer._sample_fwd = tap(trainer._sample_fwd, TRAIN_PATHS[1])
+        logs = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t1 = time.perf_counter()
+        history = trainer.run(log=logs.append)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t1
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        st = trainer.epoch_stats[0]
+
+        failures = []
+        steps = st["train_samples"] // cfg.batch_size
+        for path, per in ((TRAIN_PATHS[micro], 2 * cfg.accum_steps * steps),
+                          (TRAIN_PATHS[cfg.batch_size],
+                           len(trainer.val_loader)),
+                          (TRAIN_PATHS[1], 1)):
+            want = {"deform_conv2d_bounded": trainer.model.num_blocks * per,
+                    "bounded_warp": per, "conv_chain": 0, "conv2d": 0}
+            got = {k: sum(c.values()) for k, c in by_path[path].items()}
+            if got != want:
+                failures.append(f"{path}: launches {got}, expected {want}")
+        moved = max((trainer.state.params.state_dict()[k] - v).abs().max()
+                    .item() for k, v in init.items())
+        terms = {k: float(v) for k, v in last.items()}
+        if not moved > 0 or not all(math.isfinite(v) for v in
+                                    terms.values()):
+            failures.append(f"the epoch moved the params by {moved}; "
+                            f"terms {terms}")
+        wall = st["train_seconds"]
+        results.insert(0, {
+            "phase": "train", "seconds": run_s, "card": card_line(),
+            "recipe": {k: list(v) if isinstance(v, tuple) else v
+                       for k, v in TRAIN_RECIPE.items()},
+            "train_samples": st["train_samples"],
+            "train_seconds": wall,
+            "samples_per_s": st["train_samples"] / wall,
+            "optimizer_steps": steps,
+            "median_step_ms": float(np.median(st["step_ms"])),
+            "step_ms": st["step_ms"],
+            "host_wait_seconds": st["host_wait_seconds"],
+            "host_wait_share": st["host_wait_seconds"] / wall,
+            "val_seconds": st["val_seconds"],
+            "val_samples": st["val_samples"],
+            "val_psnr": history["psnr"][0], "val_ssim": history["ssim"][0],
+            "val_loss": history["val_loss"][0],
+            "train_loss": history["train_loss"][0],
+            "export_seconds": st["export_seconds"],
+            "checkpoint_seconds": st["checkpoint_seconds"],
+            "peak_memory_gb": peak_gb, "params_moved_max_abs": moved,
+            "last_step_terms": terms,
+            "launches": {p: {k: sum(c.values()) for k, c in v.items()}
+                         for p, v in by_path.items()},
+            "log": logs})
+
+        # The export serves: the best .npz pair at the flagship settings.
+        eng = FrameInterpolator(load_params_npz(cfg.best_model_path + ".npz"),
+                                flow_params=load_params_npz(
+                                    cfg.best_model_path + ".flow.npz"),
+                                device="cuda", **FLAGSHIP)
+        f0, f1 = smooth_frames(np.random.default_rng(SEED + 3), 1)
+        eng.midpoints(f0, f1)              # warm-up (not counted)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        out = eng.midpoints(f0, f1)
+        torch.cuda.synchronize()
+        by_path["train_export"] = shapes_now()
+        counts = launch_counts()
+        failures += launch_failures("train_export", counts, 1)
+        if tuple(out.shape) != f0.shape or not torch.isfinite(out).all() \
+                or out.min().item() < 0.0 or out.max().item() > 1.0:
+            failures.append("train_export: bad midpoint")
+        results.append({"phase": "train_export", "shape": list(f0.shape),
+                        "launches": counts,
+                        "psnr_vs_frame0_db": psnr(
+                            out, torch.from_numpy(f0).cuda())})
+        del eng
+
+        rng = np.random.default_rng(SEED + 4)
+        items = [trainer.train_data.get(i, rng)
+                 for i in range(cfg.batch_size)]
+        batch = [torch.from_numpy(np.stack([it[k] for it in items])).cuda()
+                 for k in range(3)]
+        results.append(train_turns(trainer, batch))
+        if failures:
+            raise AssertionError("train: " + "; ".join(failures))
+    results[0]["phase_seconds"] = time.perf_counter() - t0
+    results[0]["_by_shape"] = by_path
+    return results
+
+
 def phase_conv_compare(frames: dict, params, flow_params) -> list:
     """conv_kernel="xla" (the trunk on cuDNN convs) against "pallas" (the
     conv-chain kernels) on both workloads, inside one call: the flagship's
@@ -1590,17 +1929,17 @@ PORT_KERNELS = ("conv_chain_kernel", "conv2d_kernel", "dcn_tile_kernel",
                 "warp_bounded_wide_kernel", "warp_bounded_wide_2b_kernel")
 
 
-def phase_profile(eng, request) -> dict:
-    """Device time of one b=1 request by kernel, and the device's busy
-    share of the request's wall time (union of kernel intervals)."""
+def profiled(fn) -> dict:
+    """Run `fn` (which ends synchronised) under torch.profiler: its wall
+    ms, the device's busy ms (union of kernel intervals) and share of the
+    wall, device ms by kernel, split into the port's CUDA kernels and the
+    rest, and the count of kernel launches."""
     from torch.profiler import ProfilerActivity, profile
 
-    t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         w0 = time.perf_counter()
-        eng.midpoints(*request)
-        torch.cuda.synchronize()
+        fn()
         wall_ms = (time.perf_counter() - w0) * 1e3
     spans, by_name = [], {}
     for ev in prof.events():
@@ -1625,13 +1964,26 @@ def phase_profile(eng, request) -> dict:
     port = sum(v for k, v in by_name.items()
                if any(p in k for p in PORT_KERNELS))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    return {"phase": "profile", "seconds": time.perf_counter() - t0,
-            "request_wall_ms": wall_ms, "device_busy_ms": busy,
+    return {"wall_ms": wall_ms, "device_busy_ms": busy,
             "device_busy_share": busy / wall_ms,
             "device_kernel_ms": sum(by_name.values()),
             "port_kernels_ms": port, "other_kernels_ms":
-            sum(by_name.values()) - port, "n_kernel_names": len(by_name),
+            sum(by_name.values()) - port, "kernel_launches": len(spans),
+            "n_kernel_names": len(by_name),
             "top_kernels_ms": [[k[:90], v] for k, v in top]}
+
+
+def phase_profile(eng, request) -> dict:
+    """Device time of one b=1 request by kernel, and the device's busy
+    share of the request's wall time."""
+    t0 = time.perf_counter()
+
+    def run():
+        eng.midpoints(*request)
+        torch.cuda.synchronize()
+
+    res = profiled(run)
+    return {"phase": "profile", "seconds": time.perf_counter() - t0, **res}
 
 
 def main() -> int:
@@ -1700,6 +2052,11 @@ def main() -> int:
     eval_res = phase_eval(frames)
     by_path["eval"] = eval_res.pop("_by_shape")
     emit(eval_res)
+    emit(phase_epe())
+    train_res = phase_train()
+    by_path.update(train_res[0].pop("_by_shape"))
+    for res in train_res:
+        emit(res)
     phase_conv_compare(frames, params, flow_params)
     tools_res = phase_tools()
     by_path["tools"] = tools_res.pop("_by_shape")

@@ -673,3 +673,66 @@ def test_recursive_runs_the_kernels_at_every_level(dev):
         assert g.device.type == "cuda" and torch.isfinite(g).all()
         mse = (g - r).pow(2).mean().item()
         assert mse == 0 or 10 * np.log10(1 / mse) >= 40.0
+
+
+def test_train_step_runs_the_kernels_and_moves_their_forward(dev):
+    """One kernel-route train step of a tiny joint tree (EMAVFI 16 wide,
+    one block, R=1, warp bound 16, cascade 2, flow prior, bf16) at the
+    qocc recipe's flags (remat, accum 2, occlusion, pyramid): each
+    microbatch launches the DCN and the warp twice (remat), every gradient
+    reaching a float32 leaf is float32 and finite, and the step moves the
+    kernel-route forward as it moves the plain route's (no packed copy of
+    the weights goes stale)."""
+    from torch import nn
+
+    from vfi_tpu_torch.losses import LossWeights
+    from vfi_tpu_torch.models import EMAVFI, SimpleFlowNet
+    from vfi_tpu_torch.ops.cuda import PLAIN
+    from vfi_tpu_torch.train import create_train_state, make_train_step
+
+    torch.manual_seed(0)
+    kw = dict(mid_channels=16, num_blocks=1, dtype=torch.bfloat16,
+              dcn_max_offset=1, warp_max_flow=16, cascade_levels=2,
+              fuse_project=True)
+    tree = nn.ModuleDict({"model": EMAVFI(**kw),
+                          "flow": SimpleFlowNet(mid_channels=8, levels=2,
+                                                dtype=torch.bfloat16)})
+    with torch.no_grad():
+        tree["model"].fusion_dcn0.offset_conv.weight.normal_(0, 0.05)
+    tree.to(dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    f0 = torch.rand(4, 40, 48, 3, generator=gen, device=dev)
+    f1 = torch.roll(f0, (1, 2), dims=(1, 2))
+    batch = (f0, (f0 + f1) / 2, f1)
+    plain = EMAVFI(**kw).to(dev)
+    plain.ops = PLAIN
+
+    def forward(model):
+        with torch.no_grad():
+            return model(f0, f1).float()
+
+    before = forward(tree["model"])
+    st = create_train_state(tree, 1e-2)
+    step = make_train_step(None, 1, LossWeights(vgg=0.0), remat=True,
+                           joint_flow=True, target_unit_range=True,
+                           flow_prior=True, accum_steps=2,
+                           flow_photo_pyramid=True,
+                           flow_photo_occlusion=True)
+    st.optimizer.zero_grad()
+    reset_launch_counts()
+    met = step(st, *batch)
+    counts = launch_counts()
+    assert counts["deform_conv2d_bounded"] == 4 and counts["bounded_warp"] == 4
+    assert all(torch.isfinite(torch.as_tensor(v)).all() for v in met.values())
+    for p in tree.parameters():
+        assert p.dtype == torch.float32 and p.grad.dtype == torch.float32
+        assert torch.isfinite(p.grad).all()
+    after = forward(tree["model"])
+    plain.load_state_dict(tree["model"].state_dict())
+    ref = forward(plain)
+
+    def db(a, b):
+        return 10 * torch.log10(1 / (a - b).pow(2).mean()).item()
+
+    assert db(after, ref) >= 40.0
+    assert db(after, before) < db(after, ref) - 10.0

@@ -1,9 +1,10 @@
 """The port stands alone: no module of vfi_tpu_torch, and not
-chip_smoke.py, imports jax, flax, the JAX package, tools/, PIL or cv2 (the
-card's machine has none of them), except that the video file I/O
-(`infer/video_io.py`) imports cv2 inside its functions; importing the port
-loads none of them; entry points refuse to run without a card unless the
-caller asks for the CPU."""
+chip_smoke.py, imports jax, flax, optax, orbax, the JAX package, tools/,
+PIL, cv2 or yaml (the card's machine has none of the first ones and need
+not have pyyaml), except that the video file I/O (`infer/video_io.py`)
+imports cv2, and the training config (`utils/config.py`) yaml, inside
+their functions; importing the port loads none of them; entry points
+refuse to run without a card unless the caller asks for the CPU."""
 
 import ast
 import os
@@ -15,7 +16,7 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "vfi_tpu", "tools",
-          "PIL", "cv2")
+          "PIL", "cv2", "yaml")
 
 
 def _sources():
@@ -35,35 +36,47 @@ def _imported_roots(path):
             yield node.module.split(".")[0]
 
 
-# The one module that may import cv2, and only inside a function body:
-# importing the port (and running chip_smoke.py) loads no cv2.
-CV2_MODULE = os.path.join(REPO, "vfi_tpu_torch", "infer", "video_io.py")
+# The modules that may import one of these, each only inside a function
+# body: importing the port (and running chip_smoke.py) loads neither. The
+# card's machine has no cv2 (video file I/O) and need not have pyyaml (a
+# YAML training config).
+INSIDE_ONLY = {
+    "cv2": os.path.join(REPO, "vfi_tpu_torch", "infer", "video_io.py"),
+    "yaml": os.path.join(REPO, "vfi_tpu_torch", "utils", "config.py"),
+}
 
 
 @pytest.mark.parametrize("path", _sources(),
                          ids=lambda p: os.path.relpath(p, REPO))
 def test_no_jax_or_reference_imports(path):
-    banned = (tuple(b for b in BANNED if b != "cv2") if path == CV2_MODULE
-              else BANNED)
+    banned = tuple(b for b in BANNED if INSIDE_ONLY.get(b) != path)
     bad = sorted({r for r in _imported_roots(path) if r in banned})
     assert not bad, f"{os.path.relpath(path, REPO)} imports {bad}"
 
 
-def test_cv2_is_imported_inside_functions_only():
-    tree = ast.parse(open(CV2_MODULE).read(), filename=CV2_MODULE)
+def _imported_inside_functions_only(root):
+    path = INSIDE_ONLY[root]
+    tree = ast.parse(open(path).read(), filename=path)
     inside = set()
     for fn in ast.walk(tree):
         if isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef)):
             inside |= {id(n) for n in ast.walk(fn)}
-    cv2_imports = [n for n in ast.walk(tree)
-                   if (isinstance(n, ast.Import)
-                       and any(a.name.split(".")[0] == "cv2"
-                               for a in n.names))
-                   or (isinstance(n, ast.ImportFrom) and n.level == 0
-                       and n.module.split(".")[0] == "cv2")]
-    assert cv2_imports, "the video file I/O reads files with cv2"
-    outside = [n.lineno for n in cv2_imports if id(n) not in inside]
-    assert not outside, f"cv2 imported at module level: lines {outside}"
+    imports = [n for n in ast.walk(tree)
+               if (isinstance(n, ast.Import)
+                   and any(a.name.split(".")[0] == root for a in n.names))
+               or (isinstance(n, ast.ImportFrom) and n.level == 0
+                   and n.module.split(".")[0] == root)]
+    assert imports, f"{os.path.relpath(path, REPO)} imports {root}"
+    outside = [n.lineno for n in imports if id(n) not in inside]
+    assert not outside, f"{root} imported at module level: lines {outside}"
+
+
+def test_cv2_is_imported_inside_functions_only():
+    _imported_inside_functions_only("cv2")
+
+
+def test_yaml_is_imported_inside_functions_only():
+    _imported_inside_functions_only("yaml")
 
 
 def test_import_leaves_jax_out():
@@ -73,9 +86,13 @@ def test_import_leaves_jax_out():
             "vfi_tpu_torch.serve, vfi_tpu_torch.cli.serve, "
             "vfi_tpu_torch.tools.bench_serve, vfi_tpu_torch.infer.video, "
             "vfi_tpu_torch.infer.multi, vfi_tpu_torch.infer.video_io, "
-            "vfi_tpu_torch.cli.infer, vfi_tpu_torch.utils.convert;"
+            "vfi_tpu_torch.cli.infer, vfi_tpu_torch.utils.convert, "
+            "vfi_tpu_torch.losses, vfi_tpu_torch.models.vgg, "
+            "vfi_tpu_torch.data.loader, vfi_tpu_torch.utils.config, "
+            "vfi_tpu_torch.train, vfi_tpu_torch.cli.train;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'flax', 'vfi_tpu', 'triton', 'PIL', 'cv2')];"
+            "('jax', 'flax', 'optax', 'orbax', 'vfi_tpu', 'triton', 'PIL', "
+            "'cv2', 'yaml')];"
             "assert not bad, bad")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -159,6 +176,30 @@ def test_infer_cli_needs_a_card_unless_asked_for_cpu(cmd, monkeypatch,
     assert not os.path.exists(out)
     assert tinfer.main(argv + ["--device", "cpu"]) == 0
     assert os.path.getsize(out) > 0
+
+
+def test_trainer_and_train_cli_need_a_card_unless_asked_for_cpu(
+        monkeypatch, tmp_path):
+    """Trainer() and the train CLI raise RuntimeError without a card; the
+    CLI asked for the CPU gets past the device (and then fails on the
+    missing data directory)."""
+    from vfi_tpu_torch.cli import train as tcli
+    from vfi_tpu_torch.train import Trainer
+    from vfi_tpu_torch.utils.config import TrainConfig
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    missing = str(tmp_path / "none")
+    cfg = TrainConfig(train_data_dir=missing, val_data_dir=missing,
+                      checkpoint_path=str(tmp_path / "c"),
+                      output_image_path=str(tmp_path / "o"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(cfg)
+    argv = ["--train_data_dir", missing, "--val_data_dir", missing,
+            "--checkpoint_path", str(tmp_path / "c")]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tcli.main(argv)
+    with pytest.raises(FileNotFoundError):
+        tcli.main(argv + ["--device", "cpu"])
 
 
 def test_engine_needs_a_card_unless_asked_for_cpu(monkeypatch):

@@ -4,7 +4,11 @@ package builds nothing."""
 
 from vfi_tpu_torch.ops.deform_conv_shifts import deform_conv2d_shifts
 from vfi_tpu_torch.ops.resize import resize_bilinear
-from vfi_tpu_torch.ops.warp import bilinear_sample, warp
+from vfi_tpu_torch.ops.histogram import color_histogram, soft_color_histogram
+from vfi_tpu_torch.ops.sobel import sobel_gradients
+from vfi_tpu_torch.ops.warp import (bilinear_sample, grid_sample,
+                                    nearest_sample, warp)
 
-__all__ = ["bilinear_sample", "deform_conv2d_shifts", "resize_bilinear",
-           "warp"]
+__all__ = ["bilinear_sample", "color_histogram", "deform_conv2d_shifts",
+           "grid_sample", "nearest_sample", "resize_bilinear",
+           "sobel_gradients", "soft_color_histogram", "warp"]

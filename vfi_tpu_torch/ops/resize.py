@@ -24,7 +24,15 @@ import torch.nn.functional as F
 def _interp_matrix(out_size: int, in_size: int, align_corners: bool,
                    device: torch.device, dtype: torch.dtype) -> torch.Tensor:
     """(out_size, in_size) interpolation matrix in `dtype`; cached, since
-    it depends only on its arguments (callers must not modify it)."""
+    it depends only on its arguments (callers must not modify it). Built
+    outside inference mode even when the first caller is in it, so that
+    a later caller under autograd (the trainer, after an eval) can save
+    it for the backward."""
+    with torch.inference_mode(False):
+        return _build_matrix(out_size, in_size, align_corners, device, dtype)
+
+
+def _build_matrix(out_size, in_size, align_corners, device, dtype):
     i = torch.arange(out_size, dtype=torch.float32, device=device)
     if align_corners:
         if out_size == 1:

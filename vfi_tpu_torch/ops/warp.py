@@ -10,7 +10,8 @@ with the same roundings on both sides.
 This is the exact, unbounded warp: the flow prior, the cascade pre-warp
 and SimpleFlowNet use it. The bounded warp of the model's RGB frame is the
 CUDA kernel in `ops/cuda/sampling.py`, whose plain version calls this on
-the clipped flow.
+the clipped flow. `mode="nearest"` is the loss-side warp of the temporal
+term; `grid_sample` takes a normalized grid as `F.grid_sample` does.
 """
 
 from __future__ import annotations
@@ -67,13 +68,51 @@ def bilinear_sample(image: torch.Tensor, ys: torch.Tensor,
     return v00 * w00 + v01 * w01 + v10 * w10 + v11 * w11
 
 
-def warp(image: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+def nearest_sample(image: torch.Tensor, ys: torch.Tensor,
+                   xs: torch.Tensor) -> torch.Tensor:
+    """Nearest-neighbour sample of (B, H, W, C) images at absolute pixel
+    coordinates ys, xs (B, Ho, Wo), zeros outside. Rounds half to even
+    (`torch.round`, as `jnp.round` and torch's grid_sampler)."""
+    _, h, w, _ = image.shape
+    xi = torch.round(xs.float()).long()
+    yi = torch.round(ys.float()).long()
+    valid = ((yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)).to(
+        image.dtype)[..., None]
+    flat = image.reshape(image.shape[0], h * w, image.shape[3])
+    v = _gather_hw(flat, w, yi.clamp(0, h - 1), xi.clamp(0, w - 1))
+    return v * valid
+
+
+_SAMPLERS = {"bilinear": bilinear_sample, "nearest": nearest_sample}
+
+
+def _sampler(mode: str):
+    if mode not in _SAMPLERS:
+        raise ValueError(f"mode must be one of {tuple(_SAMPLERS)}, got "
+                         f"{mode!r}")
+    return _SAMPLERS[mode]
+
+
+def grid_sample(image: torch.Tensor, grid: torch.Tensor,
+                mode: str = "bilinear") -> torch.Tensor:
+    """`F.grid_sample(align_corners=True, padding_mode="zeros")` on NHWC:
+    `grid` (B, Ho, Wo, 2) normalized to [-1, 1], last dim (x, y)."""
+    _, h, w, _ = image.shape
+    xs = (grid[..., 0].float() + 1.0) * 0.5 * (w - 1)
+    ys = (grid[..., 1].float() + 1.0) * 0.5 * (h - 1)
+    return _sampler(mode)(image, ys, xs)
+
+
+def warp(image: torch.Tensor, flow: torch.Tensor,
+         mode: str = "bilinear") -> torch.Tensor:
     """Backward-warp (B, H, W, C) `image` by (B, H, W, 2) `flow` in pixels,
-    channels (dx, dy); bilinear, zeros padding."""
+    channels (dx, dy); bilinear (the model's warp) or nearest (the
+    temporal loss's), zeros padding."""
+    sample = _sampler(mode)
     _, h, w, _ = image.shape
     dev = image.device
     ygrid = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
     xgrid = torch.arange(w, dtype=torch.float32, device=dev)[None, :]
     xs = xgrid + flow[..., 0].float()
     ys = ygrid + flow[..., 1].float()
-    return bilinear_sample(image, ys, xs)
+    return sample(image, ys, xs)

@@ -22,8 +22,10 @@ names:
 - Dense kernels (in, out) -> Linear (out, in);
 - biases unchanged; the path separators become '.', `kernel` -> `weight`.
 
-It covers both EMAVFI trees (42 keys in the qocc checkpoint) and
-SimpleFlowNet trees (18 keys in its `.flow.npz`).
+It covers EMAVFI trees (42 keys in the qocc checkpoint), SimpleFlowNet
+trees (18 keys in its `.flow.npz`) and VGG16Features trees.
+`params_to_jax` is its inverse: the trainer writes its exports through
+it and `save_params_npz`.
 """
 
 from __future__ import annotations
@@ -194,6 +196,34 @@ def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             raise ValueError(f"unexpected parameter leaf {key!r}")
         sd[key] = torch.from_numpy(np.array(arr, np.float32, order="C"))
     return sd
+
+
+def params_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """The inverse of `params_from_jax`: a torch state dict (EMAVFI,
+    SimpleFlowNet or VGG16Features) -> the nested JAX-layout tree
+    `{"params": ...}` of float32 numpy arrays that `save_params_npz`
+    writes and both packages load. Conv weights OIHW -> HWIO, Linear
+    (out, in) -> Dense (in, out), `weight` -> `kernel`."""
+    tree: Dict[str, Any] = {}
+    for key, t in state_dict.items():
+        arr = t.detach().to("cpu", torch.float32).numpy()
+        head, _, leaf = key.rpartition(".")
+        if leaf == "weight":
+            if arr.ndim == 4:       # OIHW -> HWIO
+                arr = arr.transpose(2, 3, 1, 0)
+            elif arr.ndim == 2:     # Linear (out, in) -> Dense (in, out)
+                arr = arr.T
+            else:
+                raise ValueError(f"unexpected weight rank {arr.ndim} at "
+                                 f"{key}")
+            leaf = "kernel"
+        elif leaf != "bias":
+            raise ValueError(f"unexpected parameter {key!r}")
+        node = tree
+        for part in head.split(".") if head else ():
+            node = node.setdefault(part, {})
+        node[leaf] = np.ascontiguousarray(arr)
+    return {"params": tree}
 
 
 def main(argv=None) -> int:

@@ -113,6 +113,30 @@ and the script exits non-zero without a result line:
            one 720p midpoint, 8 / 3 / 1 launches, counted on the main
            rows) and `train_turns` (one optimizer step a turn on one
            batch of 16, plain / kernel / kernel / plain);
+10c. dp_engine the flagship engine over a 'data' mesh of DP_RANKS replicas
+           (two cards where there are two, else card 0 twice; the line
+           says which): an odd batch of DP_ENGINE_BATCH 720p pairs,
+           padded with its last pair and split, 8 / 3 / 1 launches a
+           replica launch, every midpoint within PSNR_FLOOR_DB of the
+           one-device engine; counted on the main rows;
+10d. spatial the exact halo pipeline (`parallel.spatial`) through the
+           engine's spatial route in DP_RANKS spawned ranks (NCCL over two
+           cards where there are two, else gloo with both ranks on card
+           0): the qocc checkpoint without the flow prior at the
+           flagship's other settings on one 1080p pair (H padded to 1088,
+           halo 32, 608-row slabs, the coarse pass at 544x960); per rank
+           18 one-layer conv launches, 3 DCN, 1 warp (SPATIAL_PER_RANK),
+           counted on rows of their own; the gathered midpoint against
+           the one-process engine on the padded frames
+           (SPATIAL_PADDED_TOL) and on the 1080-row frames (PSNR_FLOOR_DB,
+           SPATIAL_NATIVE_TOL on the rows more than a halo above the
+           padding); seconds a midpoint of both, in turns;
+10e. dp_train one optimizer step of TRAIN_RECIPE over DP_RANKS spawned
+           ranks (the same rule) from train_fidelity's params and pairs,
+           each rank one pair a microbatch (its launches on the
+           1x320x320 rows), against the one-process step: the loss
+           within TRAIN_LOSS_RTOL, the gradient's cosine at least
+           TRAIN_GRAD_COS, the params' difference after the step stated;
 11. conv_compare conv_kernel "xla" against "pallas", taking turns, on the
            flagship's b=1 720p requests and on the three eval sweeps:
            seconds, which is faster, launches per forward, and each
@@ -135,8 +159,10 @@ and the script exits non-zero without a result line:
 
 Each kernel row's `launches` is its count over the paths (main, serve,
 video, videos, infer_cli, q12, eval, train, train_val, train_sample,
-train_export, tools) that launch its shape; the run fails when a path
-launches a (kernel, shape) that no row checks.
+train_export, dp_engine, spatial and dp_train (summed over the ranks),
+tools) that launch its shape; the run fails when a path launches a
+(kernel, shape) that no row checks. The spawned ranks load the library
+`build` made; none builds.
 
 The lines before the last are the `kernels` JSON line and the card's
 `nvidia-smi --query-gpu=name,power.limit` line; the last line is
@@ -167,6 +193,7 @@ from vfi_tpu_torch import native
 from vfi_tpu_torch.cli import eval as eval_cli
 from vfi_tpu_torch.cli import infer as infer_cli
 from vfi_tpu_torch.cli import serve as serve_cli
+from vfi_tpu_torch.cli.common import free_port
 from vfi_tpu_torch.cli.eval import sweep
 from vfi_tpu_torch.data import load_image
 from vfi_tpu_torch.infer import FrameInterpolator
@@ -187,6 +214,7 @@ from vfi_tpu_torch.ops.cuda import (PLAIN, WRAPPERS, bounded_warp,
                                     pack_conv_chain, pack_dcn,
                                     reset_launch_counts)
 from vfi_tpu_torch.ops.cuda.conv import ROUTES
+from vfi_tpu_torch.parallel import make_mesh, required_halo
 from vfi_tpu_torch.serve import (BatcherStats, InterpolationServer,
                                  encode_pair_body, encode_raw_body,
                                  encode_seq_body)
@@ -194,7 +222,8 @@ from vfi_tpu_torch.tools import bench_conv, bench_kernels
 from vfi_tpu_torch.tools.bench_serve import run_load
 from vfi_tpu_torch.train import (Trainer, TrainState, create_train_state,
                                  make_train_step)
-from vfi_tpu_torch.utils.config import TrainConfig
+from vfi_tpu_torch.train.loop import data_rows
+from vfi_tpu_torch.utils.config import MeshConfig, TrainConfig
 from vfi_tpu_torch.utils.convert import load_params_npz, params_from_jax
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(vfi_tpu_torch.__file__)))
@@ -334,6 +363,37 @@ TRAIN_TURNS = ("plain", "kernel", "kernel", "plain")
 # by tenths of a pixel.
 GT_FLOW = os.path.join(ROOT, "data", "processed", "other-gt-flow")
 EPE_TOL_PX = 0.02
+# The multi-device phases. Two ranks (or replicas): on two cards when
+# there are two, else both on card 0 (the ranks then take turns on it).
+# dp_engine: the flagship over a 'data' mesh of two replicas, an odd batch
+# of 720p pairs (padded to 4: two replica launches of b=2).
+DP_RANKS = 2
+DP_ENGINE_BATCH = 3
+# spatial: the qocc checkpoint without the flow prior (the JAX engine
+# refuses the prior with spatial sharding) at the flagship's other
+# settings, one 1080p pair: H pads to 1088 (a multiple of 8 x 2 ranks),
+# halo required_halo(3, 1, 16) = 32, each rank's slab 544 + 64 = 608
+# rows; the cascade's coarse pass runs on the gathered 1088x1920 pair at
+# 544x960. The gathered midpoint against the one-process engine on the
+# same edge-padded frames (the pipeline's own semantics; bf16 rounds the
+# context pool's sum in another order) within SPATIAL_PADDED_TOL
+# everywhere, and against the one-process engine on the 1080-row frames
+# (whose context pool and coarse pass see 1080 rows, not 1088) within
+# PSNR_FLOOR_DB and, on the rows more than a halo above the padding,
+# SPATIAL_NATIVE_TOL. Launches per rank and midpoint: each trunk layer one
+# conv-kernel launch (6 on the coarse pass, 12 on the slab), 3 DCN, 1 warp.
+SP_H, SP_W = 1080, 1920
+SPATIAL_PADDED_TOL = 2.0 ** -5
+SPATIAL_NATIVE_TOL = 2.0 ** -3
+SPATIAL_PER_RANK = {"conv_chain": 18, "deform_conv2d_bounded": 3,
+                    "bounded_warp": 1, "conv2d": 0}
+SPATIAL_TURNS = ("spatial", "one", "one", "spatial")
+# dp_train: one optimizer step of TRAIN_RECIPE (batch 16, 8 microbatches of
+# 2 at 320x320) over two ranks, each one pair a microbatch, from
+# train_fidelity's params; its batch is train_fidelity's pairs and the 14
+# after them. Held to the one-process step on the same batch with
+# TRAIN_LOSS_RTOL and TRAIN_GRAD_COS.
+RANK_TIMEOUT_S = 600
 # Gradients through a kernel wrapper against those through its plain
 # version. The DCN, warp and chain backward is autograd of the plain
 # version itself, so their gradients differ only where the inputs'
@@ -433,15 +493,16 @@ def check_close(name: str, got: torch.Tensor, ref: torch.Tensor,
     return {"max_abs_err": err, "tol": tol}
 
 
-def smooth_frames(gen: np.random.Generator, b: int) -> tuple:
+def smooth_frames(gen: np.random.Generator, b: int, h: int = H,
+                  w: int = W) -> tuple:
     """A smooth random texture (sum of random sinusoids) and a copy
-    shifted by a few pixels, float32 [0, 1], (b, H, W, 3)."""
-    yy, xx = np.meshgrid(np.arange(H, dtype=np.float32),
-                         np.arange(W, dtype=np.float32), indexing="ij")
-    frames = np.zeros((b, H, W, 3), np.float32)
+    shifted by a few pixels, float32 [0, 1], (b, h, w, 3)."""
+    yy, xx = np.meshgrid(np.arange(h, dtype=np.float32),
+                         np.arange(w, dtype=np.float32), indexing="ij")
+    frames = np.zeros((b, h, w, 3), np.float32)
     for i in range(b):
         for c in range(3):
-            acc = np.zeros((H, W), np.float32)
+            acc = np.zeros((h, w), np.float32)
             for _ in range(8):
                 fy, fx = gen.uniform(0.005, 0.06, 2) * gen.choice([-1, 1], 2)
                 acc += np.sin(fy * yy + fx * xx + gen.uniform(0, 2 * np.pi))
@@ -662,8 +723,8 @@ def phase_kernels(sd: dict, sd12: dict, dev) -> list:
     # (the launch keys hold no batch size). The infer_cli
     # phase runs the flagship on a 480x640 val pair and at 360x640, whose
     # cascade level is the 720p request's.
-    main, q12, ev = (("main", "serve", "video", "videos", "train_export"),
-                     ("q12",), ("eval",))
+    main, q12, ev = (("main", "serve", "video", "videos", "train_export",
+                      "dp_engine"), ("q12",), ("eval",))
     cli = ("infer_cli",)
     q12s = q12 + ("q12_r8",)    # both q12 requests' chains and warp
     for h, w, chain in [(H, W, c) for c in chains]:
@@ -717,9 +778,38 @@ def phase_kernels(sd: dict, sd12: dict, dev) -> list:
     # the sample dump.
     th, tw = TRAIN_RECIPE["crop_size"]
     for b, path in TRAIN_PATHS.items():
-        rows.append(dcn_row(rnd, *dcn, b, th, tw, 1, DCN_V4_TPU, (path,)))
-        rows.append(warp_row(rnd, b, th, tw, (path,), dev))
-    return rows + tool_rows(rnd, gen, dcn12, dev)
+        # (dp_train's ranks run one pair of each microbatch: b=1)
+        paths = (path, "dp_train") if b == 1 else (path,)
+        rows.append(dcn_row(rnd, *dcn, b, th, tw, 1, DCN_V4_TPU, paths))
+        rows.append(warp_row(rnd, b, th, tw, paths, dev))
+    return rows + spatial_rows(rnd, sd, dcn, dev) + tool_rows(rnd, gen,
+                                                              dcn12, dev)
+
+
+def spatial_rows(rnd, sd, dcn, dev) -> list:
+    """The spatial phase's shapes: each trunk layer as a one-layer chain
+    (the conv kernel) at the rank's slab (608x1920) and, for the motion
+    stages, at the coarse pass (544x960); the DCN and the RGB warp at the
+    slab. One row a layer shape (the keys hold the channels, not the
+    layer)."""
+    hl = (SP_H + (-SP_H) % (8 * DP_RANKS)) // DP_RANKS
+    slab = hl + 2 * required_halo(3, 1, 16)
+    coarse = (hl * DP_RANKS // 2, SP_W // 2)
+    sp = ("spatial",)
+    motion = [("layer64x64", 64, ["feat_ext_block0.conv"], (1,)),
+              ("layer128x64", 128, ["motion_conv1.conv"], (1,)),
+              ("layer64x2", 64, ["motion_conv3.conv"], (0,))]
+    fine = motion + [("offset", 64, ["fusion_dcn0.offset_conv"], (0,)),
+                     ("layer64x32", 64, ["rec_conv2.conv"], (1,)),
+                     ("layer32x3", 32, ["rec_conv3.conv"], (0,))]
+    rows = []
+    for layer in fine:
+        rows += chain_rows(rnd, sd, *layer, 1, slab, SP_W, sp)
+    for layer in motion:
+        rows += chain_rows(rnd, sd, *layer, 1, *coarse, sp)
+    rows.append(dcn_row(rnd, *dcn, 1, slab, SP_W, 1, DCN_TPU, sp))
+    rows.append(warp_row(rnd, 1, slab, SP_W, sp, dev))
+    return rows
 
 
 def tool_rows(rnd, gen, dcn12, dev) -> list:
@@ -1680,6 +1770,336 @@ def phase_train() -> dict:
     return results
 
 
+def rank_layout(world: int) -> tuple:
+    """(backend, card of each rank): NCCL with a card a rank where there
+    are that many cards, else gloo with every rank on card 0."""
+    if torch.cuda.device_count() >= world:
+        return "nccl", list(range(world))
+    return "gloo", [0] * world
+
+
+def _rank_entry(rank, world, port, backend, cards, fn_name, args, out):
+    import datetime
+
+    import torch.distributed as dist
+
+    dev = torch.device("cuda", cards[rank])
+    torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        build.load()            # built by phase_build: loads, never builds
+        res = globals()[fn_name](rank, dev, *args)
+        torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks(fn_name: str, world: int, *args) -> tuple:
+    """`fn_name(rank, device, *args)` in `world` spawned ranks of one
+    process group (`rank_layout`), each returning what it saved; fails
+    when a rank fails or the ranks outlast RANK_TIMEOUT_S (then every
+    rank is stopped)."""
+    import torch.multiprocessing as mp
+
+    backend, cards = rank_layout(world)
+    with tempfile.TemporaryDirectory() as out:
+        ctx = mp.start_processes(
+            _rank_entry, args=(world, free_port(), backend, cards, fn_name,
+                               args, out), nprocs=world, join=False,
+            start_method="spawn")
+        deadline = time.monotonic() + RANK_TIMEOUT_S
+        try:
+            while not ctx.join(timeout=5):
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"{fn_name}: ranks still running "
+                                         f"after {RANK_TIMEOUT_S} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.terminate()
+                p.join()
+        res = [torch.load(os.path.join(out, f"rank{r}.pt"),
+                          weights_only=False) for r in range(world)]
+    return backend, cards, res
+
+
+def merge_shapes(results: list) -> dict:
+    """The ranks' launches by wrapper and shape, summed."""
+    out = {fn.__name__: Counter() for fn in WRAPPERS}
+    for r in results:
+        for name, c in r["by_shape"].items():
+            out[name].update(c)
+    return out
+
+
+def phase_dp_engine(params, flow_params) -> dict:
+    """The flagship engine over a 'data' mesh of DP_RANKS replicas (two
+    cards, or card 0 twice): an odd batch of 720p pairs, padded and split,
+    held to the one-device engine; 8 / 3 / 1 launches a replica launch."""
+    t0 = time.perf_counter()
+    _, cards = rank_layout(DP_RANKS)
+    mesh = make_mesh(DP_RANKS, devices=[torch.device("cuda", c)
+                                        for c in cards])
+    f0, f1 = smooth_frames(np.random.default_rng(SEED + 5), DP_ENGINE_BATCH)
+    eng = FrameInterpolator(params, flow_params=flow_params, mesh=mesh,
+                            **FLAGSHIP)
+    one = FrameInterpolator(params, flow_params=flow_params, device="cuda",
+                            **FLAGSHIP)
+    eng.midpoints(f0, f1)                  # warm-up
+    one.midpoints(f0, f1)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t1 = time.perf_counter()
+    out = eng.midpoints(f0, f1)
+    torch.cuda.synchronize()
+    dp_s = time.perf_counter() - t1
+    counts, by_shape = launch_counts(), shapes_now()
+    t1 = time.perf_counter()
+    ref = one.midpoints(f0, f1)
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t1
+    # The padded batch fits the pixel guard: one engine launch, one
+    # launch of each replica.
+    if eng._guard_cap(f0) < DP_ENGINE_BATCH + 1:
+        raise AssertionError("dp_engine: the batch splits in the guard")
+    replica_launches = DP_RANKS
+    failures = launch_failures("dp_engine", counts, replica_launches)
+    if tuple(out.shape) != f0.shape or out.device != ref.device \
+            or not torch.isfinite(out).all():
+        failures.append(f"dp_engine: output {tuple(out.shape)} on "
+                        f"{out.device}")
+    psnrs = [psnr(out[i], ref[i]) for i in range(DP_ENGINE_BATCH)]
+    if not min(psnrs) >= PSNR_FLOOR_DB:
+        failures.append(f"dp_engine: PSNR vs the one-device engine {psnrs} "
+                        f"below {PSNR_FLOOR_DB} dB")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return {"phase": "dp_engine", "seconds": time.perf_counter() - t0,
+            "card": card_line(), "mesh": dict(mesh.shape),
+            "devices": [str(d) for d in mesh.data_devices],
+            "layout": "two cards" if len(set(cards)) > 1
+            else "one card, two replicas",
+            "batch": DP_ENGINE_BATCH, "size": [H, W],
+            "replica_launches": replica_launches, "launches": counts,
+            "dp_seconds": dp_s, "one_device_seconds": one_s,
+            "psnr_vs_one_device_db": psnrs, "psnr_floor_db": PSNR_FLOOR_DB,
+            "_by_shape": by_shape}
+
+
+def spatial_rank(rank, dev, layout):
+    """One rank of the spatial phase: the counted spatial midpoint, the
+    turns, and on rank 0 the checks against the one-process engine."""
+    import torch.distributed as dist
+
+    params = load_params_npz(CKPT + ".npz")
+    f0, f1 = smooth_frames(np.random.default_rng(SEED + 6), 1, SP_H, SP_W)
+    eng = FrameInterpolator(params, device=dev, spatial=True, **FLAGSHIP)
+    one = (FrameInterpolator(params, device=dev, **FLAGSHIP) if rank == 0
+           else None)
+    eng.midpoints(f0, f1)                  # warm-up
+    if one is not None:
+        one.midpoints(f0, f1)
+    torch.cuda.synchronize()
+    dist.barrier()
+    reset_launch_counts()
+    out = eng.midpoints(f0, f1)
+    torch.cuda.synchronize()
+    res = {"counts": launch_counts(), "by_shape": shapes_now()}
+    times = {"spatial": [], "one": []}
+    for turn in SPATIAL_TURNS:
+        dist.barrier()
+        t0 = time.perf_counter()
+        if turn == "spatial":
+            eng.midpoints(f0, f1)
+        elif one is not None:
+            one.midpoints(f0, f1)
+        torch.cuda.synchronize()
+        times[turn].append(time.perf_counter() - t0)
+    dist.barrier()
+    res["turn_seconds"] = times
+    if one is None:
+        return res
+    fn = eng._spatial_fwd_cache[SP_H + (-SP_H) % (8 * DP_RANKS)]
+    pad = fn.h_local * DP_RANKS - SP_H
+    padded = [np.concatenate([f, np.repeat(f[:, -1:], pad, axis=1)], axis=1)
+              for f in (f0, f1)]
+    ref_pad = one.midpoints(*padded)[:, :SP_H]
+    ref = one.midpoints(f0, f1)
+    keep = SP_H - fn.halo
+    res.update({
+        "shape": list(out.shape), "finite": bool(torch.isfinite(out).all()),
+        "halo": fn.halo, "h_local": fn.h_local, "padded_h": SP_H + pad,
+        "slab": fn.h_local + 2 * fn.halo,
+        "padded_max_abs_err": (out.float() - ref_pad.float()).abs().max()
+        .item(),
+        "padded_psnr_db": psnr(out, ref_pad),
+        "native_psnr_db": psnr(out, ref),
+        "native_rows_checked": keep,
+        "native_max_abs_err": (out[:, :keep].float() - ref[:, :keep].float())
+        .abs().max().item()})
+    return res
+
+
+def phase_spatial() -> dict:
+    """The exact halo pipeline over DP_RANKS ranks on one 1080p pair: the
+    engine's spatial route, counted per rank, held to the one-process
+    engine; seconds a midpoint of both, in turns."""
+    t0 = time.perf_counter()
+    backend, cards, res = run_ranks("spatial_rank", DP_RANKS, None)
+    r0 = res[0]
+    failures = []
+    for r, rr in enumerate(res):
+        if rr["counts"] != SPATIAL_PER_RANK:
+            failures.append(f"spatial rank {r}: launches {rr['counts']}, "
+                            f"expected {SPATIAL_PER_RANK}")
+    if r0["shape"] != [1, SP_H, SP_W, 3] or not r0["finite"]:
+        failures.append(f"spatial: output {r0['shape']}, finite "
+                        f"{r0['finite']}")
+    if not r0["padded_max_abs_err"] <= SPATIAL_PADDED_TOL:
+        failures.append(f"spatial: max abs err {r0['padded_max_abs_err']} "
+                        f"vs the padded one-process engine > "
+                        f"{SPATIAL_PADDED_TOL}")
+    if not (r0["native_psnr_db"] >= PSNR_FLOOR_DB
+            and r0["native_max_abs_err"] <= SPATIAL_NATIVE_TOL):
+        failures.append(f"spatial: vs the one-process engine PSNR "
+                        f"{r0['native_psnr_db']} dB (floor {PSNR_FLOOR_DB}),"
+                        f" max abs err {r0['native_max_abs_err']} on rows "
+                        f"< {r0['native_rows_checked']} (tol "
+                        f"{SPATIAL_NATIVE_TOL})")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    times = r0.pop("turn_seconds")
+    by_shape = merge_shapes(res)
+    r0.pop("by_shape")
+    return {"phase": "spatial", "seconds": time.perf_counter() - t0,
+            "card": card_line(), "backend": backend,
+            "rank_cards": cards,
+            "layout": "two cards" if len(set(cards)) > 1
+            else "one card shared by both ranks", "size": [SP_H, SP_W],
+            **{k: v for k, v in r0.items() if k != "counts"},
+            "launches_per_rank": [rr["counts"] for rr in res],
+            "padded_tol": SPATIAL_PADDED_TOL,
+            "native_tol": SPATIAL_NATIVE_TOL,
+            "psnr_floor_db": PSNR_FLOOR_DB, "turns": list(SPATIAL_TURNS),
+            "turn_seconds": times,
+            "spatial_s_per_midpoint": float(np.median(times["spatial"])),
+            "one_process_s_per_midpoint": float(np.median(times["one"])),
+            "_by_shape": by_shape}
+
+
+def dp_train_config(tmp: str, data: int = 1) -> TrainConfig:
+    return TrainConfig(
+        **TRAIN_RECIPE, train_data_dir=TRAIN_DATA, val_data_dir=VAL,
+        init_model_path=CKPT + ".npz", init_flow_path=CKPT + ".flow.npz",
+        checkpoint_path=os.path.join(tmp, "ckpt"),
+        best_model_path=os.path.join(tmp, "best"),
+        output_image_path=os.path.join(tmp, "imgs"),
+        mesh=MeshConfig(data=data))
+
+
+def dp_train_batch(trainer) -> list:
+    """train_fidelity's pairs and the next ones: a batch of batch_size."""
+    items = [trainer.train_data.get(i, np.random.default_rng(i))
+             for i in range(trainer.cfg.batch_size)]
+    return [np.stack([it[k] for it in items]) for k in range(3)]
+
+
+def dp_train_rank(rank, dev, _):
+    """One rank of the dp_train phase: the trainer over the group, this
+    rank's rows of the batch, one optimizer step, counted."""
+    import torch.distributed as dist
+
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = Trainer(dp_train_config(tmp, DP_RANKS), device=dev,
+                          data_group=dist.group.WORLD)
+        cfg = trainer.cfg
+        rows = data_rows(cfg.batch_size, cfg.accum_steps, rank, DP_RANKS)
+        batch = [torch.from_numpy(np.ascontiguousarray(a[rows])).to(dev)
+                 for a in dp_train_batch(trainer)]
+        torch.cuda.synchronize()
+        dist.barrier()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        met = trainer.train_step(trainer.state, *batch)
+        loss = float(met["loss"])
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        res = {"counts": launch_counts(), "by_shape": shapes_now(),
+               "step_seconds": step_s, "loss": loss,
+               "local_batch": list(batch[0].shape)}
+        if rank == 0:
+            params = trainer.state.params
+            res["grads"] = flat_grads(params).cpu()
+            res["params"] = torch.cat([p.detach().float().flatten()
+                                       for p in params.parameters()]).cpu()
+            res["terms"] = {k: float(v) for k, v in met.items()}
+    return res
+
+
+def phase_dp_train() -> dict:
+    """One optimizer step of TRAIN_RECIPE over DP_RANKS ranks against the
+    one-process step from the same params on the same batch."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = Trainer(dp_train_config(tmp), device="cuda")
+        init = torch.cat([p.detach().float().flatten()
+                          for p in trainer.state.params.parameters()])
+        batch = [torch.from_numpy(a).cuda()
+                 for a in dp_train_batch(trainer)]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        met = trainer.train_step(trainer.state, *batch)
+        loss1 = float(met["loss"])
+        torch.cuda.synchronize()
+        one_s = time.perf_counter() - t1
+        g1 = flat_grads(trainer.state.params)
+        p1 = torch.cat([p.detach().float().flatten()
+                        for p in trainer.state.params.parameters()])
+        lr = trainer.cfg.learning_rate
+        del trainer, batch
+    backend, cards, res = run_ranks("dp_train_rank", DP_RANKS, None)
+    r0 = res[0]
+    g2, p2 = r0["grads"].cuda(), r0["params"].cuda()
+    rel = abs(r0["loss"] - loss1) / abs(loss1)
+    cos = float(torch.nn.functional.cosine_similarity(g1, g2, dim=0))
+    dp = (p2 - p1).abs()
+    step = (p1 - init.cuda()).norm().item()
+    per_rank = {"deform_conv2d_bounded": 3 * 2 * TRAIN_RECIPE["accum_steps"],
+                "bounded_warp": 2 * TRAIN_RECIPE["accum_steps"],
+                "conv_chain": 0, "conv2d": 0}
+    failures = [f"dp_train rank {r}: launches {rr['counts']}, expected "
+                f"{per_rank}" for r, rr in enumerate(res)
+                if rr["counts"] != per_rank]
+    if not (rel <= TRAIN_LOSS_RTOL and cos >= TRAIN_GRAD_COS):
+        failures.append(f"dp_train: loss {r0['loss']} vs one process "
+                        f"{loss1} ({rel:.2e} relative, limit "
+                        f"{TRAIN_LOSS_RTOL}), gradient cosine {cos} (limit "
+                        f"{TRAIN_GRAD_COS})")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return {"phase": "dp_train", "seconds": time.perf_counter() - t0,
+            "card": card_line(), "backend": backend, "rank_cards": cards,
+            "layout": "two cards" if len(set(cards)) > 1
+            else "one card shared by both ranks",
+            "batch": TRAIN_RECIPE["batch_size"],
+            "microbatches": TRAIN_RECIPE["accum_steps"],
+            "local_batch": r0["local_batch"],
+            "loss_dp": r0["loss"], "loss_one_process": loss1,
+            "loss_rel_diff": rel, "loss_rtol": TRAIN_LOSS_RTOL,
+            "grad_cosine": cos, "grad_cos_min": TRAIN_GRAD_COS,
+            "params_max_abs_diff": dp.max().item(),
+            "params_max_abs_diff_over_lr": dp.max().item() / lr,
+            "params_diff_over_step": (p2 - p1).norm().item() / step,
+            "params_max_rel_diff": (dp / p1.abs().clamp_min(1e-12)).max()
+            .item(),
+            "step_seconds_dp": [rr["step_seconds"] for rr in res],
+            "step_seconds_one_process": one_s,
+            "launches_per_rank": [rr["counts"] for rr in res],
+            "terms_dp": r0["terms"], "_by_shape": merge_shapes(res)}
+
+
 def phase_conv_compare(frames: dict, params, flow_params) -> list:
     """conv_kernel="xla" (the trunk on cuDNN convs) against "pallas" (the
     conv-chain kernels) on both workloads, inside one call: the flagship's
@@ -2056,6 +2476,13 @@ def main() -> int:
     train_res = phase_train()
     by_path.update(train_res[0].pop("_by_shape"))
     for res in train_res:
+        emit(res)
+    for path, phase in (("dp_engine", lambda: phase_dp_engine(params,
+                                                              flow_params)),
+                        ("spatial", phase_spatial),
+                        ("dp_train", phase_dp_train)):
+        res = phase()
+        by_path[path] = res.pop("_by_shape")
         emit(res)
     phase_conv_compare(frames, params, flow_params)
     tools_res = phase_tools()

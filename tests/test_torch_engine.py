@@ -170,7 +170,16 @@ def test_auto_scale_needs_flow_params(qocc):
                           auto_scale=9.0)
 
 
-@pytest.mark.parametrize("kw", [dict(spatial=True), dict(mesh="data")])
+@pytest.mark.parametrize("kw", [
+    dict(flow=True, match="flow-prior"),
+    dict(io_uint8=True, match="io_uint8"),
+    dict(tta=True, match="tta")])
 def test_unported_options_raise(qocc, kw):
-    with pytest.raises(NotImplementedError):
-        FrameInterpolator(qocc[0], device="cpu", dcn_max_offset=1, **kw)
+    """The JAX engine's refusals that remain with spatial sharding: the
+    flow prior, io_uint8 and TTA (each with the JAX message)."""
+    kw = dict(kw)
+    flow, match = kw.pop("flow", False), kw.pop("match")
+    with pytest.raises(ValueError, match=match):
+        FrameInterpolator(qocc[0], flow_params=qocc[1] if flow else None,
+                          device="cpu", dcn_max_offset=1, warp_max_flow=16,
+                          spatial=True, **kw)

@@ -54,6 +54,22 @@ def test_no_jax_or_reference_imports(path):
     assert not bad, f"{os.path.relpath(path, REPO)} imports {bad}"
 
 
+def test_spawned_worker_helper_imports_no_jax():
+    """The multi-process tests' workers (`tests/torch_dist_case.py`) run in
+    spawned ranks, which import that module alone: it imports neither jax
+    nor the JAX package, and importing it loads neither."""
+    path = os.path.join(REPO, "tests", "torch_dist_case.py")
+    bad = sorted({r for r in _imported_roots(path) if r in BANNED})
+    assert not bad, f"tests/torch_dist_case.py imports {bad}"
+    code = ("import sys; sys.path.insert(0, 'tests'); import torch_dist_case;"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'flax', 'optax', 'vfi_tpu')]; assert not bad, bad")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
 def _imported_inside_functions_only(root):
     path = INSIDE_ONLY[root]
     tree = ast.parse(open(path).read(), filename=path)
@@ -89,7 +105,8 @@ def test_import_leaves_jax_out():
             "vfi_tpu_torch.cli.infer, vfi_tpu_torch.utils.convert, "
             "vfi_tpu_torch.losses, vfi_tpu_torch.models.vgg, "
             "vfi_tpu_torch.data.loader, vfi_tpu_torch.utils.config, "
-            "vfi_tpu_torch.train, vfi_tpu_torch.cli.train;"
+            "vfi_tpu_torch.train, vfi_tpu_torch.cli.train, "
+            "vfi_tpu_torch.parallel;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'optax', 'orbax', 'vfi_tpu', 'triton', 'PIL', "
             "'cv2', 'yaml')];"

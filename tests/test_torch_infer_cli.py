@@ -237,10 +237,23 @@ def test_auto_scale_parser_errors(files, argv):
     assert e.value.code == 2
 
 
-def test_spatial_is_not_ported(files, tmp_path):
-    with pytest.raises(NotImplementedError):
+def test_spatial_is_not_ported(files, tmp_path, monkeypatch):
+    """`--spatial 2 --device cpu` runs two gloo ranks through the exact
+    halo pipeline (64x48 frames, R=1, warp 2: halo 16, 32 rows a rank)
+    and writes the one-process PNG within a level (float order); on the
+    card it refuses to start more ranks than there are cards."""
+    bounded = ["--device", "cpu", "--size", "64", "48", "--dcn_max_offset",
+               "1", "--warp_max_flow", "2"]
+    one, two = str(tmp_path / "one.png"), str(tmp_path / "two.png")
+    assert tinfer.main(_two_frame_args(files, one, bounded)) == 0
+    assert tinfer.main(_two_frame_args(files, two,
+                                       bounded + ["--spatial", "2"])) == 0
+    assert _levels(_read_png(two), _read_png(one)) <= 1
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="needs 2 cards, 1 visible"):
         tinfer.main(_two_frame_args(files, str(tmp_path / "m.png"),
-                                    ["--device", "cpu", "--spatial", "2"]))
+                                    ["--device", "cuda", "--spatial", "2"]))
 
 
 def test_flags_of_the_jax_cli_parse():

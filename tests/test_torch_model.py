@@ -177,8 +177,18 @@ def test_modulated_deform_conv_matches_jax(rng, R):
 
 
 def test_unported_modes_raise():
-    with pytest.raises(NotImplementedError):
-        EMAVFI(dcn_max_offset=1, spatial_axis="spatial")
+    """Spatial mode is a copy sharing the weights (`with_spatial`); the
+    halo pipeline refuses the unbounded model, as JAX's `required_halo`
+    does; cascade_levels < 1 is refused."""
+    from vfi_tpu_torch.parallel import build_spatial_forward
+
+    m = EMAVFI(dcn_max_offset=1, warp_max_flow=16)
+    sp = m.with_spatial(None, 32, 1088)
+    assert (sp.spatial_halo, sp.spatial_global_h) == (32, 1088)
+    assert m.spatial_global_h is None
+    assert sp.rec_conv3.conv.weight is m.rec_conv3.conv.weight
+    with pytest.raises(ValueError, match="bounded"):
+        build_spatial_forward(EMAVFI(dcn_max_offset=1), 64)
     with pytest.raises(ValueError):
         EMAVFI(dcn_max_offset=1, cascade_levels=0)
 

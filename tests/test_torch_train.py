@@ -266,12 +266,34 @@ WEIGHTS = dict(charbonnier=0.5, vgg=0.15, color=0.3, gradient=0.1,
                temporal=0.15)
 
 
-@pytest.fixture(scope="module")
-def qocc_case():
-    """Random params of a tiny qocc-shaped model (mid 8, one block, its
+# The configurations the step is held at beyond the qocc recipe: the JAX
+# defaults (exact DCN, unbounded warp, 67 channels, joint flow); no flow
+# module; the soft histogram with R=2, warp 16, 67 channels, cascade 2, the
+# flow prior and accumulation 2; R=1 with fuse_project, no prior, the
+# photometric pyramid with occlusion, and remat. Each: (model kwargs, step
+# flags, joint flow, accumulation).
+CONFIGS = {
+    "qocc": (MODEL, QOCC_FLAGS, True, 2),
+    "jax_defaults": ({}, {}, True, 1),
+    "no_flow": ({}, {}, False, 1),
+    "soft_hist_r2": (dict(dcn_max_offset=2, warp_max_flow=16,
+                          cascade_levels=2),
+                     dict(soft_histogram=True, flow_prior=True), True, 2),
+    "r1_pyramid": (dict(dcn_max_offset=1, fuse_project=True),
+                   dict(flow_photo_pyramid=True, flow_photo_occlusion=True,
+                        remat=True), True, 1),
+}
+_CASES = {}
+
+
+def _case(model_kw):
+    """Random params of a tiny model of `model_kw` (mid 8, one block, its
     offset conv small and random) and flow net (8 wide, 2 levels) in the
     JAX trees' layout, a VGG relu2_2 tree from JAX's init, and one batch
     of two 32x32 ImageNet-normalized triplets."""
+    key = tuple(sorted(model_kw.items()))
+    if key in _CASES:
+        return _CASES[key]
     x = jnp.zeros((1, 32, 32, 3))
     rng = np.random.default_rng(0)
 
@@ -283,7 +305,7 @@ def qocc_case():
 
     mp, fp = (jax.tree.map(drawn, jax.eval_shape(m.init, jax.random.PRNGKey(0),
                                                  x, x))
-              for m in (JEMAVFI(mid_channels=8, num_blocks=1, **MODEL),
+              for m in (JEMAVFI(mid_channels=8, num_blocks=1, **model_kw),
                         JFlowNet(mid_channels=8, levels=2)))
     vp = jax.tree.map(np.array, jax.jit(JVGG(max_stage=1).init)(
         jax.random.PRNGKey(7), x))
@@ -295,12 +317,20 @@ def qocc_case():
     mean = np.array([0.485, 0.456, 0.406], np.float32)
     std = np.array([0.229, 0.224, 0.225], np.float32)
     batch = [(a - mean) / std for a in (f0, (f0 + f1) / 2, f1)]
-    return mp, fp, vp, batch
+    _CASES[key] = (mp, fp, vp, batch)
+    return _CASES[key]
 
 
-def _port_tree(mp, fp):
-    m = EMAVFI(mid_channels=8, num_blocks=1, **MODEL)
+@pytest.fixture(scope="module")
+def qocc_case():
+    return _case(MODEL)
+
+
+def _port_tree(mp, fp, model_kw=MODEL, joint=True):
+    m = EMAVFI(mid_channels=8, num_blocks=1, **model_kw)
     m.load_state_dict(params_from_jax(mp))
+    if not joint:
+        return m
     f = SimpleFlowNet(mid_channels=8, levels=2)
     f.load_state_dict(params_from_jax(fp))
     return nn.ModuleDict({"model": m, "flow": f})
@@ -312,38 +342,43 @@ def _port_vgg(vp):
     return v.requires_grad_(False)
 
 
-def test_train_step_gradients_match_jax_grad(qocc_case):
-    mp, fp, vp, batch = qocc_case
+@pytest.mark.parametrize("config", list(CONFIGS))
+def test_train_step_gradients_match_jax_grad(config):
+    model_kw, flags, joint, accum = CONFIGS[config]
+    mp, fp, vp, batch = _case(model_kw)
     # An optax transformation that returns zero updates and keeps the
     # gradients as its state: the JAX step's state then holds its grads.
     keep = optax.GradientTransformation(
         lambda p: jax.tree.map(jnp.zeros_like, p),
         lambda u, s, p=None: (jax.tree.map(jnp.zeros_like, u), u))
-    params = {"model": mp, "flow": fp}
+    params = {"model": mp, "flow": fp} if joint else mp
     jst = jstate.TrainState(step=jnp.zeros((), jnp.int32), params=params,
                             opt_state=keep.init(params), tx=keep)
     with jax.default_matmul_precision("highest"):
         step = jax.jit(j_make_train_step(
-            JEMAVFI(mid_channels=8, num_blocks=1, use_pallas=True, **MODEL),
+            JEMAVFI(mid_channels=8, num_blocks=1, use_pallas=True,
+                    **model_kw),
             JVGG(max_stage=1), 1, JLossWeights(**WEIGHTS),
-            flow_module=JFlowNet(mid_channels=8, levels=2), accum_steps=2,
-            **QOCC_FLAGS))
+            flow_module=JFlowNet(mid_channels=8, levels=2) if joint
+            else None, accum_steps=accum, **flags))
         jst, jmet = step(jst, vp, *map(jnp.asarray, batch))
 
-    tree = _port_tree(mp, fp)
+    tree = _port_tree(mp, fp, model_kw, joint)
     st = TrainState(tree, torch.optim.SGD(tree.parameters(), lr=0.0),
                     grad_clip_norm=float("inf"))
     met = make_train_step(_port_vgg(vp), 1, LossWeights(**WEIGHTS),
-                          joint_flow=True, accum_steps=2, **QOCC_FLAGS)(
+                          joint_flow=joint, accum_steps=accum, **flags)(
         st, *map(torch.from_numpy, batch))
     assert sorted(met) == sorted(jmet)
     for k in jmet:
         np.testing.assert_allclose(float(met[k]), float(jmet[k]),
                                    rtol=TERM_TOL, atol=1e-9, err_msg=k)
-    for part in ("model", "flow"):
+    parts = ("model", "flow") if joint else (None,)
+    for part in parts:
+        mod = tree[part] if part else tree
         got = _flat(params_to_jax({k: p.grad for k, p in
-                                   tree[part].named_parameters()}))
-        ref = _flat(jst.opt_state[part])
+                                   mod.named_parameters()}))
+        ref = _flat(jst.opt_state[part] if part else jst.opt_state)
         assert got.keys() == ref.keys()
         for k in ref:
             assert got[k].dtype == np.float32

@@ -160,9 +160,12 @@ def test_train_cli_one_epoch_on_cpu_and_needs_a_card(data, tmp_path,
 
 
 def test_trainer_refuses_what_it_cannot_honour(data, tmp_path):
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+    # a mesh of more ranks than this process's group (none: one rank);
+    # the JAX trainer's batch divisibility over 'data'
+    with pytest.raises(ValueError, match="needs 8 ranks, have 1"):
         Trainer(_cfg(data, tmp_path, mesh=MeshConfig(data=8)), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+    with pytest.raises(ValueError, match="1 ranks not divisible by "
+                                         "spatial=2"):
         Trainer(_cfg(data, tmp_path, mesh=MeshConfig(spatial=2)),
                 device="cpu")
     with pytest.raises(ValueError, match="accum_steps"):

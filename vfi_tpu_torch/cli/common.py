@@ -1,8 +1,10 @@
-"""Shared CLI plumbing of the port: parameter loading."""
+"""Shared CLI plumbing of the port: parameter loading, and a free local
+port for the rendezvous of the ranks a CLI starts."""
 
 from __future__ import annotations
 
 import os
+import socket
 from typing import Any
 
 from vfi_tpu_torch.utils.convert import convert_ema_vfi_torch, load_params_npz
@@ -24,3 +26,11 @@ def load_model_params(path: str) -> Any:
             f"(orbax is not installed on the card's machine); export the "
             f"params to .npz with the JAX package")
     raise ValueError(f"unrecognized params path: {path}")
+
+
+def free_port() -> int:
+    """A TCP port on 127.0.0.1 that no one listens on now (the ranks'
+    `init_process_group` rendezvous)."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]

@@ -14,14 +14,22 @@ plus `--device` on every subcommand.
 card (`--device cuda`, the default) or, when asked, on the CPU
 (`--device cpu`). `--fp32` needs the CPU: the kernels run in bf16.
 `--use_pallas`, `--dcn_kernel` and `--dcn_tile_w` are accepted for parity
-and have no effect, as in the eval and serve CLIs. `--spatial` > 1 is not
-ported yet.
+and have no effect, as in the eval and serve CLIs.
+
+`--spatial N` > 1 shards the frame height over N ranks, one process and
+one card each (NCCL; gloo on the CPU with `--device cpu`), through the
+exact halo pipeline (`parallel.spatial`; it needs `--dcn_max_offset` and
+`--warp_max_flow`). Fewer cards than N is an error. As in the JAX CLI the
+cards left form the data axis: D = cards // N spatial groups of N ranks
+(one on the CPU), each taking its share of a batch. Rank 0 reads and
+writes; the frames reach the other ranks by `broadcast`.
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import sys
 
 import numpy as np
 
@@ -108,8 +116,9 @@ def build_parser() -> argparse.ArgumentParser:
                        help="EMAVFI self-cascade depth (checkpoints "
                             "fine-tuned with the same depth)")
         p.add_argument("--spatial", type=int, default=1,
-                       help="shard frame height over this many devices "
-                            "(not ported yet: > 1 raises)")
+                       help="shard frame height over this many ranks, one "
+                            "card each (the exact halo pipeline; needs the "
+                            "bounded DCN and warp)")
         p.add_argument("--flow_prior", action="store_true",
                        help="pre-warp frame1 halfway along the SimpleFlowNet "
                             "flow; loads <model_path minus .npz>.flow.npz "
@@ -167,7 +176,70 @@ def build_engine(args, **kw):
         flow_params=flow_params, flow_prior_scale=args.flow_prior_scale,
         flow_mid_channels=args.flow_mid_channels,
         flow_levels=args.flow_levels, tta=args.tta,
-        auto_scale=args.auto_scale, device=args.device, **kw)
+        auto_scale=args.auto_scale, **{"device": args.device, **kw})
+
+
+def spatial_ranks(args) -> int:
+    """The ranks of a `--spatial` run: N a data row, a row a group of N
+    visible cards (one row on the CPU); raises when the cards are fewer
+    than N."""
+    import torch
+
+    from vfi_tpu_torch.infer.pair import resolve_device
+
+    from vfi_tpu_torch.parallel import make_mesh
+
+    if args.spatial < 1:
+        raise ValueError(f"--spatial must be >= 1, got {args.spatial}")
+    dev = resolve_device(args.device)
+    if dev.type == "cuda" and args.spatial > 1:
+        cards = torch.cuda.device_count()
+        if dev.index is not None:
+            raise ValueError(f"--device {args.device}: --spatial takes "
+                             "cards 0..n-1 (one a rank); pass --device cuda")
+        if cards < args.spatial:
+            raise ValueError(f"--spatial {args.spatial} needs "
+                             f"{args.spatial} cards, {cards} visible")
+        mesh = make_mesh(data=-1, spatial=args.spatial)
+        return mesh.shape["data"] * args.spatial
+    return args.spatial
+
+
+def _spatial_rank(rank: int, world: int, port: int, argv) -> None:
+    """One rank of a `--spatial` run (rank = data row * N + band): rank 0
+    runs the subcommand, the others serve its engine calls."""
+    import torch
+    import torch.distributed as dist
+
+    args = build_parser().parse_args(argv)
+    cuda = args.device != "cpu"
+    if cuda:
+        torch.cuda.set_device(rank)
+    dist.init_process_group("nccl" if cuda else "gloo",
+                            init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    try:
+        n = args.spatial
+        rows = [dist.new_group(list(range(d * n, (d + 1) * n)))
+                for d in range(world // n)]
+        cols = [dist.new_group(list(range(j, world, n))) for j in range(n)]
+        # (`video` hands reference_compat to the engine, as below)
+        engine = build_engine(args, spatial=True, broadcast_inputs=True,
+                              spatial_group=rows[rank // n],
+                              data_group=cols[rank % n] if world > n
+                              else None,
+                              device=f"cuda:{rank}" if cuda else "cpu",
+                              reference_compat=args.cmd == "video"
+                              and args.reference_compat)
+        if rank == 0:
+            try:
+                _run(args, engine)
+            finally:
+                engine.release()
+        else:
+            engine.follow()
+    finally:
+        dist.destroy_process_group()
 
 
 def main(argv=None) -> int:
@@ -185,18 +257,30 @@ def main(argv=None) -> int:
                          "run clips separately with `video`")
         if not args.flow_prior:
             parser.error("--auto_scale requires --flow_prior")
-    if args.spatial > 1:
-        raise NotImplementedError("--spatial > 1 is not ported yet")
+    if args.cmd == "two-frame" and not args.output.lower().endswith(".png"):
+        raise ValueError(f"{args.output}: two-frame writes PNG files only")
+    world = spatial_ranks(args)
+    if world > 1:
+        import torch.multiprocessing as mp
 
+        from vfi_tpu_torch.cli.common import free_port
+
+        argv = list(argv) if argv is not None else sys.argv[1:]
+        mp.spawn(_spatial_rank, args=(world, free_port(), argv),
+                 nprocs=world, join=True)
+        return 0
+    return _run(args, None)
+
+
+def _run(args, engine) -> int:
+    """The subcommand, on `engine` (None: build the flags' engine)."""
     if args.cmd == "two-frame":
         from vfi_tpu_torch import native
 
-        if not args.output.lower().endswith(".png"):
-            raise ValueError(f"{args.output}: two-frame writes PNG files "
-                             f"only")
         f0 = _read_png(args.frame0, args.size)
         f1 = _read_png(args.frame1, args.size)
-        mid = build_engine(args).midpoints(f0, f1)[0].float().cpu().numpy()
+        engine = engine or build_engine(args)
+        mid = engine.midpoints(f0, f1)[0].float().cpu().numpy()
         png = native.encode_png_rgb(
             (np.clip(mid, 0, 1) * 255).astype(np.uint8))
         with open(args.output, "wb") as f:
@@ -208,7 +292,7 @@ def main(argv=None) -> int:
         from vfi_tpu_torch.infer.multi import interpolate_videos
 
         all_stats = interpolate_videos(
-            args.inputs, args.outputs, build_engine(args),
+            args.inputs, args.outputs, engine or build_engine(args),
             target_fps=args.target_fps,
             max_interpolation_factor=args.max_interpolation_factor,
             frame_interval=args.frame_interval, codec=args.codec,
@@ -224,7 +308,7 @@ def main(argv=None) -> int:
 
     stats = interpolate_video(
         args.input_video, args.output_video,
-        build_engine(args, reference_compat=args.reference_compat),
+        engine or build_engine(args, reference_compat=args.reference_compat),
         target_fps=args.target_fps,
         max_interpolation_factor=args.max_interpolation_factor,
         frame_interval=args.frame_interval, codec=args.codec,

@@ -14,11 +14,22 @@ p95 motion exceeds the threshold. It runs on `cuda` unless the caller
 passes `device="cpu"`; without a card and without that argument it
 raises.
 
-Not ported yet (each raises when asked for): mesh / spatial sharding.
+Data parallelism (`mesh`, `parallel.make_mesh`): one process splits each
+launch's batch over the mesh's 'data' rows, one model replica a device
+(the JAX engine's `shard_map` over 'data' with replicated params); a
+batch the axis does not divide is padded with its last pair and sliced
+back. Spatial sharding (`spatial=True`): the process is one rank of a
+`torch.distributed` group (`spatial_group`, None: the default group) and
+every rank calls `midpoints` with the same frames; the exact halo pipeline
+(`parallel.spatial`) runs each rank's band of rows and the midpoints are
+gathered on every rank. The JAX engine's other H-sharding, GSPMD on the
+XLA ops without `use_pallas`, has no counterpart: `spatial=True` always
+takes the halo pipeline, so it needs the bounded DCN and warp.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Optional
 
 import numpy as np
@@ -29,6 +40,10 @@ from vfi_tpu_torch.models.ema_vfi import EMAVFI
 from vfi_tpu_torch.models.flownet import SimpleFlowNet
 from vfi_tpu_torch.models.prior import prior_prewarp
 from vfi_tpu_torch.ops.resize import resize_bilinear
+from vfi_tpu_torch.parallel import comm
+from vfi_tpu_torch.parallel.mesh import make_mesh, shard_batch
+from vfi_tpu_torch.parallel.spatial import (build_spatial_forward,
+                                            required_halo)
 from vfi_tpu_torch.utils.convert import infer_model_dims, params_from_jax
 
 # TTA's (transform, inverse) pairs on NHWC [0, 1] frames: identity,
@@ -122,7 +137,26 @@ class FrameInterpolator:
     0.5, 0, 255) in uint8. Not with auto_scale, as in the JAX engine.
 
     `reference_compat=True` makes `recursive` repeat the one midpoint
-    `factor` times, as the reference CLI does."""
+    `factor` times, as the reference CLI does.
+
+    `mesh` (a `parallel.Mesh`): the devices of the data-parallel replicas,
+    one a 'data' row (its first device); the midpoints come back on the
+    first. Default: every visible card when `device` is None or "cuda"
+    without an index (as the JAX engine's default mesh), else `device`
+    alone. A mesh may name one device more than once (replicas that take
+    turns on one card); chunks of the `max_px_per_launch` guard and the
+    auto_scale probe stay divisible by the 'data' axis.
+
+    `spatial=True` (with `spatial_group`): see the module docstring; not
+    with the flow prior, `io_uint8` or TTA, as in the JAX engine. Heights
+    are edge-padded to a multiple of 8 * the group's size and cropped
+    back. `data_group` (the ranks that share this rank's place in their
+    spatial groups, one a group) adds the 'data' axis: the batch, padded
+    to a multiple of its size, splits over the spatial groups and the
+    shares are gathered. `broadcast_inputs=True` lets the default group's
+    rank 0 alone call `midpoints` (and what calls it): the frames reach
+    every other rank by `broadcast`, which serve rank 0's calls in
+    `follow()` until it calls `release()`."""
 
     def __init__(self, params, in_channels: Optional[int] = None,
                  mid_channels: Optional[int] = None,
@@ -141,10 +175,17 @@ class FrameInterpolator:
                  device=None,
                  use_kernels: bool = True,
                  io_uint8: bool = False, spatial: bool = False,
-                 mesh=None, reference_compat: bool = False):
-        for name, val in (("spatial", spatial), ("mesh", mesh is not None)):
-            if val:
-                raise NotImplementedError(f"{name} is not ported yet")
+                 mesh=None, reference_compat: bool = False,
+                 spatial_group=None, broadcast_inputs: bool = False,
+                 data_group=None):
+        if flow_params is not None and spatial:
+            raise ValueError("flow-prior inference is not supported with "
+                             "spatial sharding (global pyramid flow)")
+        if io_uint8 and spatial:
+            raise ValueError("io_uint8 is not supported with spatial "
+                             "sharding (the halo pipeline is float-typed)")
+        if tta and spatial:
+            raise ValueError("tta is not supported with spatial sharding")
         if auto_scale is not None and flow_params is None:
             raise ValueError("auto_scale needs flow_params (the flow "
                              "estimator provides the motion-magnitude probe)")
@@ -153,7 +194,32 @@ class FrameInterpolator:
         self.reference_compat = reference_compat
         self.io_uint8 = io_uint8
         self.io_dtype = np.uint8 if io_uint8 else np.float32
-        self.device = resolve_device(device)
+        self.device = resolve_device(
+            mesh.data_devices[0] if device is None and mesh is not None
+            else device)
+        if spatial:
+            if mesh is not None:
+                raise ValueError("spatial=True shards over spatial_group's "
+                                 "ranks; pass no mesh")
+            if not torch.distributed.is_initialized():
+                raise RuntimeError("spatial=True needs a torch.distributed "
+                                   "process group (init_process_group)")
+            required_halo(num_blocks or infer_model_dims(params)[
+                "num_blocks"], dcn_max_offset, warp_max_flow)
+        elif broadcast_inputs or data_group is not None:
+            raise ValueError("broadcast_inputs and data_group need "
+                             "spatial=True")
+        if mesh is None:
+            whole = self.device.type == "cuda" and self.device.index is None
+            mesh = make_mesh(devices=None if whole else [self.device])
+        elif device is not None and torch.device(device) != \
+                mesh.data_devices[0]:
+            raise ValueError(f"device {device} is not the mesh's first "
+                             f"device {mesh.data_devices[0]}")
+        self.mesh = mesh
+        self.device = mesh.data_devices[0]
+        for dev in mesh.data_devices:
+            resolve_device(dev)
         if self.device.type == "cuda" and use_kernels and not bf16:
             raise ValueError("the CUDA kernels run in bfloat16 only; float32 "
                              "kernels are not ported yet (use bf16=True, or "
@@ -190,23 +256,93 @@ class FrameInterpolator:
         self.flow_prior_scale = flow_prior_scale
         self._mean = torch.tensor(IMAGENET_MEAN, device=self.device)
         self._std = torch.tensor(IMAGENET_STD, device=self.device)
+        # One (model, flow module) replica a further device of the 'data'
+        # axis, sharing nothing with the first but the weights' values.
+        self._replicas = {self.device: (self.model, self.flow_module)}
+        for dev in mesh.data_devices:
+            if dev not in self._replicas:
+                model = copy.deepcopy(self.model).to(dev)
+                model.pack_kernel_weights()
+                flow = (None if self.flow_module is None
+                        else copy.deepcopy(self.flow_module).to(dev))
+                self._replicas[dev] = (model, flow)
+        self.spatial = spatial
+        self.spatial_group = spatial_group
+        self.data_group = data_group
+        self.broadcast_inputs = broadcast_inputs
+        # The 'data' axis: the mesh's rows, or in spatial mode the ranks
+        # of data_group (one a spatial group).
+        self._n_data = (mesh.shape["data"] if not spatial else
+                        1 if data_group is None else comm.size(data_group))
+        self._spatial_fwd_cache: dict = {}
 
     def _normalize(self, f: torch.Tensor) -> torch.Tensor:
+        if f.device != self._mean.device:
+            return (f - self._mean.to(f.device)) / self._std.to(f.device)
         return (f - self._mean) / self._std
 
-    def _single(self, f0: torch.Tensor, f1: torch.Tensor) -> torch.Tensor:
+    def _single(self, f0: torch.Tensor, f1: torch.Tensor,
+                replica=None) -> torch.Tensor:
+        model, flow = replica or (self.model, self.flow_module)
         n0, n1 = self._normalize(f0), self._normalize(f1)
-        if self.flow_module is not None:
-            n1, _ = prior_prewarp(self.flow_module, n0, n1,
-                                  scale=self.flow_prior_scale)
-        return self.model(n0, n1)
+        if flow is not None:
+            n1, _ = prior_prewarp(flow, n0, n1, scale=self.flow_prior_scale)
+        return model(n0, n1)
 
-    def _forward(self, f0: torch.Tensor, f1: torch.Tensor) -> torch.Tensor:
+    def _forward_one(self, f0, f1, replica=None) -> torch.Tensor:
         if not self.tta:
-            return self._single(f0, f1)
-        outs = [inv(self._single(*tf(f0, f1))).float()
+            return self._single(f0, f1, replica)
+        outs = [inv(self._single(*tf(f0, f1), replica)).float()
                 for tf, inv in TTA_SYMMETRIES]
         return torch.stack(outs).mean(dim=0)
+
+    def _forward(self, f0: torch.Tensor, f1: torch.Tensor) -> torch.Tensor:
+        """The forward of a batch the 'data' axis divides: each row's
+        share on its replica's device, the midpoints back on the first."""
+        if self.mesh.shape["data"] == 1:
+            return self._forward_one(f0, f1)
+        outs = [self._forward_one(a, b, self._replicas[a.device])
+                for a, b in shard_batch((f0, f1), self.mesh)]
+        return torch.cat([o.to(self.device) for o in outs])
+
+    def _spatial_fwd(self, global_h: int):
+        """The halo pipeline's forward for one padded height, built once."""
+        fn = self._spatial_fwd_cache.get(global_h)
+        if fn is None:
+            fn = build_spatial_forward(self.model, global_h,
+                                       preprocess=self._normalize,
+                                       group=self.spatial_group)
+            self._spatial_fwd_cache[global_h] = fn
+        return fn
+
+    def _spatial_launch(self, f0: torch.Tensor, f1: torch.Tensor
+                        ) -> torch.Tensor:
+        """The batch through the halo pipeline: H edge-padded to a
+        multiple of 8 * ranks (the stride-4 grid and 8-row slabs), this
+        rank's band, the midpoint gathered and cropped. Rows further than
+        the halo from the padded edge are exact; the last ones see a
+        displaced frame edge. With `data_group` this spatial group runs
+        its share of the (padded) batch and the shares are gathered."""
+        if self.data_group is not None:
+            k = f0.shape[0] // self._n_data
+            i = comm.rank(self.data_group) * k
+            out = self._spatial_band(f0[i:i + k], f1[i:i + k])
+            return comm.all_gather_rows(out, self.data_group, dim=0)
+        return self._spatial_band(f0, f1)
+
+    def _spatial_band(self, f0: torch.Tensor, f1: torch.Tensor
+                      ) -> torch.Tensor:
+        h, n = f0.shape[1], comm.size(self.spatial_group)
+        hpad = (-h) % (8 * n)
+        if hpad:
+            f0, f1 = (torch.cat([x, x[:, -1:].expand(-1, hpad, -1, -1)],
+                                dim=1) for x in (f0, f1))
+        fn = self._spatial_fwd(h + hpad)
+        s = comm.rank(self.spatial_group) * fn.h_local
+        out = comm.all_gather_rows(fn(f0[:, s:s + fn.h_local],
+                                      f1[:, s:s + fn.h_local]),
+                                   self.spatial_group)
+        return out[:, :h] if hpad else out
 
     def _to_device(self, f) -> torch.Tensor:
         """Frames in the io dtype -> float32 [0, 1] on the device; uint8
@@ -223,15 +359,53 @@ class FrameInterpolator:
             torch.uint8)
 
     def _guard_cap(self, f0) -> Optional[int]:
-        """Pairs per launch under `max_px_per_launch` (None: no guard)."""
+        """Pairs per launch under `max_px_per_launch` (None: no guard),
+        a multiple of the 'data' axis."""
         if self.max_px_per_launch is None:
             return None
-        return max(1, self.max_px_per_launch // (f0.shape[1] * f0.shape[2]))
+        d = self._n_data
+        cap = max(1, self.max_px_per_launch // (f0.shape[1] * f0.shape[2]))
+        return max(d, cap // d * d)
 
     def midpoints(self, f0, f1) -> torch.Tensor:
         """Midpoint of each pair: (B, H, W, 3) arrays or tensors in the io
         dtype in, a (B, H, W, 3) tensor in the io dtype on the device
         out."""
+        if self.broadcast_inputs:
+            if comm.rank() != 0:
+                raise RuntimeError("with broadcast_inputs only rank 0 calls "
+                                   "midpoints; the others follow()")
+            head = torch.tensor([1, *f0.shape[:3]], device=self.device)
+            torch.distributed.broadcast(head, 0)
+            f0, f1 = (self._to_device(x).contiguous() for x in (f0, f1))
+            for x in (f0, f1):
+                torch.distributed.broadcast(x, 0)
+        return self._midpoints(f0, f1)
+
+    def follow(self) -> int:
+        """On a rank other than 0 under `broadcast_inputs`: take part in
+        each of rank 0's `midpoints` calls until it calls `release()`;
+        returns the count of calls served."""
+        served = 0
+        while True:
+            head = torch.zeros(4, dtype=torch.long, device=self.device)
+            torch.distributed.broadcast(head, 0)
+            if int(head[0]) == 0:
+                return served
+            f0, f1 = (torch.empty(*head[1:].tolist(), 3,
+                                  device=self.device) for _ in range(2))
+            for x in (f0, f1):
+                torch.distributed.broadcast(x, 0)
+            self._midpoints(f0, f1)
+            served += 1
+
+    def release(self) -> None:
+        """Rank 0 under `broadcast_inputs`: end the other ranks'
+        `follow()`."""
+        head = torch.zeros(4, dtype=torch.long, device=self.device)
+        torch.distributed.broadcast(head, 0)
+
+    def _midpoints(self, f0, f1) -> torch.Tensor:
         b = f0.shape[0]
         # auto_scale decides once per call, so every guard chunk of one
         # batch takes the same route.
@@ -266,8 +440,10 @@ class FrameInterpolator:
             cap = max(2, self.max_px_per_launch // px)
             return torch.cat([self.midpoints_sequence(frames[i:i + cap])
                               for i in range(0, n1 - 1, cap - 1)])
-        if self.auto_scale is not None:
-            # the probe decides per call over the pairs, as in midpoints
+        if (self.auto_scale is not None or self.spatial
+                or self.mesh.shape["data"] > 1):
+            # the probe decides per call over the pairs, and the routed
+            # modes pad and split, as in midpoints
             return self.midpoints(frames[:-1], frames[1:])
         fr = self._to_device(frames)
         return self._from_forward(self._forward(fr[:-1], fr[1:]))
@@ -286,27 +462,42 @@ class FrameInterpolator:
         cap = self._guard_cap(f0)
         if cap is not None:
             f0, f1 = f0[:cap], f1[:cap]
-        p95 = self._flow_p95(self._to_device(f0), self._to_device(f1))
+        f0, f1 = self._pad_batch(self._to_device(f0), self._to_device(f1))
+        p95 = self._flow_p95(f0, f1)
         self.auto_scale_stats["probes"].append(p95)
         if p95 > self.auto_scale:
             self.auto_scale_stats["scaled"] += 1
             return True
         return False
 
+    def _pad_batch(self, f0: torch.Tensor, f1: torch.Tensor) -> tuple:
+        """Pad the batch to a multiple of the 'data' axis with its last
+        pair."""
+        pad = (-f0.shape[0]) % self._n_data
+        if pad:
+            f0, f1 = (torch.cat([x, x[-1:].expand(pad, *x.shape[1:])])
+                      for x in (f0, f1))
+        return f0, f1
+
     @torch.inference_mode()
     def _midpoints_launch(self, f0, f1, scaled: bool = False
                           ) -> torch.Tensor:
-        f0, f1 = self._to_device(f0), self._to_device(f1)
-        if not scaled:
-            return self._from_forward(self._forward(f0, f1))
-        # Large motion: halve the resolution (halves the apparent flow,
-        # back inside the trunk's receptive field) and resize the
-        # midpoints back to the native size.
-        h, w = f0.shape[1], f0.shape[2]
-        half = (h // 2, w // 2)
-        out = self._forward(resize_bilinear(f0, half),
-                            resize_bilinear(f1, half))
-        return resize_bilinear(out, (h, w))
+        b = f0.shape[0]
+        f0, f1 = self._pad_batch(self._to_device(f0), self._to_device(f1))
+        if self.spatial:
+            out = self._spatial_launch(f0, f1)
+        elif not scaled:
+            out = self._from_forward(self._forward(f0, f1))
+        else:
+            # Large motion: halve the resolution (halves the apparent
+            # flow, back inside the trunk's receptive field) and resize
+            # the midpoints back to the native size.
+            h, w = f0.shape[1], f0.shape[2]
+            half = (h // 2, w // 2)
+            out = self._forward(resize_bilinear(f0, half),
+                                resize_bilinear(f1, half))
+            out = resize_bilinear(out, (h, w))
+        return out[:b]
 
     def recursive(self, f0, f1, factor: int) -> list:
         """`factor` frames between each pair, as a list of `midpoints`

@@ -28,13 +28,30 @@ versions for CPU tensors); False, the plain versions on any device. The bounded 
 choice: the JAX model's `use_pallas` and `dcn_kernel` (the XLA shifts op,
 v4 and v5 compute one function) have no counterpart here.
 `pack_kernel_weights()` repacks the kernels' weights once for inference.
+
+Spatial mode (`spatial_global_h` set; `with_spatial` makes such a copy
+sharing the weights), the counterpart of the JAX model's `spatial_axis`:
+each rank of `spatial_group` (a `torch.distributed` group, None: the
+default one) passes a halo-extended slab of a `spatial_global_h`-row frame
+pair (slab row 0 is global row rank * H_local - `spatial_halo`). Every
+row-mixing layer's output is masked to zero on rows outside the image, so
+each layer sees the one-device zero padding; the trunk then runs layer by
+layer (a chain of one layer each under conv_kernel="pallas", the conv
+kernel `csrc/conv2d.cu`), since a chain would not mask between its layers.
+The context pool sums the rows the rank owns (float32, `all_reduce` over
+the group) and divides by the global pooled extent; the cascade's coarse
+pass and pre-warp run on the gathered global pair (`all_gather`), then the
+rank cuts its slab again. `parallel/spatial.py` owns the halo and height
+contract.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from vfi_tpu_torch.models.layers import (ConvBlock, ModulatedDeformConv,
@@ -42,6 +59,11 @@ from vfi_tpu_torch.models.layers import (ConvBlock, ModulatedDeformConv,
 from vfi_tpu_torch.ops.cuda import KERNELS, PLAIN, pack_conv_chain
 from vfi_tpu_torch.ops.resize import resize_bilinear
 from vfi_tpu_torch.ops.warp import warp
+from vfi_tpu_torch.parallel import comm
+
+
+def _identity(x, scale=1):
+    return x
 
 
 class EMAVFI(nn.Module):
@@ -54,11 +76,9 @@ class EMAVFI(nn.Module):
                  warp_max_flow: Optional[int] = None,
                  cascade_levels: int = 1, fuse_project: bool = False,
                  conv_kernel: str = "xla", use_kernels: bool = True,
-                 spatial_axis: Optional[str] = None):
+                 spatial_group=None, spatial_halo: int = 0,
+                 spatial_global_h: Optional[int] = None):
         super().__init__()
-        if spatial_axis is not None:
-            raise NotImplementedError(
-                "spatial (H-sharded) mode is not ported yet")
         if cascade_levels < 1:
             raise ValueError(f"cascade_levels must be >= 1, got "
                              f"{cascade_levels}")
@@ -75,6 +95,9 @@ class EMAVFI(nn.Module):
         self.feat_chain = tuple(f"feat_ext_block{i}"
                                 for i in range(num_blocks))
         self.packed = {}
+        self.spatial_group = spatial_group
+        self.spatial_halo = spatial_halo
+        self.spatial_global_h = spatial_global_h
 
         self.feat_ext_conv1 = ConvBlock(2 * c, m)
         for i in range(num_blocks):
@@ -100,46 +123,116 @@ class EMAVFI(nn.Module):
         self.rec_conv2 = ConvBlock(m, m // 2)
         self.rec_conv3 = ConvBlock(m // 2, c, act=False)
 
-    def _chain(self, x, names, acts):
-        """Stride-1 3x3 conv(+ReLU) blocks `names`: one conv-chain launch
-        under conv_kernel="pallas", else each block as its own conv (the
-        `acts` are the blocks' own)."""
-        if self.conv_kernel == "pallas":
+    def with_spatial(self, group, halo: int, global_h: int) -> "EMAVFI":
+        """A copy in spatial mode over `group` that shares this model's
+        parameters (the JAX model's `clone(spatial_axis=...)`); packed
+        again, for its layers, where this model was packed."""
+        clone = copy.copy(self)
+        clone.spatial_group, clone.spatial_halo = group, halo
+        clone.spatial_global_h = global_h
+        clone.packed = {}
+        if self.packed:
+            clone.pack_kernel_weights()
+        return clone
+
+    def _row_tools(self):
+        """Spatial mode's (mask, owner_mask): `mask(x, scale)` zeroes the
+        slab rows outside the global image at full resolution (scale 1) or
+        a context stride (2, 4); `owner_mask(x, scale)` keeps only the rows
+        this rank owns, a partition of the image over the ranks."""
+        s = comm.rank(self.spatial_group)
+        h_local = self.spatial_global_h // comm.size(self.spatial_group)
+        origin = s * h_local - self.spatial_halo   # global row of slab row 0
+
+        def _valid(x, scale, lo, hi):
+            rows = torch.arange(x.shape[1], device=x.device) + origin // scale
+            keep = ((rows >= lo) & (rows < hi)).to(x.dtype)
+            return x * keep[None, :, None, None]
+
+        def mask(x, scale=1):
+            return _valid(x, scale, 0, self.spatial_global_h // scale)
+
+        def owner_mask(x, scale):
+            return _valid(x, scale, s * (h_local // scale),
+                          (s + 1) * (h_local // scale))
+
+        return mask, owner_mask
+
+    def _chain(self, x, names, acts, mask=None, mask_last=True):
+        """Stride-1 3x3 conv(+ReLU) blocks `names`. With `mask` None: one
+        conv-chain launch under conv_kernel="pallas", else each block as
+        its own conv (the `acts` are the blocks' own). With a `mask`
+        (spatial mode): layer by layer, each output masked (the last only
+        with `mask_last`), a layer a one-layer chain under "pallas"."""
+        pallas = self.conv_kernel == "pallas"
+        if mask is None and pallas:
             return apply_conv_chain(x, [getattr(self, n) for n in names],
                                     acts, self.dtype, self.ops,
                                     self.packed.get(names))
         x = x.to(self.dtype or x.dtype)
-        for n in names:
-            x = getattr(self, n)(x)
+        for i, (n, act) in enumerate(zip(names, acts)):
+            if pallas:
+                x = apply_conv_chain(x, [getattr(self, n)], (act,),
+                                     self.dtype, self.ops,
+                                     self.packed.get((n,)))
+            else:
+                x = getattr(self, n)(x)
+            if mask is not None and (mask_last or i < len(names) - 1):
+                x = mask(x)
         return x
 
     def pack_kernel_weights(self) -> None:
         """Repack the DCNs' weights, and under conv_kernel="pallas" every
-        chain's, into the kernels' layouts once, on the weights' device.
-        Call it after the weights are loaded and moved, and again whenever
-        they change; a model never packed repacks on every call."""
+        chain's (in spatial mode, which runs the layers one by one, every
+        trunk layer's too), into the kernels' layouts once, on the
+        weights' device. Call it after the weights are loaded and moved,
+        and again whenever they change; a model never packed repacks on
+        every call."""
         if self.conv_kernel == "pallas":
             for names in (self.feat_chain, self.MOTION_CHAIN,
                           self.REC_CHAIN):
                 blocks = [getattr(self, n).conv for n in names]
                 self.packed[names] = pack_conv_chain(
                     [c.weight for c in blocks], [c.bias for c in blocks])
+                if self.spatial_global_h is None:
+                    continue
+                for n, c in zip(names, blocks):
+                    self.packed[(n,)] = pack_conv_chain([c.weight], [c.bias])
         for i in range(self.num_blocks):
             getattr(self, f"fusion_dcn{i}").pack_kernel_weights()
 
-    def _motion_stages(self, a, b2):
-        """Feature extraction, context, motion -> (features, flow)."""
-        feat = self.feat_ext_conv1(torch.cat([a, b2], dim=-1))
-        feat = self._chain(feat, self.feat_chain, (True,) * self.num_blocks)
-        ctx = self.ctx_conv3(self.ctx_conv2(self.ctx_conv1(feat)))
-        ctx = ctx.mean(dim=(1, 2))
+    def _motion_stages(self, a, b2, mask=None, owner_mask=None):
+        """Feature extraction, context, motion -> (features, flow). In
+        spatial mode `mask` masks each layer's rows (identity on the
+        cascade's global coarse pass) and `owner_mask`, where given,
+        makes the context pool a sum over the ranks' owned rows."""
+        layer_mask = mask
+        mask = mask or _identity
+        feat = mask(self.feat_ext_conv1(torch.cat([a, b2], dim=-1)))
+        feat = self._chain(feat, self.feat_chain, (True,) * self.num_blocks,
+                           layer_mask)
+        ctx = mask(self.ctx_conv1(feat), 2)
+        ctx = self.ctx_conv3(mask(self.ctx_conv2(ctx), 4))
+        if owner_mask is not None:
+            # The exact global mean: every rank sums the rows it owns, the
+            # sums add over the group, over the global pooled extent.
+            pooled = comm.all_reduce_sum(
+                owner_mask(ctx, 4).float().sum(dim=(1, 2)),
+                self.spatial_group)
+            count = (self.spatial_global_h // 4) * ctx.shape[2]
+            ctx = (pooled / count).to(ctx.dtype)
+        else:
+            ctx = ctx.mean(dim=(1, 2))
         d = self.ctx_dense
         ctx = torch.nn.functional.linear(ctx, d.weight.to(ctx.dtype),
                                          d.bias.to(ctx.dtype))
         b, h, w, _ = feat.shape
         ctx_map = ctx[:, None, None, :].expand(b, h, w, self.mid_channels)
-        flow = self._chain(torch.cat([feat, ctx_map], dim=-1),
-                           self.MOTION_CHAIN, (True, True, False))
+        # (spatial mode: the broadcast context is nonzero on rows outside
+        # the image; the mask restores the zero padding there)
+        flow = self._chain(mask(torch.cat([feat, ctx_map], dim=-1)),
+                           self.MOTION_CHAIN, (True, True, False),
+                           layer_mask)
         return feat, flow
 
     def forward(self, frame1: torch.Tensor, frame2: torch.Tensor
@@ -147,18 +240,41 @@ class EMAVFI(nn.Module):
         compute = self.dtype or frame1.dtype
         f1 = frame1.to(compute)
         f2 = frame2.to(compute)
-        h, w = f1.shape[1], f1.shape[2]
+        spatial = self.spatial_global_h is not None
+        if spatial:
+            mask, owner_mask = self._row_tools()
+            f1, f2 = mask(f1), mask(f2)
+            halo, group = self.spatial_halo, self.spatial_group
+            h_local = self.spatial_global_h // comm.size(group)
+            start = comm.rank(group) * h_local
+            h, w = self.spatial_global_h, f1.shape[2]
+        else:
+            mask, owner_mask = _identity, None
+            h, w = f1.shape[1], f1.shape[2]
         for lvl in range(self.cascade_levels - 1, 0, -1):
             s = 2 ** lvl
             ch, cw = -(-h // s), -(-w // s)
-            _, cflow = self._motion_stages(resize_bilinear(f1, (ch, cw)),
-                                           resize_bilinear(f2, (ch, cw)))
+            if spatial:
+                # The coarse pass and the unbounded pre-warp run on the
+                # global pair, gathered from the ranks' owned rows, with no
+                # mask; each rank then cuts its slab of the warped frame.
+                g1, g2 = (comm.all_gather_rows(x[:, halo:halo + h_local],
+                                               group) for x in (f1, f2))
+            else:
+                g1, g2 = f1, f2
+            _, cflow = self._motion_stages(
+                resize_bilinear(g1, (ch, cw)), resize_bilinear(g2, (ch, cw)),
+                _identity if spatial else None)
             up = resize_bilinear(cflow.float(), (h, w))
             scale = torch.tensor([w / cw, h / ch], dtype=torch.float32,
                                  device=up.device)
-            f2 = warp(f2, up * scale)
+            f2 = warp(g2, up * scale)
+            if spatial:
+                f2 = F.pad(f2, (0, 0, 0, 0, halo, halo))
+                f2 = mask(f2[:, start:start + h_local + 2 * halo])
 
-        feat, flow = self._motion_stages(f1, f2)
+        feat, flow = self._motion_stages(f1, f2, mask if spatial else None,
+                                         owner_mask)
 
         if self.warp_max_flow is None:
             warped2 = warp(f2, flow)
@@ -166,14 +282,15 @@ class EMAVFI(nn.Module):
             warped2 = self.ops.bounded_warp(f2.contiguous(), flow.contiguous(),
                                             self.warp_max_flow)
 
-        fused = torch.cat([feat, warped2], dim=-1)
+        fused = mask(torch.cat([feat, warped2], dim=-1))
         if self.fuse_project:
-            fused = self.fuse_proj(fused)
+            fused = mask(self.fuse_proj(fused))
         for i in range(self.num_blocks):
-            fused = getattr(self, f"fusion_dcn{i}")(fused.contiguous(),
-                                                    self.ops)
+            fused = mask(getattr(self, f"fusion_dcn{i}")(fused.contiguous(),
+                                                         self.ops))
 
-        out = self._chain(fused, self.REC_CHAIN, (True, True, False))
+        out = self._chain(fused, self.REC_CHAIN, (True, True, False),
+                          mask if spatial else None, mask_last=False)
         out = torch.tanh(out)
         return ((out + 1.0) * 0.5).to(
             torch.promote_types(frame1.dtype, torch.float32))

@@ -25,6 +25,22 @@ EMA shadow that val, the sample dump and the exports read.
 
 The loader's threads touch only numpy; every tensor and all autograd work
 stay on the thread that calls `run`.
+
+Data parallelism (`mesh.data` > 1): one process a rank of a
+`torch.distributed` group (`data_group`; `cli.train` starts them), one
+card a rank (or the CPU under gloo). Every rank loads the same global
+batch and keeps its rows of each microbatch (`data_rows`), so a
+microbatch is the one-process microbatch split over the ranks; after the
+last microbatch one `all_reduce` of the flat gradient (the loss terms
+ride in the same buffer) averages the ranks before the global-norm clip,
+and every rank then takes the same update, its EMA included. The
+occlusion-masked photometric term is a ratio of sums over the microbatch,
+so its denominator (a scalar without gradient) is summed over the ranks
+inside the loss. Val splits each batch the same way and averages the
+ranks' metrics. Rank 0 alone writes checkpoints, exports, the sample dump
+and logs. A `mesh.spatial` > 1 adds ranks that repeat their data row's
+rows, as the JAX trainer's batch sharding replicates the batch over
+'spatial': the numbers are the data-only mesh's.
 """
 
 from __future__ import annotations
@@ -47,6 +63,7 @@ from vfi_tpu_torch.models import EMAVFI, SimpleFlowNet, prior_prewarp
 from vfi_tpu_torch.models.vgg import LAYER_INDEX, VGG16Features
 from vfi_tpu_torch.ops.resize import resize_bilinear
 from vfi_tpu_torch.ops.warp import warp
+from vfi_tpu_torch.parallel import comm
 from vfi_tpu_torch.train.checkpoints import (CheckpointManager,
                                              load_params_into,
                                              save_params_npz)
@@ -68,11 +85,16 @@ def _unit_range(ft: torch.Tensor) -> torch.Tensor:
     return (ft * std + mean).clamp(0.0, 1.0)
 
 
-def _masked_photo(err: torch.Tensor, w: Optional[torch.Tensor]):
-    """Mean |err| over the pixels `w` keeps (a plain mean without it)."""
-    if w is None:
-        return err.mean()
-    return (err * w).sum() / (w.sum() * err.shape[-1] + 1e-6)
+def data_rows(batch_size: int, accum_steps: int, index: int,
+              n_data: int) -> np.ndarray:
+    """The rows of a global batch that data row `index` of `n_data` takes:
+    its contiguous share of each of the `accum_steps` microbatches, in
+    microbatch order (so its local batch splits into its microbatches as
+    the global one does)."""
+    n = batch_size // accum_steps
+    m = n // n_data
+    return np.concatenate([np.arange(k * n + index * m, k * n + (index + 1)
+                                     * m) for k in range(accum_steps)])
 
 
 def make_train_step(vgg_module: Optional[VGG16Features],
@@ -84,12 +106,16 @@ def make_train_step(vgg_module: Optional[VGG16Features],
                     flow_prior_scale: float = 0.5,
                     accum_steps: int = 1,
                     flow_photo_pyramid: bool = False,
-                    flow_photo_occlusion: bool = False) -> Callable:
+                    flow_photo_occlusion: bool = False,
+                    data_group=None) -> Callable:
     """The train step: `train_step(state, f0, ft, f1) -> metrics` runs the
     forward, the loss and the backward of each microbatch and one update
     of `state` in place. The JAX function's `model` and `flow_module` are
     the modules inside `state.params` here (`joint_flow`: the ModuleDict
-    {"model", "flow"}); the VGG trunk is frozen.
+    {"model", "flow"}); the VGG trunk is frozen. With `data_group` (a
+    `torch.distributed` group; `torch.distributed.group.WORLD` for the
+    default one) the batch is this rank's rows (`data_rows`) and the step
+    is the data-parallel one of the module docstring; None: one process.
 
     With `joint_flow` the temporal term is live and the estimator trains
     on a photometric term of its own, |warp(f1, flow01) - f0|, masked by
@@ -99,6 +125,20 @@ def make_train_step(vgg_module: Optional[VGG16Features],
 
     def vgg_loss_fn(a, b):
         return vgg_l1(vgg_module, vgg_layer_index, a, b)
+
+    world = 1 if data_group is None else comm.size(data_group)
+
+    def masked_photo(err: torch.Tensor, w: Optional[torch.Tensor]):
+        """Mean |err| over the pixels `w` keeps (a plain mean without it).
+        The weight sum runs over the whole microbatch: over the ranks
+        where the step is data-parallel, this rank's share of the term
+        then scaled by the ranks, whose average makes the term."""
+        if w is None:
+            return err.mean()
+        if data_group is None:
+            return (err * w).sum() / (w.sum() * err.shape[-1] + 1e-6)
+        den = comm.all_reduce_sum(w.sum().detach(), data_group)
+        return (err * w).sum() * world / (den * err.shape[-1] + 1e-6)
 
     def loss_fn(params, f0, ft, f1):
         model = params["model"] if joint_flow else params
@@ -134,7 +174,7 @@ def make_train_step(vgg_module: Optional[VGG16Features],
                         + bw_w.square().sum(-1, keepdim=True))
                 occ_w = (incons <= 0.01 * mag2 + 0.5).to(f0.dtype)
             terms["flow_occ_frac"] = 1.0 - occ_w.mean()
-        photo = _masked_photo((warp(f1, flow01) - f0).abs(), occ_w)
+        photo = masked_photo((warp(f1, flow01) - f0).abs(), occ_w)
         terms["flow_photo"] = photo
         tot = tot + weights.temporal * photo
         if flow_photo_pyramid:
@@ -144,7 +184,7 @@ def make_train_step(vgg_module: Optional[VGG16Features],
                 fl_s = resize_bilinear(flow01, size) / s
                 w_s = (None if occ_w is None
                        else resize_bilinear(occ_w, size).detach())
-                p_s = _masked_photo((warp(resize_bilinear(f1, size), fl_s)
+                p_s = masked_photo((warp(resize_bilinear(f1, size), fl_s)
                                      - resize_bilinear(f0, size)).abs(), w_s)
                 terms[f"flow_photo_s{s}"] = p_s
                 tot = tot + weights.temporal * p_s / s
@@ -165,9 +205,32 @@ def make_train_step(vgg_module: Optional[VGG16Features],
             sums = {k: v * inv for k, v in sums.items()}
             grads = [p.grad for p in state.leaves() if p.grad is not None]
             torch._foreach_mul_(grads, inv)
+        if data_group is not None:
+            sums = _average_over_ranks(state, sums, data_group)
         return {**sums, "grad_norm": state.apply_gradients()}
 
     return train_step
+
+
+def _average_over_ranks(state: TrainState, sums: dict, group) -> dict:
+    """One all_reduce of every gradient and the loss terms in one flat
+    float32 buffer, divided by the ranks; the gradients go back into
+    `.grad`, the averaged terms are returned."""
+    leaves = state.leaves()
+    for p in leaves:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    keys = list(sums)
+    flat = torch.cat([p.grad.reshape(-1).float() for p in leaves]
+                     + [torch.stack([sums[k].float().reshape(())
+                                     for k in keys])])
+    flat = comm.all_reduce_sum(flat, group) / comm.size(group)
+    o = 0
+    for p in leaves:
+        n = p.numel()
+        p.grad.copy_(flat[o:o + n].view_as(p.grad))
+        o += n
+    return dict(zip(keys, flat[o:]))
 
 
 def make_eval_step(weights: LossWeights, soft_histogram: bool = False,
@@ -204,12 +267,34 @@ def denormalize_to_uint8(img01: np.ndarray) -> np.ndarray:
     return (np.clip(img, 0.0, 1.0) * 255.0).astype(np.uint8)
 
 
+def _silent(msg: str) -> None:
+    pass
+
+
+def mesh_axes(data: int, spatial: int, ranks: int) -> tuple:
+    """(data, spatial) of a training mesh over `ranks` ranks: data -1
+    takes every rank `spatial` leaves (`parallel.make_mesh`'s rule)."""
+    if spatial <= 0:
+        raise ValueError(f"spatial axis must be >= 1, got {spatial}")
+    if data == -1:
+        if ranks % spatial != 0:
+            raise ValueError(f"{ranks} ranks not divisible by "
+                             f"spatial={spatial}")
+        data = ranks // spatial
+    if data <= 0:
+        raise ValueError(f"data axis must be >= 1 or -1, got {data}")
+    return data, spatial
+
+
 class Trainer:
     """End-to-end training: `Trainer(config).run()`.
 
     Runs on the card unless `device` names another (`resolve_device`:
-    without a card it raises RuntimeError). One card: `mesh.data` -1 or 1
-    with `mesh.spatial` 1. A KeyboardInterrupt saves a checkpoint of the
+    without a card it raises RuntimeError). The mesh (`mesh.data` x
+    `mesh.spatial`, data -1: every rank spatial leaves) must take every
+    rank of `data_group` (None: one process), and the batch must split
+    over 'data' and, with accumulation, each microbatch too, as the JAX
+    trainer requires. A KeyboardInterrupt saves a checkpoint of the
     epoch in progress with the steps it has done; `resume` continues at
     the next step (the JAX trainer skips the rest of that epoch instead).
     `epoch_stats` keeps, a completed epoch, the
@@ -218,16 +303,25 @@ class Trainer:
     loss is read back every step), and the val, export and checkpoint
     seconds."""
 
-    def __init__(self, config: TrainConfig, device=None):
+    def __init__(self, config: TrainConfig, device=None, data_group=None):
         self.cfg = cfg = config
         if cfg.best_metric not in ("val_loss", "val_psnr"):
             raise ValueError(f"unknown best_metric {cfg.best_metric!r} "
                              "(expected 'val_loss' or 'val_psnr')")
-        if cfg.mesh.data not in (-1, 1) or cfg.mesh.spatial != 1:
-            raise NotImplementedError(
-                f"mesh {cfg.mesh}: the port trains on one card; data "
-                f"parallelism and the spatial halo are not ported yet "
-                f"(ROADMAP queue 1 item 8)")
+        self.data_group = data_group
+        world = 1 if data_group is None else comm.size(data_group)
+        n_data, n_spatial = mesh_axes(cfg.mesh.data, cfg.mesh.spatial, world)
+        if n_data * n_spatial != world:
+            raise ValueError(
+                f"mesh {n_data}x{n_spatial} needs {n_data * n_spatial} "
+                f"ranks, have {world}: start them with "
+                f"`python -m vfi_tpu_torch.cli.train`")
+        if cfg.batch_size % n_data != 0:
+            raise ValueError(
+                f"batch_size {cfg.batch_size} must be divisible by the "
+                f"'data' mesh axis ({n_data}); set mesh.data explicitly "
+                f"(e.g. --mesh.data {max(1, cfg.batch_size)}) or raise "
+                f"batch_size")
         if cfg.accum_steps < 1:
             raise ValueError(f"accum_steps must be >= 1, got {cfg.accum_steps}")
         if cfg.batch_size % cfg.accum_steps:
@@ -235,6 +329,16 @@ class Trainer:
                 f"batch_size {cfg.batch_size} must be divisible by "
                 f"accum_steps {cfg.accum_steps} so that each microbatch "
                 "has the same size")
+        if cfg.accum_steps > 1 and cfg.batch_size % (cfg.accum_steps
+                                                     * n_data):
+            raise ValueError(
+                f"batch_size {cfg.batch_size} must be divisible by "
+                f"accum_steps * data-axis ({cfg.accum_steps} * {n_data}) "
+                "so each microbatch still shards evenly over the mesh")
+        self.rank = 0 if data_group is None else comm.rank(data_group)
+        self.leader = self.rank == 0
+        self.n_data = n_data
+        self.data_index = self.rank // n_spatial
         self.device = dev = resolve_device(device)
         if dev.type == "cuda" and cfg.use_pallas and not cfg.bf16:
             raise ValueError("the CUDA kernels run in bfloat16 only; set "
@@ -349,7 +453,8 @@ class Trainer:
             flow_prior=cfg.flow_prior, flow_prior_scale=cfg.flow_prior_scale,
             accum_steps=cfg.accum_steps,
             flow_photo_pyramid=cfg.flow_photo_pyramid,
-            flow_photo_occlusion=cfg.flow_photo_occlusion)
+            flow_photo_occlusion=cfg.flow_photo_occlusion,
+            data_group=data_group)
         self.eval_step = make_eval_step(
             self.weights, cfg.soft_histogram,
             target_unit_range=cfg.target_unit_range,
@@ -483,15 +588,18 @@ class Trainer:
         return params(f0, f1)
 
     def _device_batches(self, loader, wait: Optional[list] = None,
-                        skip: int = 0):
+                        skip: int = 0, accum: int = 1):
         """Iterate a host loader with one batch of lookahead: the next
         batch is copied to the device (pinned memory, non-blocking) while
         the current one computes. A short last batch is padded with its
-        last sample; yields (device batch, true size). `wait`, a
-        one-element list, accumulates the seconds spent blocked on the
-        loader; the first `skip` batches are dropped on the host (a
-        resumed epoch's steps already done)."""
+        last sample; this rank keeps its rows (`data_rows` over `accum`
+        microbatches); yields (device batch, true size of the global
+        batch). `wait`, a one-element list, accumulates the seconds spent
+        blocked on the loader; the first `skip` batches are dropped on the
+        host (a resumed epoch's steps already done)."""
         full, dev = loader.batch_size, self.device
+        rows = (None if self.n_data == 1 else
+                data_rows(full, accum, self.data_index, self.n_data))
 
         def prep(host_batch):
             n = host_batch[0].shape[0]
@@ -499,6 +607,8 @@ class Trainer:
                 host_batch = tuple(
                     np.concatenate([a, np.repeat(a[-1:], full - n, axis=0)])
                     for a in host_batch)
+            if rows is not None:
+                host_batch = tuple(a[rows] for a in host_batch)
             ts = [torch.from_numpy(np.ascontiguousarray(a))
                   for a in host_batch]
             if dev.type == "cuda":
@@ -555,6 +665,8 @@ class Trainer:
             log: Callable[[str], None] = print) -> dict:
         num_epochs = num_epochs if num_epochs is not None \
             else self.cfg.num_epochs
+        if not self.leader:
+            log = _silent
         history = {"train_loss": [], "val_loss": [], "psnr": [], "ssim": []}
         try:
             self._run_epochs(num_epochs, history, log)
@@ -563,6 +675,8 @@ class Trainer:
             # with the best-model watermark and the steps that epoch has
             # done: a resume runs the rest of it, so that an interrupted
             # run ends where an uninterrupted one does.
+            if not self.leader:
+                raise
             log("[vfi_tpu_torch] interrupted — saving checkpoint for resume")
             epoch, done, running = self._progress
             last_val = (history["val_loss"][-1] if history["val_loss"]
@@ -596,7 +710,8 @@ class Trainer:
             skip, wait, step_ms = nb, [0.0], []
             self.train_loader.epoch = epoch
             for i, (batch, _) in enumerate(
-                    self._device_batches(self.train_loader, wait, skip),
+                    self._device_batches(self.train_loader, wait, skip,
+                                         cfg.accum_steps),
                     start=skip):
                 ts = time.perf_counter()
                 metrics = self.train_step(self.state, *batch)
@@ -606,7 +721,7 @@ class Trainer:
                 step_ms.append((time.perf_counter() - ts) * 1e3)
                 nb += 1
                 self._progress[1:] = [nb, running]
-                if i == 0:
+                if i == 0 and self.leader:
                     pred = self._sample_fwd(
                         self._fwd_params(self._eval_tree()), batch[0][:1],
                         batch[2][:1])
@@ -626,6 +741,12 @@ class Trainer:
             for batch, true_n in self._device_batches(self.val_loader):
                 m = self.eval_step(self._fwd_params(self._eval_tree()),
                                    *batch)
+                if self.data_group is not None:
+                    keys = ("loss", "psnr", "ssim")
+                    avg = comm.all_reduce_sum(
+                        torch.stack([m[k].float() for k in keys]),
+                        self.data_group) / comm.size(self.data_group)
+                    m = dict(zip(keys, avg))
                 w = true_n
                 val_running += float(m["loss"]) * w
                 vp += float(m["psnr"]) * w
@@ -642,28 +763,33 @@ class Trainer:
             history["val_loss"].append(val_loss)
             history["psnr"].append(val_psnr)
             history["ssim"].append(val_ssim)
-            self._log_metrics({"epoch": epoch + 1, "train_loss": train_loss,
-                               "val_loss": val_loss, "val_psnr": val_psnr,
-                               "val_ssim": val_ssim, "lr": self.scheduler.lr,
-                               "seconds": round(dt, 2),
-                               "step": int(self.state.step)})
+            if self.leader:
+                self._log_metrics({"epoch": epoch + 1,
+                                   "train_loss": train_loss,
+                                   "val_loss": val_loss, "val_psnr": val_psnr,
+                                   "val_ssim": val_ssim,
+                                   "lr": self.scheduler.lr,
+                                   "seconds": round(dt, 2),
+                                   "step": int(self.state.step)})
 
             # ---- best-model export, gated on best_metric ----
             te = time.perf_counter()
             score = -val_psnr if cfg.best_metric == "val_psnr" else val_loss
             if score < self.best_val:
                 self.best_val = score
-                save_params_npz(self._model_params(self._eval_tree()),
-                                cfg.best_model_path + ".npz")
-                if self.joint_flow:
-                    save_params_npz(self._eval_tree()["flow"],
-                                    cfg.best_model_path + ".flow.npz")
+                if self.leader:
+                    save_params_npz(self._model_params(self._eval_tree()),
+                                    cfg.best_model_path + ".npz")
+                    if self.joint_flow:
+                        save_params_npz(self._eval_tree()["flow"],
+                                        cfg.best_model_path + ".flow.npz")
                 what = (f"val PSNR {val_psnr:.3f}"
                         if cfg.best_metric == "val_psnr"
                         else f"val loss {val_loss:.4f}")
                 log(f"  new best {what} -> {cfg.best_model_path}.npz")
 
-            if cfg.snapshot_every > 0 and (epoch + 1) % cfg.snapshot_every == 0:
+            if cfg.snapshot_every > 0 and (epoch + 1) % \
+                    cfg.snapshot_every == 0 and self.leader:
                 snap_dir = os.path.join(cfg.checkpoint_path, "snapshots")
                 os.makedirs(snap_dir, exist_ok=True)
                 save_params_npz(self._model_params(self._eval_tree()),
@@ -674,10 +800,11 @@ class Trainer:
             # ---- schedule + checkpoint ----
             tc = time.perf_counter()
             set_learning_rate(self.state, self.scheduler.step(val_loss))
-            self.ckpt.save(epoch, self.state, self.scheduler,
-                           extra={"val_loss": val_loss,
-                                  "best_val": self.best_val})
-            self._save_ema()
+            if self.leader:
+                self.ckpt.save(epoch, self.state, self.scheduler,
+                               extra={"val_loss": val_loss,
+                                      "best_val": self.best_val})
+                self._save_ema()
             self._progress = [epoch + 1, 0, 0.0]
             self.epoch_stats.append({
                 "epoch": epoch + 1, "train_seconds": train_s,

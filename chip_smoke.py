@@ -30,7 +30,14 @@ and the script exits non-zero without a result line:
            has a row for each route (`chain_route` "fused": the chain
            kernel; "layers": one conv-kernel launch a layer) beside the
            route `chain_plan` picks (`plan_route`), and cuDNN layer by
-           layer as its library time (a sequence of calls);
+           layer as its library time (a sequence of calls). Then the
+           float32 instances (rows named `..._f32`, `f32_rows`): each of
+           the eight TPU kernels at its bf16 row's shape and every shape
+           the float32 phases launch, against the float32 plain versions
+           (TF32 off) within F32_REL_TOL (conv, DCN) and F32_WARP_TOL
+           (warps; `bit_exact` says whether they were), their bounds with
+           every product at the float32 (FFMA) peak, library calls in
+           float32;
 4. main    the flagship engine (qocc checkpoint + flow prior, bf16,
            dcn_max_offset=1, warp_max_flow=16, cascade_levels=2,
            conv_kernel="pallas") answers three b=1 requests and one b=2
@@ -113,6 +120,20 @@ and the script exits non-zero without a result line:
            one 720p midpoint, 8 / 3 / 1 launches, counted on the main
            rows) and `train_turns` (one optimizer step a turn on one
            batch of 16, plain / kernel / kernel / plain);
+10b1. fp32 the flagship in float32 (`bf16=False`) on card 0: b=1 and b=2
+           720p requests through the float32 instances against the
+           float32 plain-version engine (F32_ENGINE_ABS, F32_PSNR_DB), 8 /
+           3 / 1 launches a request, all float32; frames/s in turns with
+           the bf16 engine (F32_TURNS); the float32 and bf16 midpoints'
+           PSNR; one `infer two-frame --fp32` request on card 0;
+10b2. eval_fp32 the qocc sweep at the records' route in float32, kernel
+           route against plain route (F32_EVAL_TOL_DB on the mean PSNR),
+           pairs/s, the gap to the bf16 record;
+10b3. train_fp32 the qocc recipe with `bf16: false`: one microbatch's
+           loss and gradient through the float32 instances against the
+           plain route (F32_TRAIN_LOSS_RTOL, F32_TRAIN_GRAD_COS), then one
+           optimizer step of 16 a turn against the bf16 recipe's
+           (F32_TURNS): median step ms, the float32 steps' peak memory;
 10c. dp_engine the flagship engine over a 'data' mesh of DP_RANKS replicas
            (two cards where there are two, else card 0 twice; the line
            says which): an odd batch of DP_ENGINE_BATCH 720p pairs,
@@ -159,10 +180,12 @@ and the script exits non-zero without a result line:
 
 Each kernel row's `launches` is its count over the paths (main, serve,
 video, videos, infer_cli, q12, eval, train, train_val, train_sample,
-train_export, dp_engine, spatial and dp_train (summed over the ranks),
-tools) that launch its shape; the run fails when a path launches a
-(kernel, shape) that no row checks. The spawned ranks load the library
-`build` made; none builds.
+train_export, fp32, eval_fp32, train_fp32, dp_engine, spatial and
+dp_train (summed over the ranks), tools) that launch its shape; a launch
+key ends with its instance's dtype ("bf16" or "f32"), and the run fails
+when a path launches a (kernel, shape, dtype) that no row checks. Every
+phase that means one engine on one card names card 0 (CARD0). The spawned
+ranks load the library `build` made; none builds.
 
 The lines before the last are the `kernels` JSON line and the card's
 `nvidia-smi --query-gpu=name,power.limit` line; the last line is
@@ -231,6 +254,11 @@ CKPT = os.path.join(ROOT, "artifacts", "emavfi_qocc_best")
 Q12 = os.path.join(ROOT, "artifacts", "emavfi_q12_best")
 VAL = os.path.join(ROOT, "data", "processed", "val")
 H, W = 720, 1280
+# The card a single-engine phase runs on: named, since an engine given
+# "cuda" without an index takes every visible card as its 'data' mesh (as
+# the JAX engine's default mesh does), and then its replicas' launches
+# would count on a phase that checks one engine's.
+CARD0 = "cuda:0"
 # Middlebury val frames and the eval batch.
 EH, EW, EB = 480, 640, 4
 SEED = 0
@@ -253,6 +281,26 @@ REL_TOL = 2.0 ** -7
 PSNR_FLOOR_DB = 40.0
 FLAGSHIP = dict(bf16=True, dcn_max_offset=1, warp_max_flow=16,
                 cascade_levels=2, conv_kernel="pallas")
+# The float32 instances. Kernel rows against their float32 plain versions
+# (TF32 off): the conv and DCN sum float32 products in another order than
+# cuDNN and the plain DCN's matmuls, a few float32 ulps of a ~600-term sum
+# at the top of the output's range: 2**-14 * max|plain|; the warps compute
+# the plain version's arithmetic: bit-exact expected, 2**-20 * max|plain|
+# allowed. Engines: the float32 flagship against its plain-version engine,
+# float32 end to end: max abs error 2**-12 and PSNR 80 dB (a wrong tap or
+# boundary costs far more); the float32 eval sweep's mean PSNR against the
+# plain route's within 0.001 dB; one float32 microbatch's loss within 1e-4
+# relative of the plain route's and its gradient's cosine 0.9999.
+F32_REL_TOL = 2.0 ** -14
+F32_WARP_TOL = 2.0 ** -20
+FLAGSHIP_F32 = dict(FLAGSHIP, bf16=False)
+F32_ENGINE_ABS = 2.0 ** -12
+F32_PSNR_DB = 80.0
+F32_EVAL_TOL_DB = 0.001
+F32_TRAIN_LOSS_RTOL = 1e-4
+F32_TRAIN_GRAD_COS = 0.9999
+# Turns of the float32 phases against bf16 (engine requests, train steps).
+F32_TURNS = ("bf16", "f32", "f32", "bf16")
 Q12_ENGINE = dict(bf16=True, dcn_max_offset=2, warp_max_flow=16,
                   cascade_levels=2)
 # The q12_r8 request's DCN radius: q12's weights at a radius past the tile
@@ -477,8 +525,8 @@ def nbytes(*ts) -> int:
 
 
 def check_close(name: str, got: torch.Tensor, ref: torch.Tensor,
-                exact: bool = False) -> dict:
-    """Max abs error of `got` against `ref`, within REL_TOL * max|ref| (0
+                exact: bool = False, rel_tol: float = REL_TOL) -> dict:
+    """Max abs error of `got` against `ref`, within rel_tol * max|ref| (0
     where `exact`)."""
     torch.cuda.synchronize()
     if got.shape != ref.shape or got.dtype != ref.dtype:
@@ -487,7 +535,7 @@ def check_close(name: str, got: torch.Tensor, ref: torch.Tensor,
     if not torch.isfinite(got.float()).all():
         raise AssertionError(f"{name}: non-finite kernel output")
     err = (got.float() - ref.float()).abs().max().item()
-    tol = 0.0 if exact else REL_TOL * ref.float().abs().max().item()
+    tol = 0.0 if exact else rel_tol * ref.float().abs().max().item()
     if not err <= tol:
         raise AssertionError(f"{name}: max abs err {err} > tol {tol}")
     return {"max_abs_err": err, "tol": tol}
@@ -533,7 +581,7 @@ def row_name(base: str, b: int, h: int, w: int) -> str:
 
 def kernel_row(name, source, replaces, key, kernel, plain, library,
                io_bytes, flops_bf16, flops_f32=0.0, ref=None, plain_ms=None,
-               exact=False, **extra) -> dict:
+               exact=False, rel_tol=REL_TOL, **extra) -> dict:
     """Check one kernel call against its plain version, then time the
     kernel, the plain version and (where one exists) a library call.
     `key` = (paths, wrapper name, launch shape): the paths whose runs
@@ -541,14 +589,15 @@ def kernel_row(name, source, replaces, key, kernel, plain, library,
     launches), or () for a shape no path of this run takes. `ref` and
     `plain_ms`, where given, are the plain version's result and time on
     these inputs, shared by two rows; `exact`: the kernel must equal its
-    plain version bit for bit. `extra` fields go into the row as they
-    are."""
+    plain version bit for bit, else within rel_tol * max|plain|. `extra`
+    fields go into the row as they are."""
     got = kernel()
     if ref is None:
         ref = plain()
     row = {"name": name, "route": "cuda", "source": source,
            "replaces": replaces, **extra,
-           **check_close(name, got, ref, exact)}
+           **check_close(name, got, ref, exact, rel_tol),
+           "bit_exact": bool(torch.equal(got, ref))}
     row["ms"] = median_ms(kernel)
     row["device_ms"] = device_ms(kernel)
     row["plain_ms"] = median_ms(plain) if plain_ms is None else plain_ms
@@ -563,21 +612,36 @@ def kernel_row(name, source, replaces, key, kernel, plain, library,
     return row
 
 
-def chain_rows(rnd, sd, tag, cin, names, acts, b, h, w, paths) -> list:
+def dtype_rows(dt) -> dict:
+    """What a kernel row of dtype `dt` sets: its name's suffix, its
+    tolerance, its dtype tag and the float32 units' share of its
+    operations (the bf16 instances' products run on the tensor cores, the
+    float32 instances' on the FFMA units: `bound` counts them at the
+    float32 peak)."""
+    if dt == torch.float32:
+        return {"suffix": "_f32", "rel_tol": F32_REL_TOL, "tag": "f32",
+                "f32_products": True}
+    return {"suffix": "", "rel_tol": REL_TOL, "tag": "bf16",
+            "f32_products": False}
+
+
+def chain_rows(rnd, sd, tag, cin, names, acts, b, h, w, paths,
+               dt=torch.bfloat16) -> list:
     """The chain at one shape with the checkpoint's weights, packed once as
     the engine does: one row a route ("fused", the chain kernel; "layers",
-    one conv-kernel launch a layer; a chain of one layer has only the
-    latter), both checked against one plain result. `plan_route` names
-    the route `chain_plan` picks; the paths' launches count on that
-    route's row (the other's key has no path). Library: cuDNN layer by
-    layer (`F.conv2d` in bf16, then `relu` where the layer has one), the
-    "xla" route's trunk: a sequence of calls where the chain has more than
-    one layer."""
+    one conv-kernel launch a layer; a chain of one layer, and a float32
+    chain, have only the latter), all checked against one plain result.
+    `plan_route` names the route `chain_plan` picks; the paths' launches
+    count on that route's row (the other's key has no path). Library:
+    cuDNN layer by layer (`F.conv2d` in the chain's dtype, TF32 off, then
+    `relu` where the layer has one), the "xla" route's trunk: a sequence
+    of calls where the chain has more than one layer."""
+    d = dtype_rows(dt)
     ws = [sd[f"{n}.weight"].cuda() for n in names]
     bs = [sd[f"{n}.bias"].cuda() for n in names]
     acts = tuple(bool(a) for a in acts)
-    x = rnd(b, h, w, cin)
-    wb = [t.to(torch.bfloat16) for t in ws + bs]
+    x = rnd(b, h, w, cin, dtype=dt)
+    wb = [t.to(dt) for t in ws + bs]
 
     def library():
         y = x.permute(0, 3, 1, 2)
@@ -587,118 +651,135 @@ def chain_rows(rnd, sd, tag, cin, names, acts, b, h, w, paths) -> list:
         return y
 
     chans = tuple([cin] + [wt.shape[0] for wt in ws])
-    pk = pack_conv_chain(ws, bs)
+    pk = pack_conv_chain(ws, bs, dt)
     plan = chain_plan(chans, acts, b, h, w, torch.cuda.get_device_properties(
-        x.device).shared_memory_per_block_optin)
+        x.device).shared_memory_per_block_optin, x.element_size())
     plain = lambda: conv_chain_plain(x, ws, bs, acts)  # noqa: E731
     ref, plain_ms = plain(), median_ms(plain)
     calls = " -> ".join(f"F.conv2d{'+relu' if a else ''}" for a in acts)
+    flops = sum(2.0 * b * h * w * 9 * wt.shape[1] * wt.shape[0] for wt in ws)
+    routes = ROUTES if len(ws) > 1 and dt == torch.bfloat16 else ("layers",)
     rows = []
-    for route in ROUTES if len(ws) > 1 else ("layers",):
-        suffix = "/layers" if len(ws) > 1 and route == "layers" else ""
+    for route in routes:
+        suffix = "/layers" if len(routes) > 1 and route == "layers" else ""
         rows.append(kernel_row(
-            row_name(f"conv_chain/{tag}{suffix}", b, h, w),
+            row_name(f"conv_chain/{tag}{suffix}{d['suffix']}", b, h, w),
             "vfi_tpu_torch/csrc/"
             + ("conv_chain.cu" if route == "fused" else "conv2d.cu"),
             CHAIN_TPU, (paths if route == plan["route"] else (),
-                        "conv_chain", (route, chans, h, w)),
+                        "conv_chain", (route, chans, h, w, d["tag"])),
             lambda: conv_chain(x, ws, bs, acts, packed=pk, route=route),
-            plain, library, nbytes(x) + nbytes(*ws) // 2 + nbytes(*bs),
-            sum(2.0 * b * h * w * 9 * wt.shape[1] * wt.shape[0]
-                for wt in ws),
-            ref=ref, plain_ms=plain_ms, chain_route=route,
+            plain, library,
+            nbytes(x) + nbytes(*ws) * x.element_size() // 4 + nbytes(*bs),
+            0.0 if d["f32_products"] else flops,
+            flops if d["f32_products"] else 0.0, ref=ref, plain_ms=plain_ms,
+            rel_tol=d["rel_tol"], dtype=d["tag"], chain_route=route,
             plan_route=plan["route"], library_call=calls,
             plan=plan["fused"] if route == "fused" else plan["layers"]))
     return rows
 
 
 def conv2d_row(rnd, gen, cin, cout, k, b, h, w, variant, replaces,
-               paths, act=True) -> dict:
+               paths, act=True, dt=torch.bfloat16) -> dict:
     """The single conv at one shape, random weights (no checkpoint holds
-    these convs); library: F.conv2d in bf16 with the bias, then the ReLU
-    where the row fuses it (two calls)."""
+    these convs); library: F.conv2d in the row's dtype (TF32 off) with the
+    bias, then the ReLU where the row fuses it (two calls)."""
+    d = dtype_rows(dt)
     dev = gen.device
-    x = rnd(b, h, w, cin)
+    x = rnd(b, h, w, cin, dtype=dt)
     wt = torch.randn(cout, cin, k, k, generator=gen, device=dev) / (
         k * k * cin) ** 0.5
     bt = torch.randn(cout, generator=gen, device=dev) * 0.1
-    xn, wb, bb = x.permute(0, 3, 1, 2), wt.to(torch.bfloat16), bt.to(
-        torch.bfloat16)
+    xn, wb, bb = x.permute(0, 3, 1, 2), wt.to(dt), bt.to(dt)
 
     def library():
         y = F.conv2d(xn, wb, bb, padding=k // 2)
         return torch.relu(y) if act else y
 
-    pk = pack_conv2d(wt, bt)
+    pk = pack_conv2d(wt, bt, dt)
     tag = f"conv2d{'/v2' if variant == 'v2' else ''}/{cin}x{cout}k{k}"
+    flops = 2.0 * b * h * w * k * k * cin * cout
     return kernel_row(
-        row_name(tag, b, h, w), "vfi_tpu_torch/csrc/conv2d.cu", replaces,
-        (paths, "conv2d", (cin, cout, k, h, w)),
+        row_name(tag + d["suffix"], b, h, w), "vfi_tpu_torch/csrc/conv2d.cu",
+        replaces, (paths, "conv2d", (cin, cout, k, h, w, d["tag"])),
         lambda: conv2d(x, wt, bt, act, variant, packed=pk),
         lambda: conv2d_plain(x, wt, bt, act), library,
-        nbytes(x) + nbytes(wt) // 2 + nbytes(bt),
-        2.0 * b * h * w * k * k * cin * cout,
-        library_call="F.conv2d+relu" if act else "F.conv2d",
-        plan=conv2d_plan(cin, cout, k))
+        nbytes(x) + nbytes(wt) * x.element_size() // 4 + nbytes(bt),
+        0.0 if d["f32_products"] else flops,
+        flops if d["f32_products"] else 0.0, rel_tol=d["rel_tol"],
+        dtype=d["tag"], library_call="F.conv2d+relu" if act else "F.conv2d",
+        plan=conv2d_plan(cin, cout, k, itemsize=x.element_size()))
 
 
-def dcn_row(rnd, wt, bt, b, h, w, R, replaces, paths) -> dict:
+def dcn_row(rnd, wt, bt, b, h, w, R, replaces, paths,
+            dt=torch.bfloat16) -> dict:
     """Bounded DCN at a fusion stack's shape with weights `wt`, `bt`;
     offsets reach past R so the clamp is exercised. No single PyTorch call
     computes it (torchvision is absent), so no library time. The row names
     the plan the launch runs: its design ("tile", the weight-stationary
     GEMM, or "stream", the same core with the weights streamed, where no
     tile plan fits) and tiles."""
+    d = dtype_rows(dt)
     c = wt.shape[1]
-    x = rnd(b, h, w, c)
-    off = rnd(b, h, w, 18, scale=0.8 * R)
-    mask = torch.sigmoid(rnd(b, h, w, 9, scale=2.0).float()).to(
-        torch.bfloat16)
-    pk = pack_dcn(wt, bt)
+    x = rnd(b, h, w, c, dtype=dt)
+    off = rnd(b, h, w, 18, scale=0.8 * R, dtype=dt)
+    mask = torch.sigmoid(rnd(b, h, w, 9, scale=2.0).float()).to(dt)
+    pk = pack_dcn(wt, bt, dt)
     n = b * h * w
     plan = dcn_plan(c, wt.shape[0], R, torch.cuda.get_device_properties(
-        x.device).shared_memory_per_block_optin)
+        x.device).shared_memory_per_block_optin, x.element_size())
+    gemm, blend = 2.0 * n * 9 * c * wt.shape[0], 8.0 * n * 9 * c
     return kernel_row(
-        row_name("deform_conv2d_bounded" if b == 1 and c == 64 and R == 1
-                 else f"deform_conv2d_bounded/C{c}R{R}", b, h, w),
+        row_name(("deform_conv2d_bounded" if b == 1 and c == 64 and R == 1
+                  else f"deform_conv2d_bounded/C{c}R{R}") + d["suffix"],
+                 b, h, w),
         "vfi_tpu_torch/csrc/dcn_bounded.cu", replaces,
-        (paths, "deform_conv2d_bounded", (c, wt.shape[0], h, w, R)),
+        (paths, "deform_conv2d_bounded", (c, wt.shape[0], h, w, R, d["tag"])),
         lambda: deform_conv2d_bounded(x, off, mask, wt, bt, R, packed=pk),
         lambda: deform_conv2d_bounded_plain(x, off, mask, wt, bt, R), None,
-        nbytes(x, off, mask) + nbytes(wt) // 2 + nbytes(bt),
-        2.0 * n * 9 * c * wt.shape[0], 8.0 * n * 9 * c,
-        design=plan["design"], plan=plan)
+        nbytes(x, off, mask) + nbytes(wt) * x.element_size() // 4
+        + nbytes(bt), 0.0 if d["f32_products"] else gemm,
+        blend + (gemm if d["f32_products"] else 0.0), rel_tol=d["rel_tol"],
+        dtype=d["tag"], design=plan["design"], plan=plan)
 
 
-def warp_row(rnd, b, h, w, paths, dev, c=3, R=16, replaces=WARP_TPU) -> dict:
-    img = rnd(b, h, w, c)
-    flow = rnd(b, h, w, 2, scale=10.0 * R / 16)
+def warp_row(rnd, b, h, w, paths, dev, c=3, R=16, replaces=WARP_TPU,
+             dt=torch.bfloat16) -> dict:
+    """The bounded warp at one shape: bf16 bit for bit against its plain
+    version, float32 within F32_WARP_TOL (bit-exact expected: the row's
+    `bit_exact`)."""
+    d = dtype_rows(dt)
+    img = rnd(b, h, w, c, dtype=dt)
+    flow = rnd(b, h, w, 2, scale=10.0 * R / 16, dtype=dt)
     fc = flow.float().clamp(-R, R)
     gx = (torch.arange(w, device=dev).float() + fc[..., 0]) * (2 / (w - 1)) - 1
     gy = (torch.arange(h, device=dev).float()[:, None] + fc[..., 1]) * (
         2 / (h - 1)) - 1
-    grid = torch.stack([gx, gy], dim=-1).to(torch.bfloat16)
+    grid = torch.stack([gx, gy], dim=-1).to(dt)
     imn = img.permute(0, 3, 1, 2)
     return kernel_row(
-        row_name("bounded_warp" if c == 3 else f"bounded_warp/C{c}R{R}",
-                 b, h, w),
+        row_name(("bounded_warp" if c == 3 else f"bounded_warp/C{c}R{R}")
+                 + d["suffix"], b, h, w),
         "vfi_tpu_torch/csrc/warp_bounded.cu", replaces,
-        (paths, "bounded_warp", (c, h, w, R)),
+        (paths, "bounded_warp", (c, h, w, R, d["tag"])),
         lambda: bounded_warp(img, flow, R),
         lambda: bounded_warp_plain(img, flow, R),
         lambda: F.grid_sample(imn, grid, mode="bilinear",
                               padding_mode="zeros", align_corners=True),
-        nbytes(img, flow), 0.0, (16.0 + 8.0 * c) * b * h * w, exact=True,
+        nbytes(img, flow), 0.0, (16.0 + 8.0 * c) * b * h * w,
+        exact=dt == torch.bfloat16, rel_tol=F32_WARP_TOL, dtype=d["tag"],
         design=warp_instance(img))
 
 
 def warp_instance(img: torch.Tensor) -> str:
     """The instance of csrc/warp_bounded.cu a warp of `img` runs (the C
     entry picks it by the same test; the output is a fresh, aligned
-    tensor)."""
+    tensor): "wide16" reads 16-byte groups (8 bf16 or 4 float32
+    channels), "wide2b" one element at a time."""
     if img.shape[-1] <= 4:
         return "rgb"
-    aligned = img.shape[-1] % 8 == 0 and img.data_ptr() % 16 == 0
+    aligned = (img.shape[-1] % (16 // img.element_size()) == 0
+               and img.data_ptr() % 16 == 0)
     return "wide16" if aligned else "wide2b"
 
 
@@ -706,8 +787,9 @@ def phase_kernels(sd: dict, sd12: dict, dev) -> list:
     gen = torch.Generator(device=dev).manual_seed(SEED)
     bf = torch.bfloat16
 
-    def rnd(*shape, scale=1.0):
-        return (torch.randn(*shape, generator=gen, device=dev) * scale).to(bf)
+    def rnd(*shape, scale=1.0, dtype=bf):
+        return (torch.randn(*shape, generator=gen, device=dev)
+                * scale).to(dtype)
 
     rows = []
     chains = [
@@ -782,8 +864,46 @@ def phase_kernels(sd: dict, sd12: dict, dev) -> list:
         paths = (path, "dp_train") if b == 1 else (path,)
         rows.append(dcn_row(rnd, *dcn, b, th, tw, 1, DCN_V4_TPU, paths))
         rows.append(warp_row(rnd, b, th, tw, paths, dev))
-    return rows + spatial_rows(rnd, sd, dcn, dev) + tool_rows(rnd, gen,
-                                                              dcn12, dev)
+    return (rows + spatial_rows(rnd, sd, dcn, dev)
+            + tool_rows(rnd, gen, dcn12, dev)
+            + f32_rows(rnd, gen, sd, chains, dcn, dcn12, dev))
+
+
+def f32_rows(rnd, gen, sd, chains, dcn, dcn12, dev) -> list:
+    """The float32 instances (rows named `..._f32`): each of the eight
+    TPU kernels' rows at its bf16 row's shape (PERF.md section 6), and
+    every shape the float32 phases launch: the flagship's chains, DCN and
+    warp at 720p and its cascade's 360x640 (`fp32`, whose CLI request
+    runs at 720p too), the eval sweep's DCN and warp at 4x480x640
+    (`eval_fp32`), the training microbatch's at 2x320x320 (`train_fp32`);
+    the DCN at C=67 R=2 and R=8 (both on the stream design in float32),
+    the wide warp's two instances at C=64 and C=67, the single conv's
+    im2col and v2 rows."""
+    f32 = torch.float32
+    fp, ev, tr = ("fp32",), ("eval_fp32",), ("train_fp32",)
+    eh, ew = bench_kernels.SIZES["vga"]
+    th, tw = TRAIN_RECIPE["crop_size"]
+    rows = []
+    for chain in chains:
+        rows += chain_rows(rnd, sd, *chain, 1, H, W, fp, dt=f32)
+    for chain in chains[:2]:
+        rows += chain_rows(rnd, sd, *chain, 1, H // 2, W // 2, fp, dt=f32)
+    rows.append(conv2d_row(rnd, gen, 64, 64, 3, 1, H, W, "im2col", CONV_TPU,
+                           (), dt=f32))
+    rows.append(conv2d_row(rnd, gen, 64, 64, 3, 1, H, W, "v2", CONV_V2_TPU,
+                           (), dt=f32))
+    for b, h, w, paths, tpu in ((1, H, W, fp, DCN_TPU),
+                                (EB, EH, EW, ev, DCN_V4_TPU),
+                                (2, th, tw, tr, DCN_V4_TPU)):
+        rows.append(dcn_row(rnd, *dcn, b, h, w, 1, tpu, paths, dt=f32))
+        rows.append(warp_row(rnd, b, h, w, paths, dev, dt=f32))
+    for R in (2, Q12_R8):
+        rows.append(dcn_row(rnd, *dcn12, 1, eh, ew, R, DCN_V3_TPU, (),
+                            dt=f32))
+    for c in (64, 67):
+        rows.append(warp_row(rnd, 1, eh, ew, (), dev, c,
+                             bench_kernels.WARP_R, WARP_V1_TPU, dt=f32))
+    return rows
 
 
 def spatial_rows(rnd, sd, dcn, dev) -> list:
@@ -854,7 +974,7 @@ def phase_main(params, flow_params) -> dict:
     f0, f1 = smooth_frames(gen, 2)
     requests = [(f0[:1], f1[:1]), (f1[:1], f0[:1]), (f0[1:], f1[1:]),
                 (f0, f1)]
-    eng = FrameInterpolator(params, flow_params=flow_params, device="cuda",
+    eng = FrameInterpolator(params, flow_params=flow_params, device=CARD0,
                             **FLAGSHIP)
     for a, b in requests[-2:]:             # warm-up: allocator, cuDNN plans,
         eng.midpoints(a, b)                # for both request shapes
@@ -885,7 +1005,7 @@ def phase_main(params, flow_params) -> dict:
             raise AssertionError("output outside [0, 1]")
 
     plain = FrameInterpolator(params, flow_params=flow_params,
-                              device="cuda", use_kernels=False, **FLAGSHIP)
+                              device=CARD0, use_kernels=False, **FLAGSHIP)
     psnrs = [psnr(out, plain.midpoints(a, b))
              for (a, b), out in zip(requests, outs)]
     if not min(psnrs) >= PSNR_FLOOR_DB:
@@ -929,7 +1049,7 @@ def phase_serve(params, flow_params) -> dict:
                       for x, y in pairs],
               "seq": [encode_seq_body(fr) for fr in seqs]}
 
-    eng = FrameInterpolator(params, flow_params=flow_params, device="cuda",
+    eng = FrameInterpolator(params, flow_params=flow_params, device=CARD0,
                             io_uint8=True, **FLAGSHIP)
     forwards = [0]
     forward = eng._forward
@@ -975,7 +1095,7 @@ def phase_serve(params, flow_params) -> dict:
     finally:
         server.shutdown()
 
-    plain = FrameInterpolator(params, flow_params=flow_params, device="cuda",
+    plain = FrameInterpolator(params, flow_params=flow_params, device=CARD0,
                               io_uint8=True, use_kernels=False, **FLAGSHIP)
     ref_pairs = plain.midpoints(np.stack([x for x, _ in pairs]),
                                 np.stack([y for _, y in pairs])).cpu().numpy()
@@ -1296,14 +1416,12 @@ def phase_videos(eng, plain) -> dict:
             "_by_shape": by_shape}
 
 
-def phase_infer_cli() -> dict:
-    """`cli.infer.main(["two-frame", ...])` with the flagship flags on a
-    val pair, natively and with `--size`: the PNG it writes, decoded
-    again, equals the engine's own midpoint (kept by a tap on the class)
-    truncated to uint8, bit for bit; one engine launch a request, 8 / 3 /
-    1 kernel launches."""
-    t0 = time.perf_counter()
-    scene, a, b = INFER_PAIR
+def infer_cli_request(argv: list, tag: str, failures: list) -> tuple:
+    """`cli.infer.main(argv)` (a `two-frame` request) with a tap on the
+    engine class: the PNG it writes, decoded again, must equal the
+    engine's own midpoint truncated to uint8, bit for bit, from one engine
+    launch with 8 / 3 / 1 kernel launches (failures appended). Returns
+    (the request's summary, its launches by shape)."""
     mids, fwds = [], []
     real_mid, real_fwd = FrameInterpolator.midpoints, FrameInterpolator._forward
 
@@ -1316,50 +1434,211 @@ def phase_infer_cli() -> dict:
         fwds.append(1)
         return real_fwd(self, x, y)
 
+    out = argv[argv.index("--output") + 1]
+    reset_launch_counts()
+    FrameInterpolator.midpoints, FrameInterpolator._forward = mid, fwd
+    t1 = time.perf_counter()
+    try:
+        rc = infer_cli.main(argv)
+    finally:
+        FrameInterpolator.midpoints = real_mid
+        FrameInterpolator._forward = real_fwd
+    secs = time.perf_counter() - t1
+    counts, by_shape = launch_counts(), shapes_now()
+    with open(out, "rb") as f:
+        got = native.decode_png_rgb(f.read())
+    want = (np.clip(mids[0][0].float().cpu().numpy(), 0, 1)
+            * 255).astype(np.uint8)
+    failures += launch_failures(tag, counts, len(fwds))
+    if rc != 0 or len(mids) != 1 or len(fwds) != 1 or not (
+            np.array_equal(got, want)):
+        failures.append(f"{tag}: rc {rc}, {len(fwds)} engine "
+                        f"launches, PNG {got.shape} vs the engine's "
+                        f"midpoint {want.shape}")
+    return ({"size": list(got.shape[:2]), "seconds": secs,
+             "launches": counts,
+             "png_equals_midpoint": bool(np.array_equal(got, want))},
+            by_shape)
+
+
+def infer_cli_argv(out: str, *extra) -> list:
+    """`two-frame` on INFER_PAIR with the flagship flags on card 0."""
+    scene, a, b = INFER_PAIR
+    return ["two-frame", "--frame0", os.path.join(VAL, scene, a),
+            "--frame1", os.path.join(VAL, scene, b), "--output", out,
+            "--model_path", CKPT + ".npz", *INFER_FLAGS, "--device", CARD0,
+            *extra]
+
+
+def phase_infer_cli() -> dict:
+    """`cli.infer.main(["two-frame", ...])` with the flagship flags on a
+    val pair, natively and with `--size` (`infer_cli_request`)."""
+    t0 = time.perf_counter()
     requests, failures = [], []
     by_shape = {fn.__name__: Counter() for fn in WRAPPERS}
     with tempfile.TemporaryDirectory() as tmp:
         for size in (None, INFER_SIZE):
-            out = os.path.join(tmp, f"mid{len(requests)}.png")
-            argv = ["two-frame", "--frame0", os.path.join(VAL, scene, a),
-                    "--frame1", os.path.join(VAL, scene, b), "--output", out,
-                    "--model_path", CKPT + ".npz", *INFER_FLAGS]
-            if size:
-                argv += ["--size", str(size[0]), str(size[1])]
-            mids.clear()
-            fwds.clear()
-            reset_launch_counts()
-            FrameInterpolator.midpoints, FrameInterpolator._forward = mid, fwd
-            t1 = time.perf_counter()
-            try:
-                rc = infer_cli.main(argv)
-            finally:
-                FrameInterpolator.midpoints = real_mid
-                FrameInterpolator._forward = real_fwd
-            secs = time.perf_counter() - t1
-            counts = launch_counts()
-            for fn, c in shapes_now().items():
+            extra = ["--size", str(size[0]), str(size[1])] if size else []
+            req, shapes = infer_cli_request(
+                infer_cli_argv(os.path.join(tmp, f"mid{len(requests)}.png"),
+                               *extra),
+                f"infer_cli {size or 'native'}", failures)
+            for fn, c in shapes.items():
                 by_shape[fn].update(c)
-            with open(out, "rb") as f:
-                got = native.decode_png_rgb(f.read())
-            want = (np.clip(mids[0][0].float().cpu().numpy(), 0, 1)
-                    * 255).astype(np.uint8)
-            tag = f"infer_cli {size or 'native'}"
-            failures += launch_failures(tag, counts, len(fwds))
-            if rc != 0 or len(mids) != 1 or len(fwds) != 1 or not (
-                    np.array_equal(got, want)):
-                failures.append(f"{tag}: rc {rc}, {len(fwds)} engine "
-                                f"launches, PNG {got.shape} vs the engine's "
-                                f"midpoint {want.shape}")
-            requests.append({"size": list(got.shape[:2]), "seconds": secs,
-                             "launches": counts,
-                             "png_equals_midpoint": bool(
-                                 np.array_equal(got, want))})
+            requests.append(req)
     if failures:
         raise AssertionError("; ".join(failures))
     return {"phase": "infer_cli", "seconds": time.perf_counter() - t0,
             "pair": list(INFER_PAIR), "flags": INFER_FLAGS,
             "requests": requests, "_by_shape": by_shape}
+
+
+def dtype_failures(tag: str, by_shape: dict, want: str) -> list:
+    """Launch keys of another instance than `want` ("f32" or "bf16")."""
+    other = sorted({key[-1] for c in by_shape.values() for key in c
+                    if key[-1] != want})
+    return [f"{tag}: launches of the {o} instances" for o in other]
+
+
+def add_shapes(acc: dict, shapes: dict) -> None:
+    for fn, c in shapes.items():
+        acc.setdefault(fn, Counter()).update(c)
+
+
+def phase_fp32(params, flow_params, eng16) -> dict:
+    """The flagship in float32 (FLAGSHIP_F32: `bf16=False`, the kernels'
+    float32 instances) on card 0 at 720p: one b=1 and one b=2 request
+    through the kernels against the float32 plain-version engine (max abs
+    error F32_ENGINE_ABS, PSNR F32_PSNR_DB), 8 / 3 / 1 launches per engine
+    launch, every one a float32 instance; frames/s at b=1 and b=2 in
+    turns with the bf16 flagship engine `eng16` (F32_TURNS: 3 b=1 requests
+    and one b=2 a turn); the float32 and bf16 midpoints' PSNR against each
+    other; then one `infer two-frame --fp32` request on card 0
+    (`infer_cli_request`, the val pair resized to 720p: the flagship's
+    shapes)."""
+    t0 = time.perf_counter()
+    f0, f1 = smooth_frames(np.random.default_rng(SEED), 2)
+    requests = [(f0[:1], f1[:1]), (f0, f1)]
+    eng = FrameInterpolator(params, flow_params=flow_params, device=CARD0,
+                            **FLAGSHIP_F32)
+    plain = FrameInterpolator(params, flow_params=flow_params, device=CARD0,
+                              use_kernels=False, **FLAGSHIP_F32)
+    for a, b in requests:                  # warm-up: both shapes
+        eng.midpoints(a, b)
+    torch.cuda.synchronize()
+    by_shape, failures = {}, []
+    reset_launch_counts()
+    outs = [eng.midpoints(a, b) for a, b in requests]
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    add_shapes(by_shape, shapes_now())
+    failures += launch_failures("fp32", counts, len(requests))
+    failures += dtype_failures("fp32", by_shape, "f32")
+    refs = [plain.midpoints(a, b) for a, b in requests]
+    errs = [(o - r).abs().max().item() for o, r in zip(outs, refs)]
+    psnrs = [psnr(o, r) for o, r in zip(outs, refs)]
+    if not (max(errs) <= F32_ENGINE_ABS and min(psnrs) >= F32_PSNR_DB):
+        failures.append(f"fp32 vs its plain engine: max abs {errs} (limit "
+                        f"{F32_ENGINE_ABS}), PSNR {psnrs} (floor "
+                        f"{F32_PSNR_DB})")
+    if not all(torch.isfinite(o).all() and o.dtype == torch.float32
+               for o in outs):
+        failures.append("fp32: non-finite or non-float32 midpoints")
+    bf16_out = [eng16.midpoints(a, b) for a, b in requests]
+    times = {"bf16": {"b1": [], "b2": []}, "f32": {"b1": [], "b2": []}}
+    engines = {"bf16": eng16, "f32": eng}
+    for prec in F32_TURNS:
+        if prec == "f32":
+            reset_launch_counts()
+        for (a, b), key in ([(requests[0], "b1")] * 3
+                            + [(requests[1], "b2")]):
+            t1 = time.perf_counter()
+            engines[prec].midpoints(a, b)
+            torch.cuda.synchronize()
+            times[prec][key].append(time.perf_counter() - t1)
+        if prec == "f32":
+            add_shapes(by_shape, shapes_now())
+            failures += launch_failures("fp32 turns", launch_counts(), 4)
+    fps = {p: {"b1": 1.0 / float(np.median(t["b1"])),
+               "b2": 2.0 / float(np.median(t["b2"]))}
+           for p, t in times.items()}
+    with tempfile.TemporaryDirectory() as tmp:
+        cli, shapes = infer_cli_request(
+            infer_cli_argv(os.path.join(tmp, "mid.png"), "--fp32",
+                           "--size", str(H), str(W)),
+            "fp32 infer_cli", failures)
+    add_shapes(by_shape, shapes)
+    failures += dtype_failures("fp32 infer_cli", shapes, "f32")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return {"phase": "fp32", "seconds": time.perf_counter() - t0,
+            "card": card_line(), "requests": [a.shape[0] for a, _ in requests],
+            "launches": counts, "max_abs_err_vs_plain": errs,
+            "abs_limit": F32_ENGINE_ABS, "psnr_vs_plain_db": psnrs,
+            "psnr_floor_db": F32_PSNR_DB,
+            "psnr_f32_vs_bf16_db": [psnr(o, r) for o, r in
+                                    zip(outs, bf16_out)],
+            "order": list(F32_TURNS), "request_seconds": times,
+            "frames_per_s": fps,
+            "f32_over_bf16_b1": fps["f32"]["b1"] / fps["bf16"]["b1"],
+            "infer_cli": cli, "_by_shape": by_shape}
+
+
+def phase_eval_fp32(frames: dict) -> dict:
+    """The qocc record sweep (SWEEPS[0]) at the records' route in float32
+    (EVAL_ENGINE with bf16=False) through the eval entry point, on the
+    kernels and on the plain versions: the kernel route's mean PSNR within
+    F32_EVAL_TOL_DB of the plain route's, 3 DCN and 1 warp launches a
+    forward, all float32 instances; mean PSNR / SSIM, pairs/s of each
+    route, and the gap to the record (bf16 on a TPU: no limit here)."""
+    t0 = time.perf_counter()
+    name, ckpt, kw, record_file = SWEEPS[0]
+    record = json.load(open(os.path.join(ROOT, "artifacts", record_file)))
+    p, fp = (load_params_npz(ckpt + ".npz"),
+             load_params_npz(ckpt + ".flow.npz"))
+    warm = val_batch(frames, "Army")
+    res, failures = {}, []
+    for route, kernels in (("kernel", True), ("plain", False)):
+        eng = FrameInterpolator(p, flow_params=fp, device=CARD0,
+                                use_kernels=kernels,
+                                **dict(EVAL_ENGINE, bf16=False), **kw)
+        eng.midpoints(warm[0], warm[2])    # warm-up (not counted)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t1 = time.perf_counter()
+        report, batches = sweep(eng, VAL, 1, EB, load=frames.__getitem__)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t1
+        pairs = sum(bt["n"] for bt in batches)
+        res[route] = {"mean_psnr": report["mean_psnr"],
+                      "mean_ssim": report["mean_ssim"], "seconds": secs,
+                      "pairs": pairs, "pairs_per_s": pairs / secs,
+                      "launches": launch_counts(),
+                      "scenes": {sc: r["psnr"] for sc, r in
+                                 report["scenes"].items()}}
+        if kernels:
+            by_shape = shapes_now()
+            forwards = len(batches)
+            want = {"conv_chain": 0, "deform_conv2d_bounded": 3 * forwards,
+                    "bounded_warp": forwards, "conv2d": 0}
+            if launch_counts() != want:
+                failures.append(f"eval_fp32: launches {launch_counts()}, "
+                                f"expected {want}")
+            failures += dtype_failures("eval_fp32", by_shape, "f32")
+        del eng
+    diff = res["kernel"]["mean_psnr"] - res["plain"]["mean_psnr"]
+    if not abs(diff) <= F32_EVAL_TOL_DB:
+        failures.append(f"eval_fp32: kernel route {diff:+.6f} dB from the "
+                        f"plain route (limit {F32_EVAL_TOL_DB})")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return {"phase": "eval_fp32", "sweep": name,
+            "seconds": time.perf_counter() - t0, **res,
+            "kernel_vs_plain_db": diff, "tol_db": F32_EVAL_TOL_DB,
+            "record_psnr": record["mean_psnr"],
+            "record_ssim": record["mean_ssim"],
+            "kernel_vs_record_db": res["kernel"]["mean_psnr"]
+            - record["mean_psnr"], "_by_shape": by_shape}
 
 
 def shapes_now() -> dict:
@@ -1396,7 +1675,7 @@ def phase_q12(frames: dict, R: int = 2) -> dict:
     flow = load_params_npz(Q12 + ".flow.npz")
     f0, gt, f1 = val_batch(frames, "Urban")
     kw = dict(Q12_ENGINE, dcn_max_offset=R)
-    eng = FrameInterpolator(params, flow_params=flow, device="cuda",
+    eng = FrameInterpolator(params, flow_params=flow, device=CARD0,
                             conv_kernel="pallas", **kw)
     eng.midpoints(f0, f1)                  # warm-up
     torch.cuda.synchronize()
@@ -1409,7 +1688,7 @@ def phase_q12(frames: dict, R: int = 2) -> dict:
     if counts != PER_LAUNCH:
         raise AssertionError(f"q12 R={R} launches {counts}, expected "
                              f"{PER_LAUNCH}")
-    dcn_key = (67, 67, EH, EW, R)
+    dcn_key = (67, 67, EH, EW, R, "bf16")
     design = dcn_plan(67, 67, R, torch.cuda.get_device_properties(
         0).shared_memory_per_block_optin)["design"]
     if by_shape["deform_conv2d_bounded"][dcn_key] != 3 or (
@@ -1419,7 +1698,7 @@ def phase_q12(frames: dict, R: int = 2) -> dict:
                              f"the {design} design, expected 3 at {dcn_key}")
     if tuple(out.shape) != f0.shape or not torch.isfinite(out).all():
         raise AssertionError(f"q12 R={R}: bad output")
-    plain = FrameInterpolator(params, flow_params=flow, device="cuda",
+    plain = FrameInterpolator(params, flow_params=flow, device=CARD0,
                               conv_kernel="pallas", use_kernels=False,
                               **kw).midpoints(f0, f1)
     vs_plain = psnr(out, plain)
@@ -1445,7 +1724,7 @@ def phase_eval(frames: dict) -> dict:
         eng = FrameInterpolator(load_params_npz(ckpt + ".npz"),
                                 flow_params=load_params_npz(
                                     ckpt + ".flow.npz"),
-                                device="cuda", **EVAL_ENGINE, **kw)
+                                device=CARD0, **EVAL_ENGINE, **kw)
         eng.midpoints(warm[0], warm[2])    # warm-up (not counted)
         torch.cuda.synchronize()
         reset_launch_counts()
@@ -1539,12 +1818,15 @@ def flat_grads(params) -> torch.Tensor:
     return torch.cat([p.grad.float().flatten() for p in params.parameters()])
 
 
-def train_fidelity(trainer) -> dict:
+def train_fidelity(trainer, rtol: float = TRAIN_LOSS_RTOL,
+                   cos_min: float = TRAIN_GRAD_COS, phase: str =
+                   "train_fidelity") -> dict:
     """One microbatch (2 samples from the train set) through the trainer's
     step on the kernel route and on the plain route, from the trainer's
-    initial params: the loss within TRAIN_LOSS_RTOL, the flattened
-    gradient's cosine similarity at least TRAIN_GRAD_COS, every gradient
-    float32 and finite."""
+    initial params: the loss within `rtol`, the flattened gradient's
+    cosine similarity at least `cos_min`, every gradient float32 and
+    finite, the DCN and warp launched in the instances of the trainer's
+    activation dtype. `_by_shape`: the kernel route's launches."""
     cfg = trainer.cfg
     n = cfg.batch_size // cfg.accum_steps
     items = [trainer.train_data.get(i, np.random.default_rng(i))
@@ -1568,6 +1850,8 @@ def train_fidelity(trainer) -> dict:
         met = step(st, *batch)
         torch.cuda.synchronize()
         launches = launch_counts()
+        if route == "kernel":
+            by_shape = shapes_now()
         grads = flat_grads(params)
         if not all(p.grad.dtype == torch.float32
                    for p in params.parameters()) \
@@ -1579,21 +1863,22 @@ def train_fidelity(trainer) -> dict:
     (lk, gk, nk, mk), (lp, gp, _, mp) = out["kernel"], out["plain"]
     cos = float(torch.nn.functional.cosine_similarity(gk, gp, dim=0))
     rel = abs(lk - lp) / abs(lp)
-    if not (rel <= TRAIN_LOSS_RTOL and cos >= TRAIN_GRAD_COS):
-        raise AssertionError(f"train fidelity: loss {lk} vs plain {lp} "
-                             f"({rel:.2e} relative, limit {TRAIN_LOSS_RTOL}),"
-                             f" gradient cosine {cos} (limit "
-                             f"{TRAIN_GRAD_COS})")
+    if not (rel <= rtol and cos >= cos_min):
+        raise AssertionError(f"{phase}: loss {lk} vs plain {lp} "
+                             f"({rel:.2e} relative, limit {rtol}),"
+                             f" gradient cosine {cos} (limit {cos_min})")
+    tag = "bf16" if cfg.bf16 else "f32"
     if nk["deform_conv2d_bounded"] != 2 * trainer.model.num_blocks \
-            or nk["bounded_warp"] != 2:
-        raise AssertionError(f"train fidelity: kernel route launches {nk}")
-    return {"phase": "train_fidelity", "microbatch": list(batch[0].shape),
+            or nk["bounded_warp"] != 2 or dtype_failures(phase, by_shape,
+                                                        tag):
+        raise AssertionError(f"{phase}: kernel route launches {nk}, "
+                             f"{ {k: dict(c) for k, c in by_shape.items()} }")
+    return {"phase": phase, "microbatch": list(batch[0].shape),
             "loss_kernel": lk, "loss_plain": lp, "loss_rel_diff": rel,
-            "loss_rtol": TRAIN_LOSS_RTOL, "grad_cosine": cos,
-            "grad_cos_min": TRAIN_GRAD_COS,
+            "loss_rtol": rtol, "grad_cosine": cos, "grad_cos_min": cos_min,
             "grad_norm_kernel": float(gk.norm()),
             "grad_norm_plain": float(gp.norm()), "terms_kernel": mk,
-            "terms_plain": mp, "kernel_launches": nk}
+            "terms_plain": mp, "kernel_launches": nk, "_by_shape": by_shape}
 
 
 def train_turns(trainer, batch) -> dict:
@@ -1658,6 +1943,7 @@ def phase_train() -> dict:
         init = {k: v.clone() for k, v in
                 trainer.state.params.state_dict().items()}
         results.append(train_fidelity(trainer))
+        results[-1].pop("_by_shape")
 
         by_path = {p: {fn.__name__: Counter() for fn in WRAPPERS}
                    for p in TRAIN_PATHS.values()}
@@ -1738,7 +2024,7 @@ def phase_train() -> dict:
         eng = FrameInterpolator(load_params_npz(cfg.best_model_path + ".npz"),
                                 flow_params=load_params_npz(
                                     cfg.best_model_path + ".flow.npz"),
-                                device="cuda", **FLAGSHIP)
+                                device=CARD0, **FLAGSHIP)
         f0, f1 = smooth_frames(np.random.default_rng(SEED + 3), 1)
         eng.midpoints(f0, f1)              # warm-up (not counted)
         torch.cuda.synchronize()
@@ -1767,6 +2053,93 @@ def phase_train() -> dict:
             raise AssertionError("train: " + "; ".join(failures))
     results[0]["phase_seconds"] = time.perf_counter() - t0
     results[0]["_by_shape"] = by_path
+    return results
+
+
+def recipe_step(trainer):
+    """A fresh optimizer step of the trainer's recipe (as `train_turns`
+    builds it) on a copy of its params: (state, step)."""
+    cfg = trainer.cfg
+    params = copy.deepcopy(trainer.state.params)
+    return (create_train_state(params, cfg.learning_rate),
+            make_train_step(trainer.vgg_module, trainer.vgg_layer_index,
+                            trainer.weights, remat=cfg.remat, joint_flow=True,
+                            target_unit_range=cfg.target_unit_range,
+                            flow_prior=True, accum_steps=cfg.accum_steps,
+                            flow_photo_pyramid=cfg.flow_photo_pyramid,
+                            flow_photo_occlusion=cfg.flow_photo_occlusion))
+
+
+def phase_train_fp32() -> list:
+    """The qocc recipe (TRAIN_RECIPE) with `bf16: false` on card 0, as the
+    train phase builds it: `train_fidelity` on one microbatch with the
+    float32 limits (F32_TRAIN_LOSS_RTOL, F32_TRAIN_GRAD_COS; the DCN and
+    warp in their float32 instances), then one optimizer step of 16 a
+    turn against the bf16 recipe's step on one batch (F32_TURNS): median
+    step ms of each and the float32 steps' peak memory. The launches of
+    the fidelity's kernel route and of the float32 steps count on the
+    path `train_fp32`."""
+    t0 = time.perf_counter()
+    results, by_shape, failures = [], {}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        trainers = {}
+        for prec in ("f32", "bf16"):
+            cfg = TrainConfig(
+                **dict(TRAIN_RECIPE, bf16=prec == "bf16"),
+                train_data_dir=TRAIN_DATA, val_data_dir=VAL,
+                init_model_path=CKPT + ".npz",
+                init_flow_path=CKPT + ".flow.npz",
+                checkpoint_path=os.path.join(tmp, prec, "ckpt"),
+                best_model_path=os.path.join(tmp, prec, "best"),
+                output_image_path=os.path.join(tmp, prec, "imgs"))
+            trainers[prec] = Trainer(cfg, device=CARD0)
+        fid = train_fidelity(trainers["f32"], F32_TRAIN_LOSS_RTOL,
+                             F32_TRAIN_GRAD_COS, "train_fp32_fidelity")
+        add_shapes(by_shape, fid.pop("_by_shape"))
+        results.append(fid)
+
+        cfg = trainers["f32"].cfg
+        rng = np.random.default_rng(SEED + 4)
+        items = [trainers["f32"].train_data.get(i, rng)
+                 for i in range(cfg.batch_size)]
+        batch = [torch.from_numpy(np.stack([it[k] for it in items])).cuda()
+                 for k in range(3)]
+        steps = {prec: recipe_step(t) for prec, t in trainers.items()}
+        for st, step in steps.values():    # warm-up (allocator, cuDNN)
+            step(st, *batch)
+        times, peak = {"bf16": [], "f32": []}, 0.0
+        for prec in F32_TURNS:
+            st, step = steps[prec]
+            torch.cuda.synchronize()
+            if prec == "f32":
+                torch.cuda.reset_peak_memory_stats()
+                reset_launch_counts()
+            t1 = time.perf_counter()
+            loss = float(step(st, *batch)["loss"])
+            torch.cuda.synchronize()
+            times[prec].append((time.perf_counter() - t1) * 1e3)
+            if prec == "f32":
+                peak = max(peak, torch.cuda.max_memory_allocated() / 1e9)
+                shapes = shapes_now()
+                add_shapes(by_shape, shapes)
+                failures += dtype_failures("train_fp32 step", shapes, "f32")
+                want = 2 * cfg.accum_steps * trainers["f32"].model.num_blocks
+                if launch_counts()["deform_conv2d_bounded"] != want:
+                    failures.append(f"train_fp32 step: launches "
+                                    f"{launch_counts()}")
+            if not math.isfinite(loss):
+                failures.append(f"train_fp32 {prec}: loss {loss}")
+        med = {k: float(np.median(v)) for k, v in times.items()}
+        results.insert(0, {
+            "phase": "train_fp32", "card": card_line(),
+            "batch": list(batch[0].shape), "order": list(F32_TURNS),
+            "step_ms": times, "median_step_ms": med,
+            "f32_over_bf16": med["f32"] / med["bf16"],
+            "peak_memory_gb_f32_step": peak})
+    if failures:
+        raise AssertionError("train_fp32: " + "; ".join(failures))
+    results[0]["seconds"] = time.perf_counter() - t0
+    results[0]["_by_shape"] = by_shape
     return results
 
 
@@ -1845,7 +2218,7 @@ def phase_dp_engine(params, flow_params) -> dict:
     f0, f1 = smooth_frames(np.random.default_rng(SEED + 5), DP_ENGINE_BATCH)
     eng = FrameInterpolator(params, flow_params=flow_params, mesh=mesh,
                             **FLAGSHIP)
-    one = FrameInterpolator(params, flow_params=flow_params, device="cuda",
+    one = FrameInterpolator(params, flow_params=flow_params, device=CARD0,
                             **FLAGSHIP)
     eng.midpoints(f0, f1)                  # warm-up
     one.midpoints(f0, f1)
@@ -2122,7 +2495,7 @@ def phase_conv_compare(frames: dict, params, flow_params) -> list:
     f0, f1 = smooth_frames(np.random.default_rng(SEED), 1)
     kw = {k: v for k, v in FLAGSHIP.items() if k != "conv_kernel"}
     engs = {ck: FrameInterpolator(params, flow_params=flow_params,
-                                  device="cuda", conv_kernel=ck, **kw)
+                                  device=CARD0, conv_kernel=ck, **kw)
             for ck in chains}
     outs = {ck: e.midpoints(f0, f1) for ck, e in engs.items()}  # warm-up
     times = {ck: [] for ck in chains}
@@ -2155,7 +2528,7 @@ def phase_conv_compare(frames: dict, params, flow_params) -> list:
         p, fp = (load_params_npz(ckpt + ".npz"),
                  load_params_npz(ckpt + ".flow.npz"))
         ekw = {k: v for k, v in EVAL_ENGINE.items() if k != "conv_kernel"}
-        engs = {ck: FrameInterpolator(p, flow_params=fp, device="cuda",
+        engs = {ck: FrameInterpolator(p, flow_params=fp, device=CARD0,
                                       conv_kernel=ck, **ekw, **skw)
                 for ck in chains}
         for e in engs.values():
@@ -2344,8 +2717,9 @@ def kernel_launches(rows: list, by_path: dict) -> list:
     return kernels
 
 
-PORT_KERNELS = ("conv_chain_kernel", "conv2d_kernel", "dcn_tile_kernel",
-                "dcn_stream_kernel", "warp_bounded_kernel",
+PORT_KERNELS = ("conv_chain_kernel", "conv2d_kernel", "conv2d_f32_kernel",
+                "dcn_tile_kernel", "dcn_stream_kernel", "dcn_tile_f32_kernel",
+                "dcn_stream_f32_kernel", "warp_bounded_kernel",
                 "warp_bounded_wide_kernel", "warp_bounded_wide_2b_kernel")
 
 
@@ -2446,10 +2820,10 @@ def main() -> int:
     by_path["serve"] = serve_res.pop("_by_shape")
     emit(serve_res)
 
-    veng = FrameInterpolator(params, flow_params=flow_params, device="cuda",
+    veng = FrameInterpolator(params, flow_params=flow_params, device=CARD0,
                              **FLAGSHIP)
     vplain = FrameInterpolator(params, flow_params=flow_params,
-                               device="cuda", use_kernels=False, **FLAGSHIP)
+                               device=CARD0, use_kernels=False, **FLAGSHIP)
     for path, phase in (("video", phase_video), ("videos", phase_videos)):
         res = phase(veng, vplain)
         by_path[path] = res.pop("_by_shape")
@@ -2477,6 +2851,14 @@ def main() -> int:
     by_path.update(train_res[0].pop("_by_shape"))
     for res in train_res:
         emit(res)
+    for path, phase in (("fp32", lambda: [phase_fp32(params, flow_params,
+                                                     eng)]),
+                        ("eval_fp32", lambda: [phase_eval_fp32(frames)]),
+                        ("train_fp32", phase_train_fp32)):
+        res = phase()
+        by_path[path] = res[0].pop("_by_shape")
+        for r in res:
+            emit(r)
     for path, phase in (("dp_engine", lambda: phase_dp_engine(params,
                                                               flow_params)),
                         ("spatial", phase_spatial),

@@ -6,8 +6,11 @@ tile plan holds, the chains with a 67-wide first layer (one layer through
 the conv kernel), the single conv at k 1..9 with its tile cut at every edge,
 the warp at C=3 and wide C, gradients through every kernel wrapper
 against those through its plain version, q12 (the 67-channel
-topology) through the engine with both conv_kernel settings, and the
-flagship engine (io_uint8) behind the HTTP server. Needs an
+topology) through the engine with both conv_kernel settings, the
+flagship engine (io_uint8) behind the HTTP server, and the kernels'
+float32 instances (conv, chain "layers" route, DCN tile and stream
+designs, the three warp instances, their gradients, the float32 engine
+and train step). Needs an
 NVIDIA GPU and nvcc; skips without a GPU. Run on
 the card with `python -m pytest --noconftest tests/test_torch_cuda.py -m cuda`
 (tests/conftest.py imports jax, which a GPU host that runs only the port
@@ -19,8 +22,12 @@ order, which can move a bf16 rounding by one ulp. Gradients: the same,
 against max|plain gradient| (the DCN, chain and warp backward is autograd
 of the plain version; the conv's closed form reads its ReLU mask off the
 kernel's output). Engine against its plain-version engine: 40 dB, as
-chip_smoke.py."""
+chip_smoke.py. Float32 instances: conv and DCN within 2**-14 max|plain|
+(float32 sums in another order), the warps bit for bit (the plain
+version's arithmetic), the float32 engine within 2**-12 of its
+plain-version engine."""
 
+import copy
 import os
 
 import numpy as np
@@ -96,7 +103,8 @@ def test_conv_chain_kernel(dev, hw, chans, acts, route):
     want = route or chain_plan(chans, acts, 2, *hw,
                                torch.cuda.get_device_properties(dev)
                                .shared_memory_per_block_optin)["route"]
-    assert dict(conv_chain.launches_by_plan) == {(want, chans, *hw): 1}
+    assert dict(conv_chain.launches_by_plan) == {(want, chans, *hw,
+                                                  "bf16"): 1}
     _close(got, conv_chain_plain(x, ws, bs, acts))
 
 
@@ -532,14 +540,31 @@ def test_kernels_skip_autograd_under_inference_mode(dev):
 
 
 def test_kernels_refuse_float32(dev):
-    x = torch.zeros(1, 8, 16, 16, device=dev)
+    """Float32 runs the kernels' float32 instances now; what they refuse
+    with TypeError is any other dtype (float16) and operands of mixed
+    dtypes, and weights packed in another dtype than the input's with
+    ValueError."""
+    from vfi_tpu_torch.ops.cuda import pack_conv2d
+
+    h16 = dict(dtype=torch.float16, device=dev)
+    x = torch.zeros(1, 8, 16, 16, **h16)
+    w = torch.zeros(16, 16, 3, 3, device=dev)
     with pytest.raises(TypeError):
-        conv_chain(x, [torch.zeros(16, 16, 3, 3, device=dev)], [None], (True,))
+        conv_chain(x, [w], [None], (True,))
+    with pytest.raises(TypeError):
+        bounded_warp(torch.zeros(1, 8, 16, 3, **h16),
+                     torch.zeros(1, 8, 16, 2, **h16))
+    with pytest.raises(TypeError):
+        conv2d(x, w)
     with pytest.raises(TypeError):
         bounded_warp(torch.zeros(1, 8, 16, 3, device=dev),
-                     torch.zeros(1, 8, 16, 2, device=dev))
+                     torch.zeros(1, 8, 16, 2, dtype=torch.bfloat16,
+                                 device=dev))
     with pytest.raises(TypeError):
-        conv2d(x, torch.zeros(16, 16, 3, 3, device=dev))
+        deform_conv2d_bounded(x.float(), torch.zeros(
+            1, 8, 16, 18, dtype=torch.bfloat16, device=dev), None, w, None, 1)
+    with pytest.raises(ValueError):
+        conv2d(x.float(), w, packed=pack_conv2d(w, None))
 
 
 def test_packed_weights_match_packing_on_the_call(dev):
@@ -736,3 +761,237 @@ def test_train_step_runs_the_kernels_and_moves_their_forward(dev):
 
     assert db(after, ref) >= 40.0
     assert db(after, before) < db(after, ref) - 10.0
+
+
+# ---------------------------------------------------------------------------
+# The float32 instances.
+F32_TOL = 2.0 ** -14
+RELU3, RRN = (True, True, True), (True, True, False)
+
+
+def _close_f32(got, ref, tol=F32_TOL):
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape and got.dtype == ref.dtype == torch.float32
+    assert (got - ref).abs().max().item() <= tol * ref.abs().max().item()
+
+
+def _f32(gen, dev, *shape, scale=1.0):
+    return torch.randn(*shape, generator=gen, device=dev) * scale
+
+
+@pytest.mark.parametrize("hw", [(9, 7), (13, 37), (100, 300)])
+@pytest.mark.parametrize("cin,cout,k,act", [
+    (64, 64, 3, True), (128, 64, 3, True), (64, 27, 3, False),
+    (64, 2, 3, False), (32, 3, 3, False), (64, 32, 1, False),
+    (16, 128, 1, True), (64, 64, 5, True), (67, 5, 5, False),
+    (24, 3, 7, True), (200, 40, 9, True), (3, 16, 3, True)])
+def test_conv2d_kernel_f32(dev, hw, cin, cout, k, act):
+    """The conv's float32 instance (FFMA; 16 x 16 tiles, channel chunks
+    through two stages) at every k, Cout below 8 and off a multiple of 8,
+    Cin off a multiple of 8, and its tile cut at every edge, B = 3."""
+    gen = torch.Generator(device=dev).manual_seed(21)
+    x = _f32(gen, dev, 3, *hw, cin)
+    w = _f32(gen, dev, cout, cin, k, k, scale=(k * k * cin) ** -0.5)
+    b = _f32(gen, dev, cout, scale=0.1)
+    reset_launch_counts()
+    got = conv2d(x, w, b, act)
+    assert dict(conv2d.launches_by_shape) == {(cin, cout, k, *hw, "f32"): 1}
+    _close_f32(got, conv2d_plain(x, w, b, act))
+    _close_f32(conv2d(x, w, None, act), conv2d_plain(x, w, None, act))
+
+
+@pytest.mark.parametrize("hw", [(8, 16), (13, 37), (40, 72)])
+@pytest.mark.parametrize("chans,acts", [
+    ((64, 64, 64, 64), RELU3), ((128, 64, 64, 2), RRN), ((64, 27), (False,)),
+    ((64, 64, 32, 3), RRN), ((67, 64, 32, 3), RRN), ((67, 27), (False,))])
+def test_conv_chain_kernel_f32(dev, hw, chans, acts):
+    """A float32 chain runs the "layers" route (one float32 conv launch a
+    layer); the fused kernel has no float32 instance and says so."""
+    gen = torch.Generator(device=dev).manual_seed(22)
+    x = _f32(gen, dev, 2, *hw, chans[0])
+    ws = [_f32(gen, dev, co, ci, 3, 3, scale=(9 * ci) ** -0.5)
+          for ci, co in zip(chans[:-1], chans[1:])]
+    bs = [_f32(gen, dev, co, scale=0.1) for co in chans[1:]]
+    reset_launch_counts()
+    got = conv_chain(x, ws, bs, acts)
+    assert dict(conv_chain.launches_by_plan) == {("layers", chans, *hw,
+                                                  "f32"): 1}
+    _close_f32(got, conv_chain_plain(x, ws, bs, acts))
+    if len(ws) > 1:
+        with pytest.raises(TypeError, match="bfloat16 only"):
+            conv_chain(x, ws, bs, acts, route="fused")
+
+
+def _dcn_case_f32(dev, seed, b, hw, cin, cout, R, with_mask=True):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = _f32(gen, dev, b, *hw, cin)
+    off = _f32(gen, dev, b, *hw, 18, scale=0.8 * max(R, 1))
+    mask = (torch.sigmoid(_f32(gen, dev, b, *hw, 9, scale=2.0))
+            if with_mask else None)
+    w = _f32(gen, dev, cout, cin, 3, 3, scale=(9 * cin) ** -0.5)
+    return x, off, mask, w, _f32(gen, dev, cout, scale=0.1)
+
+
+# Every branch of the float32 plan: the tile design on 16 x 16 and 8 x 16
+# tiles (slabs of all Cin16 and in passes), the stream design in one chunk
+# and several (a ragged last chunk, 4-channel chunks at R = 28 and 35),
+# Cout below 16 and off a multiple of 8, H and W below one tile, ragged
+# edges, (100, 300) at B = 3 (more tiles than the persistent grid).
+@pytest.mark.parametrize("hw", [(5, 7), (13, 37), (100, 300)])
+@pytest.mark.parametrize("cin,cout,R,design,tile", [
+    (64, 64, 1, "tile", "8x16"), (16, 32, 2, "tile", "16x16"),
+    (3, 24, 2, "tile", "16x16"), (64, 27, 0, "tile", "16x16"),
+    (67, 5, 2, "tile", "16x16"), (67, 67, 2, "stream", "8x16"),
+    (67, 67, 8, "stream", "8x16"), (128, 128, 4, "stream", "8x16"),
+    (80, 67, 4, "stream", "8x16"), (128, 8, 28, "stream", "8x16"),
+    (128, 128, 35, "stream", "8x16")])
+def test_deform_conv2d_bounded_f32_plans(dev, hw, cin, cout, R, design,
+                                         tile):
+    plan = dcn_plan(cin, cout, R, torch.cuda.get_device_properties(
+        dev).shared_memory_per_block_optin, 4)
+    assert (plan["design"], plan["tile"]) == (design, tile)
+    x, off, mask, w, b = _dcn_case_f32(dev, 23, 3, hw, cin, cout, R)
+    reset_launch_counts()
+    got = deform_conv2d_bounded(x, off, mask, w, b, R)
+    assert dict(deform_conv2d_bounded.launches_by_shape) == {
+        (cin, cout, *hw, R, "f32"): 1}
+    _close_f32(got, deform_conv2d_bounded_plain(x, off, mask, w, b, R))
+
+
+@pytest.mark.parametrize("cin,R", [(64, 1), (128, 4)])
+def test_deform_conv2d_bounded_f32_without_a_mask_and_off_alignment(dev, cin,
+                                                                    R):
+    """No mask (weight 1), on both designs; an offset view off its 8-byte
+    alignment is copied to an aligned one first."""
+    x, off, _, w, b = _dcn_case_f32(dev, 24, 2, (19, 45), cin, cin, R)
+    ref = deform_conv2d_bounded_plain(x, off, None, w, b, R)
+    _close_f32(deform_conv2d_bounded(x, off, None, w, b, R), ref)
+    store = torch.empty(off.numel() + 1, device=dev)
+    store[1:] = off.reshape(-1)
+    view = store[1:].view(off.shape)
+    assert view.data_ptr() % 8
+    _close_f32(deform_conv2d_bounded(x, view, None, w, b, R), ref)
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("hw", [(7, 9), (13, 37), (40, 17), (176, 1000)])
+@pytest.mark.parametrize("c", [1, 3, 4, 8, 64, 67, 6])
+def test_bounded_warp_f32_is_bit_exact(dev, c, hw, aligned):
+    """The float32 instances (RGB for C <= 4; wide16, groups of 4
+    channels, where C % 4 == 0 and the image is 16-byte aligned; wide2b
+    otherwise) equal the plain version bit for bit, the flow (C <= 4) or
+    the image (wider) on its vector alignment and off it."""
+    gen = torch.Generator(device=dev).manual_seed(25)
+    img = torch.rand(3, *hw, c, generator=gen, device=dev)
+    flow = _f32(gen, dev, 3, *hw, 2, scale=12.0)
+    if not aligned:
+        t = flow if c <= 4 else img
+        store = torch.empty(t.numel() + 1, device=dev)
+        store[1:] = t.reshape(-1)
+        t = store[1:].view(t.shape)
+        flow, img = (t, img) if c <= 4 else (flow, t)
+    reset_launch_counts()
+    got = bounded_warp(img, flow, 16)
+    assert dict(bounded_warp.launches_by_shape) == {(c, *hw, 16, "f32"): 1}
+    torch.cuda.synchronize()
+    assert torch.equal(got, bounded_warp_plain(img, flow, 16))
+
+
+@pytest.mark.parametrize("name", [
+    "conv2d", "conv_chain", "deform_conv2d_bounded",
+    "deform_conv2d_bounded_no_mask", "deform_conv2d_bounded_stream",
+    "bounded_warp", "bounded_warp_wide"])
+def test_gradients_through_the_f32_kernels_match_the_plain_versions(dev,
+                                                                    name):
+    """The gradient cases above with float32 activations: the float32
+    instances launch, and every gradient (float32) matches the plain
+    version's."""
+    kernel, plain, inputs = _grad_cases(dev)[name]
+    inputs = [None if t is None else t.float() for t in inputs]
+    reset_launch_counts()
+    out, gk = _grads(kernel, inputs)
+    assert out.grad_fn is not None and out.dtype == torch.float32
+    assert sum(launch_counts().values()) == 1
+    _, gp = _grads(plain, inputs)
+    for a, b in zip(gk, gp):
+        if b is not None:
+            _close_f32(a, b)
+
+
+def test_f32_engine_runs_the_f32_kernels(dev):
+    """The flagship settings with bf16=False (qocc, flow prior, cascade 2,
+    R=1, warp bound 16, conv_kernel "pallas") on a 2x64x96 pair: 8 / 3 / 1
+    launches, every one a float32 instance, within 2**-12 of the float32
+    plain-version engine."""
+    from vfi_tpu_torch.infer import FrameInterpolator
+    from vfi_tpu_torch.ops.cuda import WRAPPERS
+    from vfi_tpu_torch.utils.convert import load_params_npz
+
+    ckpt = os.path.join(REPO, "artifacts", "emavfi_qocc_best")
+    kw = dict(flow_params=load_params_npz(ckpt + ".flow.npz"), bf16=False,
+              dcn_max_offset=1, warp_max_flow=16, cascade_levels=2,
+              conv_kernel="pallas", device="cuda:0")
+    params = load_params_npz(ckpt + ".npz")
+    rng = np.random.default_rng(26)
+    f0 = rng.uniform(0, 1, (2, 64, 96, 3)).astype(np.float32)
+    f1 = np.roll(f0, (2, -3), axis=(1, 2))
+    reset_launch_counts()
+    got = FrameInterpolator(params, **kw).midpoints(f0, f1)
+    torch.cuda.synchronize()
+    assert launch_counts() == {"conv_chain": 8, "deform_conv2d_bounded": 3,
+                               "bounded_warp": 1, "conv2d": 0}
+    assert all(key[-1] == "f32" for fn in WRAPPERS
+               for key in fn.launches_by_shape)
+    ref = FrameInterpolator(params, use_kernels=False, **kw).midpoints(f0,
+                                                                       f1)
+    assert (got - ref).abs().max().item() <= 2.0 ** -12
+
+
+def test_f32_train_step_runs_the_f32_kernels(dev):
+    """One kernel-route train step of a tiny joint tree in float32 (bf16
+    false, use_pallas) at the qocc recipe's flags: each microbatch launches
+    the float32 DCN and warp twice (remat); the loss and gradients match
+    the plain route's."""
+    from torch import nn
+
+    from vfi_tpu_torch.losses import LossWeights
+    from vfi_tpu_torch.models import EMAVFI, SimpleFlowNet
+    from vfi_tpu_torch.ops.cuda import PLAIN
+    from vfi_tpu_torch.train import create_train_state, make_train_step
+
+    torch.manual_seed(0)
+    kw = dict(mid_channels=16, num_blocks=1, dcn_max_offset=1,
+              warp_max_flow=16, cascade_levels=2, fuse_project=True)
+    tree = nn.ModuleDict({"model": EMAVFI(**kw),
+                          "flow": SimpleFlowNet(mid_channels=8, levels=2)})
+    with torch.no_grad():
+        tree["model"].fusion_dcn0.offset_conv.weight.normal_(0, 0.05)
+    tree.to(dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    f0 = torch.rand(4, 40, 48, 3, generator=gen, device=dev)
+    f1 = torch.roll(f0, (1, 2), dims=(1, 2))
+    batch = (f0, (f0 + f1) / 2, f1)
+    out = {}
+    for route in ("kernel", "plain"):
+        t = copy.deepcopy(tree)
+        if route == "plain":
+            t["model"].ops = PLAIN
+        step = make_train_step(None, 1, LossWeights(vgg=0.0), remat=True,
+                               joint_flow=True, target_unit_range=True,
+                               flow_prior=True, accum_steps=2,
+                               flow_photo_pyramid=True,
+                               flow_photo_occlusion=True)
+        reset_launch_counts()
+        met = step(create_train_state(t, 0.0), *batch)
+        torch.cuda.synchronize()
+        out[route] = (float(met["loss"]), launch_counts(),
+                      [key[-1] for fn in (deform_conv2d_bounded, bounded_warp)
+                       for key in fn.launches_by_shape],
+                      torch.cat([p.grad.flatten() for p in t.parameters()
+                                 if p.grad is not None]))
+    (lk, nk, tags, gk), (lp, _, _, gp) = out["kernel"], out["plain"]
+    assert nk["deform_conv2d_bounded"] == 4 and nk["bounded_warp"] == 4
+    assert tags and set(tags) == {"f32"}
+    assert gk.dtype == torch.float32 and torch.isfinite(gk).all()
+    assert abs(lk - lp) <= 1e-4 * abs(lp)
+    assert torch.nn.functional.cosine_similarity(gk, gp, dim=0) >= 0.9999

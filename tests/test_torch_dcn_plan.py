@@ -249,7 +249,7 @@ class _Tensor:
 
 @pytest.mark.parametrize("bad,error,match", [
     (dict(cuda=False), ValueError, "flow on cpu, expected cuda"),
-    (dict(dtype=torch.float32), TypeError, "takes bfloat16 flow"),
+    (dict(dtype=torch.float16), TypeError, "takes bfloat16 or float32 flow"),
     (dict(contiguous=False), ValueError, "takes a contiguous flow"),
     (dict(index=1), ValueError, "tensors on different devices")])
 def test_launch_checks_refuse_with_the_same_errors(bad, error, match):

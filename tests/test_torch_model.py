@@ -196,7 +196,8 @@ def test_unported_modes_raise():
 def test_pack_kernel_weights_holds_every_chain_and_dcn(qocc):
     """The engine packs once: under conv_kernel="pallas", three chains and
     each DCN's offset conv and weights, each pack equal to packing the
-    live weights on a call."""
+    live weights on a call in the model's working dtype (float32 for a
+    model without one)."""
     model = EMAVFI(dcn_max_offset=1, warp_max_flow=16, fuse_project=True,
                    conv_kernel="pallas")
     model.load_state_dict(params_from_jax(qocc[0]))
@@ -206,12 +207,13 @@ def test_pack_kernel_weights_holds_every_chain_and_dcn(qocc):
     rec = [getattr(model, n).conv for n in model.REC_CHAIN]
     for got, ref in zip(model.packed[model.REC_CHAIN],
                         pack_conv_chain([c.weight for c in rec],
-                                        [c.bias for c in rec])):
+                                        [c.bias for c in rec],
+                                        torch.float32)):
         assert torch.equal(got, ref)
     for i in range(model.num_blocks):
         dcn = getattr(model, f"fusion_dcn{i}")
         assert torch.equal(dcn.packed[1][0],
-                           pack_dcn(dcn.weight, dcn.bias)[0])
+                           pack_dcn(dcn.weight, dcn.bias, torch.float32)[0])
         assert dcn.packed[0][0].numel() == 9 * 64 * 32
 
 
@@ -226,4 +228,4 @@ def test_pack_kernel_weights_under_xla_packs_only_the_dcns(qocc):
         dcn = getattr(model, f"fusion_dcn{i}")
         assert dcn.packed[0] is None
         assert torch.equal(dcn.packed[1][0],
-                           pack_dcn(dcn.weight, dcn.bias)[0])
+                           pack_dcn(dcn.weight, dcn.bias, torch.float32)[0])

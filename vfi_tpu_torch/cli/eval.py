@@ -14,6 +14,8 @@ how the trunk convs run ("xla": plain convs, the JAX CLI's only setting;
 "pallas": the conv-chain kernel). `--use_pallas` and `--dcn_tile_w` are
 accepted for parity and have no effect: the bounded DCN and warp always
 run their CUDA kernels on the card, and the tile width is a TPU knob.
+`--fp32` runs the model (and the flow estimator) in float32: on the card
+the kernels' float32 instances.
 """
 
 from __future__ import annotations
@@ -206,7 +208,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--frame_interval", type=int, default=1)
     parser.add_argument("--batch_size", type=int, default=4)
     parser.add_argument("--fp32", action="store_true",
-                        help="float32 model (CPU only: the kernels are bf16)")
+                        help="float32 model (on the card the kernels' float32 instances)")
     parser.add_argument("--json", action="store_true",
                         help="machine-readable output")
     parser.add_argument("--dcn_max_offset", type=int, default=None,

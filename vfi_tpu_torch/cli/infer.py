@@ -12,7 +12,9 @@ plus `--device` on every subcommand.
 
 `video` and `videos` read and write files with OpenCV (cv2). Runs on the
 card (`--device cuda`, the default) or, when asked, on the CPU
-(`--device cpu`). `--fp32` needs the CPU: the kernels run in bf16.
+(`--device cpu`). `--fp32` runs the model in float32: on the card the
+kernels' float32 instances (the TF32 flags of `torch.backends`, left as
+they are, reach only the cuDNN convs outside the kernels).
 `--use_pallas`, `--dcn_kernel` and `--dcn_tile_w` are accepted for parity
 and have no effect, as in the eval and serve CLIs.
 
@@ -48,7 +50,7 @@ def build_parser() -> argparse.ArgumentParser:
     two.add_argument("--size", type=int, nargs=2, default=None,
                      metavar=("H", "W"), help="resize inputs (default: native)")
     two.add_argument("--fp32", action="store_true",
-                     help="float32 model (CPU only: the kernels are bf16)")
+                     help="float32 model (on the card the kernels' float32 instances)")
 
     multi = sub.add_parser(
         "videos", help="multi-clip up-conversion: pairs from all clips "

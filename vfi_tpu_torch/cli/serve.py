@@ -10,7 +10,8 @@ and warp kernels on the card. Frames go to the device as uint8 and
 convert there unless `--f32_transfer` is given. `--use_pallas` and
 `--dcn_tile_w` are accepted for parity and have no effect, as in the
 eval CLI. Runs on the card (`--device cuda`, the default) or, when asked,
-on the CPU (`--device cpu`).
+on the CPU (`--device cpu`). `--fp32` runs the model in float32: on the
+card the kernels' float32 instances.
 """
 
 from __future__ import annotations
@@ -44,7 +45,7 @@ def build_parser() -> argparse.ArgumentParser:
                              "and/or N@HxW sequence shapes (8@720x1280 = "
                              "9-frame x-vfi-raw-seq requests)")
     parser.add_argument("--fp32", action="store_true",
-                        help="float32 model (CPU only: the kernels are bf16)")
+                        help="float32 model (on the card the kernels' float32 instances)")
     parser.add_argument("--dcn_max_offset", type=int, default=None)
     parser.add_argument("--warp_max_flow", type=int, default=None)
     parser.add_argument("--use_pallas", action="store_true",

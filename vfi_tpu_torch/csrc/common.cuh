@@ -1,5 +1,6 @@
-// Device helpers shared by the port's kernels: asynchronous 16-byte copies
-// from device memory into shared memory (cp.async, Ampere and later), the
+// Device helpers shared by the port's kernels: asynchronous 16-byte (and,
+// for the float32 conv, 4-byte) copies from device memory into shared
+// memory (cp.async, Ampere and later), the
 // channel / byte rounding of the shared-memory layouts, and the tensor-core
 // core of the implicit GEMMs (csrc/conv2d.cu, csrc/dcn_bounded.cu):
 // ldmatrix loads, mma.sync m16n8k16 bf16 with float32 accumulators, and
@@ -34,6 +35,12 @@ __device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, boo
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
                "r"(valid ? 16 : 0));
+}
+// One 4-byte element (a float32 channel), or 4 zero bytes unless `valid`.
+__device__ __forceinline__ void cp_async4_zfill(void* dst, const void* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 4 : 0));
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);

@@ -1,5 +1,7 @@
 // One stride-1 square odd-k convolution + bias (+ ReLU), bf16 NHWC, zeros
-// padding k / 2, float32 accumulation, one rounding of the output.
+// padding k / 2, float32 accumulation, one rounding of the output; and its
+// float32 instance (conv2d_f32_kernel, below: the same function on
+// float32 tensors, FFMA on the CUDA cores).
 //
 // Replaces: vfi_tpu/ops/pallas/conv.py::_conv_kernel (conv2d_pallas, the
 // "im2col" and "direct" variants) and ::_conv_kernel_v2 (conv2d_pallas_v2,
@@ -289,6 +291,177 @@ conv2d_kernel(const ConvParams p) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// The float32 instance (`vfi_conv2d_f32`): the same function on float32
+// inputs, weights, bias and output, with IEEE float32 products and sums
+// (FFMA on the CUDA cores: a single TF32 tensor-core pass would keep only
+// 10 bits of each operand).
+//
+// What bounds it on this card: a 720p 64->64 3x3 layer does 68 GFLOP,
+// 1.01 ms at the 67 TFLOP/s float32 peak, against 0.47 GB of input and
+// output (0.14 ms): the FFMA rate. So the design keeps the FFMA units fed
+// from registers and makes few shared-memory loads per FFMA.
+//
+// Design (conv2d_f32_kernel): one block an output tile of 16 x 16 pixels
+// and all Cout16 channels; warp w owns output channels 8w .. 8w + 7 (so
+// Cout16 / 8 warps), lane l the 8 consecutive pixels of tile row l & 15
+// starting at column 8 (l >> 4): 64 float32 accumulators a lane.
+// - The input streams in chunks of `ck` channels (`conv2d_plan`), stored
+//   channel-major, [ck][16 + K - 1][FS] floats with FS = 20 or 28 (a
+//   multiple of 4 whose quarter, 5 or 7, is odd, so that the 16-byte row
+//   reads of the 8 lanes of a quarter-warp fall in distinct banks), copied
+//   element by element (cp.async, zeros outside the image), beside the
+//   chunk's weights [K * K][ck][Cout16]. Two stages: chunk c + 1's copies
+//   are in flight while chunk c multiplies; one barrier a chunk.
+// - Per (channel, tap row) a lane loads its row's 8 + K - 1 inputs as
+//   float4s into registers; per tap column the warp loads its 8 weights
+//   (two float4s, the same address for every lane: a broadcast) and each
+//   lane does 64 FFMAs. For K = 3 that is 9 shared loads per 192 FFMAs.
+// - Epilogue from registers: the bias, the ReLU, float32 stores (16-byte
+//   where Cout % 4 == 0).
+// Summation order: over chunks, channels, tap rows, tap columns; the plain
+// version's cuDNN conv sums in its own order, so the two differ by float32
+// rounding only.
+
+constexpr int F_TH = 16;          // the f32 output tile: 16 x 16 pixels
+constexpr int F_TW = 16;
+constexpr int F_PX = 8;           // pixels a lane, along its tile row
+constexpr int F_MAX_THREADS = 4 * MAX_COUT;   // Cout16 / 8 warps of 32
+
+// The input stage's row pitch in floats for a K x K conv.
+__host__ __device__ constexpr int f32_pitch(int K) { return K <= 5 ? 20 : 28; }
+
+struct ConvF32Params {
+  const float* x;       // (B, H, W, Cin)
+  const float* w;       // (K * K * Cin16, Cout16), row t * Cin16 + c, zero padded
+  const float* bias;    // (Cout16,), zero padded
+  float* out;           // (B, H, W, Cout)
+  int B, H, W, Cin, Cout, K, Cin16, Cout16, act;
+  int ck, nchunks;      // channels a chunk, chunks
+  int x_floats, w_floats;   // one stage's input tile and weights
+  int tiles_x, tiles_y;
+};
+
+template <int K>
+__global__ void __launch_bounds__(F_MAX_THREADS)
+conv2d_f32_kernel(const ConvF32Params p) {
+  constexpr int FS = f32_pitch(K);
+  constexpr int TR = F_TH + K - 1, TC = F_TW + K - 1;   // the tile with its halo
+  constexpr int NV = (F_PX + K - 1 + 3) / 4;            // float4s of a lane's input row
+  extern __shared__ __align__(128) float fsm[];
+  const int nt = blockDim.x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r = lane & 15, c0 = (lane >> 4) * F_PX, n0 = warp * 8;
+  const int per_img = p.tiles_x * p.tiles_y;
+  const int b = blockIdx.x / per_img, rem = blockIdx.x - b * per_img;
+  const int ty = rem / p.tiles_x, tx = rem - ty * p.tiles_x;
+  const int y0 = ty * F_TH - K / 2, x0 = tx * F_TW - K / 2;
+  const float* xb = p.x + (size_t)b * p.H * p.W * p.Cin;
+  const int stage_floats = p.x_floats + p.w_floats;
+
+  // Chunk c's input tile and weights into stage s.
+  auto stage = [&](int c, int s) {
+    float* xs = fsm + s * stage_floats;
+    float* ws = xs + p.x_floats;
+    const int ch0 = c * p.ck, cw = min(p.ck, p.Cin - ch0);
+    for (int it = threadIdx.x; it < cw * TR * TC; it += nt) {
+      const int pix = it / cw, ch = it - pix * cw;   // neighbouring threads: one pixel's channels
+      const int row = pix / TC, col = pix - row * TC;
+      const int gy = y0 + row, gx = x0 + col;
+      const bool ok = gy >= 0 && gy < p.H && gx >= 0 && gx < p.W;
+      cp_async4_zfill(xs + (ch * TR + row) * FS + col,
+                      ok ? xb + ((size_t)gy * p.W + gx) * p.Cin + ch0 + ch : p.x, ok);
+    }
+    const int pieces = p.Cout16 / 4;
+    for (int it = threadIdx.x; it < K * K * cw * pieces; it += nt) {
+      const int row = it / pieces, pc = it - row * pieces;
+      const int t = row / cw, kk = row - t * cw;
+      cp_async16(ws + (t * p.ck + kk) * p.Cout16 + pc * 4,
+                 p.w + ((size_t)t * p.Cin16 + ch0 + kk) * p.Cout16 + pc * 4);
+    }
+  };
+
+  float acc[F_PX][8];
+#pragma unroll
+  for (int i = 0; i < F_PX; ++i)
+#pragma unroll
+    for (int o = 0; o < 8; ++o) acc[i][o] = 0.0f;
+
+  stage(0, 0);
+  cp_async_commit();
+  for (int c = 0; c < p.nchunks; ++c) {
+    if (c + 1 < p.nchunks) stage(c + 1, (c + 1) & 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // chunk c is in
+    const float* xs = fsm + (c & 1) * stage_floats;
+    const float* ws = xs + p.x_floats;
+    const int cw = min(p.ck, p.Cin - c * p.ck);
+    for (int ch = 0; ch < cw; ++ch) {
+#pragma unroll 1
+      for (int i = 0; i < K; ++i) {
+        float xr[NV * 4];
+        const float4* src = reinterpret_cast<const float4*>(xs + (ch * TR + r + i) * FS + c0);
+#pragma unroll
+        for (int v = 0; v < NV; ++v) {
+          const float4 q = src[v];
+          xr[4 * v] = q.x; xr[4 * v + 1] = q.y; xr[4 * v + 2] = q.z; xr[4 * v + 3] = q.w;
+        }
+#pragma unroll
+        for (int j = 0; j < K; ++j) {
+          const float4* wq =
+              reinterpret_cast<const float4*>(ws + ((i * K + j) * p.ck + ch) * p.Cout16 + n0);
+          const float4 wa = wq[0], wb = wq[1];
+          const float wv[8] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
+#pragma unroll
+          for (int px = 0; px < F_PX; ++px)
+#pragma unroll
+            for (int o = 0; o < 8; ++o) acc[px][o] = fmaf(xr[px + j], wv[o], acc[px][o]);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with stage c & 1 before chunk c + 2 lands there
+  }
+
+  // Epilogue: bias, ReLU, float32 out.
+  const int gy = ty * F_TH + r;
+  if (gy >= p.H || n0 >= p.Cout) return;
+  const bool vec = (p.Cout % 4) == 0;
+  float bv[8];
+#pragma unroll
+  for (int o = 0; o < 8; ++o) bv[o] = p.bias[n0 + o];
+#pragma unroll
+  for (int px = 0; px < F_PX; ++px) {
+    const int gx = tx * F_TW + c0 + px;
+    if (gx >= p.W) break;
+    float v[8];
+#pragma unroll
+    for (int o = 0; o < 8; ++o) {
+      v[o] = acc[px][o] + bv[o];
+      if (p.act) v[o] = fmaxf(v[o], 0.0f);
+    }
+    float* orow = p.out + (((size_t)b * p.H + gy) * p.W + gx) * p.Cout + n0;
+    if (vec && n0 + 8 <= p.Cout) {
+      reinterpret_cast<float4*>(orow)[0] = make_float4(v[0], v[1], v[2], v[3]);
+      reinterpret_cast<float4*>(orow)[1] = make_float4(v[4], v[5], v[6], v[7]);
+    } else {
+#pragma unroll
+      for (int o = 0; o < 8; ++o)
+        if (n0 + o < p.Cout) orow[o] = v[o];
+    }
+  }
+}
+
+template <int K>
+int launch_f32(const ConvF32Params& p, int smem, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(conv2d_f32_kernel<K>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long tiles = (long long)p.B * p.tiles_x * p.tiles_y;
+  conv2d_f32_kernel<K><<<(unsigned)tiles, 4 * p.Cout16, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
 template <int NF>
 int launch(const ConvParams& p, int smem, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(conv2d_kernel<NF>,
@@ -351,5 +524,43 @@ extern "C" int vfi_conv2d_bf16(const void* x, const void* w, const void* bias, v
     case 6: return launch<6>(p, smem, s);
     case 7: return launch<7>(p, smem, s);
     default: return launch<8>(p, smem, s);
+  }
+}
+
+// Launch one float32 conv (Cin >= 1, odd K <= 9, 1 <= Cout <= 128; act != 0
+// fuses the ReLU) on the plan of `conv2d_plan(..., itemsize=4)`: ck
+// channels a chunk, smem bytes of dynamic shared memory (at least the two
+// stages the entry recomputes). Returns the cudaError_t of the launch
+// (cudaErrorInvalidValue for a shape or plan outside the contract); the
+// kernel runs on `stream`.
+extern "C" int vfi_conv2d_f32(const void* x, const void* w, const void* bias, void* out,
+                              int B, int H, int W, int Cin, int Cout, int K, int act, int ck,
+                              int smem, int device, void* stream) {
+  if (Cin < 1 || Cout < 1 || Cout > MAX_COUT || K < 1 || K % 2 == 0 || K > MAX_K || B < 0 ||
+      H < 0 || W < 0 || ck < 1)
+    return (int)cudaErrorInvalidValue;
+  ConvF32Params p{};
+  p.x = static_cast<const float*>(x);
+  p.w = static_cast<const float*>(w);
+  p.bias = static_cast<const float*>(bias);
+  p.out = static_cast<float*>(out);
+  p.B = B; p.H = H; p.W = W; p.Cin = Cin; p.Cout = Cout; p.K = K;
+  p.Cin16 = pad16(Cin); p.Cout16 = pad16(Cout); p.act = act ? 1 : 0;
+  p.ck = ck; p.nchunks = (Cin + ck - 1) / ck;
+  p.x_floats = ck * (F_TH + K - 1) * f32_pitch(K);
+  p.w_floats = K * K * ck * p.Cout16;
+  if (smem < 2LL * 4 * (p.x_floats + p.w_floats)) return (int)cudaErrorInvalidValue;
+  p.tiles_x = (W + F_TW - 1) / F_TW;
+  p.tiles_y = (H + F_TH - 1) / F_TH;
+  if ((long long)B * p.tiles_x * p.tiles_y == 0) return (int)cudaSuccess;
+  cudaError_t err = use_device(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (K) {
+    case 1: return launch_f32<1>(p, smem, s);
+    case 3: return launch_f32<3>(p, smem, s);
+    case 5: return launch_f32<5>(p, smem, s);
+    case 7: return launch_f32<7>(p, smem, s);
+    default: return launch_f32<9>(p, smem, s);
   }
 }

@@ -1,7 +1,8 @@
 // Bounded modulated deformable conv (DCNv2), bf16 NHWC, stride 1, 3x3,
 // padding 1, one offset group, offsets clamped to [-R, R], optional mask
 // (none means weight 1), Cin a multiple of 8 (the wrapper pads any other),
-// Cout up to 128, any R whose plan fits (below).
+// Cout up to 128, any R whose plan fits (below); and its float32 instances
+// of both designs (below the bf16 kernels: float32 throughout, FFMA).
 //
 // Replaces: vfi_tpu/ops/pallas/sampling.py::_sampling_kernel_v4
 // (deform_conv2d_pallas_v4, the route of dcn_kernel="v4", the JAX
@@ -106,13 +107,15 @@ constexpr int MAX_COUT = 128;
 constexpr int TILE_W = 16;        // output tile columns: one m16 fragment
 constexpr int ROW_PAD = 8;        // slab and weight row padding (bf16)
 
-struct DcnParams {
-  const bf16* x;        // (B, H, W, Cin)
-  const bf16* offset;   // (B, H, W, 18): (dy, dx) of tap t at 2t, 2t + 1
-  const bf16* mask;     // (B, H, W, 9), or null: weight 1
-  const bf16* w;        // (9 * Cin16, Cout16), row t * Cin16 + c, zero padded
+// T: the element type, bf16 or float (the float32 instances, below).
+template <typename T>
+struct DcnParamsT {
+  const T* x;           // (B, H, W, Cin)
+  const T* offset;      // (B, H, W, 18): (dy, dx) of tap t at 2t, 2t + 1
+  const T* mask;        // (B, H, W, 9), or null: weight 1
+  const T* w;           // (9 * Cin16, Cout16), row t * Cin16 + c, zero padded
   const float* bias;    // (Cout16,), zero padded
-  bf16* out;            // (B, H, W, Cout)
+  T* out;               // (B, H, W, Cout)
   int B, H, W, Cin, Cout, R, Cin16;
   int xu;               // input-tile pixel stride in 16-byte units
   int chans;            // tile: slab channels a pass; stream: a chunk's
@@ -122,13 +125,15 @@ struct DcnParams {
   int x_bytes;          // one input-tile buffer
   int tiles_x, tiles_y, tiles;
 };
+using DcnParams = DcnParamsT<bf16>;
 
 // Input-tile pixel stride in 16-byte units: the Cin / 8 pieces of a pixel,
 // plus one where that count is even (ops/cuda/sampling.py `_dcn_xu`).
 __host__ __device__ inline int dcn_xu(int cin) { return cin / 8 + ((cin / 8) % 2 == 0); }
 
 // Tile `tile`'s image b and tile row / column.
-__device__ __forceinline__ void tile_origin(const DcnParams& p, int tile, int& b, int& ty,
+template <typename T>
+__device__ __forceinline__ void tile_origin(const DcnParamsT<T>& p, int tile, int& b, int& ty,
                                             int& tx) {
   const int per_img = p.tiles_x * p.tiles_y;
   b = tile / per_img;
@@ -153,15 +158,17 @@ __device__ __forceinline__ void load_meta(const DcnParams& p, int b, int gy, int
 }
 
 // Copy rows x tcols input pixels from image origin (y0, x0), `np` 16-byte
-// pieces a pixel from channel c0 on, into `dst` at `xu` pieces a pixel
-// (cp.async, zeros outside the image); threads `NT` apart.
-template <int NT>
-__device__ __forceinline__ void stage_input(const DcnParams& p, unsigned char* dst, int b,
+// pieces a pixel (8 bf16 or 4 float32 channels) from channel c0 on, into
+// `dst` at `xu` pieces a pixel (cp.async, zeros outside the image);
+// threads `NT` apart.
+template <int NT, typename T>
+__device__ __forceinline__ void stage_input(const DcnParamsT<T>& p, unsigned char* dst, int b,
                                             int y0, int x0, int tpx, int tcols, int c0,
                                             int np) {
+  constexpr int PER = 16 / sizeof(T);   // channels a piece
   const uint32_t mag_np = fast_div_magic(np > 1 ? np : 2);
   const uint32_t mag_tcols = fast_div_magic(tcols);
-  const bf16* xb = p.x + (size_t)b * p.H * p.W * p.Cin + c0;
+  const T* xb = p.x + (size_t)b * p.H * p.W * p.Cin + c0;
   for (int it = threadIdx.x; it < tpx * np; it += NT) {
     const int pix = np > 1 ? fast_div(it, mag_np) : it;
     const int pc = it - pix * np;
@@ -169,7 +176,7 @@ __device__ __forceinline__ void stage_input(const DcnParams& p, unsigned char* d
     const int gy = y0 + row, gx = x0 + col;
     const bool ok = gy >= 0 && gy < p.H && gx >= 0 && gx < p.W;
     cp_async16_zfill(dst + (pix * p.xu + pc) * 16,
-                     ok ? xb + ((size_t)gy * p.W + gx) * p.Cin + pc * 8 : p.x, ok);
+                     ok ? xb + ((size_t)gy * p.W + gx) * p.Cin + pc * PER : p.x, ok);
   }
 }
 
@@ -179,19 +186,17 @@ struct Sample {
   float w[4];
 };
 
-// Output pixel (gy, gx) at tap t, from its offset word ot and mask bits mt,
-// in the input tile at `xbuf` whose pixel (0, 0) is image pixel (y0, x0).
-// Offsets are clamped to [-R, R], so every corner lies in the tile but the
-// far row or column of a sample exactly on the tile's last row or column,
-// whose weight is exactly 0: clamped onto the tile. A corner outside the
-// image reads the tile's zeros.
-__device__ __forceinline__ Sample tap_sample(const unsigned char* xbuf, uint32_t ot, uint32_t mt,
-                                             int t, int gy, int gx, int y0, int x0, int R,
-                                             int trows_1, int tcols, int xu) {
+// Output pixel (gy, gx) at tap t, from its offset (oy, ox) and mask m, in
+// the input tile at `xbuf` (`xu` 16-byte units a pixel) whose pixel (0, 0)
+// is image pixel (y0, x0). Offsets are clamped to [-R, R], so every corner
+// lies in the tile but the far row or column of a sample exactly on the
+// tile's last row or column, whose weight is exactly 0: clamped onto the
+// tile. A corner outside the image reads the tile's zeros.
+__device__ __forceinline__ Sample tap_sample_at(const unsigned char* xbuf, float oy, float ox,
+                                                float m, int t, int gy, int gx, int y0, int x0,
+                                                int R, int trows_1, int tcols, int xu) {
   const float r = (float)R;
-  const float2 d = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&ot));
-  const float m = __bfloat162float(__ushort_as_bfloat16((unsigned short)mt));
-  const float dy = fminf(fmaxf(d.x, -r), r), dx = fminf(fmaxf(d.y, -r), r);
+  const float dy = fminf(fmaxf(oy, -r), r), dx = fminf(fmaxf(ox, -r), r);
   const float fyp = (float)(gy + t / 3 - 1) + dy;
   const float fxp = (float)(gx + t % 3 - 1) + dx;
   const float y0f = floorf(fyp), x0f = floorf(fxp);
@@ -209,6 +214,15 @@ __device__ __forceinline__ Sample tap_sample(const unsigned char* xbuf, uint32_t
   s.c[2] = xbuf + (ry1 * tcols + rx) * xu * 16;
   s.c[3] = xbuf + (ry1 * tcols + rx1) * xu * 16;
   return s;
+}
+
+// As tap_sample_at, from the tap's bf16 offset word ot and mask bits mt.
+__device__ __forceinline__ Sample tap_sample(const unsigned char* xbuf, uint32_t ot, uint32_t mt,
+                                             int t, int gy, int gx, int y0, int x0, int R,
+                                             int trows_1, int tcols, int xu) {
+  const float2 d = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&ot));
+  const float m = __bfloat162float(__ushort_as_bfloat16((unsigned short)mt));
+  return tap_sample_at(xbuf, d.x, d.y, m, t, gy, gx, y0, x0, R, trows_1, tcols, xu);
 }
 
 // The sample's 8 channels at byte `o` of each corner: the float32 blend in
@@ -531,10 +545,323 @@ dcn_stream_kernel(const DcnParams p) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// The float32 instances (`vfi_dcn_bounded_f32`): input, offsets, mask,
+// weights, samples, slab and output in float32, the products and sums IEEE
+// float32. The sampling and blend are the bf16 designs' without the
+// slab's rounding, which is the plain version's float32 arithmetic; the
+// GEMM is FFMA on the CUDA cores (a single TF32 tensor-core pass would keep
+// only 10 bits of each operand).
+// What bounds them: at 720p a 64-channel layer's 68 GFLOP take 1.01 ms at
+// the 67 TFLOP/s float32 peak, against 0.47 GB (0.14 ms): the FFMA rate,
+// with the gather and blend beside it.
+// Both designs keep the bf16 designs' blocks, tiles, staging and barriers:
+// "tile" keeps the packed weights [9 * Cin16][Cout16] resident (no row
+// padding: the FFMA core reads rows whole) and walks output tiles of TH x
+// 16 pixels with one input buffer, the slab built `chans` channels a pass;
+// "stream" (8 x 16 tiles) streams a (chunk, tap) weight slice at a time
+// into two slots and the input in chunks of `chans` channels (multiples of
+// 4: a 16-byte piece holds 4 float32 channels, so the plan can cut chunks
+// of 8 or 4 where a wide tile at a large R needs it; with 4-channel chunks
+// an 8 x 16 tile holds R = 35, so there is no 4 x 16 instance). Per tap each warp builds its slab of 16
+// pixels channel-major, [chans][F_SP] floats (F_SP = 20: the two half-warps'
+// stores, 4 rows apart, fall 16 banks apart), then multiplies it: lane
+// (pg, cg) = (lane & 3, lane >> 2) accumulates pixels 4pg .. 4pg + 3 times
+// output channels cg * CPL .. + CPL - 1 (Cout16 = 8 CPL) in 4 CPL float32
+// registers, from one float4 of the slab (4 lanes' addresses: one
+// wavefront) and CPL / 4 float4s of weights (a row read whole) a channel.
+
+constexpr int F_SP = 20;   // float32 slab row pitch: 16 pixels + 4
+
+using DcnF32Params = DcnParamsT<float>;
+
+// Output pixel (gy, gx) of image b: its offsets (dy, dx a tap) and mask;
+// zeros past the image.
+__device__ __forceinline__ void load_meta_f32(const DcnF32Params& p, int b, int gy, int gx,
+                                              float2 (&off)[NTAPS], float (&msk)[NTAPS]) {
+  const bool in = gy < p.H && gx < p.W;
+  const size_t pix = ((size_t)b * p.H + (in ? gy : 0)) * p.W + (in ? gx : 0);
+  const float2* op = reinterpret_cast<const float2*>(p.offset + pix * 18);
+#pragma unroll
+  for (int t = 0; t < NTAPS; ++t) {
+    off[t] = in ? __ldg(op + t) : make_float2(0.0f, 0.0f);
+    msk[t] = p.mask ? (in ? __ldg(p.mask + pix * 9 + t) : 0.0f) : 1.0f;
+  }
+}
+
+// Tap t's offset and mask, without local-memory indexing.
+__device__ __forceinline__ void tap_meta_f32(const float2 (&off)[NTAPS],
+                                             const float (&msk)[NTAPS], int t, float2& o,
+                                             float& m) {
+  o = off[0];
+  m = msk[0];
+#pragma unroll
+  for (int k = 1; k < NTAPS; ++k)
+    if (t == k) { o = off[k]; m = msk[k]; }
+}
+
+// The sample's 4 channels at byte `o` of each corner: the float32 blend in
+// the order (y0, x0), (y0, x1), (y1, x0), (y1, x1), no fused multiply-add.
+__device__ __forceinline__ float4 blend_piece_f32(const Sample& s, int o) {
+  const float4 v0 = *reinterpret_cast<const float4*>(s.c[0] + o);
+  const float4 v1 = *reinterpret_cast<const float4*>(s.c[1] + o);
+  const float4 v2 = *reinterpret_cast<const float4*>(s.c[2] + o);
+  const float4 v3 = *reinterpret_cast<const float4*>(s.c[3] + o);
+  auto mix = [&](float a, float b, float c, float d) {
+    float r = __fmul_rn(s.w[0], a);
+    r = __fadd_rn(r, __fmul_rn(s.w[1], b));
+    r = __fadd_rn(r, __fmul_rn(s.w[2], c));
+    return __fadd_rn(r, __fmul_rn(s.w[3], d));
+  };
+  return make_float4(mix(v0.x, v1.x, v2.x, v3.x), mix(v0.y, v1.y, v2.y, v3.y),
+                     mix(v0.z, v1.z, v2.z, v3.z), mix(v0.w, v1.w, v2.w, v3.w));
+}
+
+// Slab rows k0 .. k0 + 3 (channels) of the lane's pixel column.
+__device__ __forceinline__ void slab_store4(float* slab, int k0, int col, float4 v) {
+  slab[k0 * F_SP + col] = v.x;
+  slab[(k0 + 1) * F_SP + col] = v.y;
+  slab[(k0 + 2) * F_SP + col] = v.z;
+  slab[(k0 + 3) * F_SP + col] = v.w;
+}
+
+// acc[i][j] += sum over kw channels k of slab[k][4pg + i] * w[k][cg * CPL + j]:
+// `a` is the warp's slab at the lane's pixels, `w` the weight rows (`ws`
+// floats apart) at the lane's channels.
+template <int CPL>
+__device__ __forceinline__ void slab_ffma(float (&acc)[4][CPL], const float* a, const float* w,
+                                          int kw, int ws) {
+#pragma unroll 2
+  for (int k = 0; k < kw; ++k) {
+    const float4 av = *reinterpret_cast<const float4*>(a + k * F_SP);
+    const float ax[4] = {av.x, av.y, av.z, av.w};
+    float bw[CPL];
+    if constexpr (CPL % 4 == 0) {
+#pragma unroll
+      for (int q = 0; q < CPL / 4; ++q) {
+        const float4 v = reinterpret_cast<const float4*>(w + k * ws)[q];
+        bw[4 * q] = v.x; bw[4 * q + 1] = v.y; bw[4 * q + 2] = v.z; bw[4 * q + 3] = v.w;
+      }
+    } else {
+#pragma unroll
+      for (int q = 0; q < CPL / 2; ++q) {
+        const float2 v = reinterpret_cast<const float2*>(w + k * ws)[q];
+        bw[2 * q] = v.x; bw[2 * q + 1] = v.y;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < CPL; ++j) acc[i][j] = fmaf(ax[i], bw[j], acc[i][j]);
+  }
+}
+
+// The warp's output row oy, columns ox0 .. ox0 + 15, of image b: the bias
+// added, float32 out; the accumulators are zeroed after.
+template <int CPL>
+__device__ __forceinline__ void store_epilogue_f32(const DcnF32Params& p, float (&acc)[4][CPL],
+                                                   int b, int oy, int ox0, int lane) {
+  const int pg = lane & 3, cg = lane >> 2;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int ox = ox0 + 4 * pg + i;
+    if (oy < p.H && ox < p.W) {
+      float* orow = p.out + (((size_t)b * p.H + oy) * p.W + ox) * p.Cout;
+#pragma unroll
+      for (int j = 0; j < CPL; ++j) {
+        const int co = cg * CPL + j;
+        if (co < p.Cout) orow[co] = acc[i][j] + p.bias[co];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < CPL; ++j) acc[i][j] = 0.0f;
+  }
+}
+
+// Design "tile" in float32: TH warps, warp w tile row w; Cout16 = 8 * CPL.
+template <int TH, int CPL>
+__global__ void __launch_bounds__(TH * 32, 1)
+dcn_tile_f32_kernel(const DcnF32Params p) {
+  constexpr int NT = TH * 32, C16 = 8 * CPL;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int R = p.R, Cin16 = p.Cin16;
+  const int tcols = TILE_W + 2 + 2 * R, tpx = (TH + 2 + 2 * R) * tcols;
+  const int trows_1 = TH + 1 + 2 * R;
+  const int pieces = p.Cin / 4, xu = p.xu, sk = p.chans;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const float* const ws = reinterpret_cast<const float*>(smem);
+  unsigned char* const xs = smem + p.w_bytes;
+  float* const ss = reinterpret_cast<float*>(xs + p.x_bytes) + warp * sk * F_SP;
+  // Slab build: the lane's pixel column pcol of tile row `warp`, pieces
+  // sub, sub + 2, ...; GEMM: pixel group pg, channel group cg.
+  const int pcol = lane & 15, sub = lane >> 4, pg = lane & 3, cg = lane >> 2;
+  auto stage_x = [&](int tile) {
+    int b, ty, tx;
+    tile_origin(p, tile, b, ty, tx);
+    stage_input<NT>(p, xs, b, ty * TH - 1 - R, tx * TILE_W - 1 - R, tpx, tcols, 0, pieces);
+  };
+  auto meta = [&](int tile, float2 (&off)[NTAPS], float (&msk)[NTAPS]) {
+    int b, ty, tx;
+    tile_origin(p, tile, b, ty, tx);
+    load_meta_f32(p, b, ty * TH + warp, tx * TILE_W + pcol, off, msk);
+  };
+
+  int tile = blockIdx.x;
+  if (tile >= p.tiles) return;
+  for (int it = threadIdx.x; it < NTAPS * Cin16 * C16 / 4; it += NT)   // all weights, once
+    cp_async16(smem + it * 16, p.w + (size_t)it * 4);
+  stage_x(tile);
+  cp_async_commit();
+  float2 off[NTAPS];
+  float msk[NTAPS];
+  meta(tile, off, msk);
+  float acc[4][CPL];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < CPL; ++j) acc[i][j] = 0.0f;
+
+  while (true) {
+    cp_async_wait<0>();
+    __syncthreads();  // this tile's input is in
+    const int next = tile + gridDim.x;
+    const bool more = next < p.tiles;
+    int b, ty, tx;
+    tile_origin(p, tile, b, ty, tx);
+    const int gy = ty * TH + warp, gx = tx * TILE_W + pcol;
+    for (int t = 0; t < NTAPS; ++t) {
+      float2 o;
+      float m;
+      tap_meta_f32(off, msk, t, o, m);
+      const Sample s = tap_sample_at(xs, o.x, o.y, m, t, gy, gx, ty * TH - 1 - R,
+                                     tx * TILE_W - 1 - R, R, trows_1, tcols, xu);
+      for (int k0 = 0; k0 < Cin16; k0 += sk) {
+        const int skw = min(sk, Cin16 - k0);
+        for (int j = sub; j < skw / 4; j += 2) {
+          const int pc = k0 / 4 + j;
+          slab_store4(ss, 4 * j, pcol,
+                      pc < pieces ? blend_piece_f32(s, pc * 16) : make_float4(0.f, 0.f, 0.f, 0.f));
+        }
+        __syncwarp();
+        slab_ffma<CPL>(acc, ss + 4 * pg, ws + (t * Cin16 + k0) * C16 + cg * CPL, skw, C16);
+        __syncwarp();
+      }
+    }
+    if (more) {  // every gather from the buffer is done
+      __syncthreads();
+      stage_x(next);
+      cp_async_commit();
+      meta(next, off, msk);
+    }
+    store_epilogue_f32<CPL>(p, acc, b, ty * TH + warp, tx * TILE_W, lane);
+    if (!more) break;
+    tile = next;
+  }
+}
+
+// Design "stream" in float32: TH warps, warp w tile row w; a step is
+// (tile, chunk, tap), as the bf16 stream design's.
+template <int TH, int CPL>
+__global__ void __launch_bounds__(TH * 32, 1)
+dcn_stream_f32_kernel(const DcnF32Params p) {
+  constexpr int NT = TH * 32, C16 = 8 * CPL;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int R = p.R, Cin16 = p.Cin16;
+  const int tcols = TILE_W + 2 + 2 * R, tpx = (TH + 2 + 2 * R) * tcols;
+  const int trows_1 = TH + 1 + 2 * R;
+  const int pieces = p.Cin / 4, xu = p.xu, ck = p.chans;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  unsigned char* const wsm = smem;                       // two weight slices
+  unsigned char* const xs = smem + 2 * p.w_bytes;        // the input buffer
+  float* const ss = reinterpret_cast<float*>(xs + p.x_bytes) + warp * ck * F_SP;
+  const int pcol = lane & 15, sub = lane >> 4, pg = lane & 3, cg = lane >> 2;
+  // Chunk c of tile `tile`'s input and halo.
+  auto stage_x = [&](int tile, int c) {
+    int b, ty, tx;
+    tile_origin(p, tile, b, ty, tx);
+    stage_input<NT>(p, xs, b, ty * TH - 1 - R, tx * TILE_W - 1 - R, tpx, tcols, c * ck,
+                    max(0, min(ck, p.Cin - c * ck)) / 4);
+  };
+  // The weight slice of (chunk c, tap t): packed rows t * Cin16 + c * ck ...
+  auto stage_w = [&](int c, int t, int slot) {
+    const int rows = min(ck, Cin16 - c * ck);
+    const float* src = p.w + ((size_t)t * Cin16 + c * ck) * C16;
+    unsigned char* dst = wsm + slot * p.w_bytes;
+    for (int it = threadIdx.x; it < rows * C16 / 4; it += NT)
+      cp_async16(dst + it * 16, src + it * 4);
+  };
+  auto meta = [&](int tile, float2 (&off)[NTAPS], float (&msk)[NTAPS]) {
+    int b, ty, tx;
+    tile_origin(p, tile, b, ty, tx);
+    load_meta_f32(p, b, ty * TH + warp, tx * TILE_W + pcol, off, msk);
+  };
+
+  int tile = blockIdx.x;
+  if (tile >= p.tiles) return;
+  stage_x(tile, 0);
+  stage_w(0, 0, 0);
+  cp_async_commit();
+  float2 off[NTAPS];
+  float msk[NTAPS];
+  meta(tile, off, msk);
+  float acc[4][CPL];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < CPL; ++j) acc[i][j] = 0.0f;
+
+  int slot = 0;
+  while (true) {
+    const int next = tile + gridDim.x;
+    const bool more = next < p.tiles;
+    int b, ty, tx;
+    tile_origin(p, tile, b, ty, tx);
+    const int gy = ty * TH + warp, gx = tx * TILE_W + pcol;
+    for (int c = 0; c < p.nchunks; ++c) {
+      const int k0 = c * ck, ckw = min(ck, Cin16 - k0);
+      const bool staged = c + 1 < p.nchunks || more;
+      const int s_tile = c + 1 < p.nchunks ? tile : next, s_c = c + 1 < p.nchunks ? c + 1 : 0;
+      for (int t = 0; t < NTAPS; ++t) {
+        cp_async_wait<0>();
+        __syncthreads();  // this step's slice (and input chunk) is in; the last step is done
+        if (t + 1 < NTAPS) stage_w(c, t + 1, slot ^ 1);
+        else if (staged) stage_w(s_c, 0, slot ^ 1);
+        cp_async_commit();
+
+        float2 o;
+        float m;
+        tap_meta_f32(off, msk, t, o, m);
+        const Sample s = tap_sample_at(xs, o.x, o.y, m, t, gy, gx, ty * TH - 1 - R,
+                                       tx * TILE_W - 1 - R, R, trows_1, tcols, xu);
+        for (int j = sub; j < ckw / 4; j += 2)
+          slab_store4(ss, 4 * j, pcol,
+                      k0 / 4 + j < pieces ? blend_piece_f32(s, j * 16)
+                                          : make_float4(0.f, 0.f, 0.f, 0.f));
+        __syncwarp();
+        if (t == NTAPS - 1 && staged) {
+          __syncthreads();  // every warp's last gather from the buffer is done
+          stage_x(s_tile, s_c);
+          cp_async_commit();
+        }
+        slab_ffma<CPL>(acc, ss + 4 * pg,
+                       reinterpret_cast<const float*>(wsm + slot * p.w_bytes) + cg * CPL, ckw,
+                       C16);
+        __syncwarp();
+        slot ^= 1;
+      }
+    }
+    store_epilogue_f32<CPL>(p, acc, b, ty * TH + warp, tx * TILE_W, lane);
+    if (!more) break;
+    meta(next, off, msk);
+    tile = next;
+  }
+}
+
 // A persistent kernel on as many blocks as the card holds at once (at most
 // one a tile), each walking tiles with a stride of the grid.
-int launch_persistent(void (*kernel)(DcnParams), const DcnParams& p, int threads, int smem,
-                      cudaStream_t stream) {
+template <typename T>
+int launch_persistent(void (*kernel)(DcnParamsT<T>), const DcnParamsT<T>& p, int threads,
+                      int smem, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          smem);
   if (err != cudaSuccess) return (int)err;
@@ -555,6 +882,28 @@ template <int NF>
 void (*pick_nf(int design, int rows))(DcnParams) {
   if (design == 0) return rows == 16 ? &dcn_tile_kernel<16, NF> : &dcn_tile_kernel<8, NF>;
   return rows == 8 ? &dcn_stream_kernel<8, NF> : &dcn_stream_kernel<4, NF>;
+}
+
+// The float32 instance of design `design` for `rows` tile rows and
+// Cout16 = 8 * CPL.
+template <int CPL>
+void (*pick_cpl_f32(int design, int rows))(DcnF32Params) {
+  if (design == 0)
+    return rows == 16 ? &dcn_tile_f32_kernel<16, CPL> : &dcn_tile_f32_kernel<8, CPL>;
+  return &dcn_stream_f32_kernel<8, CPL>;
+}
+
+void (*pick_kernel_f32(int design, int rows, int cpl))(DcnF32Params) {
+  switch (cpl) {
+    case 2: return pick_cpl_f32<2>(design, rows);
+    case 4: return pick_cpl_f32<4>(design, rows);
+    case 6: return pick_cpl_f32<6>(design, rows);
+    case 8: return pick_cpl_f32<8>(design, rows);
+    case 10: return pick_cpl_f32<10>(design, rows);
+    case 12: return pick_cpl_f32<12>(design, rows);
+    case 14: return pick_cpl_f32<14>(design, rows);
+    default: return pick_cpl_f32<16>(design, rows);
+  }
 }
 
 void (*pick_kernel(int design, int rows, int nf))(DcnParams) {
@@ -621,5 +970,56 @@ extern "C" int vfi_dcn_bounded_bf16(const void* x, const void* offset, const voi
   const cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
   return launch_persistent(pick_kernel(design, rows, cout16 / 8), p, rows * 32, smem,
+                           static_cast<cudaStream_t>(stream));
+}
+
+// Launch one float32 bounded DCN layer (integer radius R >= 0, Cin % 4 == 0,
+// 1 <= Cout <= 128, `mask` null for weight 1) on the plan of
+// `dcn_plan(..., itemsize=4)`: design 0 ("tile": 16 or 8 rows, weights
+// resident, `chans` slab channels a pass, a multiple of 16) or 1 ("stream":
+// 8 rows, `chans` channels a chunk, a multiple of 4), one input buffer
+// of `x_bytes` with a pixel stride of `xu` 16-byte units, `smem` bytes of
+// dynamic shared memory. Returns the cudaError_t of the launch;
+// cudaErrorInvalidValue for arguments out of range, a plan whose regions
+// overrun `smem`, or offsets off 8-byte alignment.
+extern "C" int vfi_dcn_bounded_f32(const void* x, const void* offset, const void* mask,
+                                   const void* w, const void* bias, void* out,
+                                   int B, int H, int W, int Cin, int Cout, int R,
+                                   int design, int rows, int chans, int xu, int x_bytes,
+                                   int smem, int device, void* stream) {
+  if (Cin < 4 || Cin % 4 != 0 || Cout < 1 || Cout > MAX_COUT || R < 0 || B < 0 || H < 0 ||
+      W < 0 || smem < 0 || chans < 4 || chans % 4 != 0 || x_bytes % 128 != 0 ||
+      reinterpret_cast<uintptr_t>(offset) % 8 != 0)
+    return (int)cudaErrorInvalidValue;
+  const int cin16 = pad16(Cin), cout16 = pad16(Cout);
+  if (chans > cin16 || (design != 0 && design != 1) ||
+      (design == 0 && ((rows != 16 && rows != 8) || chans % 16 != 0)) ||
+      (design == 1 && rows != 8))
+    return (int)cudaErrorInvalidValue;
+  const long long tpx = (long long)(rows + 2 + 2 * R) * (TILE_W + 2 + 2 * R);
+  const long long s_bytes = 4LL * rows * chans * F_SP;
+  // The resident weights (tile) or one of two weight slices (stream).
+  const long long w_bytes = design == 0 ? 4LL * NTAPS * cin16 * cout16 : 4LL * chans * cout16;
+  const int pieces = (chans < Cin ? chans : Cin) / 4;
+  const int xu_tile = Cin / 4 + ((Cin / 4) % 2 == 0);
+  if ((design == 0 ? xu != xu_tile : xu < pieces) || x_bytes < 16 * tpx * xu ||
+      smem < (design == 0 ? 1 : 2) * w_bytes + x_bytes + s_bytes)
+    return (int)cudaErrorInvalidValue;
+  DcnF32Params p{};
+  p.x = static_cast<const float*>(x);
+  p.offset = static_cast<const float*>(offset);
+  p.mask = static_cast<const float*>(mask);
+  p.w = static_cast<const float*>(w);
+  p.bias = static_cast<const float*>(bias);
+  p.out = static_cast<float*>(out);
+  p.B = B; p.H = H; p.W = W; p.Cin = Cin; p.Cout = Cout; p.R = R; p.Cin16 = cin16;
+  p.xu = xu; p.chans = chans; p.nchunks = (cin16 + chans - 1) / chans; p.nbuf = 1;
+  p.w_bytes = (int)w_bytes; p.x_bytes = x_bytes;
+  p.tiles_x = (W + TILE_W - 1) / TILE_W; p.tiles_y = (H + rows - 1) / rows;
+  p.tiles = B * p.tiles_x * p.tiles_y;
+  if (p.tiles == 0) return (int)cudaSuccess;
+  const cudaError_t err = use_device(device);
+  if (err != cudaSuccess) return (int)err;
+  return launch_persistent(pick_kernel_f32(design, rows, cout16 / 8), p, rows * 32, smem,
                            static_cast<cudaStream_t>(stream));
 }

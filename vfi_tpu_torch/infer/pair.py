@@ -120,7 +120,11 @@ class FrameInterpolator:
     `utils.convert.load_params_npz` returns them (the tracked
     `artifacts/*.npz` checkpoints); `fuse_project` and the model dims are
     read off the tree. `conv_kernel` is the model's
-    (`models.ema_vfi.EMAVFI`).
+    (`models.ema_vfi.EMAVFI`). `bf16=True` runs the model in bf16 (the
+    kernels' bf16 instances on the card), `bf16=False` in float32 (their
+    float32 instances; the engine leaves `torch.backends`' TF32 flags as
+    the caller set them, which reach only the cuDNN convs outside the
+    kernels).
 
     `tta=True` averages, in float32, the midpoints of four transformed
     pairs (`TTA_SYMMETRIES`), each transformed back; the "auto" pixel
@@ -220,10 +224,6 @@ class FrameInterpolator:
         self.device = mesh.data_devices[0]
         for dev in mesh.data_devices:
             resolve_device(dev)
-        if self.device.type == "cuda" and use_kernels and not bf16:
-            raise ValueError("the CUDA kernels run in bfloat16 only; float32 "
-                             "kernels are not ported yet (use bf16=True, or "
-                             "device='cpu' for the float32 plain path)")
         if max_px_per_launch == "auto":
             max_px_per_launch = 8_000_000 if flow_params is None else 4_000_000
             if tta:

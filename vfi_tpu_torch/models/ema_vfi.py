@@ -185,21 +185,24 @@ class EMAVFI(nn.Module):
         """Repack the DCNs' weights, and under conv_kernel="pallas" every
         chain's (in spatial mode, which runs the layers one by one, every
         trunk layer's too), into the kernels' layouts once, on the
-        weights' device. Call it after the weights are loaded and moved,
-        and again whenever they change; a model never packed repacks on
-        every call."""
+        weights' device, in the working dtype (`dtype`, or float32 for a
+        model without one: the kernel instance its forward launches). Call
+        it after the weights are loaded and moved, and again whenever they
+        change; a model never packed repacks on every call."""
+        dt = self.dtype or torch.float32
         if self.conv_kernel == "pallas":
             for names in (self.feat_chain, self.MOTION_CHAIN,
                           self.REC_CHAIN):
                 blocks = [getattr(self, n).conv for n in names]
                 self.packed[names] = pack_conv_chain(
-                    [c.weight for c in blocks], [c.bias for c in blocks])
+                    [c.weight for c in blocks], [c.bias for c in blocks], dt)
                 if self.spatial_global_h is None:
                     continue
                 for n, c in zip(names, blocks):
-                    self.packed[(n,)] = pack_conv_chain([c.weight], [c.bias])
+                    self.packed[(n,)] = pack_conv_chain([c.weight], [c.bias],
+                                                        dt)
         for i in range(self.num_blocks):
-            getattr(self, f"fusion_dcn{i}").pack_kernel_weights()
+            getattr(self, f"fusion_dcn{i}").pack_kernel_weights(dt)
 
     def _motion_stages(self, a, b2, mask=None, owner_mask=None):
         """Feature extraction, context, motion -> (features, flow). In

@@ -104,15 +104,17 @@ class ModulatedDeformConv(nn.Module):
         self.max_offset = max_offset
         self.packed = (None, None)
 
-    def pack_kernel_weights(self) -> None:
+    def pack_kernel_weights(self, dtype: torch.dtype = torch.bfloat16
+                            ) -> None:
         """Repack the DCN's weights, and under conv_kernel="pallas" the
-        offset conv's, into the kernels' layouts once; call again after
-        the weights change."""
+        offset conv's, into the kernels' layouts once, in `dtype` (the
+        model's working dtype: the kernel instance the forward launches);
+        call again after the weights change."""
         oc = self.offset_conv
-        self.packed = (pack_conv_chain([oc.weight], [oc.bias])
+        self.packed = (pack_conv_chain([oc.weight], [oc.bias], dtype)
                        if self.conv_kernel == "pallas" else None,
                        None if self.max_offset is None
-                       else pack_dcn(self.weight, self.bias))
+                       else pack_dcn(self.weight, self.bias, dtype))
 
     def forward(self, x: torch.Tensor, ops: Ops = KERNELS) -> torch.Tensor:
         if self.conv_kernel == "pallas":

@@ -10,20 +10,28 @@ PyTorch versions.
   apply_conv_chain`) does. `conv_chain(x, weights, biases, acts,
   packed=None, route=None)`: x NHWC, weights OIHW (`nn.Conv2d.weight`),
   biases (cout,) or None; `packed` is `pack_conv_chain(weights, biases)`
-  made ahead of time, or None to pack on this call. On the card: bf16,
-  contiguous, 1..4 layers, every cout <= 64; the first layer takes any
-  width (an input whose channels are not a multiple of 8 is zero-padded
-  to one first, `pad_channels8`). `chain_plan` picks the route of each
-  shape: "layers" runs each layer as one launch of the single-conv kernel
-  on that layer's slice of the packed weights (a chain of one layer
-  always does: the DCN blocks' offset convs), "fused" one launch of the
-  chain kernel. `route` overrides the plan's pick, for tests and timing.
+  made ahead of time, or None to pack on this call. On the card: bf16 or
+  float32, contiguous, 1..4 layers, every cout <= 64; the first layer
+  takes any width (an input whose channels are not a multiple of 8 is
+  zero-padded to one first, `pad_channels8`). `chain_plan` picks the
+  route of each shape: "layers" runs each layer as one launch of the
+  single-conv kernel (its bf16 or float32 instance) on that layer's slice
+  of the packed weights (a chain of one layer always does: the DCN
+  blocks' offset convs), "fused" one launch of the chain kernel, which
+  has a bf16 instance only (float32 raises TypeError). `route` overrides
+  the plan's pick, for tests and timing.
 - `conv2d` replaces `conv2d_pallas` (kernel `_conv_kernel`, variants
   "im2col" and "direct") and `conv2d_pallas_v2` (`_conv_kernel_v2`,
   variant "v2"): one stride-1 square odd-k conv, zeros padding k // 2, an
   optional bias and an optional fused ReLU, NHWC, float32 accumulation and
-  one rounding of the output. On the card: bf16, contiguous, k <= 9,
-  Cout <= 128, any Cin, on the tile plan of `conv2d_plan`.
+  one rounding of the output. On the card: bf16 or float32 (the kernel's
+  float32 instance: FFMA, no rounding but float32's), contiguous, k <= 9,
+  Cout <= 128, any Cin, on the plan of `conv2d_plan`.
+
+Weights are packed in the input's dtype (`pack_conv2d(..., dtype=)`);
+packed weights of another dtype raise ValueError. Every launch key in
+`launches_by_shape` / `launches_by_plan` ends with the instance's tag,
+"bf16" or "f32" (`KERNEL_DTYPES`).
 
 A CPU tensor runs the plain version; a CUDA tensor launches the kernel or
 raises. On the card the result carries autograd when an input requires
@@ -56,6 +64,28 @@ CONV2D_VARIANTS = ("im2col", "direct", "v2")
 TILE_H, TILE_W, ROW_PAD = 16, 16, 8
 # Dynamic shared memory one block may opt into on an H100 (227 KB).
 H100_SMEM_PER_BLOCK = 232448
+# The kernels' element types: each instance's tag in the launch keys.
+KERNEL_DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
+# The float32 conv instance (`csrc/conv2d.cu` conv2d_f32_kernel): the
+# channel chunks it tries, widest first.
+F32_CHUNKS = (16, 8, 4, 2, 1)
+
+
+def kernel_dtype(name: str, dtype: torch.dtype) -> str:
+    """The tag of `dtype` among `KERNEL_DTYPES`; TypeError for any other
+    (float16, float64, ...)."""
+    tag = KERNEL_DTYPES.get(dtype)
+    if tag is None:
+        raise TypeError(f"{name} kernel takes bfloat16 or float32, got "
+                        f"{dtype}")
+    return tag
+
+
+def f32_pitch(k: int) -> int:
+    """The float32 conv's input-stage row pitch in floats (FS in
+    csrc/conv2d.cu): at least 16 + k - 1 columns, a multiple of 4 whose
+    quarter is odd."""
+    return 20 if k <= 5 else 28
 
 
 def conv_chain_plain(x: torch.Tensor, weights: Sequence[torch.Tensor],
@@ -88,9 +118,12 @@ def _round128(n: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def conv2d_plan(cin: int, cout: int, k: int,
-                limit: int = H100_SMEM_PER_BLOCK) -> dict:
+                limit: int = H100_SMEM_PER_BLOCK, itemsize: int = 2) -> dict:
     """The conv kernel's plan (`csrc/conv2d.cu`) for Cin -> Cout at k x k
-    within `limit` bytes of shared memory per block: two input-tile
+    within `limit` bytes of shared memory per block, for its bf16
+    instance (`itemsize` 2) or its float32 one (4, `_conv2d_plan_f32`).
+
+    bf16: two input-tile
     buffers of (TILE_H + k - 1) x (TILE_W + k - 1) pixels x `ck` channels,
     then either the whole packed weight set (`resident`, copied once per
     block) or two buffers of `taps_per_group` taps x `ck` rows. It takes
@@ -103,6 +136,11 @@ def conv2d_plan(cin: int, cout: int, k: int,
         raise ValueError(f"conv2d kernel takes Cout <= {CONV2D_MAX_COUT} "
                          f"and odd k <= {CONV2D_MAX_K}, got Cin={cin}, "
                          f"Cout={cout}, k={k}")
+    if itemsize == 4:
+        return _conv2d_plan_f32(cin, cout, k, limit)
+    if itemsize != 2:
+        raise ValueError(f"conv2d kernel has bf16 and float32 instances, "
+                         f"got itemsize {itemsize}")
     cin16, taps = _pad16(cin), k * k
     wrow = (_pad16(cout) + ROW_PAD) * 2
     tile_px = (TILE_H + k - 1) * (TILE_W + k - 1)
@@ -130,6 +168,34 @@ def conv2d_plan(cin: int, cout: int, k: int,
                      f"k={k} fits {limit} bytes of shared memory per block")
 
 
+def _conv2d_plan_f32(cin: int, cout: int, k: int, limit: int) -> dict:
+    """The float32 instance's plan: 16 x 16 output tiles, the input and
+    weights streamed in chunks of `ck` channels through two stages, each
+    an input tile [ck][16 + k - 1][f32_pitch(k)] and the chunk's weights
+    [k * k][ck][Cout16], float32. It takes the widest chunk of
+    F32_CHUNKS (no wider than Cin) whose two stages fit half of `limit`
+    (two blocks an SM), else the widest that fits `limit`. At the contract's
+    corner (k = 9, Cout = 128) one channel a chunk takes 88,320 bytes, so
+    on an H100 every shape has a plan."""
+    cout16 = _pad16(cout)
+
+    def plan(ck):
+        x_bytes = 4 * ck * (TILE_H + k - 1) * f32_pitch(k)
+        w_bytes = 4 * k * k * ck * cout16
+        return {"tile": f"{TILE_H}x{TILE_W}", "ck": ck,
+                "chunks": -(-cin // ck), "stages": 2, "x_bytes": x_bytes,
+                "w_bytes": w_bytes, "smem_bytes": 2 * (x_bytes + w_bytes)}
+
+    plans = [plan(ck) for ck in F32_CHUNKS if ck <= cin or ck == 1]
+    for cap in (limit // 2, limit):
+        for p in plans:
+            if p["smem_bytes"] <= cap:
+                return p
+    raise ValueError(f"conv2d kernel (float32): no plan for Cin={cin}, "
+                     f"Cout={cout}, k={k} fits {limit} bytes of shared "
+                     f"memory per block")
+
+
 @functools.lru_cache(maxsize=None)
 def _smem_limit(index: int) -> int:
     return torch.cuda.get_device_properties(
@@ -138,56 +204,67 @@ def _smem_limit(index: int) -> int:
 
 def _launch_conv2d(xp: torch.Tensor, wpk: torch.Tensor, bpk: torch.Tensor,
                    out: torch.Tensor, k: int, act: bool, what: str) -> None:
-    """One launch of the conv kernel: xp (B, H, W, Cin % 8 == 0) bf16,
-    wpk [k*k*Cin16][Cout16] and bpk [Cout16] as `pack_conv2d` makes them,
-    into `out` (B, H, W, Cout), on the plan of `conv2d_plan`."""
+    """One launch of the conv kernel's instance for xp's dtype: xp (B, H,
+    W, Cin % 8 == 0) bf16 or float32, wpk [k*k*Cin16][Cout16] and bpk
+    [Cout16] as `pack_conv2d` makes them in that dtype, into `out` (B, H,
+    W, Cout), on the plan of `conv2d_plan`."""
     (b, h, w, cin), cout, dev = xp.shape, out.shape[-1], xp.device
-    plan = conv2d_plan(cin, cout, k, _smem_limit(dev.index))
-    rc = build.entry("vfi_conv2d_bf16")(
-        xp.data_ptr(), wpk.data_ptr(), bpk.data_ptr(), out.data_ptr(),
-        b, h, w, cin, cout, k, int(act), plan["ck"],
-        0 if plan["resident"] else plan["taps_per_group"], plan["x_bytes"],
-        plan["smem_bytes"], dev.index, build.current_stream(dev.index))
+    plan = conv2d_plan(cin, cout, k, _smem_limit(dev.index),
+                       xp.element_size())
+    ptrs = (xp.data_ptr(), wpk.data_ptr(), bpk.data_ptr(), out.data_ptr(),
+            b, h, w, cin, cout, k, int(act), plan["ck"])
+    if xp.dtype == torch.float32:
+        rc = build.entry("vfi_conv2d_f32")(
+            *ptrs, plan["smem_bytes"], dev.index,
+            build.current_stream(dev.index))
+    else:
+        rc = build.entry("vfi_conv2d_bf16")(
+            *ptrs, 0 if plan["resident"] else plan["taps_per_group"],
+            plan["x_bytes"], plan["smem_bytes"], dev.index,
+            build.current_stream(dev.index))
     if rc:
         build.check(rc, what)
 
 
 def pad_channels8(x: torch.Tensor) -> torch.Tensor:
     """x with its channels zero-padded to a multiple of 8: the chain and
-    DCN kernels copy their input tile in 16-byte rows of 8 bf16 channels.
-    A 67-channel input (134-byte rows) becomes 72 channels; others pass
-    unchanged."""
+    DCN kernels copy their input tile in 16-byte rows of 8 bf16 channels
+    (the float32 instances take the same widths). A 67-channel input
+    (134-byte rows) becomes 72 channels; others pass unchanged."""
     c = x.shape[-1]
     return x if c % 8 == 0 else F.pad(x, (0, -c % 8))
 
 
-def pack_conv2d(weight: torch.Tensor,
-                bias: Optional[torch.Tensor]) -> tuple:
-    """The conv and DCN kernels' weight layout: OIHW (Cout, Cin, kh, kw) ->
-    bf16 [kh * kw * Cin16][Cout16] (tap-major, t = kw * i + j; channels
-    padded to multiples of 16 with zeros), bias -> f32 [Cout16] (bf16-rounded
-    values, zeros for None and the padding). A module whose weights stay
-    fixed packs them once and passes the result as `packed=`."""
+def pack_conv2d(weight: torch.Tensor, bias: Optional[torch.Tensor],
+                dtype: torch.dtype = torch.bfloat16) -> tuple:
+    """The conv and DCN kernels' weight layout for the instance of
+    `dtype` (bf16 or float32, the input's): OIHW (Cout, Cin, kh, kw) ->
+    `dtype` [kh * kw * Cin16][Cout16] (tap-major, t = kw * i + j; channels
+    padded to multiples of 16 with zeros), bias -> f32 [Cout16] (its
+    values rounded to `dtype`, zeros for None and the padding). A module
+    whose weights stay fixed packs them once and passes the result as
+    `packed=`."""
+    kernel_dtype("pack_conv2d", dtype)
     cout, cin, kh, kw = weight.shape
     cin16, cout16 = _pad16(cin), _pad16(cout)
     dev = weight.device
-    wpk = torch.zeros(kh * kw, cin16, cout16, dtype=torch.bfloat16,
-                      device=dev)
-    wpk[:, :cin, :cout] = weight.detach().to(torch.bfloat16).permute(
+    wpk = torch.zeros(kh * kw, cin16, cout16, dtype=dtype, device=dev)
+    wpk[:, :cin, :cout] = weight.detach().to(dtype).permute(
         2, 3, 1, 0).reshape(kh * kw, cin, cout)
     bpk = torch.zeros(cout16, dtype=torch.float32, device=dev)
     if bias is not None:
-        bpk[:cout] = bias.detach().to(torch.bfloat16).float()
+        bpk[:cout] = bias.detach().to(dtype).float()
     return wpk.reshape(kh * kw * cin16, cout16), bpk
 
 
 def pack_conv_chain(weights: Sequence[torch.Tensor],
-                    biases: Sequence[Optional[torch.Tensor]]) -> tuple:
+                    biases: Sequence[Optional[torch.Tensor]],
+                    dtype: torch.dtype = torch.bfloat16) -> tuple:
     """The chain kernel's weight layout: every layer's `pack_conv2d`
-    block, [9][cin_p][cout_p] bf16, concatenated into one buffer, and its
-    [cout_p] f32 biases into another. A module whose weights stay fixed
+    block, [9][cin_p][cout_p] in `dtype`, concatenated into one buffer, and
+    its [cout_p] f32 biases into another. A module whose weights stay fixed
     packs them once and passes the result as `conv_chain(..., packed=)`."""
-    packs = [pack_conv2d(w, b) for w, b in zip(weights, biases)]
+    packs = [pack_conv2d(w, b, dtype) for w, b in zip(weights, biases)]
     return (torch.cat([w.reshape(-1) for w, _ in packs]),
             torch.cat([b for _, b in packs]))
 
@@ -255,14 +332,16 @@ def chain_fused_plan(chans: Sequence[int],
 
 @functools.lru_cache(maxsize=None)
 def chain_plan(chans: tuple, acts: tuple, b: int, h: int, w: int,
-               limit: int = H100_SMEM_PER_BLOCK) -> dict:
+               limit: int = H100_SMEM_PER_BLOCK, itemsize: int = 2) -> dict:
     """The route of one chain shape: chans = (Cin, Cout_1, ..., Cout_L),
     `acts` the layers' ReLUs, a (b, h, w) input, `limit` bytes of shared
-    memory a block. Pure and deterministic: nothing is timed at run time.
+    memory a block, `itemsize` 2 (bf16) or 4 (float32). Pure and
+    deterministic: nothing is timed at run time.
 
     Returns {"route": "fused" | "layers", "fused": `chain_fused_plan` (or
-    None where no tile fits, and for one layer), "layers": each layer's
-    `conv2d_plan` (the input width padded to 8; an intermediate's width
+    None where no tile fits, for one layer, and in float32: the fused
+    kernel has no float32 instance), "layers": each layer's `conv2d_plan`
+    at `itemsize` (the input width padded to 8; an intermediate's width
     too, its padding channels computed as exact zeros from the packed
     weights' zero columns)}. Raises ValueError past the contract:
     1..MAX_LAYERS layers, every Cout in 1..MAX_COUT.
@@ -289,9 +368,10 @@ def chain_plan(chans: tuple, acts: tuple, b: int, h: int, w: int,
     if min(b, h, w) < 0:
         raise ValueError(f"negative shape {(b, h, w)}")
     widths = [_pad8(c) for c in chans[:-1]] + [chans[-1]]
-    layers = [conv2d_plan(ci, co, 3, limit)
+    layers = [conv2d_plan(ci, co, 3, limit, itemsize)
               for ci, co in zip(widths[:-1], widths[1:])]
-    fused = chain_fused_plan(chans, limit) if L > 1 else None
+    fused = chain_fused_plan(chans, limit) if L > 1 and itemsize == 2 \
+        else None
     return {"route": "layers", "fused": fused, "layers": layers}
 
 
@@ -352,25 +432,29 @@ def conv_chain(x: torch.Tensor, weights: Sequence[torch.Tensor],
         return conv_chain_plain(x, weights, biases, acts)
     if x.device.type != "cuda":
         raise ValueError(f"conv_chain: unsupported device {x.device}")
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"conv_chain kernel takes bfloat16, got {x.dtype}")
+    tag = kernel_dtype("conv_chain", x.dtype)
     if not x.is_contiguous():
         raise ValueError("conv_chain kernel takes a contiguous NHWC tensor")
     b, h, w, _ = x.shape
-    plan = chain_plan(chans, acts, b, h, w, _smem_limit(x.device.index))
+    plan = chain_plan(chans, acts, b, h, w, _smem_limit(x.device.index),
+                      x.element_size())
     L, use = len(weights), route or plan["route"]
+    if use == "fused" and tag == "f32":
+        raise TypeError("conv_chain: the fused chain kernel "
+                        "(csrc/conv_chain.cu) takes bfloat16 only; float32 "
+                        "runs the \"layers\" route")
     if use == "fused" and plan["fused"] is None:
         raise ValueError(f"conv_chain: no fused plan for channels {chans} "
                          f"(one layer runs the conv kernel; wider inputs "
                          f"overrun shared memory)")
     if any(w.device != x.device for w in weights):
         raise ValueError("weights must be on the input's device")
-    wpk, bpk = packed or pack_conv_chain(weights, biases)
+    wpk, bpk = packed or pack_conv_chain(weights, biases, x.dtype)
     n_w = sum(9 * _pad16(ci) * _pad16(co) for ci, co in
               zip(chans[:-1], chans[1:]))
-    if wpk.numel() != n_w or wpk.device != x.device:
+    if wpk.numel() != n_w or wpk.device != x.device or wpk.dtype != x.dtype:
         raise ValueError("packed weights do not match this chain's "
-                         "channels or device")
+                         "channels, device or dtype")
 
     def launch(x, *_):
         xp = pad_channels8(x)
@@ -386,8 +470,8 @@ def conv_chain(x: torch.Tensor, weights: Sequence[torch.Tensor],
                 _launch_conv2d(xp, wl, bl, out, 3, acts[l], "conv_chain")
                 xp = out
         conv_chain.launches += 1
-        conv_chain.launches_by_shape[(chans, h, w)] += 1
-        conv_chain.launches_by_plan[(use, chans, h, w)] += 1
+        conv_chain.launches_by_shape[(chans, h, w, tag)] += 1
+        conv_chain.launches_by_plan[(use, chans, h, w, tag)] += 1
         return out
 
     def plain(x, *wb):
@@ -398,7 +482,7 @@ def conv_chain(x: torch.Tensor, weights: Sequence[torch.Tensor],
 
 conv_chain.launches = 0
 conv_chain.launches_by_shape = Counter()
-# Launches by (route, chans, h, w): which route each call ran.
+# Launches by (route, chans, h, w, dtype tag): which route each call ran.
 conv_chain.launches_by_plan = Counter()
 
 
@@ -484,8 +568,7 @@ def conv2d(x: torch.Tensor, weight: torch.Tensor,
         return conv2d_plain(x, weight, bias, act)
     if x.device.type != "cuda":
         raise ValueError(f"conv2d: unsupported device {x.device}")
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"conv2d kernel takes bfloat16, got {x.dtype}")
+    tag = kernel_dtype("conv2d", x.dtype)
     if not x.is_contiguous():
         raise ValueError("conv2d kernel takes a contiguous NHWC tensor")
     cout, k = weight.shape[0], weight.shape[2]
@@ -495,18 +578,17 @@ def conv2d(x: torch.Tensor, weight: torch.Tensor,
     if weight.device != x.device or (bias is not None
                                      and bias.device != x.device):
         raise ValueError("weight and bias must be on the input's device")
-    wpk, bpk = packed or pack_conv2d(weight, bias)
+    wpk, bpk = packed or pack_conv2d(weight, bias, x.dtype)
     if (tuple(wpk.shape) != (k * k * _pad16(cin), _pad16(cout))
-            or wpk.device != x.device):
-        raise ValueError("packed weights do not match this conv's shape or "
-                         "device")
+            or wpk.device != x.device or wpk.dtype != x.dtype):
+        raise ValueError("packed weights do not match this conv's shape, "
+                         "device or dtype")
 
     def launch(x, *_):
-        out = torch.empty(b, h, w, cout, dtype=torch.bfloat16,
-                          device=x.device)
+        out = torch.empty(b, h, w, cout, dtype=x.dtype, device=x.device)
         _launch_conv2d(pad_channels8(x), wpk, bpk, out, k, act, "conv2d")
         conv2d.launches += 1
-        conv2d.launches_by_shape[(cin, cout, k, h, w)] += 1
+        conv2d.launches_by_shape[(cin, cout, k, h, w, tag)] += 1
         return out
 
     if needs_grad(x, weight, bias):

@@ -19,8 +19,13 @@
   above (as v1's float32 tile and the wide kernel).
 
 A CPU tensor runs the plain version; a CUDA tensor launches the kernel
-(bf16, contiguous) or raises. On the card the result carries autograd
-when an input requires grad: autograd of the plain version (`grad.py`), as
+(bf16 or float32, every operand of one dtype, contiguous; the float32
+instances compute the plain version's float32 arithmetic) or raises.
+Packed DCN weights are made in the input's dtype (`pack_dcn(..., dtype=)`);
+another dtype raises ValueError. Every launch key in `launches_by_shape`
+ends with the instance's tag, "bf16" or "f32". On the card the result
+carries autograd when an input requires grad: autograd of the plain
+version (`grad.py`, in the inputs' own dtype), as
 the reference's `deform_conv2d_fast` and `warp_fast`; without grad the
 launch builds no closure. A launch calls its C entry bound once
 (`build.entry`) on PyTorch's raw current stream. `tile_w` is accepted
@@ -37,8 +42,9 @@ from typing import Optional
 import torch
 
 from vfi_tpu_torch.ops.cuda import build
-from vfi_tpu_torch.ops.cuda.conv import (H100_SMEM_PER_BLOCK, ROW_PAD, _pad16,
-                                         _round128, _smem_limit, pack_conv2d,
+from vfi_tpu_torch.ops.cuda.conv import (H100_SMEM_PER_BLOCK, KERNEL_DTYPES,
+                                         ROW_PAD, _pad16, _round128,
+                                         _smem_limit, pack_conv2d,
                                          pad_channels8)
 from vfi_tpu_torch.ops.cuda.grad import ThroughPlain, needs_grad
 from vfi_tpu_torch.ops.deform_conv_shifts import deform_conv2d_shifts
@@ -61,6 +67,15 @@ pack_dcn = pack_conv2d
 # csrc/dcn_bounded.cu).
 DCN_TILE_PLANS, DCN_TILE_W = ((16, 2), (16, 1), (8, 1)), 16
 DCN_STREAM_ROWS = (8, 4)
+# The float32 instances: the tile design with one input buffer; the stream
+# design on 8 x 16 tiles, its chunks also 8 and 4 channels wide (a 16-byte
+# piece holds 4 float32 channels: with 4-channel chunks an 8 x 16 tile fits
+# up to R = 35, so no 4 x 16 instance); slab rows of 16 pixels + 4 floats,
+# channel-major (F_SP in csrc/dcn_bounded.cu); weight rows unpadded.
+DCN_TILE_PLANS_F32 = ((16, 1), (8, 1))
+DCN_STREAM_ROWS_F32 = (8,)
+DCN_F32_CHUNKS = (8, 4)
+DCN_F32_SLAB_PITCH = 20
 
 
 def deform_conv2d_bounded_plain(x, offset, mask, weight, bias=None,
@@ -84,15 +99,21 @@ def bounded_warp_plain(image: torch.Tensor, flow: torch.Tensor,
 
 def _cuda_checks(name: str, **tensors) -> int:
     """The index of the card the tensors lie on; raises unless each is a
-    contiguous bf16 CUDA tensor on one card (None entries are skipped)."""
-    dev = None
+    contiguous CUDA tensor on one card, all of one dtype the kernels take
+    (bfloat16 or float32; None entries are skipped)."""
+    dev = dtype = None
     for k, t in tensors.items():
         if t is None:
             continue
         if not t.is_cuda:
             raise ValueError(f"{name}: {k} on {t.device}, expected cuda")
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{name} kernel takes bfloat16 {k}, got {t.dtype}")
+        if t.dtype not in KERNEL_DTYPES:
+            raise TypeError(f"{name} kernel takes bfloat16 or float32 {k}, "
+                            f"got {t.dtype}")
+        if dtype is not None and t.dtype != dtype:
+            raise TypeError(f"{name} kernel takes operands of one dtype, got "
+                            f"{k} {t.dtype} beside {dtype}")
+        dtype = t.dtype
         if not t.is_contiguous():
             raise ValueError(f"{name} kernel takes a contiguous {k}")
         d = t.get_device()
@@ -102,12 +123,28 @@ def _cuda_checks(name: str, **tensors) -> int:
     return dev
 
 
-def _dcn_xu(cin8: int) -> int:
+def _dcn_xu(cin8: int, itemsize: int = 2) -> int:
     """The tile design's input-tile pixel stride in 16-byte units: the
-    pixel's cin8 / 8 pieces, plus one where that count is even, so that
-    16-byte reads of neighbouring pixels fall in distinct banks
-    (`dcn_xu` in csrc/dcn_bounded.cu)."""
-    return cin8 // 8 + (cin8 // 8 % 2 == 0)
+    pixel's 16-byte pieces (cin8 / 8 in bf16, cin8 / 4 in float32), plus
+    one where that count is even, so that 16-byte reads of neighbouring
+    pixels fall in distinct banks (`dcn_xu` in csrc/dcn_bounded.cu)."""
+    pieces = cin8 * itemsize // 16
+    return pieces + (pieces % 2 == 0)
+
+
+def _slab_bytes(rows: int, chans: int, itemsize: int) -> int:
+    """A block's sample slabs: one a warp of 16 pixels x `chans`
+    channels, pixel-major with rows padded by ROW_PAD (bf16), or
+    channel-major in rows of DCN_F32_SLAB_PITCH floats (float32)."""
+    if itemsize == 2:
+        return rows * DCN_TILE_W * (chans + ROW_PAD) * 2
+    return rows * chans * DCN_F32_SLAB_PITCH * 4
+
+
+def _weight_row_bytes(cout16: int, itemsize: int) -> int:
+    """One packed weight row in shared memory: bf16 rows padded by
+    ROW_PAD (ldmatrix's banks), float32 rows unpadded (read whole)."""
+    return (cout16 + ROW_PAD) * 2 if itemsize == 2 else cout16 * 4
 
 
 def _dcn_chunks(cin16: int) -> list:
@@ -117,27 +154,33 @@ def _dcn_chunks(cin16: int) -> list:
                   reverse=True)
 
 
-def _stream_plan(cin: int, cout: int, R: int, limit: int) -> Optional[dict]:
+def _stream_plan(cin: int, cout: int, R: int, limit: int,
+                 itemsize: int = 2) -> Optional[dict]:
     """The stream design's plan (`csrc/dcn_bounded.cu`), or None where no
-    tile of 4 rows holds a chunk of 16 channels: output tiles of `rows` x
-    16 pixels (`DCN_STREAM_ROWS`), two weight slices of
-    `chans` x (Cout16 + 8) channels, one input-tile buffer of
-    (rows + 2 + 2R) x (18 + 2R) pixels x `xu` 16-byte units, and one slab a
-    warp of 16 pixels x (chans + 8) channels. It takes the larger tile,
+    tile holds its narrowest chunk (16 channels in bf16, 4 in float32):
+    output tiles of `rows` x 16 pixels (`DCN_STREAM_ROWS`; in float32
+    `DCN_STREAM_ROWS_F32`), two weight slices of `chans` rows
+    (`_weight_row_bytes`), one input-tile buffer of (rows + 2 + 2R) x
+    (18 + 2R) pixels x `xu` 16-byte units, and one slab a warp of 16
+    pixels x `chans` channels (`_slab_bytes`). It takes the larger tile,
     then the widest chunk, with the odd pixel stride of the tile design
     (`_dcn_xu` of the chunk's pieces) and, where none fits, with the
     pieces unpadded."""
     cin8 = -(-cin // 8) * 8
     cin16, cout16 = _pad16(cin), _pad16(cout)
+    per = 16 // itemsize                       # channels a 16-byte piece
+    chunks = _dcn_chunks(cin16) + list(DCN_F32_CHUNKS if itemsize == 4
+                                       else ())
     for padded in (True, False):
-        for rows in DCN_STREAM_ROWS:
+        for rows in (DCN_STREAM_ROWS if itemsize == 2
+                     else DCN_STREAM_ROWS_F32):
             tpx = (rows + 2 + 2 * R) * (DCN_TILE_W + 2 + 2 * R)
-            for chans in _dcn_chunks(cin16):
-                pieces = min(chans, cin8) // 8
-                xu = _dcn_xu(pieces * 8) if padded else pieces
+            for chans in chunks:
+                pieces = min(chans, cin8) // per
+                xu = _dcn_xu(pieces * per, itemsize) if padded else pieces
                 x_bytes = _round128(tpx * xu * 16)
-                w_bytes = 2 * chans * (cout16 + ROW_PAD) * 2
-                s_bytes = rows * DCN_TILE_W * (chans + ROW_PAD) * 2
+                w_bytes = 2 * chans * _weight_row_bytes(cout16, itemsize)
+                s_bytes = _slab_bytes(rows, chans, itemsize)
                 smem = w_bytes + x_bytes + s_bytes
                 if smem <= limit:
                     return {"design": "stream",
@@ -151,9 +194,10 @@ def _stream_plan(cin: int, cout: int, R: int, limit: int) -> Optional[dict]:
 
 @functools.lru_cache(maxsize=None)
 def dcn_plan(cin: int, cout: int, max_offset: int,
-             limit: int = H100_SMEM_PER_BLOCK) -> dict:
+             limit: int = H100_SMEM_PER_BLOCK, itemsize: int = 2) -> dict:
     """The DCN kernel's plan (`csrc/dcn_bounded.cu`) for Cin -> Cout at
-    radius R within `limit` bytes of shared memory per block.
+    radius R within `limit` bytes of shared memory per block, for its
+    bf16 instances (`itemsize` 2) or its float32 ones (4).
 
     Design "tile" (weight-stationary, persistent): the packed weights
     [9 * Cin16][Cout16 + 8] resident, `nbuf` input-tile buffers of
@@ -168,6 +212,14 @@ def dcn_plan(cin: int, cout: int, max_offset: int,
     in channel chunks. On an H100 the tile design holds C = 64
     up to R = 8 and C = 67 up to R = 6; the stream design runs C = 64 from
     R = 9, C = 67 from R = 7 and C = 128 at every R.
+    Float32 (FFMA, no tensor cores): the same designs and search, with one
+    input buffer on the tile design (`DCN_TILE_PLANS_F32`), 16-byte pieces
+    of 4 channels (the input doubles in bytes), float32 slabs and weight
+    rows (`_slab_bytes`, `_weight_row_bytes`) and stream chunks down to 4
+    channels. On an H100 C = 64 runs the tile design up to R = 1 (at R = 1
+    on 8 x 16 tiles with 16-channel slabs), C = 67 and C = 128 the stream
+    design at every R; R <= 35 fits at any Cin <= 128 and Cout <= 128, as
+    in bf16.
     Raises ValueError past Cout 128 or R < 0, or where nothing fits (on an
     H100 R <= 35 fits at any Cin <= 128 and Cout <= 128)."""
     R = int(max_offset)
@@ -175,24 +227,29 @@ def dcn_plan(cin: int, cout: int, max_offset: int,
         raise ValueError(f"deform_conv2d_bounded kernel takes Cout in "
                          f"1..{DCN_MAX_COUT} and R >= 0, got Cin={cin}, "
                          f"Cout={cout}, R={max_offset}")
+    if itemsize not in (2, 4):
+        raise ValueError(f"deform_conv2d_bounded kernel has bf16 and float32 "
+                         f"instances, got itemsize {itemsize}")
     cin8 = -(-cin // 8) * 8
     cin16, cout16 = _pad16(cin), _pad16(cout)
-    w_bytes = 9 * cin16 * (cout16 + ROW_PAD) * 2
-    for rows, nbuf in DCN_TILE_PLANS:
+    xu = _dcn_xu(cin8, itemsize)
+    w_bytes = 9 * cin16 * _weight_row_bytes(cout16, itemsize)
+    for rows, nbuf in (DCN_TILE_PLANS if itemsize == 2
+                       else DCN_TILE_PLANS_F32):
         tpx = (rows + 2 + 2 * R) * (DCN_TILE_W + 2 + 2 * R)
-        x_bytes = _round128(tpx * _dcn_xu(cin8) * 16)
+        x_bytes = _round128(tpx * xu * 16)
         free = limit - w_bytes - nbuf * x_bytes
         for chans in range(cin16, 0, -16):
-            s_bytes = rows * DCN_TILE_W * (chans + ROW_PAD) * 2
+            s_bytes = _slab_bytes(rows, chans, itemsize)
             if s_bytes <= free:
                 return {"design": "tile",
                         "tile": f"{rows}x{DCN_TILE_W}", "rows": rows,
                         "nbuf": nbuf, "chans": chans,
-                        "passes": -(-cin16 // chans), "xu": _dcn_xu(cin8),
+                        "passes": -(-cin16 // chans), "xu": xu,
                         "x_bytes": x_bytes, "w_bytes": w_bytes,
                         "s_bytes": s_bytes,
                         "smem_bytes": w_bytes + nbuf * x_bytes + s_bytes}
-    plan = _stream_plan(cin, cout, R, limit)
+    plan = _stream_plan(cin, cout, R, limit, itemsize)
     if plan is None:
         raise ValueError(
             f"deform_conv2d_bounded kernel: no plan for C={cin}->{cout} at "
@@ -205,21 +262,25 @@ def dcn_plan(cin: int, cout: int, max_offset: int,
 
 def _dcn_launch(x, offset, mask, wpk, bpk, cout, R, plan, dev):
     b, h, w, cin = x.shape
-    out = torch.empty(b, h, w, cout, dtype=torch.bfloat16, device=x.device)
+    out = torch.empty(b, h, w, cout, dtype=x.dtype, device=x.device)
     xp = pad_channels8(x)
-    if offset.data_ptr() % 4:   # the kernel reads (dy, dx) as one word
-        offset = offset.clone()
-    rc = build.entry("vfi_dcn_bounded_bf16")(
-        xp.data_ptr(), offset.data_ptr(),
-        None if mask is None else mask.data_ptr(), wpk.data_ptr(),
-        bpk.data_ptr(), out.data_ptr(), b, h, w, xp.shape[-1], cout, R,
-        0 if plan["design"] == "tile" else 1, plan["rows"], plan["chans"],
-        plan["nbuf"], plan["xu"], plan["x_bytes"], plan["smem_bytes"], dev,
-        build.current_stream(dev))
+    if offset.data_ptr() % (2 * offset.element_size()):
+        offset = offset.clone()   # the kernel reads (dy, dx) as one word
+    args = (xp.data_ptr(), offset.data_ptr(),
+            None if mask is None else mask.data_ptr(), wpk.data_ptr(),
+            bpk.data_ptr(), out.data_ptr(), b, h, w, xp.shape[-1], cout, R,
+            0 if plan["design"] == "tile" else 1, plan["rows"], plan["chans"])
+    tail = (plan["xu"], plan["x_bytes"], plan["smem_bytes"], dev,
+            build.current_stream(dev))
+    if x.dtype == torch.float32:
+        rc = build.entry("vfi_dcn_bounded_f32")(*args, *tail)
+    else:
+        rc = build.entry("vfi_dcn_bounded_bf16")(*args, plan["nbuf"], *tail)
     if rc:
         build.check(rc, "deform_conv2d_bounded")
     deform_conv2d_bounded.launches += 1
-    deform_conv2d_bounded.launches_by_shape[(cin, cout, h, w, R)] += 1
+    deform_conv2d_bounded.launches_by_shape[
+        (cin, cout, h, w, R, KERNEL_DTYPES[x.dtype])] += 1
     return out
 
 
@@ -263,12 +324,13 @@ def deform_conv2d_bounded(x: torch.Tensor, offset: torch.Tensor,
                                       and bias.get_device() != dev):
         raise ValueError("weight and bias must be on the input's device")
     R = int(max_offset)
-    plan = dcn_plan(cin, cout, R, _smem_limit(dev))  # raises where none fits
-    wpk, bpk = packed or pack_dcn(weight, bias)
+    # raises where none fits
+    plan = dcn_plan(cin, cout, R, _smem_limit(dev), x.element_size())
+    wpk, bpk = packed or pack_dcn(weight, bias, x.dtype)
     if (tuple(wpk.shape) != (9 * _pad16(cin), _pad16(cout))
-            or wpk.get_device() != dev):
-        raise ValueError("packed weights do not match this DCN's channels "
-                         "or device")
+            or wpk.get_device() != dev or wpk.dtype != x.dtype):
+        raise ValueError("packed weights do not match this DCN's channels, "
+                         "device or dtype")
     if not needs_grad(x, offset, mask, weight, bias):
         return _dcn_launch(x, offset, mask, wpk, bpk, cout, R, plan, dev)
     return ThroughPlain.apply(
@@ -279,16 +341,22 @@ def deform_conv2d_bounded(x: torch.Tensor, offset: torch.Tensor,
         x, offset, mask, weight, bias)
 
 
+# The warp's C entry of each dtype.
+_WARP_ENTRIES = {torch.bfloat16: "vfi_warp_bounded_bf16",
+                 torch.float32: "vfi_warp_bounded_f32"}
+
+
 def _warp_launch(image, flow, max_flow, dev):
     b, h, w, c = image.shape
     out = torch.empty_like(image)
-    rc = build.entry("vfi_warp_bounded_bf16")(
+    rc = build.entry(_WARP_ENTRIES[image.dtype])(
         image.data_ptr(), flow.data_ptr(), out.data_ptr(), b, h, w, c,
         float(max_flow), dev, build.current_stream(dev))
     if rc:
         build.check(rc, "bounded_warp")
     bounded_warp.launches += 1
-    bounded_warp.launches_by_shape[(c, h, w, int(max_flow))] += 1
+    bounded_warp.launches_by_shape[
+        (c, h, w, int(max_flow), KERNEL_DTYPES[image.dtype])] += 1
     return out
 
 
@@ -303,7 +371,7 @@ def bounded_warp(image: torch.Tensor, flow: torch.Tensor,
         return bounded_warp_plain(image, flow, max_flow)
     dev = image.get_device()
     if not (flow.get_device() == dev >= 0 and image.dtype is flow.dtype
-            is torch.bfloat16 and image.is_contiguous()
+            and image.dtype in _WARP_ENTRIES and image.is_contiguous()
             and flow.is_contiguous()):   # the common case in one test
         dev = _cuda_checks("bounded_warp", image=image, flow=flow)
     if not (torch.is_grad_enabled()

@@ -14,10 +14,14 @@ The step is plain eager PyTorch on one card (or the CPU when asked):
   backward, so on the card every DCN and warp kernel launches twice a
   microbatch;
 - `bf16` means bf16 activations and float32 parameters: the models cast
-  at use. `use_pallas` picks the model's `use_kernels`: the CUDA kernels,
-  whose backward is autograd of their plain versions (`ops/cuda/grad.py`),
-  or the plain versions themselves. A kernel that fails to build or
-  launch raises; nothing falls back to the plain version.
+  at use; `bf16: false` runs float32 activations. `use_pallas` picks the
+  model's `use_kernels`: the CUDA kernels (their bf16 or float32
+  instances, by the activations' dtype), whose backward is autograd of
+  their plain versions (`ops/cuda/grad.py`), or the plain versions
+  themselves. A kernel that fails to build or launch raises; nothing
+  falls back to the plain version. The trainer leaves `torch.backends`'
+  TF32 flags as the caller set them; they reach only the cuDNN convs
+  outside the kernels.
 
 The model is never packed (`pack_kernel_weights`): the optimizer moves its
 weights, and an unpacked model repacks them on every call, as does the
@@ -340,9 +344,6 @@ class Trainer:
         self.n_data = n_data
         self.data_index = self.rank // n_spatial
         self.device = dev = resolve_device(device)
-        if dev.type == "cuda" and cfg.use_pallas and not cfg.bf16:
-            raise ValueError("the CUDA kernels run in bfloat16 only; set "
-                             "bf16 true, or use_pallas false for float32")
         dtype = torch.bfloat16 if cfg.bf16 else None
         self.joint_flow = cfg.temporal_weight > 0 and cfg.train_flow_estimator
         if cfg.flow_prior and not self.joint_flow:

@@ -167,21 +167,37 @@ and the script exits non-zero without a result line:
            bench_kernels' DCN at vga (C=67, R=2) and its warp (C=3 and
            C=64): each kernel within tolerance of its plain version, and
            the conv, DCN and warp kernels launched;
+12b. user_tools the five user tools in-process at full width (USER_*):
+           `profile_forward` (the qocc forward, 4x720x1280, conv_kernel
+           "pallas", two chained forwards: device time by category and
+           on the timeline, whose rows, overlap and idle gaps must make
+           the trace's span, the port's kernels' share above 0),
+           `dump_offsets` (qocc's planes on Urban at 720p in float32,
+           through the kernels within USER_DUMP_TOL of the plain
+           versions' dump) and `bench_kernels --offsets` on them,
+           `offset_stats` (Urban, 480x640), `bench_flowprior` (q3ft,
+           4x720x1280, the prior's overhead) and `bench_train_step`
+           (`kernels` against `handbwd`, the hand-written DCN backward:
+           the first step's loss equal, the gradients' cosine at least
+           USER_GRAD_COS; ms a step); the conv, DCN and warp kernels
+           launched;
 13. grad   gradients through each kernel wrapper (conv, chain of three
            layers and of one, DCN on the tile and the stream design, warp
            at C=3 and C=64) against those
            through its plain version at a small shape (GRAD_SHAPE,
            tolerance stated there);
-14. profile (only with --profile) torch.profiler over one b=1 request: the
-           device's busy share of the request's wall time and device time
-           by kernel, split into the port's CUDA kernels and the rest;
+14. profile (only with --profile) torch.profiler over one b=1 request
+           (`utils.profiling.device_profile`): the device's busy share of
+           the request's wall time, device time by kernel and by category,
+           the timeline view;
            the same over one kernel-route optimizer step of the train
            phase (`train_turns`' `profile_kernel_step`).
 
 Each kernel row's `launches` is its count over the paths (main, serve,
 video, videos, infer_cli, q12, eval, train, train_val, train_sample,
 train_export, fp32, eval_fp32, train_fp32, dp_engine, spatial and
-dp_train (summed over the ranks), tools) that launch its shape; a launch
+dp_train (summed over the ranks), tools, user_tools) that launch its
+shape; a launch
 key ends with its instance's dtype ("bf16" or "f32"), and the run fails
 when a path launches a (kernel, shape, dtype) that no row checks. Every
 phase that means one engine on one card names card 0 (CARD0). The spawned
@@ -241,13 +257,16 @@ from vfi_tpu_torch.parallel import make_mesh, required_halo
 from vfi_tpu_torch.serve import (BatcherStats, InterpolationServer,
                                  encode_pair_body, encode_raw_body,
                                  encode_seq_body)
-from vfi_tpu_torch.tools import bench_conv, bench_kernels
+from vfi_tpu_torch.tools import (bench_conv, bench_flowprior, bench_kernels,
+                                 bench_train_step, dump_offsets,
+                                 offset_stats, profile_forward)
 from vfi_tpu_torch.tools.bench_serve import run_load
 from vfi_tpu_torch.train import (Trainer, TrainState, create_train_state,
                                  make_train_step)
 from vfi_tpu_torch.train.loop import data_rows
 from vfi_tpu_torch.utils.config import MeshConfig, TrainConfig
 from vfi_tpu_torch.utils.convert import load_params_npz, params_from_jax
+from vfi_tpu_torch.utils.profiling import device_profile
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(vfi_tpu_torch.__file__)))
 CKPT = os.path.join(ROOT, "artifacts", "emavfi_qocc_best")
@@ -375,6 +394,37 @@ TOOL_RUNS = (
 )
 # Library calls the tools time beside the kernels (not checked).
 TOOL_LIBRARY = ("xla", "xla-shifts", "plain", "grid_sample")
+# The user_tools phase: the five user tools in-process at full width.
+# profile_forward: the qocc forward chained twice at 4x720x1280 on the
+# kernels (conv_kernel "pallas"); its timeline rows less the overlap
+# between categories plus the idle gaps must make the trace's span within
+# USER_SPAN_TOL of it, and the port's kernels must hold device time.
+USER_PROFILE = ["--ckpt", CKPT + ".npz", "--radius", "1", "--conv_kernel",
+                "pallas", "--b", "4", "--iters", "2"]
+USER_SPAN_TOL = 0.01
+# dump_offsets: qocc's planes on Urban at 720p, R=1, in float32, through
+# the kernels against the same dump through their plain versions: float32
+# end to end, sums in other orders through ~15 layers, within
+# USER_DUMP_TOL * max|plain| (a wrong tap or channel moves the offsets by
+# far more). bench_kernels then times the DCN on those planes (qocc's
+# C=64, R=1).
+USER_DUMP = ["--ckpt", CKPT + ".npz", "--scene", "Urban", "--size", "720p",
+             "--radius", "1"]
+USER_DUMP_TOL = 2.0 ** -12
+USER_OFFSETS = ["--size", "720p", "--channels", "64", "--radius", "1",
+                "--kernels", "xla,pallas", "--iters", "3"]
+USER_STATS = ["--ckpt", CKPT + ".npz", "--scene", "Urban", "--radius", "1"]
+USER_FLOWPRIOR = ["--iters", "3"]
+# bench_train_step at its defaults (crop 256, batch 16, 8 microbatches)
+# on the kernels path and the hand-written DCN backward: one forward
+# function, so the first step's loss is the same number on both; the
+# backward differs in arithmetic (float32 hand-written sums against
+# autograd of the bf16 plain version) and at integer offsets (the fresh
+# model's offset conv starts at zero: ROADMAP.md section 3 item 2), so the
+# gradients' cosine must be at least USER_GRAD_COS.
+USER_TRAIN = ["--paths", "kernels,handbwd", "--iters", "2"]
+USER_TRAIN_CROP = bench_train_step.parse_args([]).crop
+USER_GRAD_COS = 0.9999
 # The train phase: the qocc fine-tune that made the flagship checkpoint
 # (tools/queueAC.sh:109-121), at full width, warm-started from it, with
 # random-feature VGG (no pretrained weights in the repository), one epoch
@@ -808,9 +858,12 @@ def phase_kernels(sd: dict, sd12: dict, dev) -> list:
     main, q12, ev = (("main", "serve", "video", "videos", "train_export",
                       "dp_engine"), ("q12",), ("eval",))
     cli = ("infer_cli",)
+    # The user tools' 720p shapes: profile_forward's qocc forwards (no
+    # cascade), bench_kernels on dump_offsets' 720p planes.
+    ut = ("user_tools",)
     q12s = q12 + ("q12_r8",)    # both q12 requests' chains and warp
     for h, w, chain in [(H, W, c) for c in chains]:
-        rows += chain_rows(rnd, sd, *chain, 1, h, w, main)
+        rows += chain_rows(rnd, sd, *chain, 1, h, w, main + ut)
     for chain in chains[:2]:
         rows += chain_rows(rnd, sd, *chain, 1, H // 2, W // 2, main + cli)
     # The infer_cli phase's other shapes: the offset and reconstruction
@@ -836,7 +889,7 @@ def phase_kernels(sd: dict, sd12: dict, dev) -> list:
 
     dcn, dcn12 = [(d["fusion_dcn0.weight"].cuda(), d["fusion_dcn0.bias"].cuda())
                   for d in (sd, sd12)]
-    rows.append(dcn_row(rnd, *dcn, 1, H, W, 1, DCN_TPU, main))
+    rows.append(dcn_row(rnd, *dcn, 1, H, W, 1, DCN_TPU, main + ut))
     rows.append(dcn_row(rnd, *dcn, 1, ih, iw, 1, DCN_TPU, cli))
     # The v4 route's shapes on the eval path: qocc (C=64, R=1) at native
     # (infer_cli's val pair's too) and auto_scale's half resolution, q12
@@ -852,7 +905,8 @@ def phase_kernels(sd: dict, sd12: dict, dev) -> list:
 
     # Bounded warp of the RGB frame; flows reach past R = 16. The library
     # call is grid_sample on the clamped flow's normalized grid.
-    for b, h, w, paths in ((1, H, W, main), (EB, EH, EW, q12s + ev + cli),
+    for b, h, w, paths in ((1, H, W, main + ut),
+                           (EB, EH, EW, q12s + ev + cli),
                            (EB, EH // 2, EW // 2, ev), (1, ih, iw, cli)):
         rows.append(warp_row(rnd, b, h, w, paths, dev))
     # The train phase's DCN (C=64, R=1, the v4 route the JAX trainer takes)
@@ -866,6 +920,7 @@ def phase_kernels(sd: dict, sd12: dict, dev) -> list:
         rows.append(warp_row(rnd, b, th, tw, paths, dev))
     return (rows + spatial_rows(rnd, sd, dcn, dev)
             + tool_rows(rnd, gen, dcn12, dev)
+            + user_tool_rows(rnd, dcn, dcn12, dev)
             + f32_rows(rnd, gen, sd, chains, dcn, dcn12, dev))
 
 
@@ -881,6 +936,9 @@ def f32_rows(rnd, gen, sd, chains, dcn, dcn12, dev) -> list:
     im2col and v2 rows."""
     f32 = torch.float32
     fp, ev, tr = ("fp32",), ("eval_fp32",), ("train_fp32",)
+    # dump_offsets (720p) and offset_stats (480x640) run the model in
+    # float32.
+    ut = ("user_tools",)
     eh, ew = bench_kernels.SIZES["vga"]
     th, tw = TRAIN_RECIPE["crop_size"]
     rows = []
@@ -892,8 +950,8 @@ def f32_rows(rnd, gen, sd, chains, dcn, dcn12, dev) -> list:
                            (), dt=f32))
     rows.append(conv2d_row(rnd, gen, 64, 64, 3, 1, H, W, "v2", CONV_V2_TPU,
                            (), dt=f32))
-    for b, h, w, paths, tpu in ((1, H, W, fp, DCN_TPU),
-                                (EB, EH, EW, ev, DCN_V4_TPU),
+    for b, h, w, paths, tpu in ((1, H, W, fp + ut, DCN_TPU),
+                                (EB, EH, EW, ev + ut, DCN_V4_TPU),
                                 (2, th, tw, tr, DCN_V4_TPU)):
         rows.append(dcn_row(rnd, *dcn, b, h, w, 1, tpu, paths, dt=f32))
         rows.append(warp_row(rnd, b, h, w, paths, dev, dt=f32))
@@ -962,6 +1020,18 @@ def tool_rows(rnd, gen, dcn12, dev) -> list:
         rows.append(warp_row(rnd, 1, eh, ew, paths, dev, c, R,
                              WARP_TPU if c == 3 else WARP_V1_TPU))
     return rows
+
+
+def user_tool_rows(rnd, dcn, dcn12, dev) -> list:
+    """The user tools' shapes no other path launches: bench_flowprior's
+    DCN on q3ft (C=67, R=2) at its 4x720x1280 batch, and
+    bench_train_step's DCN (C=64, R=2) and RGB warp on its 2x256x256
+    microbatches. Their JAX routes ran the v4 DCN."""
+    ut = ("user_tools",)
+    crop = USER_TRAIN_CROP
+    return [dcn_row(rnd, *dcn12, EB, H, W, 2, DCN_V4_TPU, ut),
+            dcn_row(rnd, *dcn, 2, crop, crop, 2, DCN_V4_TPU, ut),
+            warp_row(rnd, 2, crop, crop, ut, dev)]
 
 
 def psnr(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -1918,8 +1988,8 @@ def train_turns(trainer, batch) -> dict:
            "kernel_over_plain": med["kernel"] / med["plain"]}
     if "--profile" in sys.argv[1:]:     # one more kernel-route step
         st, step = routes["kernel"]
-        res["profile_kernel_step"] = profiled(
-            lambda: float(step(st, *batch)["loss"]))
+        res["profile_kernel_step"] = device_profile(
+            lambda: float(step(st, *batch)["loss"]), CARD0)
     return res
 
 
@@ -2594,6 +2664,108 @@ def phase_tools() -> dict:
             "launches": counts, "runs": results, "_by_shape": shapes_now()}
 
 
+def phase_user_tools() -> dict:
+    """The five user tools in-process on the card at full width (the
+    USER_* flags): profile_forward, dump_offsets (and bench_kernels on its
+    planes), offset_stats, bench_flowprior and bench_train_step, each with
+    the checks stated beside its flags; the conv, DCN and warp kernels
+    each launched. The shapes they launch are the `user_tools` path's."""
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    failures, seconds = [], {}
+
+    def run(tool, argv):
+        t1 = time.perf_counter()
+        res = tool.main(argv)
+        seconds[tool.__name__.rsplit(".", 1)[-1]] = time.perf_counter() - t1
+        return res
+
+    prof = run(profile_forward, USER_PROFILE)
+    span = prof["trace_span_ms"]
+    rows = (sum(prof["timeline_ms"].values())
+            - prof["cross_category_overlap_ms"] + prof["idle_ms"])
+    if not abs(rows - span) <= USER_SPAN_TOL * span:
+        failures.append(f"profile_forward: timeline rows {rows} ms against "
+                        f"the span {span} ms")
+    if not prof["category_ms"]["port-kernels"] > 0:
+        failures.append("profile_forward: no device time in the port's "
+                        "kernels")
+    frames = prof["frames"]
+    profile = {k: prof[k] for k in (
+        "card", "b", "h", "w", "iters", "frames", "wall_ms", "trace_span_ms",
+        "device_busy_ms", "device_busy_share", "idle_ms", "idle_share",
+        "device_kernel_ms", "kernel_launches", "category_ms", "timeline_ms",
+        "cross_category_overlap_ms", "top_kernels_ms")}
+    profile.update(device_ms_per_frame=prof["device_kernel_ms"] / frames,
+                   device_ops_per_frame=prof["kernel_launches"] / frames,
+                   wall_ms_per_frame=prof["wall_ms"] / frames,
+                   rows_ms=rows)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = [os.path.join(tmp, f"{n}.npz") for n in ("kernels", "plain")]
+        dumps = [run(dump_offsets, USER_DUMP + ["--out", paths[0]]),
+                 run(dump_offsets, USER_DUMP + ["--plain", "--out",
+                                                paths[1]])]
+        dump_err = {}
+        for key, ref in dumps[1]["planes"].items():
+            got = dumps[0]["planes"][key]
+            err = float(np.abs(got - ref).max())
+            tol = USER_DUMP_TOL * float(np.abs(ref).max())
+            dump_err[key] = {"max_abs_err": err, "tol": tol,
+                             "shape": list(got.shape)}
+            if not (np.isfinite(got).all() and err <= tol):
+                failures.append(f"dump_offsets {key}: {err} > {tol}")
+        bench = run(bench_kernels, ["--offsets", paths[0]] + USER_OFFSETS)
+    for row in bench["rows"]:
+        if (row["kernel"] not in TOOL_LIBRARY
+                and not row["max_abs_err"] <= REL_TOL * row["ref_max_abs"]):
+            failures.append(f"bench_kernels --offsets {row}")
+
+    stats = run(offset_stats, USER_STATS)
+    most = 9 * (2 * stats["radius"] + 1)
+    for row in stats["layers"]:
+        if not 9 <= row["pairs_wchunk"] <= row["pairs_full_w"] <= most:
+            failures.append(f"offset_stats {row}")
+
+    prior = run(bench_flowprior, USER_FLOWPRIOR)
+    if not (prior["plain_fps"] > 0 and prior["flow_prior_fps"] > 0):
+        failures.append(f"bench_flowprior {prior}")
+
+    step = run(bench_train_step, USER_TRAIN)
+    res = step["results"]
+    cos = float(F.cosine_similarity(step["grads"]["kernels"],
+                                    step["grads"]["handbwd"], dim=0))
+    if res["handbwd"]["first_loss"] != res["kernels"]["first_loss"]:
+        failures.append(f"bench_train_step: handbwd's first loss "
+                        f"{res['handbwd']['first_loss']} against kernels' "
+                        f"{res['kernels']['first_loss']}")
+    if not cos >= USER_GRAD_COS:
+        failures.append(f"bench_train_step: handbwd's gradient at cosine "
+                        f"{cos} of kernels'")
+
+    counts = launch_counts()
+    for k in ("conv_chain", "deform_conv2d_bounded", "bounded_warp"):
+        if counts[k] == 0:
+            failures.append(f"the user tools launched no {k}")
+    if failures:
+        raise AssertionError("user_tools: " + "; ".join(failures))
+    return {"phase": "user_tools", "seconds": time.perf_counter() - t0,
+            "tool_seconds": seconds, "launches": counts,
+            "profile_forward": profile,
+            "dump_offsets": {"dx_p99": dumps[0]["dx_p99"],
+                             "kernel_vs_plain": dump_err,
+                             "tol": USER_DUMP_TOL},
+            "bench_kernels_offsets": bench["rows"],
+            "offset_stats": stats["layers"],
+            "bench_flowprior": prior,
+            "bench_train_step": {**{k: step[k] for k in (
+                "crop", "batch", "accum", "iters")}, "results": res,
+                "handbwd_vs_kernels_ms": res["handbwd"]["ms_per_step"]
+                / res["kernels"]["ms_per_step"],
+                "grad_cosine": cos, "grad_cos_floor": USER_GRAD_COS},
+            "_by_shape": shapes_now()}
+
+
 def grad_case(name, kernel, plain, inputs) -> dict:
     """Gradients of sum(out * cot) through `kernel` and through `plain`
     with respect to every floating input: the kernel's output carries a
@@ -2717,56 +2889,6 @@ def kernel_launches(rows: list, by_path: dict) -> list:
     return kernels
 
 
-PORT_KERNELS = ("conv_chain_kernel", "conv2d_kernel", "conv2d_f32_kernel",
-                "dcn_tile_kernel", "dcn_stream_kernel", "dcn_tile_f32_kernel",
-                "dcn_stream_f32_kernel", "warp_bounded_kernel",
-                "warp_bounded_wide_kernel", "warp_bounded_wide_2b_kernel")
-
-
-def profiled(fn) -> dict:
-    """Run `fn` (which ends synchronised) under torch.profiler: its wall
-    ms, the device's busy ms (union of kernel intervals) and share of the
-    wall, device ms by kernel, split into the port's CUDA kernels and the
-    rest, and the count of kernel launches."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        w0 = time.perf_counter()
-        fn()
-        wall_ms = (time.perf_counter() - w0) * 1e3
-    spans, by_name = [], {}
-    for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        a, b = ev.time_range.start, ev.time_range.end
-        if b <= a:
-            continue
-        spans.append((a, b))
-        by_name[ev.name] = by_name.get(ev.name, 0.0) + (b - a) / 1e3
-    if not spans:
-        raise AssertionError("profiler recorded no device activity")
-    spans.sort()
-    busy, cur_a, cur_b = 0.0, *spans[0]
-    for a, b in spans[1:]:
-        if a > cur_b:
-            busy += cur_b - cur_a
-            cur_a, cur_b = a, b
-        else:
-            cur_b = max(cur_b, b)
-    busy = (busy + cur_b - cur_a) / 1e3
-    port = sum(v for k, v in by_name.items()
-               if any(p in k for p in PORT_KERNELS))
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    return {"wall_ms": wall_ms, "device_busy_ms": busy,
-            "device_busy_share": busy / wall_ms,
-            "device_kernel_ms": sum(by_name.values()),
-            "port_kernels_ms": port, "other_kernels_ms":
-            sum(by_name.values()) - port, "kernel_launches": len(spans),
-            "n_kernel_names": len(by_name),
-            "top_kernels_ms": [[k[:90], v] for k, v in top]}
-
-
 def phase_profile(eng, request) -> dict:
     """Device time of one b=1 request by kernel, and the device's busy
     share of the request's wall time."""
@@ -2776,7 +2898,7 @@ def phase_profile(eng, request) -> dict:
         eng.midpoints(*request)
         torch.cuda.synchronize()
 
-    res = profiled(run)
+    res = device_profile(run, CARD0)
     return {"phase": "profile", "seconds": time.perf_counter() - t0, **res}
 
 
@@ -2870,6 +2992,9 @@ def main() -> int:
     tools_res = phase_tools()
     by_path["tools"] = tools_res.pop("_by_shape")
     emit(tools_res)
+    user_res = phase_user_tools()
+    by_path["user_tools"] = user_res.pop("_by_shape")
+    emit(user_res)
     emit(phase_grad(dev))
     if "--profile" in sys.argv[1:]:
         emit(phase_profile(eng, request))

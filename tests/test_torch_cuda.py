@@ -40,7 +40,9 @@ from vfi_tpu_torch.ops.cuda import (bounded_warp, bounded_warp_plain,
                                     conv_chain_plain, dcn_plan,
                                     deform_conv2d_bounded,
                                     deform_conv2d_bounded_plain,
-                                    launch_counts, reset_launch_counts)
+                                    hand_backward, launch_counts,
+                                    reset_launch_counts)
+from vfi_tpu_torch.ops.deform_conv_shifts import deform_conv2d_shifts_bwd
 
 pytestmark = pytest.mark.cuda
 REL_TOL = 2.0 ** -7
@@ -527,6 +529,27 @@ def test_gradients_through_the_kernels_match_the_plain_versions(dev, name):
             continue
         _close(a, b)
         assert not ((a == 0) & (b != 0)).any()
+
+
+@pytest.mark.parametrize("cin,R", [(64, 1), (64, 2), (128, 4)])
+def test_hand_backward_on_the_kernel(dev, cin, R):
+    """Inside hand_backward() the kernel's forward carries the
+    hand-written backward: one launch, no recomputed forward, and the
+    gradients are deform_conv2d_shifts_bwd's on the saved inputs (up to
+    the order of its float32 atomic adds)."""
+    x, off, mask, w, bias = _dcn_case(dev, 7, 2, (24, 40), cin, cin, R)
+    leaves = [t.detach().clone().requires_grad_() for t in
+              (x, off, mask, w, bias)]
+    g = torch.randn(2, 24, 40, cin, device=dev).to(torch.bfloat16)
+    reset_launch_counts()
+    with hand_backward():
+        out = deform_conv2d_bounded(*leaves, R)
+    _close(out, deform_conv2d_bounded_plain(x, off, mask, w, bias, R))
+    out.backward(g)
+    assert launch_counts()["deform_conv2d_bounded"] == 1
+    want = deform_conv2d_shifts_bwd(x, off, mask, w, bias, g, max_offset=R)
+    for leaf, ref in zip(leaves, want):
+        _close(leaf.grad, ref)
 
 
 def test_kernels_skip_autograd_under_inference_mode(dev):

@@ -15,7 +15,7 @@ conv (XLA convs there); "pallas", through the fused conv-chain kernel.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -86,7 +86,10 @@ class ModulatedDeformConv(nn.Module):
     conv-chain kernel launch ("pallas"). With `max_offset` an integer R
     the offsets are clamped to [-R, R] and the DCN runs through the `ops`
     triple (the bounded kernel); with None it is the exact unbounded op
-    (`ops/deform_conv.py`, plain PyTorch, as in the JAX package)."""
+    (`ops/deform_conv.py`, plain PyTorch, as in the JAX package).
+    `capture`, where set to a callable, is called with the offset conv's
+    raw output (B, H, W, 27) on every forward (the JAX model's
+    `capture_intermediates` of `offset_conv`, for `tools/dump_offsets`)."""
 
     def __init__(self, channels: int, max_offset: Optional[int],
                  conv_kernel: str = "xla"):
@@ -103,6 +106,7 @@ class ModulatedDeformConv(nn.Module):
         nn.init.uniform_(self.bias, -bound, bound)
         self.max_offset = max_offset
         self.packed = (None, None)
+        self.capture: Optional[Callable[[torch.Tensor], None]] = None
 
     def pack_kernel_weights(self, dtype: torch.dtype = torch.bfloat16
                             ) -> None:
@@ -123,6 +127,8 @@ class ModulatedDeformConv(nn.Module):
                                  packed=self.packed[0])
         else:
             raw = conv_nhwc(x, self.offset_conv, act=False)
+        if self.capture is not None:
+            self.capture(raw)
         off_static, mask, off_dynamic = torch.split(raw, 9, dim=-1)
         offset = torch.cat([off_static, off_dynamic], dim=-1).contiguous()
         mask = torch.sigmoid(mask).contiguous()

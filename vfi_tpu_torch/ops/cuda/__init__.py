@@ -20,7 +20,7 @@ from vfi_tpu_torch.ops.cuda.conv import (chain_plan, conv2d, conv2d_plain,
 from vfi_tpu_torch.ops.cuda.sampling import (bounded_warp, bounded_warp_plain,
                                              dcn_plan, deform_conv2d_bounded,
                                              deform_conv2d_bounded_plain,
-                                             pack_dcn)
+                                             hand_backward, pack_dcn)
 
 WRAPPERS = (conv_chain, deform_conv2d_bounded, bounded_warp, conv2d)
 
@@ -51,8 +51,8 @@ def launch_counts() -> dict:
 
 
 __all__ = ["KERNELS", "Ops", "PLAIN", "WRAPPERS", "bounded_warp",
-           "bounded_warp_plain", "chain_plan", "conv2d", "conv2d_plain", "conv2d_plan",
-           "conv_chain", "conv_chain_plain", "dcn_plan",
-           "deform_conv2d_bounded",
-           "deform_conv2d_bounded_plain", "launch_counts", "pack_conv2d",
+           "bounded_warp_plain", "chain_plan", "conv2d", "conv2d_plain",
+           "conv2d_plan", "conv_chain", "conv_chain_plain", "dcn_plan",
+           "deform_conv2d_bounded", "deform_conv2d_bounded_plain",
+           "hand_backward", "launch_counts", "pack_conv2d",
            "pack_conv_chain", "pack_dcn", "reset_launch_counts"]

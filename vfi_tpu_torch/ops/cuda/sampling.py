@@ -27,7 +27,11 @@ ends with the instance's tag, "bf16" or "f32". On the card the result
 carries autograd when an input requires grad: autograd of the plain
 version (`grad.py`, in the inputs' own dtype), as
 the reference's `deform_conv2d_fast` and `warp_fast`; without grad the
-launch builds no closure. A launch calls its C entry bound once
+launch builds no closure. Inside `hand_backward()` the DCN's backward
+is the hand-written `deform_conv2d_shifts_bwd` on the saved inputs
+instead, with no recomputed forward, on either device (the ablation of
+the JAX package's `tools/bench_train_step.py`). A launch calls its C
+entry bound once
 (`build.entry`) on PyTorch's raw current stream. `tile_w` is accepted
 for API parity with the JAX wrappers (a TPU skip-predicate tiling knob)
 and has no effect on the output.
@@ -35,6 +39,7 @@ and has no effect on the output.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from collections import Counter
 from typing import Optional
@@ -47,7 +52,8 @@ from vfi_tpu_torch.ops.cuda.conv import (H100_SMEM_PER_BLOCK, KERNEL_DTYPES,
                                          _smem_limit, pack_conv2d,
                                          pad_channels8)
 from vfi_tpu_torch.ops.cuda.grad import ThroughPlain, needs_grad
-from vfi_tpu_torch.ops.deform_conv_shifts import deform_conv2d_shifts
+from vfi_tpu_torch.ops.deform_conv_shifts import (deform_conv2d_shifts,
+                                                  deform_conv2d_shifts_bwd)
 from vfi_tpu_torch.ops.warp import warp
 
 DCN_MAX_COUT = 128
@@ -87,6 +93,44 @@ def deform_conv2d_bounded_plain(x, offset, mask, weight, bias=None,
     signature."""
     return deform_conv2d_shifts(x, offset, mask, weight, bias,
                                 max_offset=max_offset, padding=padding)
+
+
+class HandBackward(torch.autograd.Function):
+    """forward: `launch(x, offset, mask)`; backward: the hand-written
+    `deform_conv2d_shifts_bwd` on the saved inputs at radius R."""
+
+    @staticmethod
+    def forward(ctx, launch, R, x, offset, mask, weight, bias):
+        ctx.R = R
+        ctx.save_for_backward(x, offset, mask, weight, bias)
+        return launch(x, offset, mask)
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = deform_conv2d_shifts_bwd(*ctx.saved_tensors, g.contiguous(),
+                                         max_offset=ctx.R)
+        return (None, None, *(d if n else None for d, n in
+                              zip(grads, ctx.needs_input_grad[2:])))
+
+
+# Whether the DCN records `HandBackward` (inside `hand_backward()`) or
+# `ThroughPlain` when its inputs need grad; read at the forward.
+_HAND_BACKWARD = [False]
+
+
+@contextlib.contextmanager
+def hand_backward():
+    """Within the block, a bounded DCN whose inputs need grad records the
+    hand-written backward (`HandBackward`) instead of autograd of the plain
+    version; on exit the previous choice returns. The counterpart of the
+    `defvjp` swap in the JAX package's `tools/bench_train_step.py`: for
+    ablations, not for training."""
+    prev = _HAND_BACKWARD[0]
+    _HAND_BACKWARD[0] = True
+    try:
+        yield
+    finally:
+        _HAND_BACKWARD[0] = prev
 
 
 def bounded_warp_plain(image: torch.Tensor, flow: torch.Tensor,
@@ -312,7 +356,14 @@ def deform_conv2d_bounded(x: torch.Tensor, offset: torch.Tensor,
         raise ValueError(f"offset {tuple(offset.shape)} / mask "
                          f"{None if mask is None else tuple(mask.shape)} do "
                          f"not match x {tuple(x.shape)}")
+    R = int(max_offset)
+    hand = _HAND_BACKWARD[0] and needs_grad(x, offset, mask, weight, bias)
     if x.device.type == "cpu":
+        if hand:
+            return HandBackward.apply(
+                lambda x, offset, mask: deform_conv2d_bounded_plain(
+                    x, offset, mask, weight, bias, R),
+                R, x, offset, mask, weight, bias)
         return deform_conv2d_bounded_plain(x, offset, mask, weight, bias,
                                            max_offset)
     dev = _cuda_checks("deform_conv2d_bounded", x=x, offset=offset, mask=mask)
@@ -323,7 +374,6 @@ def deform_conv2d_bounded(x: torch.Tensor, offset: torch.Tensor,
     if weight.get_device() != dev or (bias is not None
                                       and bias.get_device() != dev):
         raise ValueError("weight and bias must be on the input's device")
-    R = int(max_offset)
     # raises where none fits
     plan = dcn_plan(cin, cout, R, _smem_limit(dev), x.element_size())
     wpk, bpk = packed or pack_dcn(weight, bias, x.dtype)
@@ -331,6 +381,11 @@ def deform_conv2d_bounded(x: torch.Tensor, offset: torch.Tensor,
             or wpk.get_device() != dev or wpk.dtype != x.dtype):
         raise ValueError("packed weights do not match this DCN's channels, "
                          "device or dtype")
+    if hand:
+        return HandBackward.apply(
+            lambda x, offset, mask: _dcn_launch(x, offset, mask, wpk, bpk,
+                                                cout, R, plan, dev),
+            R, x, offset, mask, weight, bias)
     if not needs_grad(x, offset, mask, weight, bias):
         return _dcn_launch(x, offset, mask, wpk, bpk, cout, R, plan, dev)
     return ThroughPlain.apply(

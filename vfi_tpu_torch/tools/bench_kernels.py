@@ -9,8 +9,8 @@ times one bounded modulated DCN layer (C -> C channels, 3x3, radius R,
 b=1, random bf16 inputs and weights from a seeded numpy generator) under
 three offset regimes -- zero, "trained" (uniform in +-0.3 px) and worst
 (uniform in +-R) -- or, with `--offsets`, under each layer's real offset
-and mask planes (the npz `tools/dump_offsets.py` writes: `offset_l<i>`,
-`mask_l<i>`). Kernels:
+and mask planes (the npz `python -m vfi_tpu_torch.tools.dump_offsets`
+writes: `offset_l<i>`, `mask_l<i>`). Kernels:
 
 - `xla`: the plain shifts op (`ops.deform_conv2d_shifts`, the plain
   version of the kernel);
@@ -68,9 +68,9 @@ def parse_args(argv=None):
     p.add_argument("--kernels", default="xla,pallas",
                    help=f"comma list of {', '.join(DCN_KERNELS)}")
     p.add_argument("--offsets", default=None,
-                   help="npz from tools/dump_offsets.py: bench with the "
-                        "real per-layer offset/mask planes instead of the "
-                        "synthetic regimes")
+                   help="npz from vfi_tpu_torch.tools.dump_offsets: bench "
+                        "with the real per-layer offset/mask planes instead "
+                        "of the synthetic regimes")
     p.add_argument("--warp", action="store_true",
                    help="benchmark the warp kernel instead of the DCN")
     p.add_argument("--device", default="cuda")

@@ -1,0 +1,150 @@
+"""Device time of the EMAVFI forward by op and by category, on the card.
+
+    python -m vfi_tpu_torch.tools.profile_forward [--iters 4] [--b 4]
+        [--h 720] [--w 1280] [--ckpt ckpt.npz] [--radius 2]
+        [--conv_kernel xla|pallas] [--top 25] [--keep DIR] [--plain]
+        [--device cuda|cpu] [--smoke]
+
+The counterpart of the JAX package's `tools/profile_forward.py`. It
+chains `--iters` forwards of the model in bf16 (dcn_max_offset `--radius`,
+warp_max_flow 16, no cascade, no flow prior) at `--b` x `--h` x `--w`, each
+on the output of the one before (x_{k+1} = model(x_k, f1)), once to warm
+up and once under torch.profiler (`utils/profiling.device_profile`), and
+prints:
+
+- the total device op time and ms a frame (b x iters frames);
+- device time by category, summed (overlapping ops count twice): the
+  port's kernels, convolution (cuDNN), gemm, elementwise, reduce, layout
+  (copy, memset, cat, transpose), collectives, other;
+- the timeline attribution: each category's interval union, the overlap
+  between categories and the device's idle gaps, which sum to the trace's
+  wall span;
+- the top `--top` ops by device time;
+- device ops and kernel-wrapper launches a frame, and the host wall.
+
+The last line is one JSON object with all of it. With `--ckpt` the model
+has the checkpoint's weights and topology (`fuse_project` read off the
+tree): the trained offsets' regime; without, the JAX model's defaults at
+random. `--plain` runs the kernels' plain versions instead of the kernels
+(the JAX tool's `--no-pallas`). `--keep DIR` also writes the Chrome trace,
+`DIR/trace.json`. The JAX tool's `--dcn_kernel` and `--tile_w` chose TPU
+kernel generations and tilings; here `ops.cuda.dcn_plan` picks the DCN's
+design, and both are refused. `--smoke` runs a 1x16x32 frame pair, one
+forward, on the CPU with `--device cpu` (the device ops are then the CPU's
+aten ops).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+
+import torch
+
+from vfi_tpu_torch.infer.pair import resolve_device
+from vfi_tpu_torch.ops.cuda import launch_counts
+from vfi_tpu_torch.tools import build_model, card_line, uniform_frames
+from vfi_tpu_torch.utils.profiling import device_profile
+
+SMOKE = dict(b=1, h=16, w=32, iters=1)
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--iters", type=int, default=4)
+    p.add_argument("--b", type=int, default=4)
+    p.add_argument("--h", type=int, default=720)
+    p.add_argument("--w", type=int, default=1280)
+    p.add_argument("--plain", action="store_true",
+                   help="the kernels' plain versions (JAX: --no-pallas)")
+    p.add_argument("--ckpt", default=None,
+                   help="trained checkpoint npz (trained-offset regime; "
+                        "fuse_project topology read off the tree)")
+    p.add_argument("--tile_w", type=int, default=None,
+                   help="refused: a TPU tiling (dcn_plan picks the design)")
+    p.add_argument("--dcn_kernel", default=None,
+                   help="refused: a TPU kernel generation (dcn_plan picks "
+                        "the design)")
+    p.add_argument("--radius", type=int, default=2,
+                   help="dcn_max_offset (1 = the flagship)")
+    p.add_argument("--conv_kernel", default="xla", choices=("xla", "pallas"))
+    p.add_argument("--top", type=int, default=25)
+    p.add_argument("--keep", default=None,
+                   help="also write the Chrome trace to DIR/trace.json")
+    p.add_argument("--device", default="cuda")
+    p.add_argument("--smoke", action="store_true",
+                   help="a 1x16x32 pair, one forward (runs on the CPU with "
+                        "--device cpu)")
+    args = p.parse_args(argv)
+    for flag in ("tile_w", "dcn_kernel"):
+        if getattr(args, flag) is not None:
+            raise SystemExit(
+                f"--{flag} chose a TPU kernel's generation or tiling; the "
+                f"port has one DCN kernel, whose design and tiles "
+                f"ops.cuda.dcn_plan picks from the shape")
+    if args.smoke:
+        vars(args).update(SMOKE)
+    return args
+
+
+def main(argv=None) -> dict:
+    args = parse_args(argv)
+    dev = resolve_device(args.device)
+    model = build_model(args.ckpt, dev, dtype=torch.bfloat16,
+                        dcn_max_offset=args.radius, warp_max_flow=16,
+                        conv_kernel=args.conv_kernel,
+                        use_kernels=not args.plain)
+    f0, f1 = uniform_frames(args.b, args.h, args.w, dev)
+
+    def chain():
+        x = f0
+        for _ in range(args.iters):
+            x = model(x, f1)
+        return x
+
+    with torch.inference_mode():
+        chain()                                  # warm-up
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        before = launch_counts()
+        prof = device_profile(chain, dev, log_dir=args.keep, top=args.top)
+        counts = {k: v - before[k] for k, v in launch_counts().items()}
+    n = args.b * args.iters
+    card = card_line(dev)
+    print(f"{card}  b={args.b} {args.h}x{args.w} iters="
+          f"{args.iters} R={args.radius} conv_kernel={args.conv_kernel}"
+          f"{' plain' if args.plain else ''}", flush=True)
+    total = prof["device_kernel_ms"]
+    print(f"\ntotal device op time: {total:.3f} ms ({total / n:.3f} "
+          f"ms/frame over {n} frames)")
+    print("\nby category (ms, ms/frame; SUMMED durations -- overlapping "
+          "ops count twice):")
+    for cat, ms in sorted(prof["category_ms"].items(), key=lambda kv: -kv[1]):
+        print(f"  {cat:18s} {ms:9.3f}  {ms / n:7.3f}")
+    span = prof["trace_span_ms"]
+    print("\nTIMELINE attribution (interval union -- rows sum to wall):")
+    print(f"  trace wall span     {span:9.3f}  {span / n:7.3f}")
+    for cat, ms in sorted(prof["timeline_ms"].items(), key=lambda kv: -kv[1]):
+        print(f"  {cat:18s} {ms:9.3f}  {ms / n:7.3f}")
+    ov = prof["cross_category_overlap_ms"]
+    print(f"  cross-cat overlap  {-ov:9.3f}  {-ov / n:7.3f}")
+    print(f"  device idle gaps    {prof['idle_ms']:9.3f}  "
+          f"{prof['idle_ms'] / n:7.3f}")
+    print(f"\ntop {args.top} ops (ms, ms/frame):")
+    for name, ms in prof["top_kernels_ms"]:
+        print(f"  {name:48.48s} {ms:9.3f}  {ms / n:7.3f}")
+    print(f"\ndevice ops/frame {prof['kernel_launches'] / n:.1f}  kernel "
+          f"wrapper launches/frame {sum(counts.values()) / n:.2f}  host "
+          f"wall {prof['wall_ms']:.3f} ms ({prof['wall_ms'] / n:.3f} "
+          f"ms/frame)", flush=True)
+    result = {"tool": "profile_forward", "card": card,
+              "b": args.b, "h": args.h, "w": args.w, "iters": args.iters,
+              "frames": n, "radius": args.radius, "ckpt": args.ckpt,
+              "conv_kernel": args.conv_kernel, "plain": args.plain,
+              "launches": counts, **prof}
+    print(json.dumps(result), flush=True)
+    return result
+
+
+if __name__ == "__main__":
+    main()

@@ -11,8 +11,10 @@ scalars these values use; it gives what `yaml.safe_load` gives for them
 (`2e-5`, with no dot, is a string there, which `_coerce_scalar` then
 makes a float, as in the JAX package).
 
-The port trains on one card: `Trainer` takes `mesh.data` in (-1, 1) with
-`mesh.spatial` 1 and raises NotImplementedError for anything else.
+`mesh` lays the trainer's ranks out as the JAX package's does: `mesh.data`
+data-parallel ranks (-1: every rank `mesh.spatial` leaves) times
+`mesh.spatial` ranks that repeat their data row's rows; `python -m
+vfi_tpu_torch.cli.train` starts them (`train/loop.py`, `Trainer`).
 """
 
 from __future__ import annotations

@@ -9,7 +9,13 @@ and the script exits non-zero without a result line:
 1. card    the card's name and power limit (nvidia-smi);
 2. build   the `nvcc` build of `vfi_tpu_torch/csrc/*.cu` (one process per
            source, in parallel, then one link), and the C++ build of the
-           PNG codec (`vfi_tpu_torch/native/png.cpp`);
+           PNG codec and the loader's crop core
+           (`vfi_tpu_torch/native/png.cpp`) with this machine's compiler;
+2b. native a Middlebury val frame decoded by the port, then
+           `native.crop_flip_normalize` at NATIVE_WINDOWS, with and
+           without hflip and ImageNet normalization, each bit for bit
+           against numpy's arithmetic on the same window; a window past
+           the image refused;
 3. kernels each CUDA kernel at every shape a path below launches (and
            the shapes of the kernels' contracts that none does: the DCN at
            C=67 R=4 and R=8 and C=128 R=4 and R=8, the conv at k=1 and
@@ -33,7 +39,9 @@ and the script exits non-zero without a result line:
            layer as its library time (a sequence of calls). Then the
            float32 instances (rows named `..._f32`, `f32_rows`): each of
            the eight TPU kernels at its bf16 row's shape and every shape
-           the float32 phases launch, against the float32 plain versions
+           the float32 phases launch (a float32 chain of 2-4 layers on
+           both routes too: the fused kernel's float32 instance and the
+           layers), against the float32 plain versions
            (TF32 off) within F32_REL_TOL (conv, DCN) and F32_WARP_TOL
            (warps; `bit_exact` says whether they were), their bounds with
            every product at the float32 (FFMA) peak, library calls in
@@ -103,7 +111,10 @@ and the script exits non-zero without a result line:
            probes, seconds and pairs/s; then `eval_epe`: the eval CLI's
            flow-EPE mode (`cli.eval.main`) on the qocc estimator over the
            8 Middlebury GT scenes (frames from data/processed/train), the
-           mean within EPE_TOL_PX of artifacts/qocc_epe.json;
+           mean within EPE_TOL_PX of artifacts/qocc_epe.json, and the
+           estimator's flow on the first scene through `utils.flo`'s
+           `write_flo` and `read_flo`: the file's size, its flow bit for
+           bit, its EPE within EPE_TOL_PX of the CLI's for that scene;
 10b. train the qocc fine-tune recipe (TRAIN_RECIPE) at full width
            through `train.Trainer` for one epoch, warm-started from the
            flagship, random-feature VGG, into a temporary directory:
@@ -181,6 +192,10 @@ and the script exits non-zero without a result line:
            the first step's loss equal, the gradients' cosine at least
            USER_GRAD_COS; ms a step); the conv, DCN and warp kernels
            launched;
+12c. video_demo the clip demo (`tools/video_demo.py`, its own process
+           on card 0) at VIDEO_DEMO, the JAX package's 1080p qocc run:
+           the record's keys the JAX tool's, its frames the recursion's;
+           where cv2 does not import, one line says it was not run;
 13. grad   gradients through each kernel wrapper (conv, chain of three
            layers and of one, DCN on the tile and the stream design, warp
            at C=3 and C=64) against those
@@ -235,13 +250,16 @@ from vfi_tpu_torch.cli import serve as serve_cli
 from vfi_tpu_torch.cli.common import free_port
 from vfi_tpu_torch.cli.eval import sweep
 from vfi_tpu_torch.data import load_image
+from vfi_tpu_torch.data.dataset import IMAGENET_MEAN, IMAGENET_STD
 from vfi_tpu_torch.infer import FrameInterpolator
 from vfi_tpu_torch.infer.multi import interpolate_videos
+from vfi_tpu_torch.infer.pair import pick_interpolation_factor
 from vfi_tpu_torch.infer.video import interpolate_video
 from vfi_tpu_torch.infer.video_io import (CAP_PROP_FPS, CAP_PROP_FRAME_COUNT,
                                           CAP_PROP_FRAME_HEIGHT,
                                           CAP_PROP_FRAME_WIDTH, to_float,
                                           to_u8)
+from vfi_tpu_torch.models import SimpleFlowNet
 from vfi_tpu_torch.ops.cuda import (PLAIN, WRAPPERS, bounded_warp,
                                     bounded_warp_plain, build, chain_plan,
                                     conv2d,
@@ -253,19 +271,21 @@ from vfi_tpu_torch.ops.cuda import (PLAIN, WRAPPERS, bounded_warp,
                                     pack_conv_chain, pack_dcn,
                                     reset_launch_counts)
 from vfi_tpu_torch.ops.cuda.conv import ROUTES
+from vfi_tpu_torch.ops.resize import resize_bilinear
 from vfi_tpu_torch.parallel import make_mesh, required_halo
 from vfi_tpu_torch.serve import (BatcherStats, InterpolationServer,
                                  encode_pair_body, encode_raw_body,
                                  encode_seq_body)
 from vfi_tpu_torch.tools import (bench_conv, bench_flowprior, bench_kernels,
                                  bench_train_step, dump_offsets,
-                                 offset_stats, profile_forward)
+                                 offset_stats, profile_forward, video_demo)
 from vfi_tpu_torch.tools.bench_serve import run_load
 from vfi_tpu_torch.train import (Trainer, TrainState, create_train_state,
                                  make_train_step)
 from vfi_tpu_torch.train.loop import data_rows
 from vfi_tpu_torch.utils.config import MeshConfig, TrainConfig
 from vfi_tpu_torch.utils.convert import load_params_npz, params_from_jax
+from vfi_tpu_torch.utils.flo import endpoint_error, read_flo, write_flo
 from vfi_tpu_torch.utils.profiling import device_profile
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(vfi_tpu_torch.__file__)))
@@ -384,6 +404,19 @@ INFER_FLAGS = ["--dcn_max_offset", "1", "--warp_max_flow", "16",
                "pallas"]
 INFER_PAIR = ("Urban", "frame10.png", "frame11.png")
 INFER_SIZE = (360, 640)
+# The video_demo phase: the clip demo at the JAX package's
+# artifacts/video_upconv_1080p_r5.json run (qocc and its flow prior, R=1,
+# 24 1080p frames, 15 -> 60 fps: factor 3, 93 frames), and its record's
+# keys (the JAX tool's).
+VIDEO_DEMO = ["--model_path", CKPT + ".npz", "--flow_model",
+              CKPT + ".flow.npz", "--radius", "1", "--height", "1080",
+              "--width", "1920", "--frames", "24", "--fps", "15",
+              "--target_fps", "60", "--device", "cuda"]
+VIDEO_DEMO_KEYS = {"resolution", "in_frames", "in_fps", "out_frames",
+                   "output_fps", "interpolated_frames", "wall_s",
+                   "interpolated_frames_per_sec", "scale", "model_path",
+                   "note"}
+VIDEO_DEMO_TIMEOUT_S = 600
 # The kernel tools' runs in the tools phase: few iterations each.
 TOOL_RUNS = (
     (bench_conv, ["--shapes", "all", "--kernels", "xla,im2col,direct,v2,plain",
@@ -461,6 +494,11 @@ TRAIN_TURNS = ("plain", "kernel", "kernel", "plain")
 # by tenths of a pixel.
 GT_FLOW = os.path.join(ROOT, "data", "processed", "other-gt-flow")
 EPE_TOL_PX = 0.02
+# The native phase: a val frame (480x640) and windows of it: the whole
+# frame, a 1x1 window at its far corner, a 320x320 window inside it.
+NATIVE_FRAME = os.path.join(VAL, "Urban", "frame10.png")
+NATIVE_WINDOWS = ((0, 0, (EH, EW)), (EH - 1, EW - 1, (1, 1)),
+                  (37, 101, (320, 320)))
 # The multi-device phases. Two ranks (or replicas): on two cards when
 # there are two, else both on card 0 (the ranks then take turns on it).
 # dp_engine: the flagship over a 'data' mesh of two replicas, an odd batch
@@ -623,6 +661,54 @@ def phase_build() -> dict:
             "png_codec_seconds": time.perf_counter() - t1, "ptxas": ptxas}
 
 
+def native_numpy(img: np.ndarray, top: int, left: int, crop: tuple,
+                 hflip: bool, norm: bool) -> np.ndarray:
+    """`native.crop_flip_normalize`'s arithmetic in numpy: s * float32(1 /
+    255), or float32(s * float64(float32(1 / 255)) - mean) / std (its
+    fused multiply-add: the float64 sum is exact)."""
+    ch, cw = crop
+    win = img[top:top + ch, left:left + cw]
+    win = win[:, ::-1] if hflip else win
+    inv = np.float32(1.0) / np.float32(255.0)
+    if not norm:
+        return win.astype(np.float32) * inv
+    mean = np.asarray(IMAGENET_MEAN, np.float32).astype(np.float64)
+    fused = (win.astype(np.float64) * np.float64(inv) - mean)
+    return fused.astype(np.float32) / np.asarray(IMAGENET_STD, np.float32)
+
+
+def phase_native() -> dict:
+    """The port's C++ library (`native/png.cpp`, built by this machine's
+    compiler in `phase_build`): NATIVE_FRAME decoded by the port, then the
+    crop core at NATIVE_WINDOWS x hflip x ImageNet normalization, each bit
+    for bit against `native_numpy` on the same window; a window one row
+    past the image must raise ValueError."""
+    t0 = time.perf_counter()
+    with open(NATIVE_FRAME, "rb") as f:
+        img = native.decode_png_rgb(f.read())
+    n = 0
+    for top, left, crop in NATIVE_WINDOWS:
+        for hflip in (False, True):
+            for norm in (False, True):
+                got = native.crop_flip_normalize(img, top, left, crop, hflip,
+                                                 norm)
+                want = native_numpy(img, top, left, crop, hflip, norm)
+                if got.shape != want.shape or not np.array_equal(got, want):
+                    raise AssertionError(
+                        f"native: crop {crop} at ({top}, {left}), hflip "
+                        f"{hflip}, norm {norm} differs from numpy")
+                n += 1
+    try:
+        native.crop_flip_normalize(img, 1, 0, img.shape[:2], False, False)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("native: a window past the image was taken")
+    return {"phase": "native", "seconds": time.perf_counter() - t0,
+            "available": native.available(), "frame": list(img.shape),
+            "windows_bit_equal": n, "outside_refused": True}
+
+
 def row_name(base: str, b: int, h: int, w: int) -> str:
     """`base@HxW` for a b=1 shape (the flagship rows' names, kept stable
     so runs compare), else `base@BxHxW`."""
@@ -679,8 +765,9 @@ def chain_rows(rnd, sd, tag, cin, names, acts, b, h, w, paths,
                dt=torch.bfloat16) -> list:
     """The chain at one shape with the checkpoint's weights, packed once as
     the engine does: one row a route ("fused", the chain kernel; "layers",
-    one conv-kernel launch a layer; a chain of one layer, and a float32
-    chain, have only the latter), all checked against one plain result.
+    one conv-kernel launch a layer; a chain of one layer has only the
+    latter), in bf16 or float32 (`dt`: each kernel's instance of that
+    type), all checked against one plain result.
     `plan_route` names the route `chain_plan` picks; the paths' launches
     count on that route's row (the other's key has no path). Library:
     cuDNN layer by layer (`F.conv2d` in the chain's dtype, TF32 off, then
@@ -708,7 +795,7 @@ def chain_rows(rnd, sd, tag, cin, names, acts, b, h, w, paths,
     ref, plain_ms = plain(), median_ms(plain)
     calls = " -> ".join(f"F.conv2d{'+relu' if a else ''}" for a in acts)
     flops = sum(2.0 * b * h * w * 9 * wt.shape[1] * wt.shape[0] for wt in ws)
-    routes = ROUTES if len(ws) > 1 and dt == torch.bfloat16 else ("layers",)
+    routes = ROUTES if len(ws) > 1 else ("layers",)
     rows = []
     for route in routes:
         suffix = "/layers" if len(routes) > 1 and route == "layers" else ""
@@ -1881,7 +1968,45 @@ def phase_epe() -> dict:
         raise AssertionError(f"eval_epe: rc {rc}, mean EPE "
                              f"{report['mean_epe']:.4f} px is {diff:+.4f} px "
                              f"from its record (tol {EPE_TOL_PX})")
+    res["flo_round_trip"] = flo_round_trip(sorted(report["scenes"])[0],
+                                           report["scenes"])
     return res
+
+
+def flo_round_trip(scene: str, cli_epe: dict) -> dict:
+    """The qocc estimator's flow on `scene` (bf16 on card 0, resized to
+    the GT flow's size, as the eval CLI scores it) through `write_flo` and
+    `read_flo`: the file holds 12 header bytes and 8 a pixel, its flow
+    reads back bit for bit, and its EPE against the scene's GT is the
+    CLI's within EPE_TOL_PX."""
+    net = SimpleFlowNet(dtype=torch.bfloat16)
+    net.load_state_dict(params_from_jax(load_params_npz(CKPT + ".flow.npz")))
+    net.to(CARD0).eval()
+    mean = torch.tensor(IMAGENET_MEAN, device=CARD0)
+    std = torch.tensor(IMAGENET_STD, device=CARD0)
+    f0, f1 = (torch.from_numpy(load_image(os.path.join(
+        TRAIN_DATA, scene, f"frame{i}.png"))[None]).to(CARD0)
+        for i in (10, 11))
+    gt = read_flo(os.path.join(GT_FLOW, scene, "flow10.flo"))
+    (gh, gw), (h, w) = gt.shape[:2], f0.shape[1:3]
+    with torch.inference_mode():
+        flow = net((f0 - mean) / std, (f1 - mean) / std).float()
+        flow = resize_bilinear(flow, (gh, gw)) * torch.tensor(
+            [gw / w, gh / h], device=flow.device)
+    flow = flow[0].cpu().numpy()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "flow10.flo")
+        write_flo(path, flow)
+        size = os.path.getsize(path)
+        back = read_flo(path)
+    epe = endpoint_error(back, gt)
+    out = {"scene": scene, "shape": list(flow.shape), "bytes": size,
+           "bit_equal": bool(np.array_equal(back, flow)), "epe": epe,
+           "cli_epe": cli_epe[scene]}
+    if size != 12 + flow.size * 4 or not out["bit_equal"] \
+            or not abs(epe - cli_epe[scene]) <= EPE_TOL_PX:
+        raise AssertionError(f"eval_epe: the .flo round trip failed: {out}")
+    return out
 
 
 def flat_grads(params) -> torch.Tensor:
@@ -2766,6 +2891,47 @@ def phase_user_tools() -> dict:
             "_by_shape": shapes_now()}
 
 
+def phase_video_demo() -> dict:
+    """The clip demo (`tools/video_demo.py`) in its own process on card 0,
+    at VIDEO_DEMO (the JAX package's `artifacts/video_upconv_1080p_r5.json`
+    run): its record has the JAX tool's keys and the recursion's frames
+    ((in - 1) x (factor + 1) + 1). The tool writes and reads its clip with
+    cv2: where cv2 does not import here, one line says so and nothing is
+    run. Its kernel launches are that process's, counted on no row."""
+    t0 = time.perf_counter()
+    probe = subprocess.run([sys.executable, "-c", "import cv2"],
+                           capture_output=True, text=True)
+    if probe.returncode != 0:
+        return {"phase": "video_demo", "ran": False,
+                "why": "tools/video_demo.py synthesizes and encodes its clip "
+                       "with cv2, which does not import here: not run, not "
+                       "counted", "error": probe.stderr.strip()[-300:]}
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "demo.json")
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="0")
+        run = subprocess.run(
+            [sys.executable, "-m", "vfi_tpu_torch.tools.video_demo",
+             *VIDEO_DEMO, "--workdir", tmp, "--out_json", out],
+            cwd=ROOT, env=env, capture_output=True, text=True,
+            timeout=VIDEO_DEMO_TIMEOUT_S)
+        if run.returncode != 0:
+            raise AssertionError(f"video_demo: rc {run.returncode}:\n"
+                                 f"{run.stderr[-2000:]}")
+        with open(out) as f:
+            report = json.load(f)
+    args = video_demo.parse_args(VIDEO_DEMO)
+    factor = pick_interpolation_factor(args.fps, args.target_fps)[0]
+    n = args.frames
+    want = (n - 1) * (factor + 1) + 1
+    if set(report) != VIDEO_DEMO_KEYS or report["out_frames"] != want \
+            or report["interpolated_frames"] != want - n:
+        raise AssertionError(f"video_demo: record {report}, want "
+                             f"{want} frames and the JAX tool's keys")
+    return {"phase": "video_demo", "ran": True,
+            "seconds": time.perf_counter() - t0, "card": card_line(),
+            "args": VIDEO_DEMO, "factor": factor, "record": report}
+
+
 def grad_case(name, kernel, plain, inputs) -> dict:
     """Gradients of sum(out * cot) through `kernel` and through `plain`
     with respect to every floating input: the kernel's output carries a
@@ -2919,6 +3085,7 @@ def main() -> int:
           "cuda": torch.version.cuda})
 
     emit(phase_build())
+    emit(phase_native())
 
     params = load_params_npz(CKPT + ".npz")
     flow_params = load_params_npz(CKPT + ".flow.npz")
@@ -2995,6 +3162,7 @@ def main() -> int:
     user_res = phase_user_tools()
     by_path["user_tools"] = user_res.pop("_by_shape")
     emit(user_res)
+    emit(phase_video_demo())
     emit(phase_grad(dev))
     if "--profile" in sys.argv[1:]:
         emit(phase_profile(eng, request))

@@ -826,10 +826,14 @@ def test_conv2d_kernel_f32(dev, hw, cin, cout, k, act):
 @pytest.mark.parametrize("hw", [(8, 16), (13, 37), (40, 72)])
 @pytest.mark.parametrize("chans,acts", [
     ((64, 64, 64, 64), RELU3), ((128, 64, 64, 2), RRN), ((64, 27), (False,)),
-    ((64, 64, 32, 3), RRN), ((67, 64, 32, 3), RRN), ((67, 27), (False,))])
+    ((64, 64, 32, 3), RRN), ((67, 64, 32, 3), RRN), ((67, 27), (False,)),
+    ((64, 64, 64, 64, 64), (True, False, True, True)),
+    ((16, 27, 64, 16, 48), (True, True, True, False))])
 def test_conv_chain_kernel_f32(dev, hw, chans, acts):
     """A float32 chain runs the "layers" route (one float32 conv launch a
-    layer); the fused kernel has no float32 instance and says so."""
+    layer); `route="fused"` runs the fused kernel's float32 instance
+    (`vfi_conv_chain_f32`), held to the same plain version, and a chain of
+    one layer still refuses it."""
     gen = torch.Generator(device=dev).manual_seed(22)
     x = _f32(gen, dev, 2, *hw, chans[0])
     ws = [_f32(gen, dev, co, ci, 3, 3, scale=(9 * ci) ** -0.5)
@@ -839,9 +843,15 @@ def test_conv_chain_kernel_f32(dev, hw, chans, acts):
     got = conv_chain(x, ws, bs, acts)
     assert dict(conv_chain.launches_by_plan) == {("layers", chans, *hw,
                                                   "f32"): 1}
-    _close_f32(got, conv_chain_plain(x, ws, bs, acts))
+    ref = conv_chain_plain(x, ws, bs, acts)
+    _close_f32(got, ref)
     if len(ws) > 1:
-        with pytest.raises(TypeError, match="bfloat16 only"):
+        reset_launch_counts()
+        _close_f32(conv_chain(x, ws, bs, acts, route="fused"), ref)
+        assert dict(conv_chain.launches_by_plan) == {("fused", chans, *hw,
+                                                      "f32"): 1}
+    else:
+        with pytest.raises(ValueError, match="no fused plan"):
             conv_chain(x, ws, bs, acts, route="fused")
 
 

@@ -2,12 +2,13 @@
 launch checks (pure Python, no card), the models' packing in their working
 dtype, and the float32 engine on the chain-kernel route held to JAX.
 
-- `conv2d_plan(..., itemsize=4)` and `dcn_plan(..., itemsize=4)` hold every
-  float32 shape chip_smoke.py and tests/test_torch_cuda.py launch within an
-  H100's 232,448 bytes a block, and their regions match the sums the
-  float32 C entries (`vfi_conv2d_f32`, `vfi_dcn_bounded_f32`) recompute
-  before a launch (`_conv_entry_accepts`, `_dcn_entry_accepts`); they
-  refuse what nothing holds. The bf16 DCN plans are those the search made
+- `conv2d_plan(..., itemsize=4)`, `dcn_plan(..., itemsize=4)` and
+  `chain_fused_plan(..., itemsize=4)` hold every float32 shape
+  chip_smoke.py and tests/test_torch_cuda.py launch within an H100's
+  232,448 bytes a block, and their regions match the sums the float32 C
+  entries (`vfi_conv2d_f32`, `vfi_dcn_bounded_f32`, `vfi_conv_chain_f32`)
+  recompute before a launch (`_conv_entry_accepts`, `_dcn_entry_accepts`,
+  `_check_fused_f32`); they refuse what nothing holds. The bf16 DCN plans are those the search made
   before the float32 instances (`_bf16_dcn_plan_before`, the search as it
   was), at every shape the card runs (`CARD_SHAPES`).
 - `pack_conv2d` / `pack_conv_chain` / `pack_dcn` in float32 hold the
@@ -36,9 +37,10 @@ from vfi_tpu_torch.infer import FrameInterpolator
 from vfi_tpu_torch.models import EMAVFI
 from vfi_tpu_torch.ops.cuda import (chain_plan, conv2d_plan, dcn_plan,
                                     pack_conv2d, pack_conv_chain, pack_dcn)
-from vfi_tpu_torch.ops.cuda.conv import (H100_SMEM_PER_BLOCK, ROW_PAD,
-                                         TILE_H, chain_layer_packs,
-                                         f32_pitch)
+from vfi_tpu_torch.ops.cuda.conv import (CHAIN_F32_MP, CHAIN_WARPS,
+                                         H100_SMEM_PER_BLOCK, ROW_PAD,
+                                         TILE_H, chain_fused_plan,
+                                         chain_layer_packs, f32_pitch)
 from vfi_tpu_torch.ops.cuda.sampling import (DCN_F32_SLAB_PITCH,
                                              DCN_STREAM_ROWS, DCN_TILE_PLANS,
                                              DCN_TILE_W, _cuda_checks,
@@ -125,18 +127,82 @@ def test_f32_conv2d_plan_refuses_what_nothing_holds(cin, cout, k, limit,
         conv2d_plan(cin, cout, k, limit, itemsize)
 
 
+def _check_fused_f32(chans, f):
+    """The float32 fused plan as the C entry (`vfi_conv_chain_f32`)
+    recomputes and checks it before a launch: a plan it would refuse
+    fails here; and every region fits an H100's shared memory."""
+    L = len(chans) - 1
+    cins = [_pad(c, 16) for c in chans[:-1]]
+    couts = [_pad(c, 16) for c in chans[1:]]
+    th, tw, ck = f["th"], f["tw"], f["ck"]
+    P = tw + 2 * L
+    assert f["pitch_px"] == P and f["tile"] == f"{th}x{tw}"
+    assert ck >= 4 and ck % 4 == 0 and f["pitch"] == [c + 4 for c in cins]
+    assert f["chunks"] == [-(-c // ck) for c in cins]
+    need = [0, 0]
+    for l in range(L):
+        n = (th + 2 * (L - 1 - l)) * (tw + 2 * (L - 1 - l))
+        per_lane = -(-n // (32 * (CHAIN_WARPS // (couts[l] // 8))))
+        assert f["positions_per_lane"][l] == per_lane <= CHAIN_F32_MP
+        need[l % 2] = max(need[l % 2],
+                          4 * (th + 2 * (L - l)) * P * (cins[l] + 4))
+    b0, b1 = f["buf_bytes"]
+    assert b0 % 128 == 0 and b1 % 128 == 0 and f["slot_bytes"] % 128 == 0
+    assert b0 >= need[0] and b1 >= need[1]
+    assert f["slot_bytes"] >= max(4 * 9 * min(ck, ci) * co
+                                  for ci, co in zip(cins, couts))
+    assert f["smem_bytes"] >= b0 + b1 + 2 * f["slot_bytes"]
+    assert f["smem_bytes"] <= H100_SMEM_PER_BLOCK
+
+
 @pytest.mark.parametrize("chans,acts", [
     ((64, 64, 64, 64), (True,) * 3), ((128, 64, 64, 2), (True, True, False)),
     ((64, 27), (False,)), ((67, 64, 32, 3), (True, True, False))])
 def test_f32_chain_plan_runs_the_layers(chans, acts):
-    """A float32 chain has no fused plan (the chain kernel is bf16 only):
-    route "layers", each layer on the float32 conv plan of its widths
-    padded to 8."""
+    """A float32 chain runs the "layers" route, each layer on the float32
+    conv plan of its widths padded to 8; beside it, a chain of 2-4 layers
+    has the fused kernel's float32 plan (`route="fused"` runs it), one
+    layer none."""
     p = chain_plan(chans, acts, 1, 720, 1280, itemsize=4)
-    assert p["route"] == "layers" and p["fused"] is None
+    assert p["route"] == "layers"
+    if len(chans) == 2:
+        assert p["fused"] is None
+    else:
+        _check_fused_f32(chans, p["fused"])
     widths = [_pad(c, 8) for c in chans[:-1]] + [chans[-1]]
     assert p["layers"] == [conv2d_plan(ci, co, 3, itemsize=4)
                            for ci, co in zip(widths[:-1], widths[1:])]
+
+
+# Every float32 chain shape the card runs (chip_smoke.py's float32 chain
+# rows and tests/test_torch_cuda.py's) and their tiles: the 128-wide input
+# of the motion chain, and four layers, leave room for 8 x 8 tiles only.
+@pytest.mark.parametrize("chans,tile,ck", [
+    ((64, 64, 64, 64), "8x16", 16), ((128, 64, 64, 2), "8x8", 16),
+    ((64, 64, 32, 3), "8x16", 16), ((67, 64, 32, 3), "8x16", 8),
+    ((64, 64, 64, 64, 64), "8x8", 16), ((16, 27, 64, 16, 48), "8x16", 16)])
+def test_f32_chain_fused_plan_fits_every_card_shape(chans, tile, ck):
+    f = chain_fused_plan(chans, itemsize=4)
+    _check_fused_f32(chans, f)
+    assert (f["tile"], f["ck"]) == (tile, ck)
+
+
+@pytest.mark.parametrize("L", [2, 3, 4])
+@pytest.mark.parametrize("c0", [8, 24, 64, 72, 128])
+@pytest.mark.parametrize("cout", [1, 27, 48, 64])
+def test_f32_chain_fused_plan_fits_the_contract_extremes(L, c0, cout):
+    """2..4 layers, Cout <= 64 (48: six channel groups on eight warps),
+    first widths 8..128: the float32 fused kernel has a plan within an
+    H100's shared memory."""
+    for chans in ((c0,) + (64,) * (L - 1) + (cout,), (c0,) + (cout,) * L):
+        _check_fused_f32(chans, chain_fused_plan(chans, itemsize=4))
+
+
+def test_f32_chain_fused_plan_refuses_what_shared_memory_cannot_hold():
+    assert chain_fused_plan((512, 64, 64), itemsize=4) is None
+    assert chain_fused_plan((64, 64, 64), 40000, 4) is None
+    with pytest.raises(ValueError, match="itemsize"):
+        chain_fused_plan((64, 64, 64), itemsize=8)
 
 
 def _dcn_entry_accepts(p, cin, cout, R):

@@ -2,8 +2,8 @@
 chip_smoke.py, imports jax, flax, optax, orbax, the JAX package, tools/,
 PIL, cv2 or yaml (the card's machine has none of the first ones and need
 not have pyyaml), except that the video file I/O (`infer/video_io.py`)
-imports cv2, and the training config (`utils/config.py`) yaml, inside
-their functions; importing the port loads none of them; entry points
+and the clip demo (`tools/video_demo.py`) import cv2, and the training
+config (`utils/config.py`) yaml, inside their functions; importing the port loads none of them; entry points
 refuse to run without a card unless the caller asks for the CPU."""
 
 import ast
@@ -41,15 +41,16 @@ def _imported_roots(path):
 # card's machine has no cv2 (video file I/O) and need not have pyyaml (a
 # YAML training config).
 INSIDE_ONLY = {
-    "cv2": os.path.join(REPO, "vfi_tpu_torch", "infer", "video_io.py"),
-    "yaml": os.path.join(REPO, "vfi_tpu_torch", "utils", "config.py"),
+    "cv2": (os.path.join(REPO, "vfi_tpu_torch", "infer", "video_io.py"),
+            os.path.join(REPO, "vfi_tpu_torch", "tools", "video_demo.py")),
+    "yaml": (os.path.join(REPO, "vfi_tpu_torch", "utils", "config.py"),),
 }
 
 
 @pytest.mark.parametrize("path", _sources(),
                          ids=lambda p: os.path.relpath(p, REPO))
 def test_no_jax_or_reference_imports(path):
-    banned = tuple(b for b in BANNED if INSIDE_ONLY.get(b) != path)
+    banned = tuple(b for b in BANNED if path not in INSIDE_ONLY.get(b, ()))
     bad = sorted({r for r in _imported_roots(path) if r in banned})
     assert not bad, f"{os.path.relpath(path, REPO)} imports {bad}"
 
@@ -70,8 +71,7 @@ def test_spawned_worker_helper_imports_no_jax():
     assert res.returncode == 0, res.stderr
 
 
-def _imported_inside_functions_only(root):
-    path = INSIDE_ONLY[root]
+def _imported_inside_functions_only(root, path):
     tree = ast.parse(open(path).read(), filename=path)
     inside = set()
     for fn in ast.walk(tree):
@@ -87,12 +87,14 @@ def _imported_inside_functions_only(root):
     assert not outside, f"{root} imported at module level: lines {outside}"
 
 
-def test_cv2_is_imported_inside_functions_only():
-    _imported_inside_functions_only("cv2")
+@pytest.mark.parametrize("path", INSIDE_ONLY["cv2"],
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_cv2_is_imported_inside_functions_only(path):
+    _imported_inside_functions_only("cv2", path)
 
 
 def test_yaml_is_imported_inside_functions_only():
-    _imported_inside_functions_only("yaml")
+    _imported_inside_functions_only("yaml", *INSIDE_ONLY["yaml"])
 
 
 def test_import_leaves_jax_out():
@@ -106,7 +108,7 @@ def test_import_leaves_jax_out():
             "vfi_tpu_torch.losses, vfi_tpu_torch.models.vgg, "
             "vfi_tpu_torch.data.loader, vfi_tpu_torch.utils.config, "
             "vfi_tpu_torch.train, vfi_tpu_torch.cli.train, "
-            "vfi_tpu_torch.parallel;"
+            "vfi_tpu_torch.parallel, vfi_tpu_torch.tools.video_demo;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'optax', 'orbax', 'vfi_tpu', 'triton', 'PIL', "
             "'cv2', 'yaml')];"

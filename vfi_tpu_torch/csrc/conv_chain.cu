@@ -1,4 +1,6 @@
-// Fused stride-1 3x3 conv chain, bf16 NHWC, float32 accumulation.
+// Fused stride-1 3x3 conv chain, bf16 NHWC, float32 accumulation; and its
+// float32 instance (conv_chain_f32_kernel, below: the same function on
+// float32 tensors, FFMA on the CUDA cores).
 //
 // Replaces: vfi_tpu/ops/pallas/conv.py::_chain_kernel (conv_chain_pallas),
 // the TPU kernel behind EMAVFI's fused trunk chains of 2..4 layers (feature
@@ -56,6 +58,12 @@
 // another width (the reference topology's 67 channels to 72); the tile
 // zero-fills the channels up to Cin16, and the packed weights carry zero
 // rows for them. Later work: wgmma, TMA, clusters.
+//
+// The two instances share the tile walk, the staging of a tile's input
+// (`stage_tile`, a template on the element type: 16-byte pieces of 8 bf16
+// or 4 float32 channels) and the persistent launch (`launch_persistent`);
+// their cores differ (tensor-core fragments against FFMA on registers),
+// and so do their shared-memory layouts (below).
 
 #include <algorithm>
 
@@ -71,6 +79,39 @@ constexpr int MAXL = 4;
 constexpr int MF = 4;               // m16 fragments a warp at most (CHAIN_MF)
 constexpr int NFMAX = 8;            // n8 fragments: Cout16 <= 64
 constexpr int PAD = 8;              // row padding, bf16 elements (ROW_PAD)
+
+// Output tile `tile` of a tiles_y x tiles_x grid an image: its image b
+// and its tile row and column.
+__device__ __forceinline__ void tile_origin(int tile, int tiles_x, int tiles_y, int& b,
+                                            int& ty, int& tx) {
+  const int per_img = tiles_x * tiles_y;
+  b = tile / per_img;
+  const int r = tile - b * per_img;
+  ty = r / tiles_x;
+  tx = r - ty * tiles_x;
+}
+
+// A tile's input region (`rows` rows from image row y0, P columns from
+// image column x0) of image `xb` (H x W x C0) into `dst`: `npos`
+// positions of row pitch P, `pitch` elements a position, cinp channels in
+// 16-byte pieces (8 bf16 or 4 float32 channels), cp.async with zero fill:
+// zeros outside the image, past C0 and at positions past the region.
+template <typename T>
+__device__ __forceinline__ void stage_tile(T* dst, const T* xb, const T* any, int H, int W,
+                                           int C0, int cinp, int pitch, int y0, int x0,
+                                           int rows, int P, uint32_t magP, int npos) {
+  constexpr int PER = 16 / sizeof(T);
+  const int pieces = cinp / PER;
+  const uint32_t mag_pc = fast_div_magic(pieces);
+  for (int it = threadIdx.x; it < npos * pieces; it += NTHREADS) {
+    const int pix = fast_div(it, mag_pc), pc = it - pix * pieces;
+    const int row = fast_div(pix, magP), col = pix - row * P;
+    const int gy = y0 + row, gx = x0 + col, ch = pc * PER;
+    const bool ok = row < rows && ch < C0 && gy >= 0 && gy < H && gx >= 0 && gx < W;
+    cp_async16_zfill(dst + pix * pitch + ch, ok ? xb + ((size_t)gy * W + gx) * C0 + ch : any,
+                     ok);
+  }
+}
 
 struct ChainParams {
   const bf16* x;                    // (B, H, W, C0)
@@ -237,33 +278,14 @@ conv_chain_kernel(const ChainParams p) {
   auto slot = [&](int i) {
     return reinterpret_cast<bf16*>(smem + 2 * p.buf_bytes + i * p.slot_bytes);
   };
-  auto tile_origin = [&](int tile, int& b, int& ty, int& tx) {
-    const int per_img = p.tiles_x * p.tiles_y;
-    b = tile / per_img;
-    const int r = tile - b * per_img;
-    ty = r / p.tiles_x;
-    tx = r - ty * p.tiles_x;
-  };
-
   // Tile `tile`'s input with its L-pixel halo into buffer `s`: buf_px
   // positions of Cin16 channels, zeros outside the image, past C0 and in
   // the slack past the region.
   auto stage_x = [&](int tile, int s) {
     int b, ty, tx;
-    tile_origin(tile, b, ty, tx);
-    const int y0 = ty * p.TH - L, x0 = tx * p.TW - L, rows = p.TH + 2 * L;
-    const int pieces = p.cinp[0] / 8;
-    const uint32_t mag_pc = fast_div_magic(pieces);
-    const bf16* xb = p.x + (size_t)b * p.H * p.W * p.C0;
-    bf16* dst = buf(s);
-    for (int it = threadIdx.x; it < p.buf_px * pieces; it += NTHREADS) {
-      const int pix = fast_div(it, mag_pc), pc = it - pix * pieces;
-      const int row = fast_div(pix, magP), col = pix - row * P;
-      const int gy = y0 + row, gx = x0 + col, ch = pc * 8;
-      const bool ok = row < rows && ch < p.C0 && gy >= 0 && gy < p.H && gx >= 0 && gx < p.W;
-      cp_async16_zfill(dst + pix * p.pitch + ch,
-                       ok ? xb + ((size_t)gy * p.W + gx) * p.C0 + ch : p.x, ok);
-    }
+    tile_origin(tile, p.tiles_x, p.tiles_y, b, ty, tx);
+    stage_tile(buf(s), p.x + (size_t)b * p.H * p.W * p.C0, p.x, p.H, p.W, p.C0, p.cinp[0],
+               p.pitch, ty * p.TH - L, tx * p.TW - L, p.TH + 2 * L, P, magP, p.buf_px);
   };
   // Group g of layer l's weights into slot `s`, as [taps][cinp][coutp + PAD].
   auto stage_w = [&](int l, int g, int s) {
@@ -309,7 +331,7 @@ conv_chain_kernel(const ChainParams p) {
     }
 
     int b, ty, tx;
-    tile_origin(tile, b, ty, tx);
+    tile_origin(tile, p.tiles_x, p.tiles_y, b, ty, tx);
     const bf16* in = buf((s + l) & 1);
     bf16* obuf = buf((s + l + 1) & 1);
     switch (p.coutp[l] / 16) {
@@ -325,6 +347,272 @@ conv_chain_kernel(const ChainParams p) {
     l = nl;
     g = ng;
   }
+}
+
+// ---------------------------------------------------------------------------
+// The float32 instance (`vfi_conv_chain_f32`): the same chain on float32
+// inputs, weights, bias, intermediates and output, with IEEE float32
+// products and sums (FFMA on the CUDA cores, as the float32 conv of
+// csrc/conv2d.cu: a single TF32 tensor-core pass keeps 10 bits of each
+// operand, past the 2^-14 the float32 rows are held to).
+//
+// What bounds it on this card: the FFMA rate. A 720p 64->64 layer is 68
+// GFLOP, 1.01 ms at the 67 TFLOP/s float32 peak, against 0.47 GB of its
+// input and output; fusing saves the intermediates' round trips (0.24 ms a
+// layer at the memory rate) and pays in recomputed halo, so it can win
+// only where the core runs close to the FFMA rate.
+//
+// Design (conv_chain_f32_kernel): the bf16 kernel's walk (persistent
+// blocks over TH x TW output tiles, one layer at a time over the tile in
+// shared memory, the halo shrinking a pixel a layer, intermediates stored
+// as 0 outside the image, one flat pixel pitch P = TW + 2L), with a float32
+// geometry, the plan of `chain_fused_plan(..., itemsize=4)`:
+// - Two activation buffers with fixed roles: buffer 0 holds the even
+//   layers' inputs, buffer 1 the odd layers', each position a row of
+//   cinp + 4 floats (an odd multiple of 16 bytes, so the 16-byte reads of
+//   a quarter-warp's 8 consecutive positions fall in distinct banks). The
+//   input of a 128-wide layer fills most of 227 KB, so a second input-
+//   sized buffer (the bf16 kernel's swap) does not fit: the next tile's
+//   input copies into buffer 0 during the last layer where L is even, and
+//   after it where L is odd.
+// - The weights stream in chunks of `ck` input channels, all 9 taps
+//   ([9][ck][coutp] floats), through two slots: the next step's chunk (the
+//   next one of this layer, the next layer's first, or the next tile's
+//   first) copies while this one multiplies; a block's steps are (tile,
+//   layer, chunk), one barrier each.
+// - Warp w owns output channels 8g .. 8g + 7, g = w mod (coutp / 8), and
+//   shares a layer's output positions with the warps of the same g (4, 2
+//   or 1 of them): lane `lane` of share s takes the positions s * 32 +
+//   lane + i * 32 * shares, i < np (at most F_MP = 8, which bounds the
+//   tile), counted over the layer's output region without its junk
+//   columns, and holds np x 8 float32 accumulators across the layer's
+//   chunks. Per (tap, 4 channels) a lane reads np float4s of input and the
+//   warp 8 float4s of weights (one address for every lane: a broadcast),
+//   for 32 np FFMAs.
+// - Epilogue from registers: the bias, the ReLU; an intermediate (0
+//   outside the image) into the other buffer as two float4s a position,
+//   the last layer to device memory (16-byte stores where Cout % 4 == 0).
+// Summation order: over chunks, taps, channels; the plain version's cuDNN
+// convs sum in their own order, so the two differ by float32 rounding only.
+
+constexpr int F_MP = 8;     // output positions a lane at most (ops/cuda/conv.py CHAIN_F32_MP)
+constexpr int F_PAD = 4;    // row padding of the activation buffers, floats (CHAIN_F32_PAD)
+
+struct ChainF32Params {
+  const float* x;                   // (B, H, W, C0)
+  const float* w;                   // per layer [9][cinp][coutp]
+  const float* bias;                // per layer [coutp]
+  float* out;                       // (B, H, W, cout[L - 1])
+  int B, H, W, L, C0, TH, TW, P, ck;
+  int cinp[MAXL], coutp[MAXL], cout[MAXL], chunks[MAXL], np[MAXL];
+  int pitch[MAXL];                  // layer l's input row, floats (cinp + F_PAD)
+  long long w_off[MAXL];
+  int b_off[MAXL];
+  int act_mask;
+  int buf0_bytes, buf1_bytes, slot_bytes;
+  int tiles_x, tiles_y, tiles;
+};
+
+// Taps 0..8 over `ckw` channels of a chunk: the lane's NP positions
+// (element offsets qa in `in`) against the warp's 8 output channels of the
+// chunk's weights `wg` ([9][ckw][coutp], at the warp's column).
+template <int NP>
+__device__ __forceinline__ void f32_mac(float (&acc)[F_MP][8], const float* in, const float* wg,
+                                        const int (&qa)[F_MP], int ckw, int coutp, int P,
+                                        int pin, int cbase) {
+#pragma unroll 1
+  for (int t = 0; t < 9; ++t) {
+    const int di = t / 3, dj = t - 3 * di;
+    const float* src = in + (di * P + dj) * pin + cbase;
+    const float* wt = wg + t * ckw * coutp;
+#pragma unroll 1
+    for (int ch = 0; ch < ckw; ch += 4) {
+      float4 xv[NP];
+#pragma unroll
+      for (int i = 0; i < NP; ++i) xv[i] = *reinterpret_cast<const float4*>(src + qa[i] + ch);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float4* wq = reinterpret_cast<const float4*>(wt + (ch + k) * coutp);
+        const float4 wa = wq[0], wb = wq[1];
+        const float wv[8] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
+#pragma unroll
+        for (int i = 0; i < NP; ++i) {
+          const float xs = k == 0 ? xv[i].x : k == 1 ? xv[i].y : k == 2 ? xv[i].z : xv[i].w;
+#pragma unroll
+          for (int o = 0; o < 8; ++o) acc[i][o] = fmaf(xs, wv[o], acc[i][o]);
+        }
+      }
+    }
+  }
+}
+
+// One step: this warp's FFMAs over chunk c of layer l, then, after the
+// layer's last chunk, its epilogue.
+__device__ __forceinline__ void f32_step(const ChainF32Params& p, float (&acc)[F_MP][8], int l,
+                                         int c, const float* in, const float* wslot, float* obuf,
+                                         int b, int ty, int tx) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int ngrp = p.coutp[l] / 8, shares = NWARPS / ngrp;
+  const int g = warp % ngrp, s = warp / ngrp;
+  if (s >= shares) return;          // Cout16 = 48: six groups, two warps idle
+  const int halo = p.L - 1 - l, wid = p.TW + 2 * halo, n = (p.TH + 2 * halo) * wid;
+  const int pin = p.pitch[l], np = p.np[l], k0 = s * 32 + lane, stride = 32 * shares;
+  int qa[F_MP];
+#pragma unroll
+  for (int i = 0; i < F_MP; ++i) {
+    const int k = min(k0 + i * stride, n - 1);   // past n: a valid position, not stored
+    const int r = k / wid;
+    qa[i] = (r * p.P + k - r * wid) * pin;
+  }
+  const int ckw = min(p.ck, p.cinp[l] - c * p.ck), coutp = p.coutp[l];
+  const float* wg = wslot + g * 8;
+  switch (np) {
+    case 1: f32_mac<1>(acc, in, wg, qa, ckw, coutp, p.P, pin, c * p.ck); break;
+    case 2: f32_mac<2>(acc, in, wg, qa, ckw, coutp, p.P, pin, c * p.ck); break;
+    case 3: f32_mac<3>(acc, in, wg, qa, ckw, coutp, p.P, pin, c * p.ck); break;
+    case 4: f32_mac<4>(acc, in, wg, qa, ckw, coutp, p.P, pin, c * p.ck); break;
+    case 5: f32_mac<5>(acc, in, wg, qa, ckw, coutp, p.P, pin, c * p.ck); break;
+    case 6: f32_mac<6>(acc, in, wg, qa, ckw, coutp, p.P, pin, c * p.ck); break;
+    case 7: f32_mac<7>(acc, in, wg, qa, ckw, coutp, p.P, pin, c * p.ck); break;
+    default: f32_mac<8>(acc, in, wg, qa, ckw, coutp, p.P, pin, c * p.ck); break;
+  }
+  if (c != p.chunks[l] - 1) return;
+
+  const bool act = (p.act_mask >> l) & 1, last = l == p.L - 1;
+  const int oy = ty * p.TH - halo, ox = tx * p.TW - halo, cout = p.cout[l];
+  float bv[8];
+#pragma unroll
+  for (int o = 0; o < 8; ++o) bv[o] = p.bias[p.b_off[l] + g * 8 + o];
+#pragma unroll
+  for (int i = 0; i < F_MP; ++i) {
+    const int k = k0 + i * stride;
+    if (i < np && k < n) {
+      const int r = k / wid, cc = k - r * wid, gy = oy + r, gx = ox + cc;
+      const bool inimg = gy >= 0 && gy < p.H && gx >= 0 && gx < p.W;
+      float v[8];
+#pragma unroll
+      for (int o = 0; o < 8; ++o) {
+        v[o] = acc[i][o] + bv[o];
+        if (act) v[o] = fmaxf(v[o], 0.0f);
+        if (!inimg) v[o] = 0.0f;
+      }
+      if (!last) {
+        float4* dst = reinterpret_cast<float4*>(obuf + (r * p.P + cc) * p.pitch[l + 1] + g * 8);
+        dst[0] = make_float4(v[0], v[1], v[2], v[3]);
+        dst[1] = make_float4(v[4], v[5], v[6], v[7]);
+      } else if (inimg) {
+        float* orow = p.out + (((size_t)b * p.H + gy) * p.W + gx) * cout;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int ch = g * 8 + 4 * h;
+          if (ch >= cout) break;
+          if (cout % 4 == 0) {
+            *reinterpret_cast<float4*>(orow + ch) =
+                make_float4(v[4 * h], v[4 * h + 1], v[4 * h + 2], v[4 * h + 3]);
+          } else {
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (ch + e < cout) orow[ch + e] = v[4 * h + e];
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int o = 0; o < 8; ++o) acc[i][o] = 0.0f;
+  }
+}
+
+__global__ void __launch_bounds__(NTHREADS, 1)
+conv_chain_f32_kernel(const ChainF32Params p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int L = p.L, P = p.P;
+  const uint32_t magP = fast_div_magic(P);
+  auto buf = [&](int i) { return reinterpret_cast<float*>(smem + (i ? p.buf0_bytes : 0)); };
+  auto slot = [&](int i) {
+    return reinterpret_cast<float*>(smem + p.buf0_bytes + p.buf1_bytes + i * p.slot_bytes);
+  };
+  // Tile `tile`'s input with its L-pixel halo into buffer 0.
+  auto stage_x = [&](int tile) {
+    int b, ty, tx;
+    tile_origin(tile, p.tiles_x, p.tiles_y, b, ty, tx);
+    const int rows = p.TH + 2 * L;
+    stage_tile(buf(0), p.x + (size_t)b * p.H * p.W * p.C0, p.x, p.H, p.W, p.C0, p.cinp[0],
+               p.pitch[0], ty * p.TH - L, tx * p.TW - L, rows, P, magP, rows * P);
+  };
+  // Chunk c of layer l's weights into slot `s`, as [9][ckw][coutp].
+  auto stage_w = [&](int l, int c, int s) {
+    const int ckw = min(p.ck, p.cinp[l] - c * p.ck), coutp = p.coutp[l], pieces = coutp / 4;
+    const float* src = p.w + p.w_off[l] + (size_t)c * p.ck * coutp;
+    float* dst = slot(s);
+    for (int it = threadIdx.x; it < 9 * ckw * pieces; it += NTHREADS) {
+      const int row = it / pieces, pc = it - row * pieces;
+      const int t = row / ckw, ch = row - t * ckw;
+      cp_async16(dst + row * coutp + pc * 4,
+                 src + ((size_t)t * p.cinp[l] + ch) * coutp + pc * 4);
+    }
+  };
+
+  int tile = blockIdx.x, l = 0, c = 0, ws = 0;
+  if (tile >= p.tiles) return;
+  stage_w(0, 0, 0);
+  stage_x(tile);
+  cp_async_commit();
+
+  float acc[F_MP][8];
+#pragma unroll
+  for (int i = 0; i < F_MP; ++i)
+#pragma unroll
+    for (int o = 0; o < 8; ++o) acc[i][o] = 0.0f;
+
+  while (true) {
+    cp_async_wait<0>();
+    __syncthreads();  // this step's input and weights are in; the last step's slot is free
+    int nt = tile, nl = l, nc = c + 1;
+    if (nc == p.chunks[l]) {
+      nc = 0;
+      if (++nl == L) { nl = 0; nt += gridDim.x; }
+    }
+    const bool more = nt < p.tiles, next_tile = nl == 0 && nc == 0;
+    if (more) {
+      stage_w(nl, nc, ws ^ 1);
+      // An even L's last layer reads buffer 1: buffer 0 is free.
+      if (next_tile && L % 2 == 0) stage_x(nt);
+      cp_async_commit();
+    }
+
+    int b, ty, tx;
+    tile_origin(tile, p.tiles_x, p.tiles_y, b, ty, tx);
+    f32_step(p, acc, l, c, buf(l & 1), slot(ws), buf((l + 1) & 1), b, ty, tx);
+    if (!more) break;
+    if (next_tile && L % 2 == 1) {
+      __syncthreads();  // an odd L's last layer has read buffer 0
+      stage_x(nt);
+      cp_async_commit();
+    }
+    ws ^= 1;
+    tile = nt;
+    l = nl;
+    c = nc;
+  }
+}
+
+// One persistent launch of `kernel`: as many blocks as fit (by the
+// occupancy API), at most one a tile, with `smem` bytes of dynamic shared
+// memory each.
+template <typename Params>
+int launch_persistent(void (*kernel)(Params), const Params& p, int tiles, int smem,
+                      cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  int per_sm = 0, sms = 0, dev = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NTHREADS, smem);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const int grid = std::min(tiles, per_sm * sms);
+  kernel<<<grid, NTHREADS, smem, stream>>>(p);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -391,17 +679,68 @@ extern "C" int vfi_conv_chain_bf16(const void* x, const void* w, const void* bia
   p.tiles = B * p.tiles_x * p.tiles_y;
   if (p.tiles == 0) return (int)cudaSuccess;
 
-  cudaError_t err = use_device(device);
+  const cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(conv_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  return launch_persistent(conv_chain_kernel, p, p.tiles, smem, static_cast<cudaStream_t>(stream));
+}
+
+// Launch one float32 chain of 2..4 layers on the plan of
+// `chain_fused_plan(..., itemsize=4)`: c0..c4 as for the bf16 entry (c0 a
+// multiple of 4), act_mask, a th x tw output tile, ck input channels a
+// weight chunk (a multiple of 4), buf0_bytes and buf1_bytes for the two
+// activation buffers, slot_bytes per weight slot, smem bytes in all.
+// Returns the cudaError_t of the launch (cudaErrorInvalidValue for a shape
+// or plan outside the contract); the kernel runs on `stream`.
+extern "C" int vfi_conv_chain_f32(const void* x, const void* w, const void* bias, void* out,
+                                  int B, int H, int W, int L, int c0, int c1, int c2, int c3,
+                                  int c4, int act_mask, int th, int tw, int ck, int buf0_bytes,
+                                  int buf1_bytes, int slot_bytes, int smem, int device,
+                                  void* stream) {
+  if (L < 2 || L > MAXL || c0 < 4 || c0 % 4 != 0 || th < 1 || tw < 1 || ck < 4 ||
+      ck % 4 != 0 || B < 0 || H < 0 || W < 0)
+    return (int)cudaErrorInvalidValue;
+  const int c[MAXL + 1] = {c0, c1, c2, c3, c4};
+  ChainF32Params p{};
+  p.x = static_cast<const float*>(x);
+  p.w = static_cast<const float*>(w);
+  p.bias = static_cast<const float*>(bias);
+  p.out = static_cast<float*>(out);
+  p.B = B; p.H = H; p.W = W; p.L = L; p.C0 = c0;
+  p.TH = th; p.TW = tw; p.P = tw + 2 * L; p.ck = ck;
+  p.act_mask = act_mask;
+  long long woff = 0, need[2] = {0, 0};
+  int boff = 0, slot_need = 0;
+  for (int l = 0; l < L; ++l) {
+    if (c[l + 1] < 1 || c[l + 1] > NFMAX * 8) return (int)cudaErrorInvalidValue;
+    p.cinp[l] = pad16(c[l]);
+    p.coutp[l] = pad16(c[l + 1]);
+    p.cout[l] = c[l + 1];
+    p.chunks[l] = (p.cinp[l] + ck - 1) / ck;
+    p.pitch[l] = p.cinp[l] + F_PAD;
+    const int halo = L - 1 - l, shares = NWARPS / (p.coutp[l] / 8);
+    const int n = (th + 2 * halo) * (tw + 2 * halo);
+    p.np[l] = (n + 32 * shares - 1) / (32 * shares);
+    if (p.np[l] > F_MP) return (int)cudaErrorInvalidValue;
+    p.w_off[l] = woff;
+    p.b_off[l] = boff;
+    woff += 9LL * p.cinp[l] * p.coutp[l];
+    boff += p.coutp[l];
+    need[l & 1] = std::max(need[l & 1], 4LL * (th + 2 * (L - l)) * p.P * p.pitch[l]);
+    slot_need = std::max(slot_need, 4 * 9 * std::min(ck, p.cinp[l]) * p.coutp[l]);
+  }
+  if (buf0_bytes % 128 != 0 || buf1_bytes % 128 != 0 || slot_bytes % 128 != 0 ||
+      buf0_bytes < need[0] || buf1_bytes < need[1] || slot_bytes < slot_need ||
+      (long long)smem < (long long)buf0_bytes + buf1_bytes + 2LL * slot_bytes)
+    return (int)cudaErrorInvalidValue;
+  p.buf0_bytes = buf0_bytes;
+  p.buf1_bytes = buf1_bytes;
+  p.slot_bytes = slot_bytes;
+  p.tiles_x = (W + tw - 1) / tw;
+  p.tiles_y = (H + th - 1) / th;
+  p.tiles = B * p.tiles_x * p.tiles_y;
+  if (p.tiles == 0) return (int)cudaSuccess;
+  const cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
-  int per_sm = 0, sms = 0, dev = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, conv_chain_kernel, NTHREADS, smem);
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const int grid = std::min(p.tiles, per_sm * sms);
-  conv_chain_kernel<<<grid, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(p);
-  return (int)cudaGetLastError();
+  return launch_persistent(conv_chain_f32_kernel, p, p.tiles, smem,
+                           static_cast<cudaStream_t>(stream));
 }

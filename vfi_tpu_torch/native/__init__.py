@@ -1,16 +1,20 @@
-"""The port's PNG codec.
+"""The port's PNG codec and the loader's crop/flip/normalize core.
 
 `decode_png_rgb`: chunk parsing and inflate in Python (the standard `zlib`
 module), scanline unfilter, Adam7 and RGB expansion in C++ (`png.cpp`),
 bound with ctypes. It takes every bit depth and colour type the format
 allows, interlaced or not, and gives what Pillow's `convert("RGB")` gives
 (`png.cpp` lists the rules). `encode_png_rgb`: filter type 0 and `zlib`
-at a given level, in Python.
+at a given level, in Python. `crop_flip_normalize`: the counterpart of
+`vfi_tpu.native.crop_flip_normalize`, in C++ (`png.cpp`), bit-equal to
+it; `available` says whether the library builds and loads.
 
 The library is compiled from `png.cpp` with the host's C++ compiler on
 first use into `build/vfi_tpu_torch/native/<key>/` beside the package (a
 git-ignored directory), keyed by a hash of the source and the flags. It
-needs no zlib header. A PNG it cannot read raises ValueError.
+needs no zlib header. A PNG it cannot read raises ValueError; every
+function but `available` raises RuntimeError where the library cannot
+build.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import subprocess
 import threading
 import zlib
 from pathlib import Path
+from typing import Tuple
 
 import numpy as np
 
@@ -84,6 +89,10 @@ def load():
                            ctypes.c_int, ctypes.c_int, ctypes.c_int,
                            ctypes.c_int, ctypes.c_char_p, ctypes.c_int,
                            ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            fn = lib.vfi_crop_flip_normalize
+            fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 8 + [
+                ctypes.c_void_p]
             fn.restype = ctypes.c_int
             _lib = lib
     return _lib
@@ -172,4 +181,45 @@ def encode_png_rgb(frame: np.ndarray, compress_level: int = 1) -> bytes:
             + chunk(b"IEND", b""))
 
 
-__all__ = ["build", "decode_png_rgb", "encode_png_rgb", "load"]
+def available() -> bool:
+    """Whether the library builds (or is built) and loads here."""
+    try:
+        load()
+    except (RuntimeError, OSError):
+        return False
+    return True
+
+
+def crop_flip_normalize(img: np.ndarray, top: int, left: int,
+                        crop: Tuple[int, int], hflip: bool,
+                        imagenet_norm: bool) -> np.ndarray:
+    """Crop a (crop_h, crop_w) window at (top, left) out of an (H, W, 3)
+    RGB image (cast to uint8 first, as the JAX function does), mirror it
+    left to right where `hflip`, scale to [0, 1] and, where
+    `imagenet_norm`, ImageNet-normalize it: (crop_h, crop_w, 3) float32,
+    bit-equal to `vfi_tpu.native.crop_flip_normalize` built on a host
+    with fused multiply-add (`png.cpp` says why). In numpy: s * float32(1
+    / 255), or float32(s * float64(float32(1 / 255)) - mean) / std, where
+    the float64 sum is exact. A window reaching outside the image raises
+    ValueError."""
+    img = np.ascontiguousarray(img, np.uint8)
+    if img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"need an (H, W, 3) RGB image, got {img.shape}")
+    h, w = img.shape[:2]
+    ch, cw = crop
+    if not (0 <= top <= h - ch and 0 <= left <= w - cw and ch >= 0
+            and cw >= 0):
+        raise ValueError(f"crop {ch}x{cw} at ({top}, {left}) reaches "
+                         f"outside the {h}x{w} image")
+    out = np.empty((ch, cw, 3), np.float32)
+    rc = load().vfi_crop_flip_normalize(img.ctypes.data, w, h, top, left,
+                                        ch, cw, int(hflip),
+                                        int(imagenet_norm), out.ctypes.data)
+    if rc != 0:
+        raise ValueError(f"crop_flip_normalize refused the window "
+                         f"(code {rc})")
+    return out
+
+
+__all__ = ["available", "build", "crop_flip_normalize", "decode_png_rgb",
+           "encode_png_rgb", "load"]

@@ -1,4 +1,5 @@
-// PNG scanline unfilter and RGB expansion for the port's image loader.
+// PNG scanline unfilter and RGB expansion for the port's image loader,
+// and the loader's fused crop + flip + normalize core.
 //
 // The decoding part of vfi_tpu/native/vfi_io.cpp, widened to every PNG the
 // format allows, without zlib: the Python side
@@ -19,9 +20,21 @@
 //   palette (3), 1/2/4/8-bit: the entry's RGB; an index past the last
 //     entry reads black.
 // tRNS and every other ancillary chunk is ignored, as Pillow's conversion
-// ignores them. Built with a C++ compiler on first use (no nvcc needed); a
-// plain C interface loaded with ctypes.
+// ignores them.
+//
+// vfi_crop_flip_normalize is the port's copy of vfi_io.cpp's: the same
+// constants and order, so the output is bit-equal to the JAX package's,
+// except that a window reaching outside the image is refused (vfi_io.cpp
+// reads past the image there). vfi_io.cpp is built with -march=native,
+// and on a host with fused multiply-add GCC contracts its float(s) *
+// inv255 - mean into one (it did on the x86 hosts the tests ran on); the
+// copy writes that fused multiply-add out (std::fma), so its output is
+// one function on every host and compiler.
+//
+// Built with a C++ compiler on first use (no nvcc needed); a plain C
+// interface loaded with ctypes.
 
+#include <cmath>
 #include <cstdint>
 #include <cstdlib>
 #include <cstring>
@@ -194,6 +207,37 @@ int vfi_png_decode_rgb(const uint8_t* raw, size_t raw_len, int w, int h,
             d[k] = uint8_t(depth == 16 ? v >> 8 : v);
           }
         }
+      }
+    }
+  }
+  return 0;
+}
+
+// Crop a crop_h x crop_w window at (top, left) out of an RGB uint8 image
+// (h x w x 3), mirror it left to right where hflip, and scale to [0, 1]
+// as float(s) * (1 / 255); where imagenet_norm, fma(float(s), 1 / 255,
+// -mean) / std per channel instead (one rounding before the division).
+// out: crop_h * crop_w * 3 float32. Returns 0, or -1 (nothing written)
+// for a window outside the image.
+int vfi_crop_flip_normalize(const uint8_t* img, int w, int h, int top,
+                            int left, int crop_h, int crop_w, int hflip,
+                            int imagenet_norm, float* out) {
+  if (top < 0 || left < 0 || crop_h < 0 || crop_w < 0 ||
+      top > h - crop_h || left > w - crop_w)
+    return -1;
+  static const float kMean[3] = {0.485f, 0.456f, 0.406f};
+  static const float kStd[3] = {0.229f, 0.224f, 0.225f};
+  const float inv255 = 1.0f / 255.0f;
+  for (int y = 0; y < crop_h; ++y) {
+    const uint8_t* srow = img + (size_t(top + y) * w + left) * 3;
+    float* drow = out + size_t(y) * crop_w * 3;
+    for (int x = 0; x < crop_w; ++x) {
+      const uint8_t* s = srow + size_t(hflip ? crop_w - 1 - x : x) * 3;
+      float* d = drow + size_t(x) * 3;
+      for (int ch = 0; ch < 3; ++ch) {
+        const float v = float(s[ch]);
+        d[ch] = imagenet_norm ? std::fma(v, inv255, -kMean[ch]) / kStd[ch]
+                              : v * inv255;
       }
     }
   }

@@ -42,6 +42,12 @@ SIGNATURES = {
     "vfi_conv_chain_bf16": [_P, _P, _P, _P, _I, _I, _I, _I,
                             _I, _I, _I, _I, _I, _I, _I, _I,
                             _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, w, bias, out, B, H, W, L, c0..c4, act_mask, th, tw, ck,
+    # buf_bytes[0], buf_bytes[1], slot_bytes, smem_bytes
+    # (chain_fused_plan, itemsize 4), device, stream
+    "vfi_conv_chain_f32": [_P, _P, _P, _P, _I, _I, _I, _I,
+                           _I, _I, _I, _I, _I, _I, _I, _I,
+                           _I, _I, _I, _I, _I, _I, _P],
     # x, w, bias, out, B, H, W, Cin, Cout, K, act, ck, taps_per_group,
     # x_bytes, smem_bytes (conv2d_plan), device, stream
     "vfi_conv2d_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

@@ -17,9 +17,9 @@ PyTorch versions.
   route of each shape: "layers" runs each layer as one launch of the
   single-conv kernel (its bf16 or float32 instance) on that layer's slice
   of the packed weights (a chain of one layer always does: the DCN
-  blocks' offset convs), "fused" one launch of the chain kernel, which
-  has a bf16 instance only (float32 raises TypeError). `route` overrides
-  the plan's pick, for tests and timing.
+  blocks' offset convs), "fused" one launch of the chain kernel (its
+  bf16 instance, or its float32 one: FFMA, no rounding but float32's).
+  `route` overrides the plan's pick, for tests and timing.
 - `conv2d` replaces `conv2d_pallas` (kernel `_conv_kernel`, variants
   "im2col" and "direct") and `conv2d_pallas_v2` (`_conv_kernel_v2`,
   variant "v2"): one stride-1 square odd-k conv, zeros padding k // 2, an
@@ -279,18 +279,27 @@ CHAIN_TILES = ((16, 16), (8, 16), (8, 8))
 CHAIN_WARPS = 8
 CHAIN_MF = 4
 ROUTES = ("fused", "layers")
+# Its float32 instance: output tiles, largest first; input channels a
+# weight chunk, widest first; output positions a lane holds at most
+# (F_MP there); the padding of an activation row, in floats (F_PAD).
+CHAIN_F32_TILES = ((8, 16), (8, 8), (4, 8))
+CHAIN_F32_CHUNKS = (64, 32, 16, 8, 4)
+CHAIN_F32_MP = 8
+CHAIN_F32_PAD = 4
 
 
 def chain_fused_plan(chans: Sequence[int],
-                     limit: int = H100_SMEM_PER_BLOCK) -> Optional[dict]:
+                     limit: int = H100_SMEM_PER_BLOCK,
+                     itemsize: int = 2) -> Optional[dict]:
     """The fused kernel's plan for a chain of widths `chans` (chans[0]
-    the input's, which the kernel reads padded to a multiple of 8), or
-    None where no tile fits.
+    the input's, which the kernel reads padded to a multiple of 8), for
+    its bf16 instance (`itemsize` 2) or its float32 one (4,
+    `_chain_fused_plan_f32`), or None where no tile fits.
 
-    All layers share one flat pixel pitch P = TW + 2L (the tile's columns
-    and halo); layer l computes the (TH + 2(L-1-l)) x P positions of its
-    output region as m16 fragments of consecutive positions, which a tap
-    reads at a flat offset in its input. Two activation buffers of
+    bf16: all layers share one flat pixel pitch P = TW + 2L (the tile's
+    columns and halo); layer l computes the (TH + 2(L-1-l)) x P positions
+    of its output region as m16 fragments of consecutive positions, which a
+    tap reads at a flat offset in its input. Two activation buffers of
     `buf_px` positions (each position one row of Cin16 + 8 bf16 channels
     of the widest layer input) hold a layer's input and output in turn,
     and the next tile's input copies into the free one during the last
@@ -302,6 +311,11 @@ def chain_fused_plan(chans: Sequence[int],
     the most taps the slot holds, evened over its groups. (A 16 x 32 tile,
     1.34x the work of its outputs at L = 3 against 1.56x at 16 x 16, needs
     48 fragments a layer: more than 8 warps of CHAIN_MF hold.)"""
+    if itemsize == 4:
+        return _chain_fused_plan_f32(tuple(chans), limit)
+    if itemsize != 2:
+        raise ValueError(f"conv_chain kernel has bf16 and float32 "
+                         f"instances, got itemsize {itemsize}")
     L = len(chans) - 1
     cins = [_pad16(c) for c in chans[:-1]]
     couts = [_pad16(c) for c in chans[1:]]
@@ -330,6 +344,52 @@ def chain_fused_plan(chans: Sequence[int],
     return None
 
 
+def _chain_fused_plan_f32(chans: tuple, limit: int) -> Optional[dict]:
+    """The float32 instance's plan (`conv_chain_f32_kernel`).
+
+    The same flat pitch P = TW + 2L. Two activation buffers with fixed
+    roles: buffer 0 holds the even layers' inputs, buffer 1 the odd
+    layers' (`buf_bytes`), layer l's input (TH + 2(L-l)) x P positions of
+    `pitch[l]` = Cin16 + CHAIN_F32_PAD floats. The weights stream in
+    chunks of `ck` input channels with all 9 taps ([9][ck][Cout16] floats)
+    through two slots of `slot_bytes`. A warp owns 8 output channels of a
+    layer and shares its output positions with the other warps of those
+    channels (8 warps over Cout16 / 8 groups); a lane holds
+    `positions_per_lane[l]` positions, at most CHAIN_F32_MP. The first
+    tile of CHAIN_F32_TILES whose layers keep to CHAIN_F32_MP positions a
+    lane and whose buffers and slots fit `limit` with some chunk of
+    CHAIN_F32_CHUNKS is taken, with the widest such chunk."""
+    L = len(chans) - 1
+    cins = [_pad16(c) for c in chans[:-1]]
+    couts = [_pad16(c) for c in chans[1:]]
+    pitch = [c + CHAIN_F32_PAD for c in cins]
+    for th, tw in CHAIN_F32_TILES:
+        p_px = tw + 2 * L
+        per_lane = []
+        for l in range(L):
+            n = (th + 2 * (L - 1 - l)) * (tw + 2 * (L - 1 - l))
+            shares = CHAIN_WARPS // (couts[l] // 8)
+            per_lane.append(-(-n // (32 * shares)))
+        if max(per_lane) > CHAIN_F32_MP:
+            continue
+        bufs = [0, 0]
+        for l in range(L):
+            bufs[l % 2] = max(bufs[l % 2], _round128(
+                4 * (th + 2 * (L - l)) * p_px * pitch[l]))
+        for ck in CHAIN_F32_CHUNKS:
+            slot_bytes = _round128(max(4 * 9 * min(ck, ci) * co
+                                       for ci, co in zip(cins, couts)))
+            smem = bufs[0] + bufs[1] + 2 * slot_bytes
+            if smem <= limit:
+                return {"tile": f"{th}x{tw}", "th": th, "tw": tw,
+                        "pitch_px": p_px, "pitch": pitch,
+                        "positions_per_lane": per_lane, "ck": ck,
+                        "chunks": [-(-ci // ck) for ci in cins],
+                        "buf_bytes": bufs, "slot_bytes": slot_bytes,
+                        "smem_bytes": smem}
+    return None
+
+
 @functools.lru_cache(maxsize=None)
 def chain_plan(chans: tuple, acts: tuple, b: int, h: int, w: int,
                limit: int = H100_SMEM_PER_BLOCK, itemsize: int = 2) -> dict:
@@ -338,13 +398,12 @@ def chain_plan(chans: tuple, acts: tuple, b: int, h: int, w: int,
     memory a block, `itemsize` 2 (bf16) or 4 (float32). Pure and
     deterministic: nothing is timed at run time.
 
-    Returns {"route": "fused" | "layers", "fused": `chain_fused_plan` (or
-    None where no tile fits, for one layer, and in float32: the fused
-    kernel has no float32 instance), "layers": each layer's `conv2d_plan`
-    at `itemsize` (the input width padded to 8; an intermediate's width
-    too, its padding channels computed as exact zeros from the packed
-    weights' zero columns)}. Raises ValueError past the contract:
-    1..MAX_LAYERS layers, every Cout in 1..MAX_COUT.
+    Returns {"route": "fused" | "layers", "fused": `chain_fused_plan` at
+    `itemsize` (or None where no tile fits, and for one layer), "layers":
+    each layer's `conv2d_plan` at `itemsize` (the input width padded to 8;
+    an intermediate's width too, its padding channels computed as exact
+    zeros from the packed weights' zero columns)}. Raises ValueError past
+    the contract: 1..MAX_LAYERS layers, every Cout in 1..MAX_COUT.
 
     Rule: "layers" at every shape. It rests on device time per launch in
     turns on an H100 (`tools/conv_turns.py`, PERF.md section 6): the
@@ -355,7 +414,15 @@ def chain_plan(chans: tuple, acts: tuple, b: int, h: int, w: int,
     ms). A fused tile recomputes its halo (1.56x the work for three layers
     on 16 x 16 outputs) and re-reads every layer's weights a tile; the
     layers pay one device-memory round trip of each intermediate, which
-    at these widths costs less. `route="fused"` still runs the kernel."""
+    at these widths costs less. In float32 too: medians of four turns of
+    `tools/conv_turns.py` on an H100 (700 W), fused / layers / cuDNN
+    float32 layer by layer, 720p feat 9.278 / 5.979 / 7.060 ms, motion
+    17.389 / 6.736 / 7.809, rec 6.293 / 3.698 / 4.728; 360x640 feat
+    2.362 / 1.547 / 2.000, motion 4.404 / 1.752 / 2.176: fusing saves
+    the intermediates' round trips, which cost the FFMA-bound layers
+    little, and pays the halo's recompute (1.43x the work on 8 x 16
+    tiles, 2.08x for motion on 8 x 8) with a core no nearer its bound.
+    `route="fused"` still runs the kernel."""
     L = len(chans) - 1
     if not 1 <= L <= MAX_LAYERS:
         raise ValueError(f"conv_chain takes 1..{MAX_LAYERS} layers, got "
@@ -370,8 +437,7 @@ def chain_plan(chans: tuple, acts: tuple, b: int, h: int, w: int,
     widths = [_pad8(c) for c in chans[:-1]] + [chans[-1]]
     layers = [conv2d_plan(ci, co, 3, limit, itemsize)
               for ci, co in zip(widths[:-1], widths[1:])]
-    fused = chain_fused_plan(chans, limit) if L > 1 and itemsize == 2 \
-        else None
+    fused = chain_fused_plan(chans, limit, itemsize) if L > 1 else None
     return {"route": "layers", "fused": fused, "layers": layers}
 
 
@@ -392,18 +458,24 @@ def _launch_chain_fused(xp: torch.Tensor, wpk: torch.Tensor,
                         bpk: torch.Tensor, out: torch.Tensor,
                         chans: Sequence[int], acts: Sequence[bool],
                         plan: dict) -> None:
-    """One launch of the fused chain kernel on `chain_fused_plan`'s plan:
-    xp (B, H, W, C0 % 8 == 0) bf16, the packed chain, into `out`."""
+    """One launch of the fused chain kernel's instance for xp's dtype on
+    `chain_fused_plan`'s plan: xp (B, H, W, C0 % 8 == 0) bf16 or float32,
+    the packed chain, into `out`."""
     (b, h, w, _), dev = xp.shape, xp.device
     L = len(chans) - 1
     cs = [xp.shape[-1]] + list(chans[1:]) + [0] * (MAX_LAYERS - L)
-    tg = plan["taps_per_group"] + [0] * (MAX_LAYERS - L)
     act_mask = sum(1 << i for i, a in enumerate(acts) if a)
-    rc = build.entry("vfi_conv_chain_bf16")(
-        xp.data_ptr(), wpk.data_ptr(), bpk.data_ptr(), out.data_ptr(),
-        b, h, w, L, *cs, act_mask, plan["th"], plan["tw"], *tg,
-        plan["buf_bytes"], plan["slot_bytes"], plan["smem_bytes"],
-        dev.index, build.current_stream(dev.index))
+    head = (xp.data_ptr(), wpk.data_ptr(), bpk.data_ptr(), out.data_ptr(),
+            b, h, w, L, *cs, act_mask, plan["th"], plan["tw"])
+    tail = (plan["slot_bytes"], plan["smem_bytes"], dev.index,
+            build.current_stream(dev.index))
+    if xp.dtype == torch.float32:
+        rc = build.entry("vfi_conv_chain_f32")(
+            *head, plan["ck"], *plan["buf_bytes"], *tail)
+    else:
+        tg = plan["taps_per_group"] + [0] * (MAX_LAYERS - L)
+        rc = build.entry("vfi_conv_chain_bf16")(
+            *head, *tg, plan["buf_bytes"], *tail)
     if rc:
         build.check(rc, "conv_chain")
 
@@ -439,10 +511,6 @@ def conv_chain(x: torch.Tensor, weights: Sequence[torch.Tensor],
     plan = chain_plan(chans, acts, b, h, w, _smem_limit(x.device.index),
                       x.element_size())
     L, use = len(weights), route or plan["route"]
-    if use == "fused" and tag == "f32":
-        raise TypeError("conv_chain: the fused chain kernel "
-                        "(csrc/conv_chain.cu) takes bfloat16 only; float32 "
-                        "runs the \"layers\" route")
     if use == "fused" and plan["fused"] is None:
         raise ValueError(f"conv_chain: no fused plan for channels {chans} "
                          f"(one layer runs the conv kernel; wider inputs "

@@ -7,13 +7,16 @@
     python -m vfi_tpu_torch.tools.offset_stats      [--device cuda] [--smoke]
     python -m vfi_tpu_torch.tools.bench_flowprior   [--device cuda] [--smoke]
     python -m vfi_tpu_torch.tools.bench_train_step  [--device cuda] [--smoke]
+    python -m vfi_tpu_torch.tools.video_demo --model_path M  [--smoke]
 
 `bench_conv` and `bench_kernels` time the conv, DCN and warp kernels;
 `profile_forward` breaks the model's forward down by device op and
 category; `dump_offsets` writes a checkpoint's DCN offset and mask planes
 (which `bench_kernels --offsets` reads) and `offset_stats` counts the
 (tap, shift) pairs they activate; `bench_flowprior` prices the flow
-prior; `bench_train_step` times the training step on its kernel paths.
+prior; `bench_train_step` times the training step on its kernel paths;
+`video_demo` times the infer CLI's clip up-conversion end to end (it needs
+cv2; `--smoke` runs a tiny clip on the CPU).
 They run on the card (`--device cuda`, the default) and on the CPU only
 when asked (`--device cpu --smoke`: a tiny shape through the plain
 versions, for the tests). `time_interleaved` is the kernel tools' shared

@@ -2,7 +2,8 @@
 
     python -m vfi_tpu_torch.tools.conv_turns --trees A,B,B,A
         [--shapes 64x64,128x64,64x32,6x64,64x27c,dcn64r1,dcn128r4,warp64r16,
-                  chain_feat,chain_motion:fused,chain_rec:layers,...]
+                  chain_feat,chain_motion:fused,chain_rec:layers,chain_feat:fused:f32,
+                  ...]
         [--b 1] [--h 720] [--w 1280] [--launches 100] [--device cuda|cpu]
         [--smoke]
 
@@ -41,7 +42,9 @@ device too. Shapes:
   kernel for `fused`, and for `layers` one one-layer `conv_chain` a
   layer, which launches the conv kernel the same way); `cudnn`,
   `F.conv2d` in bf16 then `relu` where the layer has one, layer by layer
-  (a sequence of library calls, the "xla" route's trunk).
+  (a sequence of library calls, the "xla" route's trunk). A last `:f32`
+  runs the chain in float32 (the kernels' float32 instances; `cudnn`
+  with TF32 off), e.g. `chain_feat:fused:f32`, `chain_motion:f32`.
 
 Inputs and weights come from a seeded numpy generator, the same in every
 process. Give the trees in turns (A, B, B, A) to cancel drift of the
@@ -86,6 +89,7 @@ CHAINS = {"feat": ((64, 64, 64, 64), (1, 1, 1)),
           "rec": ((64, 64, 32, 3), (1, 1, 0)),
           "rec67": ((67, 64, 32, 3), (1, 1, 0))}
 dev = torch.device(args["device"])
+torch.backends.cudnn.allow_tf32 = False     # the float32 `cudnn` chains
 cuda = dev.type == "cuda"
 if not cuda:
     torch.set_num_threads(1)
@@ -154,29 +158,35 @@ for shape in args["shapes"]:
         img = bf(rng.uniform(0.0, 1.0, (b, h, w, int(shape[4:]))))
         fn = img.clone
     elif shape.startswith("chain_"):
-        name, _, how = shape[6:].partition(":")
+        name, *hows = shape[6:].split(":")
+        dt = torch.float32 if hows[-1:] == ["f32"] else torch.bfloat16
+        how = hows[0] if hows and hows[0] != "f32" else ""
         chans, acts = CHAINS[name]
         acts = tuple(bool(a) for a in acts)
-        x = bf(rng.standard_normal((b, h, w, chans[0])))
+        x = f32(rng.standard_normal((b, h, w, chans[0]))).to(dt)
         ws = [f32(rng.standard_normal((co, ci, 3, 3)) / (9 * ci) ** 0.5)
               for ci, co in zip(chans[:-1], chans[1:])]
         bs = [f32(rng.standard_normal((co,)) * 0.1) for co in chans[1:]]
+        # bf16 packs without naming the dtype, as checkouts before the
+        # float32 instances take it
+        kw_pack = {} if dt == torch.bfloat16 else {"dtype": dt}
         if how == "cudnn":
-            wb = [t.to(torch.bfloat16) for t in ws + bs]
+            wb = [t.to(dt) for t in ws + bs]
             def fn(xn=x.permute(0, 3, 1, 2), n=len(ws)):
                 for wt, bt, a in zip(wb[:n], wb[n:], acts):
                     xn = F.conv2d(xn, wt, bt, padding=1)
                     xn = torch.relu(xn) if a else xn
                 return xn.permute(0, 2, 3, 1)
         elif how == "layers" and not routed:
-            pks = [pack_conv_chain([wt], [bt]) for wt, bt in zip(ws, bs)]
+            pks = [pack_conv_chain([wt], [bt], **kw_pack)
+                   for wt, bt in zip(ws, bs)]
             def fn():
                 y = x
                 for wt, bt, a, pk in zip(ws, bs, acts, pks):
                     y = conv_chain(y, [wt], [bt], (a,), packed=pk)
                 return y
         else:
-            pk = pack_conv_chain(ws, bs)
+            pk = pack_conv_chain(ws, bs, **kw_pack)
             kw = {"route": how} if how and routed else {}
             fn = lambda: conv_chain(x, ws, bs, acts, packed=pk, **kw)
     else:
@@ -215,7 +225,8 @@ def parse_args(argv=None):
                          "CinxCoutc (one-layer conv_chain), dcnCrR[:stream] "
                          "(bounded DCN), warpCrR[:zero] (bounded warp), "
                          "copyC (an image's clone) or "
-                         "chain_NAME[:fused|layers|cudnn] (a trunk chain)")
+                         "chain_NAME[:fused|layers|cudnn][:f32] (a trunk "
+                         "chain, bf16 or float32)")
     ap.add_argument("--b", type=int, default=1)
     ap.add_argument("--h", type=int, default=720)
     ap.add_argument("--w", type=int, default=1280)

@@ -24,6 +24,20 @@ def read_flo(path: str) -> np.ndarray:
     return data.reshape(h, w, 2).copy()
 
 
+def write_flo(path: str, flow: np.ndarray) -> None:
+    """An (H, W, 2) flow -> a .flo file of its float32 values; the bytes
+    of `vfi_tpu.utils.flo.write_flo`'s file. ValueError unless the flow
+    is (H, W, 2)."""
+    flow = np.asarray(flow)
+    if flow.ndim != 3 or flow.shape[2] != 2:
+        raise ValueError(f"flow must be (H, W, 2), got {flow.shape}")
+    h, w, _ = flow.shape
+    with open(path, "wb") as f:
+        f.write(struct.pack("<f", _MAGIC))
+        f.write(struct.pack("<ii", w, h))
+        f.write(np.ascontiguousarray(flow, np.float32).tobytes())
+
+
 def flow_valid_mask(flow: np.ndarray) -> np.ndarray:
     """(H, W) bool mask of the pixels with known flow."""
     return np.all(np.abs(flow) < UNKNOWN_THRESHOLD, axis=-1)

@@ -192,10 +192,10 @@ and the script exits non-zero without a result line:
            the first step's loss equal, the gradients' cosine at least
            USER_GRAD_COS; ms a step); the conv, DCN and warp kernels
            launched;
-12c. video_demo the clip demo (`tools/video_demo.py`, its own process
-           on card 0) at VIDEO_DEMO, the JAX package's 1080p qocc run:
-           the record's keys the JAX tool's, its frames the recursion's;
-           where cv2 does not import, one line says it was not run;
+12c. video_demo not run: one line says so. The clip demo
+           (`tools/video_demo.py`) runs `cli.infer video` in a process of
+           its own, whose launches no row would hold; the `video` and
+           `videos` phases drive that pipeline in this process;
 13. grad   gradients through each kernel wrapper (conv, chain of three
            layers and of one, DCN on the tile and the stream design, warp
            at C=3 and C=64) against those
@@ -253,7 +253,6 @@ from vfi_tpu_torch.data import load_image
 from vfi_tpu_torch.data.dataset import IMAGENET_MEAN, IMAGENET_STD
 from vfi_tpu_torch.infer import FrameInterpolator
 from vfi_tpu_torch.infer.multi import interpolate_videos
-from vfi_tpu_torch.infer.pair import pick_interpolation_factor
 from vfi_tpu_torch.infer.video import interpolate_video
 from vfi_tpu_torch.infer.video_io import (CAP_PROP_FPS, CAP_PROP_FRAME_COUNT,
                                           CAP_PROP_FRAME_HEIGHT,
@@ -278,7 +277,7 @@ from vfi_tpu_torch.serve import (BatcherStats, InterpolationServer,
                                  encode_seq_body)
 from vfi_tpu_torch.tools import (bench_conv, bench_flowprior, bench_kernels,
                                  bench_train_step, dump_offsets,
-                                 offset_stats, profile_forward, video_demo)
+                                 offset_stats, profile_forward)
 from vfi_tpu_torch.tools.bench_serve import run_load
 from vfi_tpu_torch.train import (Trainer, TrainState, create_train_state,
                                  make_train_step)
@@ -404,19 +403,6 @@ INFER_FLAGS = ["--dcn_max_offset", "1", "--warp_max_flow", "16",
                "pallas"]
 INFER_PAIR = ("Urban", "frame10.png", "frame11.png")
 INFER_SIZE = (360, 640)
-# The video_demo phase: the clip demo at the JAX package's
-# artifacts/video_upconv_1080p_r5.json run (qocc and its flow prior, R=1,
-# 24 1080p frames, 15 -> 60 fps: factor 3, 93 frames), and its record's
-# keys (the JAX tool's).
-VIDEO_DEMO = ["--model_path", CKPT + ".npz", "--flow_model",
-              CKPT + ".flow.npz", "--radius", "1", "--height", "1080",
-              "--width", "1920", "--frames", "24", "--fps", "15",
-              "--target_fps", "60", "--device", "cuda"]
-VIDEO_DEMO_KEYS = {"resolution", "in_frames", "in_fps", "out_frames",
-                   "output_fps", "interpolated_frames", "wall_s",
-                   "interpolated_frames_per_sec", "scale", "model_path",
-                   "note"}
-VIDEO_DEMO_TIMEOUT_S = 600
 # The kernel tools' runs in the tools phase: few iterations each.
 TOOL_RUNS = (
     (bench_conv, ["--shapes", "all", "--kernels", "xla,im2col,direct,v2,plain",
@@ -2892,44 +2878,15 @@ def phase_user_tools() -> dict:
 
 
 def phase_video_demo() -> dict:
-    """The clip demo (`tools/video_demo.py`) in its own process on card 0,
-    at VIDEO_DEMO (the JAX package's `artifacts/video_upconv_1080p_r5.json`
-    run): its record has the JAX tool's keys and the recursion's frames
-    ((in - 1) x (factor + 1) + 1). The tool writes and reads its clip with
-    cv2: where cv2 does not import here, one line says so and nothing is
-    run. Its kernel launches are that process's, counted on no row."""
-    t0 = time.perf_counter()
-    probe = subprocess.run([sys.executable, "-c", "import cv2"],
-                           capture_output=True, text=True)
-    if probe.returncode != 0:
-        return {"phase": "video_demo", "ran": False,
-                "why": "tools/video_demo.py synthesizes and encodes its clip "
-                       "with cv2, which does not import here: not run, not "
-                       "counted", "error": probe.stderr.strip()[-300:]}
-    with tempfile.TemporaryDirectory() as tmp:
-        out = os.path.join(tmp, "demo.json")
-        env = dict(os.environ, CUDA_VISIBLE_DEVICES="0")
-        run = subprocess.run(
-            [sys.executable, "-m", "vfi_tpu_torch.tools.video_demo",
-             *VIDEO_DEMO, "--workdir", tmp, "--out_json", out],
-            cwd=ROOT, env=env, capture_output=True, text=True,
-            timeout=VIDEO_DEMO_TIMEOUT_S)
-        if run.returncode != 0:
-            raise AssertionError(f"video_demo: rc {run.returncode}:\n"
-                                 f"{run.stderr[-2000:]}")
-        with open(out) as f:
-            report = json.load(f)
-    args = video_demo.parse_args(VIDEO_DEMO)
-    factor = pick_interpolation_factor(args.fps, args.target_fps)[0]
-    n = args.frames
-    want = (n - 1) * (factor + 1) + 1
-    if set(report) != VIDEO_DEMO_KEYS or report["out_frames"] != want \
-            or report["interpolated_frames"] != want - n:
-        raise AssertionError(f"video_demo: record {report}, want "
-                             f"{want} frames and the JAX tool's keys")
-    return {"phase": "video_demo", "ran": True,
-            "seconds": time.perf_counter() - t0, "card": card_line(),
-            "args": VIDEO_DEMO, "factor": factor, "record": report}
+    """The clip demo is not run here: `tools/video_demo.py` times
+    `cli.infer video` in a process of its own, whose kernel launches no
+    row of this script would hold. The `video` and `videos` phases drive
+    the same pipeline in this process, held against the plain engine."""
+    return {"phase": "video_demo", "ran": False,
+            "why": "tools/video_demo.py runs cli.infer video in its own "
+                   "process, whose launches no kernel row holds; the video "
+                   "and videos phases drive that pipeline here: not run, "
+                   "not counted"}
 
 
 def grad_case(name, kernel, plain, inputs) -> dict:

@@ -11,6 +11,10 @@ and the script exits non-zero without a result line:
            source, in parallel, then one link), and the C++ build of the
            PNG codec and the loader's crop core
            (`vfi_tpu_torch/native/png.cpp`) with this machine's compiler;
+           each float32 conv / DCN kernel instance's registers, stack
+           frame, spills and TF32 MMAs (`tf32_kernels`: `cuobjdump -sass`
+           of the library; fails if one spills, has a stack frame or has
+           no TF32 HMMA);
 2b. native a Middlebury val frame decoded by the port, then
            `native.crop_flip_normalize` at NATIVE_WINDOWS, with and
            without hflip and ImageNet normalization, each bit for bit
@@ -44,8 +48,9 @@ and the script exits non-zero without a result line:
            layers), against the float32 plain versions
            (TF32 off) within F32_REL_TOL (conv, DCN) and F32_WARP_TOL
            (warps; `bit_exact` says whether they were), their bounds with
-           every product at the float32 (FFMA) peak, library calls in
-           float32;
+           every float32 product as three TF32 passes on the tensor cores
+           (`ffma_bound_ms` beside it: every product at the float32 FFMA
+           peak), library calls in float32;
 4. main    the flagship engine (qocc checkpoint + flow prior, bf16,
            dcn_max_offset=1, warp_max_flow=16, cascade_levels=2,
            conv_kernel="pallas") answers three b=1 requests and one b=2
@@ -142,7 +147,10 @@ and the script exits non-zero without a result line:
            pairs/s, the gap to the bf16 record;
 10b3. train_fp32 the qocc recipe with `bf16: false`: one microbatch's
            loss and gradient through the float32 instances against the
-           plain route (F32_TRAIN_LOSS_RTOL, F32_TRAIN_GRAD_COS), then one
+           plain route (F32_TRAIN_LOSS_RTOL, F32_TRAIN_GRAD_COS), the
+           same reported on four more microbatches (`train_fp32_spread`:
+           the loss difference, its colour-histogram part in bin-edge
+           crossings and the rest), then one
            optimizer step of 16 a turn against the bf16 recipe's
            (F32_TURNS): median step ms, the float32 steps' peak memory;
 10c. dp_engine the flagship engine over a 'data' mesh of DP_RANKS replicas
@@ -232,6 +240,7 @@ import io
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -303,10 +312,13 @@ SEED = 0
 N_TIMED = 20
 # Back-to-back launches a row's device time averages over.
 N_BACK_TO_BACK = 100
-# H100 SXM published peaks (dense): HBM bytes/s, bf16 tensor-core FLOP/s,
-# float32 FLOP/s outside the tensor cores. They assume the 700 W limit.
+# H100 SXM published peaks (dense; NVIDIA's data sheet): HBM bytes/s, bf16
+# and TF32 tensor-core FLOP/s, float32 FLOP/s outside the tensor cores.
+# They assume the 700 W limit. A float32-accurate product on the tensor
+# cores takes three TF32 passes (3xTF32, csrc/common.cuh): 165 TFLOP/s.
 PEAK_BYTES = 3.35e12
 PEAK_BF16 = 989e12
+PEAK_TF32 = 495e12
 PEAK_F32 = 67e12
 # Kernel vs plain version, both bf16 with float32 accumulation: they differ
 # only in summation order, which can move a bf16 rounding by one ulp (and
@@ -337,6 +349,11 @@ F32_PSNR_DB = 80.0
 F32_EVAL_TOL_DB = 0.001
 F32_TRAIN_LOSS_RTOL = 1e-4
 F32_TRAIN_GRAD_COS = 0.9999
+# Further float32 microbatches (the train set's items from each index on)
+# whose loss and gradient against the plain route are reported beside the
+# held one, not held: the loss difference's spread, and how much of it is
+# the exact colour histogram's (whole pixel values crossing a bin edge).
+F32_TRAIN_SPREAD_FROM = (2, 4, 6, 8)
 # Turns of the float32 phases against bf16 (engine requests, train steps).
 F32_TURNS = ("bf16", "f32", "f32", "bf16")
 Q12_ENGINE = dict(bf16=True, dcn_max_offset=2, warp_max_flow=16,
@@ -584,12 +601,17 @@ def device_ms(fn, n: int = N_BACK_TO_BACK, warmup: int = 3) -> float:
             n //= 2
 
 
-def bound(nbytes: float, flops_bf16: float, flops_f32: float = 0.0):
+def bound(nbytes: float, flops_bf16: float, flops_f32: float = 0.0,
+          flops_tf32x3: float = 0.0):
     """Least time in ms: the largest of the bytes over the memory rate and
     each type's operations over its own peak (the tensor cores and the
-    float32 units run at once)."""
+    float32 units run at once): bf16 products on the tensor cores,
+    float32-accurate products (`flops_tf32x3`) as three TF32 passes on
+    them, other float32 arithmetic (a blend, a warp) on the float32
+    units."""
     t_bytes = nbytes / PEAK_BYTES
-    t_ops = max(flops_bf16 / PEAK_BF16, flops_f32 / PEAK_F32)
+    t_ops = max(flops_bf16 / PEAK_BF16, 3.0 * flops_tf32x3 / PEAK_TF32,
+                flops_f32 / PEAK_F32)
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -634,17 +656,82 @@ def smooth_frames(gen: np.random.Generator, b: int, h: int = H,
     return frames, shifted
 
 
+# The float32 conv and DCN kernels: each must run its products on the
+# tensor cores (TF32 HMMA in its SASS) and keep nothing in local memory.
+TF32_KERNELS = re.compile(r"(conv2d_f32|dcn_tile_tf32|dcn_stream_tf32)_kernel")
+
+
+def short_name(mangled: str) -> str:
+    """`conv2d_f32_kernel<4,4,0>` for the mangled name of an instance."""
+    m = re.search(TF32_KERNELS.pattern + r"I((?:L[ib]\d+E)+)E", mangled)
+    if not m:
+        return mangled
+    args = ",".join(re.findall(r"L[ib](\d+)E", m.group(2)))
+    return f"{m.group(1)}_kernel<{args}>"
+
+
+def tf32_kernels(log: str, lib: str) -> dict:
+    """Per float32 conv / DCN kernel instance: its registers, its stack
+    frame and spilled bytes (ptxas's report in the build log) and its TF32
+    MMAs (`HMMA ... TF32` in `cuobjdump -sass` of the library). Fails if an
+    instance spills, keeps anything in local memory (a stack frame) or has
+    no TF32 MMA."""
+    out, fn = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            fn = short_name(m.group(1)) if TF32_KERNELS.search(m.group(1)) \
+                else None
+            continue
+        m = re.search(r"(\d+) bytes stack frame", ln)
+        if fn and m:
+            out.setdefault(fn, {})["stack_bytes"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if fn and m:
+            out.setdefault(fn, {})["spill_bytes"] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", ln)
+        if fn and m:
+            out.setdefault(fn, {})["registers"] = int(m.group(1))
+    cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", lib], check=True,
+                          capture_output=True, text=True).stdout
+    fn = None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            fn = short_name(m.group(1)) if TF32_KERNELS.search(m.group(1)) \
+                else None
+            if fn:
+                out.setdefault(fn, {})["tf32_hmma"] = 0
+        elif fn and re.search(r"HMMA\.\w+\.F32\.TF32", ln):
+            out[fn]["tf32_hmma"] += 1
+    bad = {k: v for k, v in out.items()
+           if v.get("spill_bytes", 0) or v.get("stack_bytes", 0)
+           or not v.get("tf32_hmma")}
+    if not out or bad:
+        raise AssertionError(f"float32 kernels spilling or off the tensor "
+                             f"cores: {bad or 'none found'}")
+    return out
+
+
 def phase_build() -> dict:
     t0 = time.perf_counter()
     build.load()
     info = dict(build.build_info)
-    ptxas = [ln.strip() for ln in info.pop("log", "").splitlines()
+    # A cached build kept its compiler report beside the library.
+    log = info.pop("log", "") or open(os.path.join(os.path.dirname(
+        info["path"]), "nvcc.log")).read()
+    ptxas = [ln.strip() for ln in log.splitlines()
              if "registers" in ln or "spill" in ln]
     t1 = time.perf_counter()
     native.load()               # the PNG codec, before any route is timed
+    t2 = time.perf_counter()
+    tf32 = tf32_kernels(log, info["path"])
     return {"phase": "build", "seconds": time.perf_counter() - t0,
             "nvcc_seconds": info["seconds"], "cached": info["cached"],
-            "png_codec_seconds": time.perf_counter() - t1, "ptxas": ptxas}
+            "png_codec_seconds": t2 - t1, "ptxas": ptxas,
+            "tf32_kernels": tf32,
+            "tf32_check_seconds": time.perf_counter() - t2}
 
 
 def native_numpy(img: np.ndarray, top: int, left: int, crop: tuple,
@@ -703,7 +790,8 @@ def row_name(base: str, b: int, h: int, w: int) -> str:
 
 def kernel_row(name, source, replaces, key, kernel, plain, library,
                io_bytes, flops_bf16, flops_f32=0.0, ref=None, plain_ms=None,
-               exact=False, rel_tol=REL_TOL, **extra) -> dict:
+               exact=False, rel_tol=REL_TOL, flops_tf32x3=0.0,
+               **extra) -> dict:
     """Check one kernel call against its plain version, then time the
     kernel, the plain version and (where one exists) a library call.
     `key` = (paths, wrapper name, launch shape): the paths whose runs
@@ -711,8 +799,11 @@ def kernel_row(name, source, replaces, key, kernel, plain, library,
     launches), or () for a shape no path of this run takes. `ref` and
     `plain_ms`, where given, are the plain version's result and time on
     these inputs, shared by two rows; `exact`: the kernel must equal its
-    plain version bit for bit, else within rel_tol * max|plain|. `extra`
-    fields go into the row as they are."""
+    plain version bit for bit, else within rel_tol * max|plain|. A row
+    with float32-accurate products (`flops_tf32x3`) also has
+    `ffma_bound_ms`: its bound with them on the float32 units instead, as
+    the FFMA designs' float32 rows were bounded. `extra` fields go into the
+    row as they are."""
     got = kernel()
     if ref is None:
         ref = plain()
@@ -727,8 +818,13 @@ def kernel_row(name, source, replaces, key, kernel, plain, library,
     row["library_device_ms"] = (None if library is None
                                 else device_ms(library))
     row["bound_ms"], row["bound_by"] = bound(io_bytes + nbytes(got),
-                                             flops_bf16, flops_f32)
+                                             flops_bf16, flops_f32,
+                                             flops_tf32x3)
     row["x_bound"] = row["device_ms"] / row["bound_ms"]
+    if flops_tf32x3:
+        row["ffma_bound_ms"] = bound(io_bytes + nbytes(got), flops_bf16,
+                                     flops_f32 + flops_tf32x3)[0]
+        row["x_ffma_bound"] = row["device_ms"] / row["ffma_bound_ms"]
     emit({"phase": "kernel", **row})
     row["_key"] = key
     return row
@@ -736,10 +832,9 @@ def kernel_row(name, source, replaces, key, kernel, plain, library,
 
 def dtype_rows(dt) -> dict:
     """What a kernel row of dtype `dt` sets: its name's suffix, its
-    tolerance, its dtype tag and the float32 units' share of its
-    operations (the bf16 instances' products run on the tensor cores, the
-    float32 instances' on the FFMA units: `bound` counts them at the
-    float32 peak)."""
+    tolerance, its dtype tag and whether its products are float32-accurate
+    (`bound` counts the bf16 instances' at the bf16 tensor-core peak, the
+    float32 instances' as three TF32 passes)."""
     if dt == torch.float32:
         return {"suffix": "_f32", "rel_tol": F32_REL_TOL, "tag": "f32",
                 "f32_products": True}
@@ -794,8 +889,8 @@ def chain_rows(rnd, sd, tag, cin, names, acts, b, h, w, paths,
             lambda: conv_chain(x, ws, bs, acts, packed=pk, route=route),
             plain, library,
             nbytes(x) + nbytes(*ws) * x.element_size() // 4 + nbytes(*bs),
-            0.0 if d["f32_products"] else flops,
-            flops if d["f32_products"] else 0.0, ref=ref, plain_ms=plain_ms,
+            0.0 if d["f32_products"] else flops, ref=ref, plain_ms=plain_ms,
+            flops_tf32x3=flops if d["f32_products"] else 0.0,
             rel_tol=d["rel_tol"], dtype=d["tag"], chain_route=route,
             plan_route=plan["route"], library_call=calls,
             plan=plan["fused"] if route == "fused" else plan["layers"]))
@@ -828,8 +923,8 @@ def conv2d_row(rnd, gen, cin, cout, k, b, h, w, variant, replaces,
         lambda: conv2d(x, wt, bt, act, variant, packed=pk),
         lambda: conv2d_plain(x, wt, bt, act), library,
         nbytes(x) + nbytes(wt) * x.element_size() // 4 + nbytes(bt),
-        0.0 if d["f32_products"] else flops,
-        flops if d["f32_products"] else 0.0, rel_tol=d["rel_tol"],
+        0.0 if d["f32_products"] else flops, rel_tol=d["rel_tol"],
+        flops_tf32x3=flops if d["f32_products"] else 0.0,
         dtype=d["tag"], library_call="F.conv2d+relu" if act else "F.conv2d",
         plan=conv2d_plan(cin, cout, k, itemsize=x.element_size()))
 
@@ -861,8 +956,8 @@ def dcn_row(rnd, wt, bt, b, h, w, R, replaces, paths,
         lambda: deform_conv2d_bounded(x, off, mask, wt, bt, R, packed=pk),
         lambda: deform_conv2d_bounded_plain(x, off, mask, wt, bt, R), None,
         nbytes(x, off, mask) + nbytes(wt) * x.element_size() // 4
-        + nbytes(bt), 0.0 if d["f32_products"] else gemm,
-        blend + (gemm if d["f32_products"] else 0.0), rel_tol=d["rel_tol"],
+        + nbytes(bt), 0.0 if d["f32_products"] else gemm, blend,
+        flops_tf32x3=gemm if d["f32_products"] else 0.0, rel_tol=d["rel_tol"],
         dtype=d["tag"], design=plan["design"], plan=plan)
 
 
@@ -2001,17 +2096,22 @@ def flat_grads(params) -> torch.Tensor:
 
 def train_fidelity(trainer, rtol: float = TRAIN_LOSS_RTOL,
                    cos_min: float = TRAIN_GRAD_COS, phase: str =
-                   "train_fidelity") -> dict:
-    """One microbatch (2 samples from the train set) through the trainer's
-    step on the kernel route and on the plain route, from the trainer's
-    initial params: the loss within `rtol`, the flattened gradient's
-    cosine similarity at least `cos_min`, every gradient float32 and
-    finite, the DCN and warp launched in the instances of the trainer's
-    activation dtype. `_by_shape`: the kernel route's launches."""
+                   "train_fidelity", first: int = 0,
+                   hold: bool = True) -> dict:
+    """One microbatch (2 samples of the train set from item `first` on)
+    through the trainer's step on the kernel route and on the plain route,
+    from the trainer's initial params: the loss within `rtol`, the
+    flattened gradient's cosine similarity at least `cos_min`, every
+    gradient float32 and finite, the DCN and warp launched in the instances
+    of the trainer's activation dtype (`hold=False`: the limits reported,
+    not held). `color_quanta`: the colour term's difference in units of one
+    pixel value crossing a bin edge (2 / (H W B) of the exact 256-bin
+    histogram term); `other_rel`: the weighted difference of every other
+    term over the plain loss. `_by_shape`: the kernel route's launches."""
     cfg = trainer.cfg
     n = cfg.batch_size // cfg.accum_steps
     items = [trainer.train_data.get(i, np.random.default_rng(i))
-             for i in range(n)]
+             for i in range(first, first + n)]
     batch = [torch.from_numpy(np.stack([it[k] for it in items])).cuda()
              for k in range(3)]
     out = {}
@@ -2044,7 +2144,11 @@ def train_fidelity(trainer, rtol: float = TRAIN_LOSS_RTOL,
     (lk, gk, nk, mk), (lp, gp, _, mp) = out["kernel"], out["plain"]
     cos = float(torch.nn.functional.cosine_similarity(gk, gp, dim=0))
     rel = abs(lk - lp) / abs(lp)
-    if not (rel <= rtol and cos >= cos_min):
+    bsz, h, w = batch[0].shape[:3]
+    dcolor = mk["color"] - mp["color"]
+    quanta = dcolor / (2.0 / (h * w * bsz))
+    other = abs((lk - lp) - trainer.weights.color * dcolor) / abs(lp)
+    if hold and not (rel <= rtol and cos >= cos_min):
         raise AssertionError(f"{phase}: loss {lk} vs plain {lp} "
                              f"({rel:.2e} relative, limit {rtol}),"
                              f" gradient cosine {cos} (limit {cos_min})")
@@ -2055,8 +2159,10 @@ def train_fidelity(trainer, rtol: float = TRAIN_LOSS_RTOL,
         raise AssertionError(f"{phase}: kernel route launches {nk}, "
                              f"{ {k: dict(c) for k, c in by_shape.items()} }")
     return {"phase": phase, "microbatch": list(batch[0].shape),
+            "first_item": first, "held": hold,
             "loss_kernel": lk, "loss_plain": lp, "loss_rel_diff": rel,
             "loss_rtol": rtol, "grad_cosine": cos, "grad_cos_min": cos_min,
+            "color_quanta": quanta, "other_rel": other,
             "grad_norm_kernel": float(gk.norm()),
             "grad_norm_plain": float(gp.norm()), "terms_kernel": mk,
             "terms_plain": mp, "kernel_launches": nk, "_by_shape": by_shape}
@@ -2255,7 +2361,9 @@ def phase_train_fp32() -> list:
     """The qocc recipe (TRAIN_RECIPE) with `bf16: false` on card 0, as the
     train phase builds it: `train_fidelity` on one microbatch with the
     float32 limits (F32_TRAIN_LOSS_RTOL, F32_TRAIN_GRAD_COS; the DCN and
-    warp in their float32 instances), then one optimizer step of 16 a
+    warp in their float32 instances), the same reported on the microbatches
+    from F32_TRAIN_SPREAD_FROM (`train_fp32_spread`), then one optimizer
+    step of 16 a
     turn against the bf16 recipe's step on one batch (F32_TURNS): median
     step ms of each and the float32 steps' peak memory. The launches of
     the fidelity's kernel route and of the float32 steps count on the
@@ -2278,6 +2386,20 @@ def phase_train_fp32() -> list:
                              F32_TRAIN_GRAD_COS, "train_fp32_fidelity")
         add_shapes(by_shape, fid.pop("_by_shape"))
         results.append(fid)
+        spread = [fid]
+        for first in F32_TRAIN_SPREAD_FROM:
+            f = train_fidelity(trainers["f32"], F32_TRAIN_LOSS_RTOL,
+                               F32_TRAIN_GRAD_COS, "train_fp32_spread",
+                               first, hold=False)
+            add_shapes(by_shape, f.pop("_by_shape"))
+            spread.append(f)
+        results.append({
+            "phase": "train_fp32_spread", "held": False,
+            "first_items": [f["first_item"] for f in spread],
+            "loss_rel_diff": [f["loss_rel_diff"] for f in spread],
+            "grad_cosine": [f["grad_cosine"] for f in spread],
+            "color_quanta": [f["color_quanta"] for f in spread],
+            "other_rel": [f["other_rel"] for f in spread]})
 
         cfg = trainers["f32"].cfg
         rng = np.random.default_rng(SEED + 4)

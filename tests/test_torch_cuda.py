@@ -36,7 +36,7 @@ import torch
 
 from vfi_tpu_torch.ops.cuda import (bounded_warp, bounded_warp_plain,
                                     chain_plan, conv2d, conv2d_plain,
-                                    conv_chain,
+                                    conv2d_plan, conv_chain,
                                     conv_chain_plain, dcn_plan,
                                     deform_conv2d_bounded,
                                     deform_conv2d_bounded_plain,
@@ -809,9 +809,12 @@ def _f32(gen, dev, *shape, scale=1.0):
     (16, 128, 1, True), (64, 64, 5, True), (67, 5, 5, False),
     (24, 3, 7, True), (200, 40, 9, True), (3, 16, 3, True)])
 def test_conv2d_kernel_f32(dev, hw, cin, cout, k, act):
-    """The conv's float32 instance (FFMA; 16 x 16 tiles, channel chunks
-    through two stages) at every k, Cout below 8 and off a multiple of 8,
-    Cin off a multiple of 8, and its tile cut at every edge, B = 3."""
+    """The conv's float32 instance (3xTF32 on the tensor cores; 16 x 16 or
+    8 x 16 tiles, resident or streamed weights) at every k, Cout below 8
+    and off a multiple of 8, Cin off a multiple of 8, and its tile cut at
+    every edge, B = 3."""
+    assert conv2d_plan(-(-cin // 8) * 8, cout, k, itemsize=4)["core"] == (
+        "tf32x3")
     gen = torch.Generator(device=dev).manual_seed(21)
     x = _f32(gen, dev, 3, *hw, cin)
     w = _f32(gen, dev, cout, cin, k, k, scale=(k * k * cin) ** -0.5)
@@ -865,24 +868,31 @@ def _dcn_case_f32(dev, seed, b, hw, cin, cout, R, with_mask=True):
     return x, off, mask, w, _f32(gen, dev, cout, scale=0.1)
 
 
-# Every branch of the float32 plan: the tile design on 16 x 16 and 8 x 16
-# tiles (slabs of all Cin16 and in passes), the stream design in one chunk
-# and several (a ragged last chunk, 4-channel chunks at R = 28 and 35),
-# Cout below 16 and off a multiple of 8, H and W below one tile, ragged
-# edges, (100, 300) at B = 3 (more tiles than the persistent grid).
+# Every branch of the float32 plan: the tile design on 8 x 16 tiles (slabs
+# of all Cin8 and in passes; its warp pairs' halves of Cout16 from 8 to 56
+# channels, odd and even counts of n-fragments), the stream design in one
+# chunk and several (a ragged last chunk, 8-channel chunks at R = 28 and
+# 35; n-fragments in groups of 4 past Cout16 = 64), Cout below 16 and off
+# a multiple of 8, Cout16 80, 96 and 112 on both designs, H and W below
+# one tile, ragged edges, (100, 300) at B = 3 (more tiles than the
+# persistent grid).
 @pytest.mark.parametrize("hw", [(5, 7), (13, 37), (100, 300)])
 @pytest.mark.parametrize("cin,cout,R,design,tile", [
-    (64, 64, 1, "tile", "8x16"), (16, 32, 2, "tile", "16x16"),
-    (3, 24, 2, "tile", "16x16"), (64, 27, 0, "tile", "16x16"),
-    (67, 5, 2, "tile", "16x16"), (67, 67, 2, "stream", "8x16"),
+    (64, 64, 1, "tile", "8x16"), (16, 32, 2, "tile", "8x16"),
+    (3, 24, 2, "tile", "8x16"), (64, 27, 0, "tile", "8x16"),
+    (67, 5, 2, "tile", "8x16"), (67, 67, 2, "stream", "8x16"),
     (67, 67, 8, "stream", "8x16"), (128, 128, 4, "stream", "8x16"),
-    (80, 67, 4, "stream", "8x16"), (128, 8, 28, "stream", "8x16"),
-    (128, 128, 35, "stream", "8x16")])
+    (80, 67, 4, "stream", "8x16"), (128, 8, 28, "stream", "4x16"),
+    (128, 128, 35, "stream", "4x16"), (16, 80, 1, "tile", "8x16"),
+    (16, 96, 1, "tile", "8x16"), (16, 112, 1, "tile", "8x16"),
+    (64, 80, 4, "stream", "8x16"), (64, 96, 4, "stream", "8x16"),
+    (64, 112, 4, "stream", "8x16")])
 def test_deform_conv2d_bounded_f32_plans(dev, hw, cin, cout, R, design,
                                          tile):
     plan = dcn_plan(cin, cout, R, torch.cuda.get_device_properties(
         dev).shared_memory_per_block_optin, 4)
-    assert (plan["design"], plan["tile"]) == (design, tile)
+    assert (plan["design"], plan["tile"], plan["core"]) == (design, tile,
+                                                            "tf32x3")
     x, off, mask, w, b = _dcn_case_f32(dev, 23, 3, hw, cin, cout, R)
     reset_launch_counts()
     got = deform_conv2d_bounded(x, off, mask, w, b, R)
@@ -904,6 +914,55 @@ def test_deform_conv2d_bounded_f32_without_a_mask_and_off_alignment(dev, cin,
     view = store[1:].view(off.shape)
     assert view.data_ptr() % 8
     _close_f32(deform_conv2d_bounded(x, view, None, w, b, R), ref)
+
+
+# The 3xTF32 tiling's edges: Cin 1, 3 and 67 (padded to 8 by the wrapper:
+# one k-step, or a ragged last chunk), Cout 2, 3 and 27 (one n8 fragment
+# partly used, an odd Cout's scalar stores), k = 9 at Cout = 128 (8 x 16
+# tiles, weights streamed in tap groups), and k = 9 at Cin 16 and 24 (past
+# F32_FLUSH_K columns: resident weights in 8-channel chunks, each step
+# flushed).
+@pytest.mark.parametrize("hw", [(13, 37), (40, 72)])
+@pytest.mark.parametrize("cin,cout,k,act", [
+    (1, 16, 3, True), (3, 2, 3, False), (67, 3, 3, False), (67, 27, 3, False),
+    (1, 27, 5, True), (8, 128, 9, True), (67, 128, 9, False),
+    (16, 16, 9, True), (24, 16, 9, False)])
+def test_conv2d_kernel_f32_tiling_edges(dev, hw, cin, cout, k, act):
+    cin8 = -(-cin // 8) * 8
+    plan = conv2d_plan(cin8, cout, k, itemsize=4)
+    assert plan["core"] == "tf32x3"
+    assert plan["flush"] == (k * k * cin8 > 1152)
+    rows = (8 if cout > 64 else 16) // (2 if plan["flush"] else 1)
+    assert plan["tile"] == f"{rows}x16"
+    gen = torch.Generator(device=dev).manual_seed(26)
+    x = _f32(gen, dev, 2, *hw, cin)
+    w = _f32(gen, dev, cout, cin, k, k, scale=(k * k * cin) ** -0.5)
+    b = _f32(gen, dev, cout, scale=0.1)
+    reset_launch_counts()
+    _close_f32(conv2d(x, w, b, act), conv2d_plain(x, w, b, act))
+    assert dict(conv2d.launches_by_shape) == {(cin, cout, k, *hw, "f32"): 1}
+
+
+# The DCN's: Cin 1, 3, 67; Cout 2, 3, 27; R = 34 and 35; Cin past 128 on
+# both designs (128 and 136 on the tile design, 256 streamed), and 1200 (K
+# = 10,800: 136-channel chunks, each step's sums flushed) within 2^-14.
+@pytest.mark.parametrize("hw", [(13, 37), (40, 72)])
+@pytest.mark.parametrize("cin,cout,R,design", [
+    (1, 16, 1, "tile"), (3, 2, 1, "tile"), (67, 3, 2, "tile"),
+    (64, 27, 1, "tile"), (67, 27, 8, "stream"), (128, 3, 35, "stream"),
+    (128, 2, 34, "stream"), (128, 16, 0, "tile"), (136, 16, 0, "tile"),
+    (256, 64, 1, "stream"), (1200, 16, 1, "stream")])
+def test_deform_conv2d_bounded_f32_tiling_edges(dev, hw, cin, cout, R,
+                                                design):
+    plan = dcn_plan(cin, cout, R, torch.cuda.get_device_properties(
+        dev).shared_memory_per_block_optin, 4)
+    assert (plan["design"], plan["core"]) == (design, "tf32x3")
+    x, off, mask, w, b = _dcn_case_f32(dev, 27, 2, hw, cin, cout, R)
+    reset_launch_counts()
+    got = deform_conv2d_bounded(x, off, mask, w, b, R)
+    assert dict(deform_conv2d_bounded.launches_by_shape) == {
+        (cin, cout, *hw, R, "f32"): 1}
+    _close_f32(got, deform_conv2d_bounded_plain(x, off, mask, w, b, R))
 
 
 @pytest.mark.parametrize("aligned", [True, False])

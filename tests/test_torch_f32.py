@@ -2,19 +2,23 @@
 launch checks (pure Python, no card), the models' packing in their working
 dtype, and the float32 engine on the chain-kernel route held to JAX.
 
-- `conv2d_plan(..., itemsize=4)`, `dcn_plan(..., itemsize=4)` and
-  `chain_fused_plan(..., itemsize=4)` hold every float32 shape
-  chip_smoke.py and tests/test_torch_cuda.py launch within an H100's
-  232,448 bytes a block, and their regions match the sums the float32 C
-  entries (`vfi_conv2d_f32`, `vfi_dcn_bounded_f32`, `vfi_conv_chain_f32`)
-  recompute before a launch (`_conv_entry_accepts`, `_dcn_entry_accepts`,
-  `_check_fused_f32`); they refuse what nothing holds. The bf16 DCN plans are those the search made
-  before the float32 instances (`_bf16_dcn_plan_before`, the search as it
-  was), at every shape the card runs (`CARD_SHAPES`).
+- `conv2d_plan(..., itemsize=4)`, `dcn_plan(..., itemsize=4)` (the
+  3xTF32 designs) and `chain_fused_plan(..., itemsize=4)` hold every
+  float32 shape chip_smoke.py and tests/test_torch_cuda.py launch within
+  an H100's 232,448 bytes a block, and their regions match the sums the
+  float32 C entries (`vfi_conv2d_f32`, `vfi_dcn_bounded_f32`,
+  `vfi_conv_chain_f32`) recompute before a launch (`_conv_entry_accepts`,
+  `_dcn_entry_accepts`, `_check_fused_f32`); they refuse what nothing
+  holds. Every shape the FFMA designs' plans held before them
+  (`_f32_ffma_conv_plan_before`, `_f32_ffma_dcn_plan_before`: those
+  searches as they were) still has a plan. The bf16 DCN plans are those
+  the search made before the float32 instances (`_bf16_dcn_plan_before`,
+  the search as it was), at every shape the card runs (`CARD_SHAPES`).
 - `pack_conv2d` / `pack_conv_chain` / `pack_dcn` in float32 hold the
-  weights unrounded; `_cuda_checks` takes bf16 or float32 operands of one
-  dtype and refuses float16 and mixes; an `EMAVFI` packs in its working
-  dtype (float32 without one).
+  weights unrounded, K contiguous ([Cout16][k * k * Cin8]);
+  `_cuda_checks` takes bf16 or float32 operands of one dtype and refuses
+  float16 and mixes; an `EMAVFI` packs in its working dtype (float32
+  without one).
 - `FrameInterpolator(bf16=False, conv_kernel="pallas")` (the chains
   through the kernel wrappers, which run their plain versions here) is
   held to the JAX engine in float32 with its Pallas chains, v5 DCN and
@@ -38,11 +42,10 @@ from vfi_tpu_torch.models import EMAVFI
 from vfi_tpu_torch.ops.cuda import (chain_plan, conv2d_plan, dcn_plan,
                                     pack_conv2d, pack_conv_chain, pack_dcn)
 from vfi_tpu_torch.ops.cuda.conv import (CHAIN_F32_MP, CHAIN_WARPS,
-                                         H100_SMEM_PER_BLOCK, ROW_PAD,
-                                         TILE_H, chain_fused_plan,
-                                         chain_layer_packs, f32_pitch)
-from vfi_tpu_torch.ops.cuda.sampling import (DCN_F32_SLAB_PITCH,
-                                             DCN_STREAM_ROWS, DCN_TILE_PLANS,
+                                         F32_FLUSH_K, H100_SMEM_PER_BLOCK,
+                                         ROW_PAD, TILE_H, chain_fused_plan,
+                                         chain_layer_packs, packed_shape)
+from vfi_tpu_torch.ops.cuda.sampling import (DCN_STREAM_ROWS, DCN_TILE_PLANS,
                                              DCN_TILE_W, _cuda_checks,
                                              _dcn_chunks, _dcn_xu)
 from vfi_tpu_torch.utils.convert import load_params_npz
@@ -66,60 +69,123 @@ def _pad(c, m):
 
 
 def _conv_entry_accepts(p, cin, cout, k):
-    """The two stages `vfi_conv2d_f32` recomputes from a plan's chunk and
-    the checks it makes before a launch."""
-    x_floats = p["ck"] * (16 + k - 1) * f32_pitch(k)
-    w_floats = k * k * p["ck"] * _pad(cout, 16)
-    return (cin >= 1 and 1 <= cout <= 128 and k % 2 == 1 and k <= 9
-            and p["ck"] >= 1 and p["smem_bytes"] >= 8 * (x_floats + w_floats))
+    """The checks `vfi_conv2d_f32` makes of a plan before a launch (Cin
+    the launch's, a multiple of 8): its tile rows (4 m-fragments a warp up
+    to Cout16 = 64, else 2; half that where it flushes), two input buffers
+    and the weights it recomputes from the chunk and tap group."""
+    cout16 = _pad(cout, 16)
+    rows = (16 if cout16 <= 64 else 8) // (2 if p["flush"] else 1)
+    tg = 0 if p["resident"] else p["taps_per_group"]
+    wp = (k * k * cin if tg == 0 else tg * p["ck"]) + 4
+    tpx = (rows + k - 1) * (16 + k - 1)
+    return (cin >= 8 and cin % 8 == 0 and 1 <= cout <= 128 and k % 2 == 1
+            and k <= 9 and p["ck"] >= 8 and p["ck"] % 8 == 0
+            and p["ck"] <= cin and 0 <= tg <= k * k
+            and p["x_bytes"] % 128 == 0
+            and p["x_bytes"] >= 4 * tpx * (p["ck"] + 4)
+            and p["smem_bytes"] >= 2 * p["x_bytes"]
+            + (1 if tg == 0 else 2) * 4 * cout16 * wp)
 
 
 # (cin, cout, k) of every float32 conv launch the card makes: the chains'
 # layers on the "layers" route (first widths padded to 8: 67 -> 72), the
-# single conv's rows, and the card tests' shapes (Cin 3, 67 padded to 8).
+# single conv's rows, and the card tests' shapes (Cin 1, 3 and 67 padded to
+# 8; k = 9 at Cout = 128).
 F32_CONV_SHAPES = [
     (64, 64, 3), (128, 64, 3), (64, 2, 3), (64, 27, 3), (64, 32, 3),
     (32, 3, 3), (72, 64, 3), (72, 27, 3), (64, 32, 1), (16, 128, 1),
     (64, 64, 5), (72, 5, 5), (24, 3, 7), (200, 40, 9), (8, 16, 3),
-    (128, 128, 9), (16, 48, 3), (48, 16, 3)]
+    (128, 128, 9), (16, 48, 3), (48, 16, 3), (8, 2, 3), (72, 3, 3),
+    (8, 27, 5), (8, 128, 9), (72, 128, 9), (16, 16, 9), (24, 16, 9)]
 
 
 @pytest.mark.parametrize("cin,cout,k", F32_CONV_SHAPES)
 def test_f32_conv2d_plan_fits_every_shape_the_card_runs(cin, cout, k):
-    """Two stages of `ck` input channels and their weights, each within an
-    H100 block's shared memory and accepted by the C entry; the chunk
-    divides Cin into `chunks`; at 3x3 two blocks fit an SM."""
+    """The 3xTF32 conv's plan: 16 x 16 tiles up to Cout16 = 64, else 8 x
+    16, halved past F32_FLUSH_K columns of K (the flush); two input buffers
+    of `ck` channels (a multiple of 8 dividing Cin into `chunks`); weights
+    resident or streamed in tap groups; a flushed step (a chunk's taps,
+    resident; a tap group, streamed) within F32_FLUSH_K columns; within an
+    H100 block's shared memory and accepted by the C entry."""
     p = conv2d_plan(cin, cout, k, itemsize=4)
-    assert p["tile"] == f"{TILE_H}x{TILE_H}" and p["stages"] == 2
-    assert p["ck"] in (16, 8, 4, 2, 1) and p["chunks"] == -(-cin // p["ck"])
-    assert p["x_bytes"] == 4 * p["ck"] * (TILE_H + k - 1) * f32_pitch(k)
-    assert p["w_bytes"] == 4 * k * k * p["ck"] * _pad(cout, 16)
-    assert p["smem_bytes"] == 2 * (p["x_bytes"] + p["w_bytes"])
+    cout16, taps = _pad(cout, 16), k * k
+    assert p["core"] == "tf32x3" and p["flush"] == (taps * cin > F32_FLUSH_K)
+    rows = (16 if cout16 <= 64 else 8) // (2 if p["flush"] else 1)
+    assert p["tile"] == f"{rows}x16"
+    assert p["ck"] % 8 == 0 and p["chunks"] == -(-cin // p["ck"])
+    assert p["groups"] == -(-taps // p["taps_per_group"])
+    assert p["x_bytes"] == _pad(4 * (rows + k - 1) * (16 + k - 1)
+                                * (p["ck"] + 4), 128)
+    if p["resident"]:
+        assert p["taps_per_group"] == taps
+        assert p["w_pitch"] == taps * cin + 4
+        w_bytes = 4 * cout16 * p["w_pitch"]
+    else:
+        assert p["w_pitch"] == p["taps_per_group"] * p["ck"] + 4
+        w_bytes = 2 * 4 * cout16 * p["w_pitch"]
+    assert p["smem_bytes"] == 2 * p["x_bytes"] + w_bytes
     assert p["smem_bytes"] <= H100_SMEM_PER_BLOCK
     assert _conv_entry_accepts(p, cin, cout, k)
-    if k == 3:
-        assert 2 * p["smem_bytes"] <= H100_SMEM_PER_BLOCK
+    if p["flush"]:
+        assert p["taps_per_group"] * p["ck"] <= F32_FLUSH_K
 
 
 def test_f32_conv2d_plan_takes_the_widest_chunk_that_fits():
-    """64 -> 64 at 3x3: 16-channel chunks take 119,808 bytes, past half an
-    H100 block's; 8-channel ones 59,904. The contract's corner (k = 9,
-    Cout = 128) runs one channel a chunk. A limit of 40,000 bytes holds
-    4-channel chunks (29,952) but not two blocks of them: 2 channels
-    (14,976); at a limit of 14,976 bytes two blocks of 1 channel (7,488
-    each) come before one block of 2."""
-    assert conv2d_plan(64, 64, 3, itemsize=4)["ck"] == 8
-    assert conv2d_plan(64, 27, 3, itemsize=4)["ck"] == 16
+    """64 -> 64 at 3x3: the resident weights (148,480 bytes) leave room for
+    two 16-channel buffers (25,984 each), not 32-channel ones; 64 -> 27
+    fits 32-channel ones. 128 -> 64 streams its weights: of the (chunk, tap
+    group) pairs that fit, 32 channels in 2 groups of 5 taps take the
+    fewest steps (8). The contract's corner (k = 9, Cout = 128) flushes on
+    4 x 16 tiles. A limit of 40,000 bytes holds 8-channel chunks a tap at a
+    time; 30,000 bytes nothing."""
+    p = conv2d_plan(64, 64, 3, itemsize=4)
+    assert (p["ck"], p["resident"], p["smem_bytes"]) == (16, True, 200448)
+    assert conv2d_plan(64, 27, 3, itemsize=4)["ck"] == 32
+    p = conv2d_plan(128, 64, 3, itemsize=4)
+    assert (p["ck"], p["resident"], p["taps_per_group"], p["groups"]) == (
+        32, False, 5, 2)
     p = conv2d_plan(128, 128, 9, itemsize=4)
-    assert (p["ck"], p["smem_bytes"]) == (1, 88320)
-    assert conv2d_plan(64, 64, 3, 40000, 4)["ck"] == 2
-    assert conv2d_plan(64, 64, 3, 14976, 4)["ck"] == 1
+    assert (p["flush"], p["tile"], p["ck"]) == (True, "4x16", 16)
+    p = conv2d_plan(64, 64, 3, 40000, 4)
+    assert (p["ck"], p["taps_per_group"]) == (8, 1)
+    with pytest.raises(ValueError):
+        conv2d_plan(64, 64, 3, 30000, 4)
     assert conv2d_plan(8, 16, 3, itemsize=4)["chunks"] == 1
+
+
+def _f32_ffma_conv_plan_before(cin, cout, k, limit=H100_SMEM_PER_BLOCK):
+    """The FFMA float32 conv's plan as its search made it: chunks of 16, 8,
+    4, 2 or 1 channels (no wider than Cin), two stages of an input tile
+    [ck][16 + k - 1][20 or 28] and the chunk's weights [k k][ck][Cout16],
+    two blocks an SM first."""
+    pitch = 20 if k <= 5 else 28
+    for cap in (limit // 2, limit):
+        for ck in (16, 8, 4, 2, 1):
+            if ck <= cin or ck == 1:
+                smem = 2 * 4 * ck * ((16 + k - 1) * pitch + k * k
+                                     * _pad(cout, 16))
+                if smem <= cap:
+                    return {"ck": ck, "smem_bytes": smem}
+    return None
+
+
+def test_f32_conv2d_plan_holds_every_shape_the_ffma_plan_held():
+    """Every (Cin, Cout, odd k) the FFMA plan held (each Cin the wrapper
+    passes: multiples of 8 up to 256) has a 3xTF32 plan the C entry
+    accepts: the contract does not narrow."""
+    for cin in range(8, 257, 8):
+        for cout in (1, 2, 3, 8, 16, 27, 40, 64, 65, 96, 127, 128):
+            for k in (1, 3, 5, 7, 9):
+                if _f32_ffma_conv_plan_before(cin, cout, k) is None:
+                    continue
+                p = conv2d_plan(cin, cout, k, itemsize=4)
+                assert p["smem_bytes"] <= H100_SMEM_PER_BLOCK
+                assert _conv_entry_accepts(p, cin, cout, k), (cin, cout, k)
 
 
 @pytest.mark.parametrize("cin,cout,k,limit,itemsize", [
     (16, 129, 3, H100_SMEM_PER_BLOCK, 4), (16, 16, 11, H100_SMEM_PER_BLOCK, 4),
-    (16, 16, 2, H100_SMEM_PER_BLOCK, 4), (128, 128, 9, 80000, 4),
+    (16, 16, 2, H100_SMEM_PER_BLOCK, 4), (128, 128, 9, 30000, 4),
     (64, 64, 3, H100_SMEM_PER_BLOCK, 8)])
 def test_f32_conv2d_plan_refuses_what_nothing_holds(cin, cout, k, limit,
                                                     itemsize):
@@ -207,54 +273,66 @@ def test_f32_chain_fused_plan_refuses_what_shared_memory_cannot_hold():
 
 def _dcn_entry_accepts(p, cin, cout, R):
     """The regions `vfi_dcn_bounded_f32` recomputes from a plan and the
-    checks it makes before a launch: a plan the entry would refuse fails
-    here."""
-    cin8, cin16, cout16 = _pad(cin, 8), _pad(cin, 16), _pad(cout, 16)
+    checks it makes before a launch (Cin the launch's, padded to 8): a
+    plan the entry would refuse fails here."""
+    cin8, cout16 = _pad(cin, 8), _pad(cout, 16)
     rows, chans, xu = p["rows"], p["chans"], p["xu"]
     tpx = (rows + 2 + 2 * R) * (DCN_TILE_W + 2 + 2 * R)
-    s_bytes = 4 * rows * chans * DCN_F32_SLAB_PITCH
-    ok = (4 <= chans <= cin16 and chans % 4 == 0 and p["nbuf"] == 1
-          and p["x_bytes"] % 128 == 0 and p["x_bytes"] >= 16 * tpx * xu)
+    s_bytes = 4 * rows * DCN_TILE_W * (chans + 4)
+    ok = (p["core"] == "tf32x3" and 8 <= chans <= cin8 and chans % 8 == 0
+          and p["nbuf"] == 1 and p["x_bytes"] % 128 == 0
+          and p["x_bytes"] >= 16 * tpx * xu)
     if p["design"] == "tile":
         pieces = cin8 // 4
-        return (ok and rows in (8, 16) and chans % 16 == 0
+        return (ok and rows == 8 and cin8 <= F32_FLUSH_K
                 and xu == pieces + (pieces % 2 == 0)
-                and p["smem_bytes"] >= 4 * 9 * cin16 * cout16 + p["x_bytes"]
-                + s_bytes)
-    return (ok and rows == 8 and xu >= min(chans, cin8) // 4
-            and p["smem_bytes"] >= 2 * 4 * chans * cout16 + p["x_bytes"]
-            + s_bytes)
+                and p["smem_bytes"] >= 4 * cout16 * (9 * cin8 + 4)
+                + p["x_bytes"] + s_bytes)
+    return (ok and rows in (8, 4) and xu >= chans // 4
+            and chans <= F32_FLUSH_K
+            and p["smem_bytes"] >= 2 * 4 * cout16 * (chans + 4)
+            + p["x_bytes"] + s_bytes)
 
 
 # (cin, cout, R, design, tile) of the float32 DCN launches: chip_smoke.py's
 # rows (C=64 R=1 at every path shape; C=67 R=2 and R=8) and the card
-# tests' (tile on 16 x 16 and 8 x 16, stream in one chunk and several,
-# 4-channel chunks at R = 28 and 35).
+# tests' (tile on 8 x 16, stream in one chunk and several, 8-channel
+# chunks of 4 x 16 tiles at R = 28 and 35; Cin 1 and 3, Cout 2, 3 and 27;
+# Cout16 80, 96 and 112 on both designs; Cin past 128 on both, and 1200 in
+# stream chunks of at most F32_FLUSH_K).
 F32_DCN_SHAPES = [
     (64, 64, 1, "tile", "8x16"), (67, 67, 2, "stream", "8x16"),
-    (67, 67, 8, "stream", "8x16"), (16, 32, 2, "tile", "16x16"),
-    (3, 24, 2, "tile", "16x16"), (64, 27, 0, "tile", "16x16"),
-    (67, 5, 2, "tile", "16x16"), (128, 128, 4, "stream", "8x16"),
-    (80, 67, 4, "stream", "8x16"), (128, 8, 28, "stream", "8x16"),
-    (128, 128, 35, "stream", "8x16"), (64, 13, 2, "tile", "16x16"),
-    (13, 37, 3, "tile", "16x16")]
+    (67, 67, 8, "stream", "8x16"), (16, 32, 2, "tile", "8x16"),
+    (3, 24, 2, "tile", "8x16"), (64, 27, 0, "tile", "8x16"),
+    (67, 5, 2, "tile", "8x16"), (128, 128, 4, "stream", "8x16"),
+    (80, 67, 4, "stream", "8x16"), (128, 8, 28, "stream", "4x16"),
+    (128, 128, 35, "stream", "4x16"), (64, 13, 2, "tile", "8x16"),
+    (13, 37, 3, "tile", "8x16"), (1, 16, 1, "tile", "8x16"),
+    (3, 2, 1, "tile", "8x16"), (67, 3, 2, "tile", "8x16"),
+    (64, 27, 1, "tile", "8x16"), (67, 27, 8, "stream", "8x16"),
+    (128, 3, 35, "stream", "4x16"), (128, 2, 34, "stream", "8x16"),
+    (16, 80, 1, "tile", "8x16"), (16, 96, 1, "tile", "8x16"),
+    (16, 112, 1, "tile", "8x16"), (64, 80, 4, "stream", "8x16"),
+    (64, 96, 4, "stream", "8x16"), (64, 112, 4, "stream", "8x16"),
+    (128, 16, 0, "tile", "8x16"), (136, 16, 0, "tile", "8x16"),
+    (256, 16, 1, "stream", "8x16"), (1200, 16, 1, "stream", "8x16")]
 
 
 @pytest.mark.parametrize("cin,cout,R,design,tile", F32_DCN_SHAPES)
 def test_f32_dcn_plan_fits_every_shape_the_card_runs(cin, cout, R, design,
                                                      tile):
     p = dcn_plan(cin, cout, R, itemsize=4)
-    assert (p["design"], p["tile"]) == (design, tile)
+    assert (p["design"], p["tile"], p["core"]) == (design, tile, "tf32x3")
     assert p["smem_bytes"] <= H100_SMEM_PER_BLOCK
     assert _dcn_entry_accepts(p, cin, cout, R)
-    cin16, cout16 = _pad(cin, 16), _pad(cout, 16)
+    cin8, cout16 = _pad(cin, 8), _pad(cout, 16)
     if design == "tile":
-        assert p["w_bytes"] == 4 * 9 * cin16 * cout16
-        assert p["passes"] == -(-cin16 // p["chans"])
+        assert p["w_bytes"] == 4 * cout16 * (9 * cin8 + 4)
+        assert p["passes"] == -(-cin8 // p["chans"])
     else:
-        assert p["w_bytes"] == 2 * 4 * p["chans"] * cout16
-        assert p["chunks"] == -(-cin16 // p["chans"])
-    assert p["s_bytes"] == 4 * p["rows"] * p["chans"] * DCN_F32_SLAB_PITCH
+        assert p["w_bytes"] == 2 * 4 * cout16 * (p["chans"] + 4)
+        assert p["chunks"] == -(-cin8 // p["chans"])
+    assert p["s_bytes"] == 4 * p["rows"] * 16 * (p["chans"] + 4)
     assert p["smem_bytes"] == (p["w_bytes"] + p["x_bytes"] + p["s_bytes"])
 
 
@@ -270,15 +348,54 @@ def test_f32_dcn_plan_crossover_to_the_stream_design(cin, crossover):
 
 def test_f32_dcn_plan_holds_every_shape_up_to_r35():
     """Every Cin <= 128 (in 8-channel pieces), Cout <= 128 and R <= 35 has
-    a float32 plan within an H100's shared memory that the C entry
-    accepts, as in bf16: 4-channel chunks keep an 8 x 16 tile's input at
-    R = 35 to 112,640 bytes."""
+    a 3xTF32 plan within an H100's shared memory that the C entry accepts,
+    as in bf16: at R = 35 the stream design's 4 x 16 tile in 8-channel
+    chunks takes 229,376 bytes at Cout 128."""
     for cin in range(8, 129, 8):
         for cout in range(16, 129, 16):
             for R in range(36):
                 p = dcn_plan(cin, cout, R, itemsize=4)
                 assert p["smem_bytes"] <= H100_SMEM_PER_BLOCK
                 assert _dcn_entry_accepts(p, cin, cout, R), (cin, cout, R)
+    assert dcn_plan(128, 128, 35, itemsize=4)["smem_bytes"] == 229376
+
+
+def _f32_ffma_dcn_plan_before(cin, cout, R, limit=H100_SMEM_PER_BLOCK):
+    """Whether the FFMA float32 DCN's search found a plan: the tile design
+    (weights [9 Cin16][Cout16] resident, one input buffer, 16 x 16 then 8 x
+    16 tiles, slabs [chans][20] floats), else the stream design on 8 x 16
+    tiles (chunks of Cin16 split into multiples of 16, then 8 and 4
+    channels; padded pixel stride, then unpadded)."""
+    cin8, cin16, cout16 = _pad(cin, 8), _pad(cin, 16), _pad(cout, 16)
+    pieces = cin8 // 4
+    xu = pieces + (pieces % 2 == 0)
+    for rows in (16, 8):
+        tpx = (rows + 2 + 2 * R) * (DCN_TILE_W + 2 + 2 * R)
+        if (4 * 9 * cin16 * cout16 + _pad(tpx * xu * 16, 128)
+                + 4 * rows * 16 * 20 <= limit):
+            return True
+    for padded in (True, False):
+        tpx = (8 + 2 + 2 * R) * (DCN_TILE_W + 2 + 2 * R)
+        for chans in _dcn_chunks(cin16) + [8, 4]:
+            p4 = min(chans, cin8) // 4
+            sxu = p4 + (p4 % 2 == 0) if padded else p4
+            if (2 * 4 * chans * cout16 + _pad(tpx * sxu * 16, 128)
+                    + 4 * 8 * chans * 20 <= limit):
+                return True
+    return False
+
+
+@pytest.mark.parametrize("cin", [8, 24, 64, 67, 72, 128, 200, 256])
+def test_f32_dcn_plan_holds_every_shape_the_ffma_plan_held(cin):
+    """Case for case against the FFMA search: wherever it had a plan
+    (R <= 35, Cout 1..128), the 3xTF32 plan exists and the C entry accepts
+    it: the contract does not narrow."""
+    for cout in (1, 2, 3, 16, 27, 64, 67, 96, 128):
+        for R in range(36):
+            if not _f32_ffma_dcn_plan_before(cin, cout, R):
+                continue
+            p = dcn_plan(cin, cout, R, itemsize=4)
+            assert _dcn_entry_accepts(p, cin, cout, R), (cin, cout, R)
 
 
 @pytest.mark.parametrize("cin,cout,R,itemsize", [
@@ -345,18 +462,21 @@ def test_bf16_and_f32_pixel_strides():
 
 
 def test_f32_packs_hold_the_weights_unrounded():
-    """`pack_conv2d(..., torch.float32)`: [kh*kw*Cin16][Cout16] float32,
-    tap-major, every weight exactly, zero padding; the bias float32
-    exactly. The bf16 default rounds both, as before; float16 raises."""
+    """`pack_conv2d(..., torch.float32)`: [Cout16][kh*kw*Cin8] float32, K
+    contiguous (column t * Cin8 + c, t = kw * i + j), every weight exactly,
+    zero padding; the bias float32 exactly. The bf16 default ([kh*kw*Cin16]
+    [Cout16]) rounds both, as before; float16 raises."""
     rng = np.random.default_rng(0)
     w = torch.from_numpy(rng.normal(0, 1, (27, 13, 3, 3)).astype(np.float32))
     b = torch.from_numpy(rng.normal(0, 1, 27).astype(np.float32))
     wpk, bpk = pack_conv2d(w, b, torch.float32)
     assert wpk.dtype == bpk.dtype == torch.float32
-    assert tuple(wpk.shape) == (9 * 16, 32)
-    grid = wpk.view(3, 3, 16, 32)
-    assert torch.equal(grid[:, :, :13, :27], w.permute(2, 3, 1, 0))
-    assert not grid[:, :, 13:].any() and not grid[..., 27:].any()
+    assert tuple(wpk.shape) == (32, 9 * 16) == packed_shape(13, 27, 3,
+                                                             torch.float32)
+    grid = wpk.view(32, 3, 3, 16)
+    assert torch.equal(grid[:27, :, :, :13], w.permute(0, 2, 3, 1))
+    assert not grid[27:].any() and not grid[..., 13:].any()
+    assert wpk[5, 4 * 16 + 7] == w[5, 7, 1, 1]
     assert torch.equal(bpk[:27], b) and not bpk[27:].any()
     wb, bb = pack_conv2d(w, b)
     assert wb.dtype == torch.bfloat16 and bb.dtype == torch.float32

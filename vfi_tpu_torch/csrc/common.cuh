@@ -1,10 +1,10 @@
-// Device helpers shared by the port's kernels: asynchronous 16-byte (and,
-// for the float32 conv, 4-byte) copies from device memory into shared
-// memory (cp.async, Ampere and later), the
+// Device helpers shared by the port's kernels: asynchronous 16-byte copies
+// from device memory into shared memory (cp.async, Ampere and later), the
 // channel / byte rounding of the shared-memory layouts, and the tensor-core
-// core of the implicit GEMMs (csrc/conv2d.cu, csrc/dcn_bounded.cu):
-// ldmatrix loads, mma.sync m16n8k16 bf16 with float32 accumulators, and
-// the quad-lane transpose of the epilogue.
+// cores of the implicit GEMMs (csrc/conv2d.cu, csrc/dcn_bounded.cu):
+// ldmatrix loads, mma.sync m16n8k16 bf16 with float32 accumulators and the
+// quad-lane transpose of its epilogue, and the float32 instances' 3xTF32
+// product on mma.sync m16n8k8 (below).
 
 #pragma once
 
@@ -25,6 +25,27 @@ __host__ inline cudaError_t use_device(int device) {
 }
 __host__ __device__ inline int round128(int b) { return (b + 127) / 128 * 128; }
 
+// A persistent launch of `kernel`: as many blocks of `threads` threads as
+// the card holds at once (the occupancy API), at most one a tile, each
+// walking the `tiles` tiles with a stride of the grid, with `smem` bytes of
+// dynamic shared memory each. Returns the cudaError_t of the launch.
+template <typename Params>
+__host__ int launch_persistent(void (*kernel)(Params), const Params& p, int tiles,
+                               int threads, int smem, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         smem);
+  if (err != cudaSuccess) return (int)err;
+  int per_sm = 0, sms = 0, dev = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const int grid = tiles < per_sm * sms ? tiles : per_sm * sms;
+  kernel<<<grid, threads, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
@@ -35,12 +56,6 @@ __device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, boo
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
                "r"(valid ? 16 : 0));
-}
-// One 4-byte element (a float32 channel), or 4 zero bytes unless `valid`.
-__device__ __forceinline__ void cp_async4_zfill(void* dst, const void* src, bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
-               "r"(valid ? 4 : 0));
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
@@ -80,6 +95,60 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// Non-transposed loads of 32-bit elements (ldmatrix .b16 moves each 4-byte
+// element whole): thread t gets element (row t / 4, column t % 4) of each
+// 8 x 4 matrix, which is an m16n8k8 TF32 fragment's layout where K runs
+// along a row. x4 into two B fragments ([n][k] rows: b0 = n 0-7 at k 0-3,
+// then k 4-7; b1 = n 8-15), x2 into one.
+__device__ __forceinline__ void ldsm_x4_b(uint32_t (&b0)[2], uint32_t (&b1)[2], uint32_t addr) {
+  uint32_t r[4];
+  ldsm_x4(r, addr);
+  b0[0] = r[0]; b0[1] = r[1]; b1[0] = r[2]; b1[1] = r[3];
+}
+__device__ __forceinline__ void ldsm_x2(uint32_t (&b)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(b[0]), "=r"(b[1]) : "r"(addr));
+}
+
+// 3xTF32: float32 products on the TF32 tensor cores. Each float32 operand x
+// splits into hi = tf32(x), rounded to nearest with ties away from zero
+// (cvt.rna's value), and lo = x - hi (exact in float32); a * b is then
+// lo_a hi_b + hi_a lo_b + hi_a hi_b, each product of two TF32 values exact
+// in float32, summed into float32 accumulators, the two small terms first.
+// - hi adds half a TF32 ulp to the bits and masks the 13 low ones: two
+//   integer instructions, where ptxas expands cvt.rna.tf32.f32 to four (an
+//   infinity test beside the add and mask); the same value for every
+//   finite x, an overflow carried to infinity as cvt.rna does.
+// - lo stays unrounded: the tensor cores read the 19 high bits of a TF32
+//   operand, so it enters truncated, an error under 2^-21 of |x|.
+// Dropping lo_a lo_b costs about 2^-22 of |a b|; one TF32 pass (hi_a hi_b
+// alone) keeps 11 bits of each operand, about 2^-11 of |a b|
+// (tests/test_torch_tf32x3.py emulates both).
+template <int N>
+__device__ __forceinline__ void split_tf32(const uint32_t (&x)[N], uint32_t (&hi)[N],
+                                           uint32_t (&lo)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    hi[i] = (x[i] + 0x1000u) & 0xffffe000u;
+    lo[i] = __float_as_uint(__fsub_rn(__uint_as_float(x[i]), __uint_as_float(hi[i])));
+  }
+}
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+// d = a * b (a zero C operand): a sum's first MMA, where d holds nothing
+// to keep.
+__device__ __forceinline__ void mma_tf32_first(float (&d)[4], const uint32_t (&a)[4],
+                                               const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "f"(0.0f));
+}
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);

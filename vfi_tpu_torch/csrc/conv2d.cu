@@ -1,7 +1,7 @@
 // One stride-1 square odd-k convolution + bias (+ ReLU), bf16 NHWC, zeros
 // padding k / 2, float32 accumulation, one rounding of the output; and its
 // float32 instance (conv2d_f32_kernel, below: the same function on
-// float32 tensors, FFMA on the CUDA cores).
+// float32 tensors, 3xTF32 on the tensor cores).
 //
 // Replaces: vfi_tpu/ops/pallas/conv.py::_conv_kernel (conv2d_pallas, the
 // "im2col" and "direct" variants) and ::_conv_kernel_v2 (conv2d_pallas_v2,
@@ -293,190 +293,338 @@ conv2d_kernel(const ConvParams p) {
 
 // ---------------------------------------------------------------------------
 // The float32 instance (`vfi_conv2d_f32`): the same function on float32
-// inputs, weights, bias and output, with IEEE float32 products and sums
-// (FFMA on the CUDA cores: a single TF32 tensor-core pass would keep only
-// 10 bits of each operand).
+// inputs, weights, bias and output, float32-accurate products (3xTF32 on
+// the tensor cores, common.cuh: one TF32 pass would keep only 11 bits of
+// each operand) summed in float32.
 //
-// What bounds it on this card: a 720p 64->64 3x3 layer does 68 GFLOP,
-// 1.01 ms at the 67 TFLOP/s float32 peak, against 0.47 GB of input and
-// output (0.14 ms): the FFMA rate. So the design keeps the FFMA units fed
-// from registers and makes few shared-memory loads per FFMA.
+// What bounds it on this card: a 720p 64->64 3x3 layer does 68 GFLOP, three
+// TF32 passes of it 204 GFLOP: 0.41 ms at the 495 TFLOP/s TF32 peak,
+// against 0.47 GB of input and output (0.14 ms). So, as in bf16, the
+// tensor cores must be kept fed; on top, each operand fragment splits into
+// hi and lo in registers (three ALU instructions a register), which
+// competes with the MMAs for issue slots.
 //
-// Design (conv2d_f32_kernel): one block an output tile of 16 x 16 pixels
-// and all Cout16 channels; warp w owns output channels 8w .. 8w + 7 (so
-// Cout16 / 8 warps), lane l the 8 consecutive pixels of tile row l & 15
-// starting at column 8 (l >> 4): 64 float32 accumulators a lane.
-// - The input streams in chunks of `ck` channels (`conv2d_plan`), stored
-//   channel-major, [ck][16 + K - 1][FS] floats with FS = 20 or 28 (a
-//   multiple of 4 whose quarter, 5 or 7, is odd, so that the 16-byte row
-//   reads of the 8 lanes of a quarter-warp fall in distinct banks), copied
-//   element by element (cp.async, zeros outside the image), beside the
-//   chunk's weights [K * K][ck][Cout16]. Two stages: chunk c + 1's copies
-//   are in flight while chunk c multiplies; one barrier a chunk.
-// - Per (channel, tap row) a lane loads its row's 8 + K - 1 inputs as
-//   float4s into registers; per tap column the warp loads its 8 weights
-//   (two float4s, the same address for every lane: a broadcast) and each
-//   lane does 64 FFMAs. For K = 3 that is 9 shared loads per 192 FFMAs.
-// - Epilogue from registers: the bias, the ReLU, float32 stores (16-byte
-//   where Cout % 4 == 0).
-// Summation order: over chunks, channels, tap rows, tap columns; the plain
-// version's cuDNN conv sums in its own order, so the two differ by float32
-// rounding only.
+// Design (conv2d_f32_kernel): the bf16 kernel's, with 32-bit operands.
+// - Persistent blocks over output tiles of FTH x 16 pixels (FTH = 4 * MF:
+//   16 up to Cout16 = 64, else 8; half that where the plan flushes, below),
+//   all Cout; 8 warps as 4 (pixels) x 2 (Cout): a warp owns MF tile rows
+//   (m16 fragments) and NF n8 fragments.
+// - The input tile of a channel chunk (ck channels, a multiple of 8) is
+//   stored pixel-major, [tpx][ck + 4] floats: K (channels) contiguous, rows
+//   an odd multiple of 16 bytes. An m16n8k8 A fragment is 16 consecutive
+//   tile pixels x 8 channels at a tap's offset, loaded by ldmatrix .b16
+//   without .trans (each 4-byte element moves whole: an 8 x 4 matrix of
+//   floats per 8 x 8 of halves): no im2col.
+// - The weights are packed [Cout16][k * k * Cin] (Cin a multiple of 8, K
+//   contiguous: column t * Cin + c), which is the B operand's "col" layout:
+//   ldmatrix without .trans again. They stay resident ([Cout16][k k Cin +
+//   4] floats) where they fit beside two input buffers, else stream in
+//   groups of `tg` taps of one chunk ([Cout16][tg * ck + 4]), double-
+//   buffered with the input: the plan (`conv2d_plan(..., itemsize=4)`).
+// - One barrier a step (tile, chunk, tap group); a k-step's fragments load
+//   while the last one multiplies (two register sets). Per k-step a warp
+//   splits its MF A fragments (each then reused NF times) and NF B
+//   fragments (each reused MF times) and issues 3 * MF * NF MMAs in three
+//   passes over the accumulators (all lo_a hi_b, all hi_a lo_b, all hi_a
+//   hi_b): an MMA that writes the accumulator of the one before it waits
+//   out that one's latency, and three chained MMAs a pair ran the 720p
+//   64->64 layer 1.37x slower on an H100 (tools/conv_turns.py, in turns).
+//   Splitting each input chunk once into hi / lo planes in shared memory (a
+//   third buffer, a second barrier a chunk) instead of in registers
+//   measured no faster, and splitting the weights at pack time (hi and lo
+//   columns side by side: twice the weights' bytes, which no longer stay
+//   resident at 64->64) slower: 720p 1.292 against 1.067 device ms,
+//   128->64 2.446 against 2.230, in turns. The split stays in registers.
+// - Epilogue from registers: the bias, the ReLU, float32 stores of two
+//   channels a lane (a quad writes 32 contiguous bytes a pixel).
+// - The MMAs accumulate in float32 but truncate each sum (the tensor cores'
+//   adder), a bias that grows with the k-steps a sum runs over. Past
+//   `F32_FLUSH_K` columns of K (ops/cuda/conv.py) the plan flushes: each
+//   step's sums (a step then spans at most F32_FLUSH_K columns) go into the
+//   tile's by a float32 add, rounded to nearest, on half-height tiles (the
+//   tile's sums take the registers). Flushing at every plan on full-height
+//   tiles cost 4-6% on an H100 (720p 64->64 1.132 against 1.067 device ms,
+//   128->64 2.324 against 2.230; tools/conv_turns.py, in turns), so only
+//   the plans past F32_FLUSH_K take the flushing instances.
+// Cin must be a multiple of 8 (the wrapper pads with zero channels).
 
-constexpr int F_TH = 16;          // the f32 output tile: 16 x 16 pixels
-constexpr int F_TW = 16;
-constexpr int F_PX = 8;           // pixels a lane, along its tile row
-constexpr int F_MAX_THREADS = 4 * MAX_COUT;   // Cout16 / 8 warps of 32
-
-// The input stage's row pitch in floats for a K x K conv.
-__host__ __device__ constexpr int f32_pitch(int K) { return K <= 5 ? 20 : 28; }
+constexpr int F_PAD = 4;          // row padding of the f32 tile and weights, floats
 
 struct ConvF32Params {
   const float* x;       // (B, H, W, Cin)
-  const float* w;       // (K * K * Cin16, Cout16), row t * Cin16 + c, zero padded
+  const float* w;       // (Cout16, K * K * Cin), column t * Cin + c, zero padded rows
   const float* bias;    // (Cout16,), zero padded
   float* out;           // (B, H, W, Cout)
-  int B, H, W, Cin, Cout, K, Cin16, Cout16, act;
-  int ck, nchunks;      // channels a chunk, chunks
-  int x_floats, w_floats;   // one stage's input tile and weights
-  int tiles_x, tiles_y;
+  int B, H, W, Cin, Cout, K, Cout16, act;
+  int ck;               // tile channels per chunk (multiple of 8)
+  int tg;               // taps per streamed weight group; 0: weights resident
+  int x_bytes;          // one input-tile buffer; the weights follow both
+  int wp;               // a weight row in shared memory, floats
+  int tiles_x, tiles_y, tiles;
 };
 
-template <int K>
-__global__ void __launch_bounds__(F_MAX_THREADS)
-conv2d_f32_kernel(const ConvF32Params p) {
-  constexpr int FS = f32_pitch(K);
-  constexpr int TR = F_TH + K - 1, TC = F_TW + K - 1;   // the tile with its halo
-  constexpr int NV = (F_PX + K - 1 + 3) / 4;            // float4s of a lane's input row
-  extern __shared__ __align__(128) float fsm[];
-  const int nt = blockDim.x;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int r = lane & 15, c0 = (lane >> 4) * F_PX, n0 = warp * 8;
-  const int per_img = p.tiles_x * p.tiles_y;
-  const int b = blockIdx.x / per_img, rem = blockIdx.x - b * per_img;
-  const int ty = rem / p.tiles_x, tx = rem - ty * p.tiles_x;
-  const int y0 = ty * F_TH - K / 2, x0 = tx * F_TW - K / 2;
-  const float* xb = p.x + (size_t)b * p.H * p.W * p.Cin;
-  const int stage_floats = p.x_floats + p.w_floats;
+// A tile's float32 sums beside the MMAs' accumulators, where a kernel
+// flushes them (ON); nothing otherwise.
+template <int MF, int NF, bool ON>
+struct TileSums {
+  float v[MF][NF][4];
+};
+template <int MF, int NF>
+struct TileSums<MF, NF, false> {};
 
-  // Chunk c's input tile and weights into stage s.
-  auto stage = [&](int c, int s) {
-    float* xs = fsm + s * stage_floats;
-    float* ws = xs + p.x_floats;
-    const int ch0 = c * p.ck, cw = min(p.ck, p.Cin - ch0);
-    for (int it = threadIdx.x; it < cw * TR * TC; it += nt) {
-      const int pix = it / cw, ch = it - pix * cw;   // neighbouring threads: one pixel's channels
-      const int row = pix / TC, col = pix - row * TC;
+template <int NF, int MF, bool FLUSH>  // Cout16 = WN * NF * 8; tile rows 4 * MF
+__global__ void __launch_bounds__(NTHREADS, 1)
+conv2d_f32_kernel(const ConvF32Params p) {
+  constexpr int FTH = WM * MF;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int K = p.K, taps = K * K, m = K / 2;
+  const int tcols = TW + K - 1, tpx = (FTH + K - 1) * tcols;
+  const int ck = p.ck, xp = ck + F_PAD, Cin = p.Cin, Cout16 = p.Cout16, wp = p.wp;
+  const int nchunks = (Cin + ck - 1) / ck;
+  const bool resident = p.tg == 0;
+  const int tg = resident ? taps : p.tg;
+  const int ngroups = (taps + tg - 1) / tg;
+  const int wslot = Cout16 * wp;                        // one streamed group, floats
+  float* const xs = reinterpret_cast<float*>(smem);    // 2 x [tpx][xp]
+  float* const ws = reinterpret_cast<float*>(smem + 2 * p.x_bytes);
+  const int xslot_floats = p.x_bytes / 4;
+  const uint32_t mag_tcols = fast_div_magic(tcols);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = warp >> 1, wn = warp & 1;
+  const int n0 = wn * NF * 8;
+  const int g8 = lane >> 2, q4 = lane & 3;
+  // ldmatrix row addresses (floats): A rows are the 16 pixels of an m16
+  // fragment, channels 4 on for the upper lanes; B rows are output channels
+  // (8 a matrix), K 4 on for lanes 8-15 and 24-31.
+  const int a_lane = (wm * MF * tcols + (lane & 15)) * xp + (lane >> 4) * 4;
+  const int b_lane = (n0 + (lane & 7) + ((lane >> 4) << 3)) * wp + ((lane >> 3) & 1) * 4;
+
+  auto tile_origin = [&](int tile, int& b, int& ty, int& tx) {
+    const int per_img = p.tiles_x * p.tiles_y;
+    b = tile / per_img;
+    const int r = tile - b * per_img;
+    ty = r / p.tiles_x;
+    tx = r - ty * p.tiles_x;
+  };
+  auto chunk_width = [&](int c) { return min(ck, Cin - c * ck); };
+
+  // Chunk c of tile `tile`'s input with its halo into buffer `slot`.
+  auto stage_x = [&](int tile, int c, int slot) {
+    int b, ty, tx;
+    tile_origin(tile, b, ty, tx);
+    const int y0 = ty * FTH - m, x0 = tx * TW - m;
+    const int pieces = chunk_width(c) / 4;
+    const uint32_t mag_p = fast_div_magic(pieces);
+    const float* xb = p.x + (size_t)b * p.H * p.W * Cin;
+    float* dst0 = xs + slot * xslot_floats;
+    for (int it = threadIdx.x; it < tpx * pieces; it += NTHREADS) {
+      const int pix = fast_div(it, mag_p);
+      const int pc = it - pix * pieces;
+      const int row = fast_div(pix, mag_tcols), col = pix - row * tcols;
       const int gy = y0 + row, gx = x0 + col;
       const bool ok = gy >= 0 && gy < p.H && gx >= 0 && gx < p.W;
-      cp_async4_zfill(xs + (ch * TR + row) * FS + col,
-                      ok ? xb + ((size_t)gy * p.W + gx) * p.Cin + ch0 + ch : p.x, ok);
+      cp_async16_zfill(dst0 + pix * xp + pc * 4,
+                       ok ? xb + ((size_t)gy * p.W + gx) * Cin + c * ck + pc * 4 : p.x, ok);
     }
-    const int pieces = p.Cout16 / 4;
-    for (int it = threadIdx.x; it < K * K * cw * pieces; it += nt) {
-      const int row = it / pieces, pc = it - row * pieces;
-      const int t = row / cw, kk = row - t * cw;
-      cp_async16(ws + (t * p.ck + kk) * p.Cout16 + pc * 4,
-                 p.w + ((size_t)t * p.Cin16 + ch0 + kk) * p.Cout16 + pc * 4);
+  };
+  // Streamed weights: taps g*tg .. of chunk c, as [Cout16][tap][ck] in `slot`.
+  auto stage_w = [&](int c, int g, int slot) {
+    const int t0 = g * tg, tn = min(tg, taps - t0), pieces = chunk_width(c) / 4;
+    const int per_row = tn * pieces;
+    float* dst0 = ws + slot * wslot;
+    for (int it = threadIdx.x; it < Cout16 * per_row; it += NTHREADS) {
+      const int o = it / per_row, r = it - o * per_row;
+      const int tr = r / pieces, pc = r - tr * pieces;
+      cp_async16(dst0 + o * wp + tr * ck + pc * 4,
+                 p.w + ((size_t)o * taps + t0 + tr) * Cin + c * ck + pc * 4);
     }
   };
 
-  float acc[F_PX][8];
-#pragma unroll
-  for (int i = 0; i < F_PX; ++i)
-#pragma unroll
-    for (int o = 0; o < 8; ++o) acc[i][o] = 0.0f;
-
-  stage(0, 0);
+  int tile = blockIdx.x, c = 0, g = 0, xslot = 0, wbuf = 0;
+  if (tile >= p.tiles) return;
+  if (resident) {  // the whole weight set, once per block
+    const int pieces = taps * Cin / 4;
+    for (int it = threadIdx.x; it < Cout16 * pieces; it += NTHREADS) {
+      const int o = it / pieces, pc = it - o * pieces;
+      cp_async16(ws + o * wp + pc * 4, p.w + (size_t)o * taps * Cin + pc * 4);
+    }
+  } else {
+    stage_w(0, 0, 0);
+  }
+  stage_x(tile, 0, 0);
   cp_async_commit();
-  for (int c = 0; c < p.nchunks; ++c) {
-    if (c + 1 < p.nchunks) stage(c + 1, (c + 1) & 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();  // chunk c is in
-    const float* xs = fsm + (c & 1) * stage_floats;
-    const float* ws = xs + p.x_floats;
-    const int cw = min(p.ck, p.Cin - c * p.ck);
-    for (int ch = 0; ch < cw; ++ch) {
-#pragma unroll 1
-      for (int i = 0; i < K; ++i) {
-        float xr[NV * 4];
-        const float4* src = reinterpret_cast<const float4*>(xs + (ch * TR + r + i) * FS + c0);
+
+  float2 bias[NF];
 #pragma unroll
-        for (int v = 0; v < NV; ++v) {
-          const float4 q = src[v];
-          xr[4 * v] = q.x; xr[4 * v + 1] = q.y; xr[4 * v + 2] = q.z; xr[4 * v + 3] = q.w;
+  for (int j = 0; j < NF; ++j)
+    bias[j] = *reinterpret_cast<const float2*>(p.bias + n0 + j * 8 + q4 * 2);
+
+  // acc: the MMAs' accumulators. Where FLUSH, they hold one step's sums,
+  // added into the tile's (tot) by float32 adds (round to nearest) after
+  // each step: the tensor cores' own float32 accumulation truncates, which
+  // over the thousands of k-steps of a wide, large-k layer drifts past
+  // 2^-14 of the output.
+  float acc[MF][NF][4];
+  TileSums<MF, NF, FLUSH> tot;
+  auto zero = [&]() {
+#pragma unroll
+    for (int i = 0; i < MF; ++i)
+#pragma unroll
+      for (int j = 0; j < NF; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          acc[i][j][e] = 0.0f;
+          if constexpr (FLUSH) tot.v[i][j][e] = 0.0f;
         }
+  };
+  zero();
+
+  while (true) {
+    cp_async_wait<0>();
+    __syncthreads();  // this step's buffers are in; the last step's are free
+    int nt = tile, nc = c, ng = g + 1;
+    if (ng == ngroups) {
+      ng = 0;
+      if (++nc == nchunks) { nc = 0; nt += gridDim.x; }
+    }
+    const bool more = nt < p.tiles;
+    if (more) {
+      if (ng == 0) stage_x(nt, nc, xslot ^ 1);
+      if (!resident) stage_w(nc, ng, wbuf ^ 1);
+      cp_async_commit();
+    }
+
+    // This step: taps t0 .. t1 - 1 of chunk c, kst k-steps of 8 channels
+    // per tap, as one flat loop of nq k-steps.
+    const int t0 = g * tg, t1 = min(taps, t0 + tg), kst = chunk_width(c) / 8;
+    const int nq = (t1 - t0) * kst;
+    const int wt_stride = resident ? Cin : ck;       // weight columns per tap
+    const int wcol0 = resident ? c * ck : 0;
+    const float* wsrc = resident ? ws : ws + wbuf * wslot;
+    const uint32_t a_base = smem_u32(xs + xslot * xslot_floats + a_lane);
+    const uint32_t b_base = smem_u32(wsrc + b_lane + wcol0);
+    int lt = resident ? t0 : 0, lk = 0, lti = t0 / K, ltj = t0 - (t0 / K) * K;
+
+    uint32_t fa0[MF][4], fb0[NF][2], fa1[MF][4], fb1[NF][2];
+    auto load = [&](uint32_t (&fa)[MF][4], uint32_t (&fb)[NF][2]) {
+      const uint32_t ao = a_base + ((lti * tcols + ltj) * xp + lk * 8) * 4;
 #pragma unroll
-        for (int j = 0; j < K; ++j) {
-          const float4* wq =
-              reinterpret_cast<const float4*>(ws + ((i * K + j) * p.ck + ch) * p.Cout16 + n0);
-          const float4 wa = wq[0], wb = wq[1];
-          const float wv[8] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
+      for (int i = 0; i < MF; ++i) ldsm_x4(fa[i], ao + i * tcols * xp * 4);
+      const uint32_t bo = b_base + (lt * wt_stride + lk * 8) * 4;
 #pragma unroll
-          for (int px = 0; px < F_PX; ++px)
+      for (int j = 0; j + 1 < NF; j += 2) ldsm_x4_b(fb[j], fb[j + 1], bo + j * 8 * wp * 4);
+      if (NF & 1) ldsm_x2(fb[NF - 1], bo + (NF - 1) * 8 * wp * 4);
+      if (++lk == kst) {
+        lk = 0;
+        ++lt;
+        if (++ltj == K) { ltj = 0; ++lti; }
+      }
+    };
+    // Three passes over the MF x NF accumulators (lo_a hi_b, hi_a lo_b,
+    // hi_a hi_b): consecutive MMAs write different accumulators.
+    auto mma_all = [&](const uint32_t (&fa)[MF][4], const uint32_t (&fb)[NF][2]) {
+      uint32_t ah[MF][4], al[MF][4], bh[NF][2], bl[NF][2];
 #pragma unroll
-            for (int o = 0; o < 8; ++o) acc[px][o] = fmaf(xr[px + j], wv[o], acc[px][o]);
-        }
+      for (int i = 0; i < MF; ++i) split_tf32(fa[i], ah[i], al[i]);
+#pragma unroll
+      for (int j = 0; j < NF; ++j) split_tf32(fb[j], bh[j], bl[j]);
+#pragma unroll
+      for (int i = 0; i < MF; ++i)
+#pragma unroll
+        for (int j = 0; j < NF; ++j) mma_tf32(acc[i][j], al[i], bh[j]);
+#pragma unroll
+      for (int i = 0; i < MF; ++i)
+#pragma unroll
+        for (int j = 0; j < NF; ++j) mma_tf32(acc[i][j], ah[i], bl[j]);
+#pragma unroll
+      for (int i = 0; i < MF; ++i)
+#pragma unroll
+        for (int j = 0; j < NF; ++j) mma_tf32(acc[i][j], ah[i], bh[j]);
+    };
+    load(fa0, fb0);
+    for (int q = 0; q < nq; q += 2) {
+      if (q + 1 < nq) load(fa1, fb1);
+      mma_all(fa0, fb0);
+      if (q + 1 < nq) {
+        if (q + 2 < nq) load(fa0, fb0);
+        mma_all(fa1, fb1);
       }
     }
-    __syncthreads();  // every warp is done with stage c & 1 before chunk c + 2 lands there
-  }
+    if constexpr (FLUSH) {
+#pragma unroll
+      for (int i = 0; i < MF; ++i)
+#pragma unroll
+        for (int j = 0; j < NF; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            tot.v[i][j][e] = __fadd_rn(tot.v[i][j][e], acc[i][j][e]);
+            acc[i][j][e] = 0.0f;
+          }
+    }
 
-  // Epilogue: bias, ReLU, float32 out.
-  const int gy = ty * F_TH + r;
-  if (gy >= p.H || n0 >= p.Cout) return;
-  const bool vec = (p.Cout % 4) == 0;
-  float bv[8];
+    if (g == ngroups - 1 && c == nchunks - 1) {
+      // Epilogue of this tile: bias, ReLU, float32 out.
+      int b, ty, tx;
+      tile_origin(tile, b, ty, tx);
+      const bool vec = (p.Cout % 2) == 0;
 #pragma unroll
-  for (int o = 0; o < 8; ++o) bv[o] = p.bias[n0 + o];
+      for (int i = 0; i < MF; ++i) {
+        const int gy = ty * FTH + wm * MF + i;
 #pragma unroll
-  for (int px = 0; px < F_PX; ++px) {
-    const int gx = tx * F_TW + c0 + px;
-    if (gx >= p.W) break;
-    float v[8];
+        for (int h = 0; h < 2; ++h) {
+          const int gx = tx * TW + g8 + 8 * h;
+          const bool inimg = gy < p.H && gx < p.W;
+          float* orow = p.out + (((size_t)b * p.H + gy) * p.W + gx) * p.Cout;
 #pragma unroll
-    for (int o = 0; o < 8; ++o) {
-      v[o] = acc[px][o] + bv[o];
-      if (p.act) v[o] = fmaxf(v[o], 0.0f);
+          for (int j = 0; j < NF; ++j) {
+            float s0 = acc[i][j][2 * h], s1 = acc[i][j][2 * h + 1];
+            if constexpr (FLUSH) { s0 = tot.v[i][j][2 * h]; s1 = tot.v[i][j][2 * h + 1]; }
+            float v0 = s0 + bias[j].x, v1 = s1 + bias[j].y;
+            if (p.act) { v0 = fmaxf(v0, 0.0f); v1 = fmaxf(v1, 0.0f); }
+            const int ch = n0 + j * 8 + q4 * 2;
+            if (inimg && ch < p.Cout) {
+              if (vec) {
+                *reinterpret_cast<float2*>(orow + ch) = make_float2(v0, v1);
+              } else {
+                orow[ch] = v0;
+                if (ch + 1 < p.Cout) orow[ch + 1] = v1;
+              }
+            }
+          }
+        }
+      }
+      zero();
     }
-    float* orow = p.out + (((size_t)b * p.H + gy) * p.W + gx) * p.Cout + n0;
-    if (vec && n0 + 8 <= p.Cout) {
-      reinterpret_cast<float4*>(orow)[0] = make_float4(v[0], v[1], v[2], v[3]);
-      reinterpret_cast<float4*>(orow)[1] = make_float4(v[4], v[5], v[6], v[7]);
-    } else {
-#pragma unroll
-      for (int o = 0; o < 8; ++o)
-        if (n0 + o < p.Cout) orow[o] = v[o];
-    }
+    if (!more) break;
+    if (ng == 0) xslot ^= 1;
+    if (!resident) wbuf ^= 1;
+    tile = nt;
+    c = nc;
+    g = ng;
   }
 }
 
-template <int K>
-int launch_f32(const ConvF32Params& p, int smem, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(conv2d_f32_kernel<K>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const long long tiles = (long long)p.B * p.tiles_x * p.tiles_y;
-  conv2d_f32_kernel<K><<<(unsigned)tiles, 4 * p.Cout16, smem, stream>>>(p);
-  return (int)cudaGetLastError();
+// The float32 instance for Cout16 = 16 * nf.
+// Its m16 fragments (tile rows) a warp: 4 up to Cout16 = 64, else 2; half
+// that where it flushes, whose sums take the registers. A tile is WM warps'
+// rows of them.
+__host__ __device__ constexpr int f32_mf(int nf, bool flush) {
+  return (nf <= 4 ? 4 : 2) / (flush ? 2 : 1);
 }
-
-template <int NF>
-int launch(const ConvParams& p, int smem, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(conv2d_kernel<NF>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  int per_sm = 0, sms = 0, dev = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, conv2d_kernel<NF>, NTHREADS,
-                                                      smem);
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const int grid = min(p.tiles, per_sm * sms);
-  conv2d_kernel<NF><<<grid, NTHREADS, smem, stream>>>(p);
-  return (int)cudaGetLastError();
+template <bool FLUSH>
+int launch_f32(int nf, const ConvF32Params& p, int smem, cudaStream_t s) {
+  auto go = [&](auto kernel) { return launch_persistent(kernel, p, p.tiles, NTHREADS, smem, s); };
+  switch (nf) {
+    case 1: return go(conv2d_f32_kernel<1, f32_mf(1, FLUSH), FLUSH>);
+    case 2: return go(conv2d_f32_kernel<2, f32_mf(2, FLUSH), FLUSH>);
+    case 3: return go(conv2d_f32_kernel<3, f32_mf(3, FLUSH), FLUSH>);
+    case 4: return go(conv2d_f32_kernel<4, f32_mf(4, FLUSH), FLUSH>);
+    case 5: return go(conv2d_f32_kernel<5, f32_mf(5, FLUSH), FLUSH>);
+    case 6: return go(conv2d_f32_kernel<6, f32_mf(6, FLUSH), FLUSH>);
+    case 7: return go(conv2d_f32_kernel<7, f32_mf(7, FLUSH), FLUSH>);
+    default: return go(conv2d_f32_kernel<8, f32_mf(8, FLUSH), FLUSH>);
+  }
 }
 
 }  // namespace
@@ -515,29 +663,41 @@ extern "C" int vfi_conv2d_bf16(const void* x, const void* w, const void* bias, v
   cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto go = [&](auto kernel) { return launch_persistent(kernel, p, p.tiles, NTHREADS, smem, s); };
   switch (cout16 / 16) {
-    case 1: return launch<1>(p, smem, s);
-    case 2: return launch<2>(p, smem, s);
-    case 3: return launch<3>(p, smem, s);
-    case 4: return launch<4>(p, smem, s);
-    case 5: return launch<5>(p, smem, s);
-    case 6: return launch<6>(p, smem, s);
-    case 7: return launch<7>(p, smem, s);
-    default: return launch<8>(p, smem, s);
+    case 1: return go(conv2d_kernel<1>);
+    case 2: return go(conv2d_kernel<2>);
+    case 3: return go(conv2d_kernel<3>);
+    case 4: return go(conv2d_kernel<4>);
+    case 5: return go(conv2d_kernel<5>);
+    case 6: return go(conv2d_kernel<6>);
+    case 7: return go(conv2d_kernel<7>);
+    default: return go(conv2d_kernel<8>);
   }
 }
 
-// Launch one float32 conv (Cin >= 1, odd K <= 9, 1 <= Cout <= 128; act != 0
-// fuses the ReLU) on the plan of `conv2d_plan(..., itemsize=4)`: ck
-// channels a chunk, smem bytes of dynamic shared memory (at least the two
-// stages the entry recomputes). Returns the cudaError_t of the launch
-// (cudaErrorInvalidValue for a shape or plan outside the contract); the
-// kernel runs on `stream`.
+// Launch one float32 conv (Cin % 8 == 0, odd K <= 9, 1 <= Cout <= 128;
+// act != 0 fuses the ReLU) on the plan of `conv2d_plan(..., itemsize=4)`:
+// ck channels per input chunk (a multiple of 8), tg taps per streamed
+// weight group (0: the whole weight set resident), x_bytes per input-tile
+// buffer, flush != 0 to add each step's sums into the tile's in float32
+// (rounding to nearest) instead of accumulating the whole K in the MMAs,
+// smem bytes in all; the weights packed [Cout16][K * K * Cin].
+// Returns the cudaError_t of the launch (cudaErrorInvalidValue for a shape
+// or plan outside the contract); the kernel runs on `stream`.
 extern "C" int vfi_conv2d_f32(const void* x, const void* w, const void* bias, void* out,
-                              int B, int H, int W, int Cin, int Cout, int K, int act, int ck,
-                              int smem, int device, void* stream) {
-  if (Cin < 1 || Cout < 1 || Cout > MAX_COUT || K < 1 || K % 2 == 0 || K > MAX_K || B < 0 ||
-      H < 0 || W < 0 || ck < 1)
+                              int B, int H, int W, int Cin, int Cout, int K, int act,
+                              int ck, int tg, int x_bytes, int flush, int smem,
+                              int device, void* stream) {
+  if (Cin < 8 || Cin % 8 != 0 || Cout < 1 || Cout > MAX_COUT || K < 1 || K % 2 == 0 ||
+      K > MAX_K || B < 0 || H < 0 || W < 0)
+    return (int)cudaErrorInvalidValue;
+  const int cout16 = pad16(Cout), rows = WM * f32_mf(cout16 / 16, flush != 0);
+  const int tpx = (rows + K - 1) * (TW + K - 1);
+  const int wp = (tg == 0 ? K * K * Cin : tg * ck) + F_PAD;
+  const long long wbytes = (tg == 0 ? 1LL : 2LL) * 4 * cout16 * wp;
+  if (ck < 8 || ck % 8 != 0 || ck > Cin || tg < 0 || tg > K * K || x_bytes % 128 != 0 ||
+      x_bytes < 4LL * tpx * (ck + F_PAD) || smem < 2LL * x_bytes + wbytes)
     return (int)cudaErrorInvalidValue;
   ConvF32Params p{};
   p.x = static_cast<const float*>(x);
@@ -545,22 +705,15 @@ extern "C" int vfi_conv2d_f32(const void* x, const void* w, const void* bias, vo
   p.bias = static_cast<const float*>(bias);
   p.out = static_cast<float*>(out);
   p.B = B; p.H = H; p.W = W; p.Cin = Cin; p.Cout = Cout; p.K = K;
-  p.Cin16 = pad16(Cin); p.Cout16 = pad16(Cout); p.act = act ? 1 : 0;
-  p.ck = ck; p.nchunks = (Cin + ck - 1) / ck;
-  p.x_floats = ck * (F_TH + K - 1) * f32_pitch(K);
-  p.w_floats = K * K * ck * p.Cout16;
-  if (smem < 2LL * 4 * (p.x_floats + p.w_floats)) return (int)cudaErrorInvalidValue;
-  p.tiles_x = (W + F_TW - 1) / F_TW;
-  p.tiles_y = (H + F_TH - 1) / F_TH;
-  if ((long long)B * p.tiles_x * p.tiles_y == 0) return (int)cudaSuccess;
+  p.Cout16 = cout16; p.act = act ? 1 : 0;
+  p.ck = ck; p.tg = tg; p.x_bytes = x_bytes; p.wp = wp;
+  p.tiles_x = (W + TW - 1) / TW;
+  p.tiles_y = (H + rows - 1) / rows;
+  p.tiles = B * p.tiles_x * p.tiles_y;
+  if (p.tiles == 0) return (int)cudaSuccess;
   cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (K) {
-    case 1: return launch_f32<1>(p, smem, s);
-    case 3: return launch_f32<3>(p, smem, s);
-    case 5: return launch_f32<5>(p, smem, s);
-    case 7: return launch_f32<7>(p, smem, s);
-    default: return launch_f32<9>(p, smem, s);
-  }
+  if (flush) return launch_f32<true>(cout16 / 16, p, smem, s);
+  return launch_f32<false>(cout16 / 16, p, smem, s);
 }

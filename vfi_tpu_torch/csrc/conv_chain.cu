@@ -61,7 +61,7 @@
 //
 // The two instances share the tile walk, the staging of a tile's input
 // (`stage_tile`, a template on the element type: 16-byte pieces of 8 bf16
-// or 4 float32 channels) and the persistent launch (`launch_persistent`);
+// or 4 float32 channels) and the persistent launch (common.cuh);
 // their cores differ (tensor-core fragments against FFMA on registers),
 // and so do their shared-memory layouts (below).
 
@@ -376,10 +376,11 @@ conv_chain_kernel(const ChainParams p) {
 //   input copies into buffer 0 during the last layer where L is even, and
 //   after it where L is odd.
 // - The weights stream in chunks of `ck` input channels, all 9 taps
-//   ([9][ck][coutp] floats), through two slots: the next step's chunk (the
-//   next one of this layer, the next layer's first, or the next tile's
-//   first) copies while this one multiplies; a block's steps are (tile,
-//   layer, chunk), one barrier each.
+//   ([coutp][9][ck] floats: rows of the float32 pack the conv kernel reads,
+//   [coutp][9 * cin8], cut to the chunk), through two slots: the next
+//   step's chunk (the next one of this layer, the next layer's first, or
+//   the next tile's first) copies while this one multiplies; a block's
+//   steps are (tile, layer, chunk), one barrier each.
 // - Warp w owns output channels 8g .. 8g + 7, g = w mod (coutp / 8), and
 //   shares a layer's output positions with the warps of the same g (4, 2
 //   or 1 of them): lane `lane` of share s takes the positions s * 32 +
@@ -387,8 +388,8 @@ conv_chain_kernel(const ChainParams p) {
 //   tile), counted over the layer's output region without its junk
 //   columns, and holds np x 8 float32 accumulators across the layer's
 //   chunks. Per (tap, 4 channels) a lane reads np float4s of input and the
-//   warp 8 float4s of weights (one address for every lane: a broadcast),
-//   for 32 np FFMAs.
+//   warp 8 float4s of weights (4 channels of each of its output channels;
+//   one address for every lane: a broadcast), for 32 np FFMAs.
 // - Epilogue from registers: the bias, the ReLU; an intermediate (0
 //   outside the image) into the other buffer as two float4s a position,
 //   the last layer to device memory (16-byte stores where Cout % 4 == 0).
@@ -400,12 +401,13 @@ constexpr int F_PAD = 4;    // row padding of the activation buffers, floats (CH
 
 struct ChainF32Params {
   const float* x;                   // (B, H, W, C0)
-  const float* w;                   // per layer [9][cinp][coutp]
+  const float* w;                   // per layer [coutp][9 * cin8]
   const float* bias;                // per layer [coutp]
   float* out;                       // (B, H, W, cout[L - 1])
   int B, H, W, L, C0, TH, TW, P, ck;
   int cinp[MAXL], coutp[MAXL], cout[MAXL], chunks[MAXL], np[MAXL];
   int pitch[MAXL];                  // layer l's input row, floats (cinp + F_PAD)
+  int cin8[MAXL];                   // layer l's input channels rounded up to 8
   long long w_off[MAXL];
   int b_off[MAXL];
   int act_mask;
@@ -415,26 +417,29 @@ struct ChainF32Params {
 
 // Taps 0..8 over `ckw` channels of a chunk: the lane's NP positions
 // (element offsets qa in `in`) against the warp's 8 output channels of the
-// chunk's weights `wg` ([9][ckw][coutp], at the warp's column).
+// chunk's weights `wg` ([coutp][9][ckw], at the warp's first row).
 template <int NP>
 __device__ __forceinline__ void f32_mac(float (&acc)[F_MP][8], const float* in, const float* wg,
-                                        const int (&qa)[F_MP], int ckw, int coutp, int P,
-                                        int pin, int cbase) {
+                                        const int (&qa)[F_MP], int ckw, int P, int pin,
+                                        int cbase) {
 #pragma unroll 1
   for (int t = 0; t < 9; ++t) {
     const int di = t / 3, dj = t - 3 * di;
     const float* src = in + (di * P + dj) * pin + cbase;
-    const float* wt = wg + t * ckw * coutp;
+    const float* wt = wg + t * ckw;
 #pragma unroll 1
     for (int ch = 0; ch < ckw; ch += 4) {
-      float4 xv[NP];
+      float4 xv[NP], wo[8];
 #pragma unroll
       for (int i = 0; i < NP; ++i) xv[i] = *reinterpret_cast<const float4*>(src + qa[i] + ch);
 #pragma unroll
+      for (int o = 0; o < 8; ++o) wo[o] = *reinterpret_cast<const float4*>(wt + o * 9 * ckw + ch);
+#pragma unroll
       for (int k = 0; k < 4; ++k) {
-        const float4* wq = reinterpret_cast<const float4*>(wt + (ch + k) * coutp);
-        const float4 wa = wq[0], wb = wq[1];
-        const float wv[8] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
+        float wv[8];
+#pragma unroll
+        for (int o = 0; o < 8; ++o)
+          wv[o] = k == 0 ? wo[o].x : k == 1 ? wo[o].y : k == 2 ? wo[o].z : wo[o].w;
 #pragma unroll
         for (int i = 0; i < NP; ++i) {
           const float xs = k == 0 ? xv[i].x : k == 1 ? xv[i].y : k == 2 ? xv[i].z : xv[i].w;
@@ -464,17 +469,17 @@ __device__ __forceinline__ void f32_step(const ChainF32Params& p, float (&acc)[F
     const int r = k / wid;
     qa[i] = (r * p.P + k - r * wid) * pin;
   }
-  const int ckw = min(p.ck, p.cinp[l] - c * p.ck), coutp = p.coutp[l];
-  const float* wg = wslot + g * 8;
+  const int ckw = min(p.ck, p.cinp[l] - c * p.ck);
+  const float* wg = wslot + g * 8 * 9 * ckw;
   switch (np) {
-    case 1: f32_mac<1>(acc, in, wg, qa, ckw, coutp, p.P, pin, c * p.ck); break;
-    case 2: f32_mac<2>(acc, in, wg, qa, ckw, coutp, p.P, pin, c * p.ck); break;
-    case 3: f32_mac<3>(acc, in, wg, qa, ckw, coutp, p.P, pin, c * p.ck); break;
-    case 4: f32_mac<4>(acc, in, wg, qa, ckw, coutp, p.P, pin, c * p.ck); break;
-    case 5: f32_mac<5>(acc, in, wg, qa, ckw, coutp, p.P, pin, c * p.ck); break;
-    case 6: f32_mac<6>(acc, in, wg, qa, ckw, coutp, p.P, pin, c * p.ck); break;
-    case 7: f32_mac<7>(acc, in, wg, qa, ckw, coutp, p.P, pin, c * p.ck); break;
-    default: f32_mac<8>(acc, in, wg, qa, ckw, coutp, p.P, pin, c * p.ck); break;
+    case 1: f32_mac<1>(acc, in, wg, qa, ckw, p.P, pin, c * p.ck); break;
+    case 2: f32_mac<2>(acc, in, wg, qa, ckw, p.P, pin, c * p.ck); break;
+    case 3: f32_mac<3>(acc, in, wg, qa, ckw, p.P, pin, c * p.ck); break;
+    case 4: f32_mac<4>(acc, in, wg, qa, ckw, p.P, pin, c * p.ck); break;
+    case 5: f32_mac<5>(acc, in, wg, qa, ckw, p.P, pin, c * p.ck); break;
+    case 6: f32_mac<6>(acc, in, wg, qa, ckw, p.P, pin, c * p.ck); break;
+    case 7: f32_mac<7>(acc, in, wg, qa, ckw, p.P, pin, c * p.ck); break;
+    default: f32_mac<8>(acc, in, wg, qa, ckw, p.P, pin, c * p.ck); break;
   }
   if (c != p.chunks[l] - 1) return;
 
@@ -539,16 +544,20 @@ conv_chain_f32_kernel(const ChainF32Params p) {
     stage_tile(buf(0), p.x + (size_t)b * p.H * p.W * p.C0, p.x, p.H, p.W, p.C0, p.cinp[0],
                p.pitch[0], ty * p.TH - L, tx * p.TW - L, rows, P, magP, rows * P);
   };
-  // Chunk c of layer l's weights into slot `s`, as [9][ckw][coutp].
+  // Chunk c of layer l's weights into slot `s`, as [coutp][9][ckw], from
+  // the float32 pack [coutp][9 * cin8] (column t * cin8 + channel);
+  // channels cin8 .. cinp - 1 are zeros.
   auto stage_w = [&](int l, int c, int s) {
-    const int ckw = min(p.ck, p.cinp[l] - c * p.ck), coutp = p.coutp[l], pieces = coutp / 4;
-    const float* src = p.w + p.w_off[l] + (size_t)c * p.ck * coutp;
+    const int ckw = min(p.ck, p.cinp[l] - c * p.ck), coutp = p.coutp[l], cin8 = p.cin8[l];
+    const int pieces = ckw / 4;
+    const float* src = p.w + p.w_off[l] + c * p.ck;
     float* dst = slot(s);
-    for (int it = threadIdx.x; it < 9 * ckw * pieces; it += NTHREADS) {
-      const int row = it / pieces, pc = it - row * pieces;
-      const int t = row / ckw, ch = row - t * ckw;
-      cp_async16(dst + row * coutp + pc * 4,
-                 src + ((size_t)t * p.cinp[l] + ch) * coutp + pc * 4);
+    for (int it = threadIdx.x; it < coutp * 9 * pieces; it += NTHREADS) {
+      const int row = it / pieces, pc = it - row * pieces;   // row = o * 9 + t
+      const int o = row / 9, t = row - o * 9;
+      const bool ok = c * p.ck + pc * 4 < cin8;
+      cp_async16_zfill(dst + row * ckw + pc * 4,
+                       ok ? src + (size_t)o * 9 * cin8 + t * cin8 + pc * 4 : p.w, ok);
     }
   };
 
@@ -594,25 +603,6 @@ conv_chain_f32_kernel(const ChainF32Params p) {
     l = nl;
     c = nc;
   }
-}
-
-// One persistent launch of `kernel`: as many blocks as fit (by the
-// occupancy API), at most one a tile, with `smem` bytes of dynamic shared
-// memory each.
-template <typename Params>
-int launch_persistent(void (*kernel)(Params), const Params& p, int tiles, int smem,
-                      cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  int per_sm = 0, sms = 0, dev = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NTHREADS, smem);
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const int grid = std::min(tiles, per_sm * sms);
-  kernel<<<grid, NTHREADS, smem, stream>>>(p);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -681,7 +671,8 @@ extern "C" int vfi_conv_chain_bf16(const void* x, const void* w, const void* bia
 
   const cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
-  return launch_persistent(conv_chain_kernel, p, p.tiles, smem, static_cast<cudaStream_t>(stream));
+  return launch_persistent(conv_chain_kernel, p, p.tiles, NTHREADS, smem,
+                           static_cast<cudaStream_t>(stream));
 }
 
 // Launch one float32 chain of 2..4 layers on the plan of
@@ -713,6 +704,7 @@ extern "C" int vfi_conv_chain_f32(const void* x, const void* w, const void* bias
   for (int l = 0; l < L; ++l) {
     if (c[l + 1] < 1 || c[l + 1] > NFMAX * 8) return (int)cudaErrorInvalidValue;
     p.cinp[l] = pad16(c[l]);
+    p.cin8[l] = (c[l] + 7) / 8 * 8;
     p.coutp[l] = pad16(c[l + 1]);
     p.cout[l] = c[l + 1];
     p.chunks[l] = (p.cinp[l] + ck - 1) / ck;
@@ -723,7 +715,7 @@ extern "C" int vfi_conv_chain_f32(const void* x, const void* w, const void* bias
     if (p.np[l] > F_MP) return (int)cudaErrorInvalidValue;
     p.w_off[l] = woff;
     p.b_off[l] = boff;
-    woff += 9LL * p.cinp[l] * p.coutp[l];
+    woff += 9LL * p.cin8[l] * p.coutp[l];
     boff += p.coutp[l];
     need[l & 1] = std::max(need[l & 1], 4LL * (th + 2 * (L - l)) * p.P * p.pitch[l]);
     slot_need = std::max(slot_need, 4 * 9 * std::min(ck, p.cinp[l]) * p.coutp[l]);
@@ -741,6 +733,6 @@ extern "C" int vfi_conv_chain_f32(const void* x, const void* w, const void* bias
   if (p.tiles == 0) return (int)cudaSuccess;
   const cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
-  return launch_persistent(conv_chain_f32_kernel, p, p.tiles, smem,
+  return launch_persistent(conv_chain_f32_kernel, p, p.tiles, NTHREADS, smem,
                            static_cast<cudaStream_t>(stream));
 }

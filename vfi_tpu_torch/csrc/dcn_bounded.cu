@@ -2,7 +2,8 @@
 // padding 1, one offset group, offsets clamped to [-R, R], optional mask
 // (none means weight 1), Cin a multiple of 8 (the wrapper pads any other),
 // Cout up to 128, any R whose plan fits (below); and its float32 instances
-// of both designs (below the bf16 kernels: float32 throughout, FFMA).
+// of both designs (below the bf16 kernels: float32 throughout, 3xTF32 on
+// the tensor cores).
 //
 // Replaces: vfi_tpu/ops/pallas/sampling.py::_sampling_kernel_v4
 // (deform_conv2d_pallas_v4, the route of dcn_kernel="v4", the JAX
@@ -113,7 +114,8 @@ struct DcnParamsT {
   const T* x;           // (B, H, W, Cin)
   const T* offset;      // (B, H, W, 18): (dy, dx) of tap t at 2t, 2t + 1
   const T* mask;        // (B, H, W, 9), or null: weight 1
-  const T* w;           // (9 * Cin16, Cout16), row t * Cin16 + c, zero padded
+  const T* w;           // bf16: (9 * Cin16, Cout16), row t * Cin16 + c, zero padded;
+                        // float32: (Cout16, 9 * Cin), column t * Cin + c
   const float* bias;    // (Cout16,), zero padded
   T* out;               // (B, H, W, Cout)
   int B, H, W, Cin, Cout, R, Cin16;
@@ -547,31 +549,65 @@ dcn_stream_kernel(const DcnParams p) {
 
 // ---------------------------------------------------------------------------
 // The float32 instances (`vfi_dcn_bounded_f32`): input, offsets, mask,
-// weights, samples, slab and output in float32, the products and sums IEEE
-// float32. The sampling and blend are the bf16 designs' without the
-// slab's rounding, which is the plain version's float32 arithmetic; the
-// GEMM is FFMA on the CUDA cores (a single TF32 tensor-core pass would keep
-// only 10 bits of each operand).
-// What bounds them: at 720p a 64-channel layer's 68 GFLOP take 1.01 ms at
-// the 67 TFLOP/s float32 peak, against 0.47 GB (0.14 ms): the FFMA rate,
-// with the gather and blend beside it.
-// Both designs keep the bf16 designs' blocks, tiles, staging and barriers:
-// "tile" keeps the packed weights [9 * Cin16][Cout16] resident (no row
-// padding: the FFMA core reads rows whole) and walks output tiles of TH x
-// 16 pixels with one input buffer, the slab built `chans` channels a pass;
-// "stream" (8 x 16 tiles) streams a (chunk, tap) weight slice at a time
-// into two slots and the input in chunks of `chans` channels (multiples of
-// 4: a 16-byte piece holds 4 float32 channels, so the plan can cut chunks
-// of 8 or 4 where a wide tile at a large R needs it; with 4-channel chunks
-// an 8 x 16 tile holds R = 35, so there is no 4 x 16 instance). Per tap each warp builds its slab of 16
-// pixels channel-major, [chans][F_SP] floats (F_SP = 20: the two half-warps'
-// stores, 4 rows apart, fall 16 banks apart), then multiplies it: lane
-// (pg, cg) = (lane & 3, lane >> 2) accumulates pixels 4pg .. 4pg + 3 times
-// output channels cg * CPL .. + CPL - 1 (Cout16 = 8 CPL) in 4 CPL float32
-// registers, from one float4 of the slab (4 lanes' addresses: one
-// wavefront) and CPL / 4 float4s of weights (a row read whole) a channel.
+// weights, samples, slab and output in float32. The sampling and blend are
+// the bf16 designs' without the slab's rounding, which is the plain
+// version's float32 arithmetic; the GEMM's products are float32-accurate:
+// 3xTF32 on the tensor cores (common.cuh; one TF32 pass would keep only 11
+// bits of each operand), summed in float32.
+// What bounds them: at 720p a 64-channel layer's 68 GFLOP are 204 GFLOP in
+// three TF32 passes, 0.41 ms at the 495 TFLOP/s TF32 peak, against 0.47 GB
+// (0.14 ms); beside them the gather and the blend, 4-byte corners now, on
+// the CUDA cores, and the hi / lo split of every fragment.
+// Both designs keep the bf16 designs' blocks, tiles, staging and barriers
+// (a warp builds the slab of one tile row of 16 pixels), with 32-bit
+// operands:
+// - The slab is the A operand, [16 pixels][chans + 4] floats, K (channels)
+//   contiguous, rows an odd multiple of 16 bytes; a lane writes its
+//   pixel's blended 4-channel pieces as 16-byte stores. A fragments load
+//   by ldmatrix .b16 without .trans (4-byte elements move whole).
+// - The weights are B, packed [Cout16][9 * Cin] (column t * Cin + c, K
+//   contiguous; Cin a multiple of 8), loaded by ldmatrix without .trans.
+//   "tile" keeps them resident ([Cout16][9 Cin + 4] floats: 148,480 bytes
+//   at C = 64, beside one input buffer of an 8 x 16 tile at R = 1: one
+//   block of 8 warps an SM); "stream" copies a (chunk, tap) slice
+//   [Cout16][chans + 4] at a time into two slots.
+// - Each k-step splits the A and B fragments into hi and lo in registers
+//   (three ALU instructions a register). In "tile" the warps work in
+//   pairs: each multiplies both slabs of its pair (two m-fragments) by
+//   half of Cout, so that a split B fragment serves two MMA triples (a
+//   pair barrier after the slabs are built, one after the MMAs). In
+//   "stream" a warp multiplies its own slab by all of Cout.
+// - The MMAs go in three passes over the accumulators (lo hi, hi lo, hi
+//   hi), so that neighbours write different accumulators.
+// - Numerics: the MMAs' float32 accumulation truncates each sum (the
+//   tensor cores' adder), a drift that grows with the k-steps it runs
+//   over. So each tap's (tile) or step's (stream) sums go into a second
+//   set of float32 registers, rounded to nearest (`flush_sums`; the next
+//   tap's first MMA writes its accumulator from a zero C operand instead
+//   of zeroing it), and no accumulator runs over more than F32_FLUSH_K
+//   columns at any Cin.
+// - Epilogue from registers: the bias, float32 stores of two channels a
+//   lane.
+// Measured in turns on an H100 (tools/conv_turns.py, C = 64, R = 1, 720p,
+// device ms; PERF.md section 6), against 1.814 for a warp of one
+// m-fragment without a flush: the pairs alone 1.772; a flush every tap
+// alone 1.960; the two together 1.817, and the error against the plain
+// version 5.7e-7 of max|plain| (4.9e-6 without the flush); pre-split hi /
+// lo weights (twice the bytes, so streamed) 2.014.
+// The plan (`dcn_plan(..., itemsize=4)`) takes the tile design on 8 x 16
+// tiles (16 x 16 ones, 16 warps of at most 128 registers, would spill past
+// Cout16 = 16 with the flushed sums) where the weights and one buffer fit
+// and Cin8 <= F32_FLUSH_K, else the stream design (8 x 16, then 4 x 16
+// tiles; chunks down to 8 channels, at most F32_FLUSH_K): on an H100 every
+// Cin, Cout <= 128 at R <= 35 has one (at R = 35, 8-channel chunks of a 4
+// x 16 tile: its input is 214 KB). The FFMA designs they replace were
+// slower at every float32 shape a path runs (in turns on an H100,
+// tools/conv_turns.py; PERF.md section 6).
 
-constexpr int F_SP = 20;   // float32 slab row pitch: 16 pixels + 4
+constexpr int F_PAD = 4;   // slab and weight row padding, floats
+// The most columns of K the MMAs sum before a flush (flush_sums;
+// ops/cuda/conv.py F32_FLUSH_K).
+constexpr int F32_FLUSH_K = 1152;
 
 using DcnF32Params = DcnParamsT<float>;
 
@@ -617,84 +653,156 @@ __device__ __forceinline__ float4 blend_piece_f32(const Sample& s, int o) {
                      mix(v0.z, v1.z, v2.z, v3.z), mix(v0.w, v1.w, v2.w, v3.w));
 }
 
-// Slab rows k0 .. k0 + 3 (channels) of the lane's pixel column.
-__device__ __forceinline__ void slab_store4(float* slab, int k0, int col, float4 v) {
-  slab[k0 * F_SP + col] = v.x;
-  slab[(k0 + 1) * F_SP + col] = v.y;
-  slab[(k0 + 2) * F_SP + col] = v.z;
-  slab[(k0 + 3) * F_SP + col] = v.w;
-}
-
-// acc[i][j] += sum over kw channels k of slab[k][4pg + i] * w[k][cg * CPL + j]:
-// `a` is the warp's slab at the lane's pixels, `w` the weight rows (`ws`
-// floats apart) at the lane's channels.
-template <int CPL>
-__device__ __forceinline__ void slab_ffma(float (&acc)[4][CPL], const float* a, const float* w,
-                                          int kw, int ws) {
-#pragma unroll 2
-  for (int k = 0; k < kw; ++k) {
-    const float4 av = *reinterpret_cast<const float4*>(a + k * F_SP);
-    const float ax[4] = {av.x, av.y, av.z, av.w};
-    float bw[CPL];
-    if constexpr (CPL % 4 == 0) {
+// The n-fragments J0 .. J0 + G - 1 of a k-step (G = min(GM, N - J0)): B
+// fragments from `b_addr` (`wp` floats a weight row) loaded (ldmatrix, no
+// .trans) and split into hi and lo once for all MF m-fragments (ah, al),
+// then three MMA passes into acc[.][J0 .. J0 + G - 1], each over all of
+// the group's accumulators (lo_a hi_b, hi_a lo_b, hi_a hi_b: the small
+// terms first), so that consecutive MMAs write different accumulators (an
+// MMA on the accumulator of the one before it waits out its latency); then
+// the next group. FIRST: the first pass writes acc (a zero C operand)
+// instead of adding to it.
+template <int MF, int N, int GM, bool FIRST, int J0>
+__device__ __forceinline__ void mma_group_tf32(float (&acc)[MF][N][4],
+                                               const uint32_t (&ah)[MF][4],
+                                               const uint32_t (&al)[MF][4], uint32_t b_addr,
+                                               int wp) {
+  constexpr int G = N - J0 < GM ? N - J0 : GM;
+  uint32_t fb[G][2], bh[G][2], bl[G][2];
 #pragma unroll
-      for (int q = 0; q < CPL / 4; ++q) {
-        const float4 v = reinterpret_cast<const float4*>(w + k * ws)[q];
-        bw[4 * q] = v.x; bw[4 * q + 1] = v.y; bw[4 * q + 2] = v.z; bw[4 * q + 3] = v.w;
-      }
-    } else {
+  for (int j = 0; j + 1 < G; j += 2) ldsm_x4_b(fb[j], fb[j + 1], b_addr + (J0 + j) * 32 * wp);
+  if constexpr (G % 2 == 1) ldsm_x2(fb[G - 1], b_addr + (J0 + G - 1) * 32 * wp);
 #pragma unroll
-      for (int q = 0; q < CPL / 2; ++q) {
-        const float2 v = reinterpret_cast<const float2*>(w + k * ws)[q];
-        bw[2 * q] = v.x; bw[2 * q + 1] = v.y;
-      }
+  for (int j = 0; j < G; ++j) split_tf32(fb[j], bh[j], bl[j]);
+#pragma unroll
+  for (int i = 0; i < MF; ++i)
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      if constexpr (FIRST) mma_tf32_first(acc[i][J0 + j], al[i], bh[j]);
+      else mma_tf32(acc[i][J0 + j], al[i], bh[j]);
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < MF; ++i)
 #pragma unroll
-      for (int j = 0; j < CPL; ++j) acc[i][j] = fmaf(ax[i], bw[j], acc[i][j]);
-  }
+    for (int j = 0; j < G; ++j) mma_tf32(acc[i][J0 + j], ah[i], bl[j]);
+#pragma unroll
+  for (int i = 0; i < MF; ++i)
+#pragma unroll
+    for (int j = 0; j < G; ++j) mma_tf32(acc[i][J0 + j], ah[i], bh[j]);
+  if constexpr (J0 + G < N)
+    mma_group_tf32<MF, N, GM, FIRST, J0 + G>(acc, ah, al, b_addr, wp);
 }
 
-// The warp's output row oy, columns ox0 .. ox0 + 15, of image b: the bias
-// added, float32 out; the accumulators are zeroed after.
-template <int CPL>
-__device__ __forceinline__ void store_epilogue_f32(const DcnF32Params& p, float (&acc)[4][CPL],
-                                                   int b, int oy, int ox0, int lane) {
-  const int pg = lane & 3, cg = lane >> 2;
+// One k-step: MF slab rows of 16 pixels (m-fragments, `a_stride` bytes
+// apart from `a_addr`) times the weight rows at `b_addr`, A split in
+// registers, B in groups of up to GM n-fragments.
+template <int MF, int N, int GM, bool FIRST>
+__device__ __forceinline__ void kstep_tf32(float (&acc)[MF][N][4], uint32_t a_addr,
+                                           int a_stride, uint32_t b_addr, int wp) {
+  uint32_t fa[MF][4], ah[MF][4], al[MF][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int ox = ox0 + 4 * pg + i;
-    if (oy < p.H && ox < p.W) {
-      float* orow = p.out + (((size_t)b * p.H + oy) * p.W + ox) * p.Cout;
+  for (int i = 0; i < MF; ++i) {
+    ldsm_x4(fa[i], a_addr + i * a_stride);
+    split_tf32(fa[i], ah[i], al[i]);
+  }
+  mma_group_tf32<MF, N, GM, FIRST, 0>(acc, ah, al, b_addr, wp);
+}
+
+// MF slabs times the weight rows at `b_lane` (`wp` floats a row): kw / 8
+// k-steps of m16n8k8 in 3xTF32 into acc, A from the slab, B from the
+// weights (ldmatrix, both without .trans; registers for the hi and lo of
+// GM B fragments at a time). `fresh`: acc starts from these products (the
+// first k-step's first pass writes it), where a flush has just taken its
+// sums.
+template <int MF, int N, int GM>
+__device__ __forceinline__ void slab_mma_tf32(float (&acc)[MF][N][4], uint32_t a_lane,
+                                              int a_stride, uint32_t b_lane, int kw, int wp,
+                                              bool fresh) {
+  int kk = 0;
+  if (fresh) {
+    kstep_tf32<MF, N, GM, true>(acc, a_lane, a_stride, b_lane, wp);
+    kk = 1;
+  }
+  for (; kk < kw / 8; ++kk)
+    kstep_tf32<MF, N, GM, false>(acc, a_lane + kk * 32, a_stride, b_lane + kk * 32, wp);
+}
+
+// tot += acc in float32, rounded to nearest: a flush. The tensor cores'
+// float32 accumulation truncates each sum, a drift that grows with the
+// k-steps an accumulator runs over; flushed every tap (tile) or step
+// (stream), it runs over at most F32_FLUSH_K columns (the plan's bound on
+// Cin8 and on the stream design's chunk). acc is left as it is: the next
+// slab_mma_tf32(..., fresh) overwrites it.
+template <int MF, int N>
+__device__ __forceinline__ void flush_sums(float (&tot)[MF][N][4], const float (&acc)[MF][N][4]) {
 #pragma unroll
-      for (int j = 0; j < CPL; ++j) {
-        const int co = cg * CPL + j;
-        if (co < p.Cout) orow[co] = acc[i][j] + p.bias[co];
+  for (int i = 0; i < MF; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) tot[i][j][e] = __fadd_rn(tot[i][j][e], acc[i][j][e]);
+}
+
+// An m16 fragment of output row oy, columns ox0 .. ox0 + 15, channels n0
+// .. n0 + 8 N - 1, of image b, from its sums `acc`: the bias added,
+// float32 out (two channels a lane); the sums are zeroed after.
+template <int N>
+__device__ __forceinline__ void store_epilogue_tf32(const DcnF32Params& p, float (&acc)[N][4],
+                                                    int b, int oy, int ox0, int n0, int lane) {
+  const int g8 = lane >> 2, q4 = lane & 3;
+  const bool vec = (p.Cout % 2) == 0;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int ox = ox0 + g8 + 8 * h;
+    const bool inimg = oy < p.H && ox < p.W;
+    float* orow = p.out + (((size_t)b * p.H + oy) * p.W + ox) * p.Cout;
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const int ch = n0 + j * 8 + q4 * 2;
+      if (inimg && ch < p.Cout) {
+        const float v0 = acc[j][2 * h] + p.bias[ch], v1 = acc[j][2 * h + 1] + p.bias[ch + 1];
+        if (vec) {
+          *reinterpret_cast<float2*>(orow + ch) = make_float2(v0, v1);
+        } else {
+          orow[ch] = v0;
+          if (ch + 1 < p.Cout) orow[ch + 1] = v1;
+        }
       }
     }
-#pragma unroll
-    for (int j = 0; j < CPL; ++j) acc[i][j] = 0.0f;
   }
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
 }
 
-// Design "tile" in float32: TH warps, warp w tile row w; Cout16 = 8 * CPL.
-template <int TH, int CPL>
+// The two warps of pair `pair` (ids 1 .. 8; 0 is __syncthreads).
+__device__ __forceinline__ void pair_sync(int pair) {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(pair + 1));
+}
+
+// Design "tile" in float32: TH warps, warp w builds the slab of tile row
+// w; warps 2q and 2q + 1 (pair q) multiply both their rows (two
+// m-fragments), each by half of Cout (NF / 2 n8 fragments; Cout16 = 8 NF),
+// so that each split B fragment serves two m-fragments. The sums flush
+// every tap.
+template <int TH, int NF>
 __global__ void __launch_bounds__(TH * 32, 1)
-dcn_tile_f32_kernel(const DcnF32Params p) {
-  constexpr int NT = TH * 32, C16 = 8 * CPL;
+dcn_tile_tf32_kernel(const DcnF32Params p) {
+  constexpr int NT = TH * 32;
   extern __shared__ __align__(128) unsigned char smem[];
-  const int R = p.R, Cin16 = p.Cin16;
+  const int R = p.R, Cin = p.Cin;
   const int tcols = TILE_W + 2 + 2 * R, tpx = (TH + 2 + 2 * R) * tcols;
   const int trows_1 = TH + 1 + 2 * R;
-  const int pieces = p.Cin / 4, xu = p.xu, sk = p.chans;
+  const int pieces = Cin / 4, xu = p.xu, sk = p.chans, sp = sk + F_PAD;
+  const int wp = NTAPS * Cin + F_PAD;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const float* const ws = reinterpret_cast<const float*>(smem);
+  float* const ws = reinterpret_cast<float*>(smem);
   unsigned char* const xs = smem + p.w_bytes;
-  float* const ss = reinterpret_cast<float*>(xs + p.x_bytes) + warp * sk * F_SP;
+  float* const ss = reinterpret_cast<float*>(xs + p.x_bytes) + warp * TILE_W * sp;
   // Slab build: the lane's pixel column pcol of tile row `warp`, pieces
-  // sub, sub + 2, ...; GEMM: pixel group pg, channel group cg.
-  const int pcol = lane & 15, sub = lane >> 4, pg = lane & 3, cg = lane >> 2;
+  // sub, sub + 2, ...
+  const int pcol = lane & 15, sub = lane >> 4;
   auto stage_x = [&](int tile) {
     int b, ty, tx;
     tile_origin(p, tile, b, ty, tx);
@@ -708,19 +816,33 @@ dcn_tile_f32_kernel(const DcnF32Params p) {
 
   int tile = blockIdx.x;
   if (tile >= p.tiles) return;
-  for (int it = threadIdx.x; it < NTAPS * Cin16 * C16 / 4; it += NT)   // all weights, once
-    cp_async16(smem + it * 16, p.w + (size_t)it * 4);
+  const int wq = NTAPS * Cin / 4;   // 16-byte pieces of a weight row
+  for (int it = threadIdx.x; it < 8 * NF * wq; it += NT) {   // all weights, once
+    const int o = it / wq, pc = it - o * wq;
+    cp_async16(ws + o * wp + pc * 4, p.w + (size_t)o * NTAPS * Cin + pc * 4);
+  }
   stage_x(tile);
   cp_async_commit();
   float2 off[NTAPS];
   float msk[NTAPS];
   meta(tile, off, msk);
-  float acc[4][CPL];
+  constexpr int NH = NF / 2;
+  const int pair = warp >> 1, half = warp & 1;
+  float acc[2][NH][4], tot[2][NH][4];   // the MMAs' sums of a tap; the tile's
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int j = 0; j < CPL; ++j) acc[i][j] = 0.0f;
+    for (int j = 0; j < NH; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = tot[i][j][e] = 0.0f;
 
+  // ldmatrix lane addresses: A rows are the 16 pixels of the pair's first
+  // slab (4 channels on for the upper lanes; the second slab follows it),
+  // B rows the warp's half of the output channels.
+  const uint32_t a_lane = smem_u32(ss - half * TILE_W * sp) +
+                          ((lane & 15) * sp + (lane >> 4) * 4) * 4;
+  const uint32_t b_lane = smem_u32(ws) + half * NH * 32 * wp +
+      (((lane & 7) + ((lane >> 4) << 3)) * wp + ((lane >> 3) & 1) * 4) * 4;
   while (true) {
     cp_async_wait<0>();
     __syncthreads();  // this tile's input is in
@@ -735,17 +857,18 @@ dcn_tile_f32_kernel(const DcnF32Params p) {
       tap_meta_f32(off, msk, t, o, m);
       const Sample s = tap_sample_at(xs, o.x, o.y, m, t, gy, gx, ty * TH - 1 - R,
                                      tx * TILE_W - 1 - R, R, trows_1, tcols, xu);
-      for (int k0 = 0; k0 < Cin16; k0 += sk) {
-        const int skw = min(sk, Cin16 - k0);
-        for (int j = sub; j < skw / 4; j += 2) {
-          const int pc = k0 / 4 + j;
-          slab_store4(ss, 4 * j, pcol,
-                      pc < pieces ? blend_piece_f32(s, pc * 16) : make_float4(0.f, 0.f, 0.f, 0.f));
-        }
-        __syncwarp();
-        slab_ffma<CPL>(acc, ss + 4 * pg, ws + (t * Cin16 + k0) * C16 + cg * CPL, skw, C16);
-        __syncwarp();
+      for (int k0 = 0; k0 < Cin; k0 += sk) {
+        const int skw = min(sk, Cin - k0);
+        for (int j = sub; j < skw / 4; j += 2)
+          *reinterpret_cast<float4*>(ss + pcol * sp + j * 4) =
+              blend_piece_f32(s, (k0 / 4 + j) * 16);
+        pair_sync(pair);  // both slabs of the pair are in
+        // out[2 rows][half of Cout16] (+)= slabs @ W[half, t * Cin + k0 ..]^T
+        slab_mma_tf32<2, NH, 4>(acc, a_lane, TILE_W * sp * 4, b_lane + (t * Cin + k0) * 4,
+                                skw, wp, k0 == 0);
+        pair_sync(pair);  // both warps are done with both slabs
       }
+      flush_sums(tot, acc);
     }
     if (more) {  // every gather from the buffer is done
       __syncthreads();
@@ -753,42 +876,48 @@ dcn_tile_f32_kernel(const DcnF32Params p) {
       cp_async_commit();
       meta(next, off, msk);
     }
-    store_epilogue_f32<CPL>(p, acc, b, ty * TH + warp, tx * TILE_W, lane);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      store_epilogue_tf32<NH>(p, tot[i], b, ty * TH + 2 * pair + i, tx * TILE_W,
+                              half * NH * 8, lane);
     if (!more) break;
     tile = next;
   }
 }
 
-// Design "stream" in float32: TH warps, warp w tile row w; a step is
-// (tile, chunk, tap), as the bf16 stream design's.
-template <int TH, int CPL>
+// Design "stream" in float32 on the tensor cores: TH warps, warp w tile row
+// w; a step is (tile, chunk, tap), as the bf16 stream design's.
+template <int TH, int NF>
 __global__ void __launch_bounds__(TH * 32, 1)
-dcn_stream_f32_kernel(const DcnF32Params p) {
-  constexpr int NT = TH * 32, C16 = 8 * CPL;
+dcn_stream_tf32_kernel(const DcnF32Params p) {
+  constexpr int NT = TH * 32;
   extern __shared__ __align__(128) unsigned char smem[];
-  const int R = p.R, Cin16 = p.Cin16;
+  const int R = p.R, Cin = p.Cin;
   const int tcols = TILE_W + 2 + 2 * R, tpx = (TH + 2 + 2 * R) * tcols;
   const int trows_1 = TH + 1 + 2 * R;
-  const int pieces = p.Cin / 4, xu = p.xu, ck = p.chans;
+  const int xu = p.xu, ck = p.chans, sp = ck + F_PAD;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   unsigned char* const wsm = smem;                       // two weight slices
   unsigned char* const xs = smem + 2 * p.w_bytes;        // the input buffer
-  float* const ss = reinterpret_cast<float*>(xs + p.x_bytes) + warp * ck * F_SP;
-  const int pcol = lane & 15, sub = lane >> 4, pg = lane & 3, cg = lane >> 2;
+  float* const ss = reinterpret_cast<float*>(xs + p.x_bytes) + warp * TILE_W * sp;
+  const int pcol = lane & 15, sub = lane >> 4;   // as in the tile design
   // Chunk c of tile `tile`'s input and halo.
   auto stage_x = [&](int tile, int c) {
     int b, ty, tx;
     tile_origin(p, tile, b, ty, tx);
     stage_input<NT>(p, xs, b, ty * TH - 1 - R, tx * TILE_W - 1 - R, tpx, tcols, c * ck,
-                    max(0, min(ck, p.Cin - c * ck)) / 4);
+                    min(ck, Cin - c * ck) / 4);
   };
-  // The weight slice of (chunk c, tap t): packed rows t * Cin16 + c * ck ...
+  // The weight slice of (chunk c, tap t): packed columns t * Cin + c * ck ..
+  // of every row, as [Cout16][sp] in slot `slot`.
   auto stage_w = [&](int c, int t, int slot) {
-    const int rows = min(ck, Cin16 - c * ck);
-    const float* src = p.w + ((size_t)t * Cin16 + c * ck) * C16;
-    unsigned char* dst = wsm + slot * p.w_bytes;
-    for (int it = threadIdx.x; it < rows * C16 / 4; it += NT)
-      cp_async16(dst + it * 16, src + it * 4);
+    const int q = min(ck, Cin - c * ck) / 4;
+    const float* src = p.w + (size_t)t * Cin + c * ck;
+    float* dst = reinterpret_cast<float*>(wsm + slot * p.w_bytes);
+    for (int it = threadIdx.x; it < 8 * NF * q; it += NT) {
+      const int o = it / q, pc = it - o * q;
+      cp_async16(dst + o * sp + pc * 4, src + (size_t)o * NTAPS * Cin + pc * 4);
+    }
   };
   auto meta = [&](int tile, float2 (&off)[NTAPS], float (&msk)[NTAPS]) {
     int b, ty, tx;
@@ -804,12 +933,15 @@ dcn_stream_f32_kernel(const DcnF32Params p) {
   float2 off[NTAPS];
   float msk[NTAPS];
   meta(tile, off, msk);
-  float acc[4][CPL];
+  float acc[1][NF][4], tot[1][NF][4];   // the MMAs' sums of a step; the tile's
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int j = 0; j < NF; ++j)
 #pragma unroll
-    for (int j = 0; j < CPL; ++j) acc[i][j] = 0.0f;
+    for (int e = 0; e < 4; ++e) acc[0][j][e] = tot[0][j][e] = 0.0f;
 
+  const uint32_t a_lane = smem_u32(ss) + ((lane & 15) * sp + (lane >> 4) * 4) * 4;
+  const uint32_t w_lane =
+      smem_u32(wsm) + (((lane & 7) + ((lane >> 4) << 3)) * sp + ((lane >> 3) & 1) * 4) * 4;
   int slot = 0;
   while (true) {
     const int next = tile + gridDim.x;
@@ -818,7 +950,7 @@ dcn_stream_f32_kernel(const DcnF32Params p) {
     tile_origin(p, tile, b, ty, tx);
     const int gy = ty * TH + warp, gx = tx * TILE_W + pcol;
     for (int c = 0; c < p.nchunks; ++c) {
-      const int k0 = c * ck, ckw = min(ck, Cin16 - k0);
+      const int ckw = min(ck, Cin - c * ck);
       const bool staged = c + 1 < p.nchunks || more;
       const int s_tile = c + 1 < p.nchunks ? tile : next, s_c = c + 1 < p.nchunks ? c + 1 : 0;
       for (int t = 0; t < NTAPS; ++t) {
@@ -834,46 +966,26 @@ dcn_stream_f32_kernel(const DcnF32Params p) {
         const Sample s = tap_sample_at(xs, o.x, o.y, m, t, gy, gx, ty * TH - 1 - R,
                                        tx * TILE_W - 1 - R, R, trows_1, tcols, xu);
         for (int j = sub; j < ckw / 4; j += 2)
-          slab_store4(ss, 4 * j, pcol,
-                      k0 / 4 + j < pieces ? blend_piece_f32(s, j * 16)
-                                          : make_float4(0.f, 0.f, 0.f, 0.f));
+          *reinterpret_cast<float4*>(ss + pcol * sp + j * 4) = blend_piece_f32(s, j * 16);
         __syncwarp();
         if (t == NTAPS - 1 && staged) {
           __syncthreads();  // every warp's last gather from the buffer is done
           stage_x(s_tile, s_c);
           cp_async_commit();
         }
-        slab_ffma<CPL>(acc, ss + 4 * pg,
-                       reinterpret_cast<const float*>(wsm + slot * p.w_bytes) + cg * CPL, ckw,
-                       C16);
+        // Groups of 4 past NF = 8: tot holds 4 NF registers more.
+        slab_mma_tf32<1, NF, (NF <= 8 ? 8 : 4)>(acc, a_lane, 0, w_lane + slot * p.w_bytes, ckw,
+                                                sp, true);
+        flush_sums(tot, acc);
         __syncwarp();
         slot ^= 1;
       }
     }
-    store_epilogue_f32<CPL>(p, acc, b, ty * TH + warp, tx * TILE_W, lane);
+    store_epilogue_tf32<NF>(p, tot[0], b, ty * TH + warp, tx * TILE_W, 0, lane);
     if (!more) break;
     meta(next, off, msk);
     tile = next;
   }
-}
-
-// A persistent kernel on as many blocks as the card holds at once (at most
-// one a tile), each walking tiles with a stride of the grid.
-template <typename T>
-int launch_persistent(void (*kernel)(DcnParamsT<T>), const DcnParamsT<T>& p, int threads,
-                      int smem, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         smem);
-  if (err != cudaSuccess) return (int)err;
-  int per_sm = 0, sms = 0, dev = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const int grid = min(p.tiles, per_sm * sms);
-  kernel<<<grid, threads, smem, stream>>>(p);
-  return (int)cudaGetLastError();
 }
 
 // The instance of design `design` (0 tile, 1 stream) for `rows` tile rows
@@ -884,25 +996,25 @@ void (*pick_nf(int design, int rows))(DcnParams) {
   return rows == 8 ? &dcn_stream_kernel<8, NF> : &dcn_stream_kernel<4, NF>;
 }
 
-// The float32 instance of design `design` for `rows` tile rows and
-// Cout16 = 8 * CPL.
-template <int CPL>
-void (*pick_cpl_f32(int design, int rows))(DcnF32Params) {
-  if (design == 0)
-    return rows == 16 ? &dcn_tile_f32_kernel<16, CPL> : &dcn_tile_f32_kernel<8, CPL>;
-  return &dcn_stream_f32_kernel<8, CPL>;
+// The float32 instance of design `design` (0 tile: 8 rows; 1 stream: 8 or
+// 4 rows) for Cout16 = 8 * NF. (16-row tiles, 16 warps of at most 128
+// registers, would spill past Cout16 = 16 with the tile's flushed sums.)
+template <int NF>
+void (*pick_nf_f32(int design, int rows))(DcnF32Params) {
+  if (design == 0) return &dcn_tile_tf32_kernel<8, NF>;
+  return rows == 8 ? &dcn_stream_tf32_kernel<8, NF> : &dcn_stream_tf32_kernel<4, NF>;
 }
 
-void (*pick_kernel_f32(int design, int rows, int cpl))(DcnF32Params) {
-  switch (cpl) {
-    case 2: return pick_cpl_f32<2>(design, rows);
-    case 4: return pick_cpl_f32<4>(design, rows);
-    case 6: return pick_cpl_f32<6>(design, rows);
-    case 8: return pick_cpl_f32<8>(design, rows);
-    case 10: return pick_cpl_f32<10>(design, rows);
-    case 12: return pick_cpl_f32<12>(design, rows);
-    case 14: return pick_cpl_f32<14>(design, rows);
-    default: return pick_cpl_f32<16>(design, rows);
+void (*pick_kernel_f32(int design, int rows, int nf))(DcnF32Params) {
+  switch (nf) {
+    case 2: return pick_nf_f32<2>(design, rows);
+    case 4: return pick_nf_f32<4>(design, rows);
+    case 6: return pick_nf_f32<6>(design, rows);
+    case 8: return pick_nf_f32<8>(design, rows);
+    case 10: return pick_nf_f32<10>(design, rows);
+    case 12: return pick_nf_f32<12>(design, rows);
+    case 14: return pick_nf_f32<14>(design, rows);
+    default: return pick_nf_f32<16>(design, rows);
   }
 }
 
@@ -969,38 +1081,38 @@ extern "C" int vfi_dcn_bounded_bf16(const void* x, const void* offset, const voi
   if (p.tiles == 0) return (int)cudaSuccess;
   const cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
-  return launch_persistent(pick_kernel(design, rows, cout16 / 8), p, rows * 32, smem,
-                           static_cast<cudaStream_t>(stream));
+  return launch_persistent(pick_kernel(design, rows, cout16 / 8), p, p.tiles, rows * 32,
+                           smem, static_cast<cudaStream_t>(stream));
 }
 
-// Launch one float32 bounded DCN layer (integer radius R >= 0, Cin % 4 == 0,
-// 1 <= Cout <= 128, `mask` null for weight 1) on the plan of
-// `dcn_plan(..., itemsize=4)`: design 0 ("tile": 16 or 8 rows, weights
-// resident, `chans` slab channels a pass, a multiple of 16) or 1 ("stream":
-// 8 rows, `chans` channels a chunk, a multiple of 4), one input buffer
-// of `x_bytes` with a pixel stride of `xu` 16-byte units, `smem` bytes of
-// dynamic shared memory. Returns the cudaError_t of the launch;
+// Launch one float32 bounded DCN layer (integer radius R >= 0, Cin % 8 == 0,
+// 1 <= Cout <= 128, `mask` null for weight 1; the weights packed [Cout16][9
+// * Cin]) on the plan of `dcn_plan(..., itemsize=4)`: design 0 ("tile": 16
+// or 8 rows, weights resident, `chans` slab channels a pass) or 1
+// ("stream": 8 or 4 rows, `chans` channels a chunk), `chans` a multiple of
+// 8. One input buffer of `x_bytes` with a pixel stride of `xu` 16-byte
+// units, `smem` bytes of dynamic shared memory. Returns the cudaError_t of the launch;
 // cudaErrorInvalidValue for arguments out of range, a plan whose regions
 // overrun `smem`, or offsets off 8-byte alignment.
 extern "C" int vfi_dcn_bounded_f32(const void* x, const void* offset, const void* mask,
                                    const void* w, const void* bias, void* out,
                                    int B, int H, int W, int Cin, int Cout, int R,
-                                   int design, int rows, int chans, int xu, int x_bytes,
-                                   int smem, int device, void* stream) {
-  if (Cin < 4 || Cin % 4 != 0 || Cout < 1 || Cout > MAX_COUT || R < 0 || B < 0 || H < 0 ||
-      W < 0 || smem < 0 || chans < 4 || chans % 4 != 0 || x_bytes % 128 != 0 ||
+                                   int design, int rows, int chans, int xu,
+                                   int x_bytes, int smem, int device, void* stream) {
+  if (Cin < 8 || Cin % 8 != 0 || Cout < 1 || Cout > MAX_COUT || R < 0 || B < 0 || H < 0 ||
+      W < 0 || smem < 0 || chans < 8 || chans % 8 != 0 || chans > Cin || x_bytes % 128 != 0 ||
       reinterpret_cast<uintptr_t>(offset) % 8 != 0)
     return (int)cudaErrorInvalidValue;
-  const int cin16 = pad16(Cin), cout16 = pad16(Cout);
-  if (chans > cin16 || (design != 0 && design != 1) ||
-      (design == 0 && ((rows != 16 && rows != 8) || chans % 16 != 0)) ||
-      (design == 1 && rows != 8))
+  const int cout16 = pad16(Cout);
+  if ((design != 0 && design != 1) ||
+      (design == 0 && (rows != 8 || Cin > F32_FLUSH_K)) ||
+      (design == 1 && rows != 8 && rows != 4) || chans > F32_FLUSH_K)
     return (int)cudaErrorInvalidValue;
   const long long tpx = (long long)(rows + 2 + 2 * R) * (TILE_W + 2 + 2 * R);
-  const long long s_bytes = 4LL * rows * chans * F_SP;
+  const long long s_bytes = 4LL * rows * TILE_W * (chans + F_PAD);
   // The resident weights (tile) or one of two weight slices (stream).
-  const long long w_bytes = design == 0 ? 4LL * NTAPS * cin16 * cout16 : 4LL * chans * cout16;
-  const int pieces = (chans < Cin ? chans : Cin) / 4;
+  const long long w_bytes = 4LL * cout16 * (design == 0 ? NTAPS * Cin + F_PAD : chans + F_PAD);
+  const int pieces = chans / 4;
   const int xu_tile = Cin / 4 + ((Cin / 4) % 2 == 0);
   if ((design == 0 ? xu != xu_tile : xu < pieces) || x_bytes < 16 * tpx * xu ||
       smem < (design == 0 ? 1 : 2) * w_bytes + x_bytes + s_bytes)
@@ -1012,14 +1124,14 @@ extern "C" int vfi_dcn_bounded_f32(const void* x, const void* offset, const void
   p.w = static_cast<const float*>(w);
   p.bias = static_cast<const float*>(bias);
   p.out = static_cast<float*>(out);
-  p.B = B; p.H = H; p.W = W; p.Cin = Cin; p.Cout = Cout; p.R = R; p.Cin16 = cin16;
-  p.xu = xu; p.chans = chans; p.nchunks = (cin16 + chans - 1) / chans; p.nbuf = 1;
+  p.B = B; p.H = H; p.W = W; p.Cin = Cin; p.Cout = Cout; p.R = R; p.Cin16 = pad16(Cin);
+  p.xu = xu; p.chans = chans; p.nchunks = (Cin + chans - 1) / chans; p.nbuf = 1;
   p.w_bytes = (int)w_bytes; p.x_bytes = x_bytes;
   p.tiles_x = (W + TILE_W - 1) / TILE_W; p.tiles_y = (H + rows - 1) / rows;
   p.tiles = B * p.tiles_x * p.tiles_y;
   if (p.tiles == 0) return (int)cudaSuccess;
   const cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
-  return launch_persistent(pick_kernel_f32(design, rows, cout16 / 8), p, rows * 32, smem,
-                           static_cast<cudaStream_t>(stream));
+  return launch_persistent(pick_kernel_f32(design, rows, cout16 / 8), p, p.tiles, rows * 32,
+                           smem, static_cast<cudaStream_t>(stream));
 }

@@ -52,10 +52,10 @@ SIGNATURES = {
     # x_bytes, smem_bytes (conv2d_plan), device, stream
     "vfi_conv2d_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                         _I, _I, _I, _I, _I, _P],
-    # x, w, bias, out, B, H, W, Cin, Cout, K, act, ck, smem_bytes
-    # (conv2d_plan, itemsize 4), device, stream
-    "vfi_conv2d_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                       _I, _P],
+    # as the bf16 entry, with flush before smem_bytes (conv2d_plan,
+    # itemsize 4)
+    "vfi_conv2d_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                       _I, _I, _I, _I, _I, _I, _P],
     # x, offset, mask, w, bias, out, B, H, W, Cin, Cout, R, design, rows,
     # chans, nbuf, xu, x_bytes, smem_bytes (dcn_plan), device, stream
     "vfi_dcn_bounded_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

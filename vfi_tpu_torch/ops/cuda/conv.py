@@ -19,17 +19,20 @@ PyTorch versions.
   of the packed weights (a chain of one layer always does: the DCN
   blocks' offset convs), "fused" one launch of the chain kernel (its
   bf16 instance, or its float32 one: FFMA, no rounding but float32's).
+  A float32 chain's packed weights are each layer's float32 `pack_conv2d`
+  block, whose rows the fused kernel copies a channel chunk at a time.
   `route` overrides the plan's pick, for tests and timing.
 - `conv2d` replaces `conv2d_pallas` (kernel `_conv_kernel`, variants
   "im2col" and "direct") and `conv2d_pallas_v2` (`_conv_kernel_v2`,
   variant "v2"): one stride-1 square odd-k conv, zeros padding k // 2, an
   optional bias and an optional fused ReLU, NHWC, float32 accumulation and
   one rounding of the output. On the card: bf16 or float32 (the kernel's
-  float32 instance: FFMA, no rounding but float32's), contiguous, k <= 9,
-  Cout <= 128, any Cin, on the plan of `conv2d_plan`.
+  float32 instance: 3xTF32 on the tensor cores, float32-accurate products
+  summed in float32), contiguous, k <= 9, Cout <= 128, any Cin, on the
+  plan of `conv2d_plan`.
 
-Weights are packed in the input's dtype (`pack_conv2d(..., dtype=)`);
-packed weights of another dtype raise ValueError. Every launch key in
+Weights are packed in the input's dtype (`pack_conv2d(..., dtype=)`), in
+that instance's layout; packed weights of another dtype raise ValueError. Every launch key in
 `launches_by_shape` / `launches_by_plan` ends with the instance's tag,
 "bf16" or "f32" (`KERNEL_DTYPES`).
 
@@ -66,9 +69,17 @@ TILE_H, TILE_W, ROW_PAD = 16, 16, 8
 H100_SMEM_PER_BLOCK = 232448
 # The kernels' element types: each instance's tag in the launch keys.
 KERNEL_DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
-# The float32 conv instance (`csrc/conv2d.cu` conv2d_f32_kernel): the
-# channel chunks it tries, widest first.
-F32_CHUNKS = (16, 8, 4, 2, 1)
+# The float32 conv instance (`csrc/conv2d.cu` conv2d_f32_kernel, 3xTF32
+# on mma.sync m16n8k8): the channel chunks it tries below the whole input,
+# widest first (multiples of 8: one k-step), and the padding of its
+# shared-memory rows in floats (F_PAD there).
+F32_CHUNKS = (64, 32, 16, 8)
+F32_ROW_PAD = 4
+# Past this many columns of K (k * k * Cin8) the float32 conv's plan
+# flushes each step's sums into float32 registers (`csrc/conv2d.cu`): the
+# tensor cores' accumulation truncates, and over a longer K its drift
+# nears 2^-14 of the output.
+F32_FLUSH_K = 1152
 
 
 def kernel_dtype(name: str, dtype: torch.dtype) -> str:
@@ -79,13 +90,6 @@ def kernel_dtype(name: str, dtype: torch.dtype) -> str:
         raise TypeError(f"{name} kernel takes bfloat16 or float32, got "
                         f"{dtype}")
     return tag
-
-
-def f32_pitch(k: int) -> int:
-    """The float32 conv's input-stage row pitch in floats (FS in
-    csrc/conv2d.cu): at least 16 + k - 1 columns, a multiple of 4 whose
-    quarter is odd."""
-    return 20 if k <= 5 else 28
 
 
 def conv_chain_plain(x: torch.Tensor, weights: Sequence[torch.Tensor],
@@ -112,8 +116,21 @@ def _pad16(c: int) -> int:
     return -(-c // 16) * 16
 
 
+def _pad8(c: int) -> int:
+    return -(-c // 8) * 8
+
+
 def _round128(n: int) -> int:
     return -(-n // 128) * 128
+
+
+def packed_shape(cin: int, cout: int, k: int, dtype: torch.dtype) -> tuple:
+    """The shape of `pack_conv2d`'s weights for a Cin -> Cout k x k conv in
+    `dtype`: bf16 [k * k * Cin16][Cout16] (K rows), float32 [Cout16][k * k
+    * Cin8] (K contiguous, the 3xTF32 core's B operand)."""
+    if dtype == torch.float32:
+        return (_pad16(cout), k * k * _pad8(cin))
+    return (k * k * _pad16(cin), _pad16(cout))
 
 
 @functools.lru_cache(maxsize=None)
@@ -169,31 +186,65 @@ def conv2d_plan(cin: int, cout: int, k: int,
 
 
 def _conv2d_plan_f32(cin: int, cout: int, k: int, limit: int) -> dict:
-    """The float32 instance's plan: 16 x 16 output tiles, the input and
-    weights streamed in chunks of `ck` channels through two stages, each
-    an input tile [ck][16 + k - 1][f32_pitch(k)] and the chunk's weights
-    [k * k][ck][Cout16], float32. It takes the widest chunk of
-    F32_CHUNKS (no wider than Cin) whose two stages fit half of `limit`
-    (two blocks an SM), else the widest that fits `limit`. At the contract's
-    corner (k = 9, Cout = 128) one channel a chunk takes 88,320 bytes, so
-    on an H100 every shape has a plan."""
-    cout16 = _pad16(cout)
+    """The float32 instance's plan (`conv2d_f32_kernel`, 3xTF32 on the
+    tensor cores): output tiles of `tile` (16 x 16 up to Cout16 = 64, else
+    8 x 16), two input-tile buffers of (rows + k - 1) x (16 + k - 1) pixels
+    x (`ck` + 4) floats, and the weights ([Cout16][K] rows of `w_pitch`
+    floats) either resident (the whole k * k * Cin8 columns, copied once a
+    block) or streamed in two slots of `taps_per_group` taps x `ck`
+    columns. It takes the resident weights with the widest chunk of [Cin8]
+    + F32_CHUNKS that fits `limit`, else the streamed (chunk, tap group)
+    with the fewest steps a tile (chunks x groups; the wider chunk on a
+    tie), each group as many taps as fit, evened over the groups. Past
+    F32_FLUSH_K columns of K it flushes (`flush`) on tiles of half the
+    rows, each step (a chunk's taps, resident; a tap group, streamed) then
+    spanning at most F32_FLUSH_K columns. The FFMA design this replaced
+    was slower at every float32 shape a path runs (device ms per launch,
+    FFMA / 3xTF32, medians of two turns each of `tools/conv_turns.py` on
+    an H100 at 700 W): 720p 64->64 1.996
+    / 1.076, 128->64 3.857 / 2.240, 64->2 0.889 / 0.480, offset 64->27
+    1.406 / 0.693, 64->32 1.239 / 0.663, 32->3 0.478 / 0.240; 360x640
+    64->64 0.531 / 0.279, 128->64 1.001 / 0.563, 64->2 0.258 / 0.135,
+    64->27 0.430 / 0.188."""
+    cin8, cout16, taps = _pad8(cin), _pad16(cout), k * k
+    flush = taps * cin8 > F32_FLUSH_K
+    rows = (TILE_H if cout16 <= 64 else TILE_H // 2) // (2 if flush else 1)
+    tile_px = (rows + k - 1) * (TILE_W + k - 1)
+    cks = [cin8] + [c for c in F32_CHUNKS if c < cin8]
+    cols = F32_FLUSH_K if flush else taps * cin8   # a step's columns, most
 
-    def plan(ck):
-        x_bytes = 4 * ck * (TILE_H + k - 1) * f32_pitch(k)
-        w_bytes = 4 * k * k * ck * cout16
-        return {"tile": f"{TILE_H}x{TILE_W}", "ck": ck,
-                "chunks": -(-cin // ck), "stages": 2, "x_bytes": x_bytes,
-                "w_bytes": w_bytes, "smem_bytes": 2 * (x_bytes + w_bytes)}
+    def x_bytes(ck):
+        return _round128(tile_px * (ck + F32_ROW_PAD) * 4)
 
-    plans = [plan(ck) for ck in F32_CHUNKS if ck <= cin or ck == 1]
-    for cap in (limit // 2, limit):
-        for p in plans:
-            if p["smem_bytes"] <= cap:
-                return p
-    raise ValueError(f"conv2d kernel (float32): no plan for Cin={cin}, "
-                     f"Cout={cout}, k={k} fits {limit} bytes of shared "
-                     f"memory per block")
+    def plan(ck, tg, resident):
+        w_pitch = (taps * cin8 if resident else tg * ck) + F32_ROW_PAD
+        w_bytes = (1 if resident else 2) * cout16 * w_pitch * 4
+        return {"core": "tf32x3", "flush": flush,
+                "tile": f"{rows}x{TILE_W}", "ck": ck,
+                "chunks": -(-cin8 // ck), "resident": resident,
+                "taps_per_group": tg, "groups": -(-taps // tg),
+                "x_bytes": x_bytes(ck), "w_pitch": w_pitch,
+                "smem_bytes": 2 * x_bytes(ck) + w_bytes}
+
+    for ck in cks:
+        p = plan(ck, taps, True)
+        if p["smem_bytes"] <= limit and taps * ck <= cols:
+            return p
+    best = None
+    for ck in cks:
+        free = limit - 2 * x_bytes(ck)
+        fit = min(taps, cols // ck,
+                  (free // (2 * cout16 * 4) - F32_ROW_PAD) // ck)
+        if fit >= 1:
+            p = plan(ck, -(-taps // -(-taps // fit)), False)
+            if best is None or (p["chunks"] * p["groups"]
+                                < best["chunks"] * best["groups"]):
+                best = p
+    if best is None:
+        raise ValueError(f"conv2d kernel (float32): no plan for Cin={cin}, "
+                         f"Cout={cout}, k={k} fits {limit} bytes of shared "
+                         f"memory per block")
+    return best
 
 
 @functools.lru_cache(maxsize=None)
@@ -205,23 +256,18 @@ def _smem_limit(index: int) -> int:
 def _launch_conv2d(xp: torch.Tensor, wpk: torch.Tensor, bpk: torch.Tensor,
                    out: torch.Tensor, k: int, act: bool, what: str) -> None:
     """One launch of the conv kernel's instance for xp's dtype: xp (B, H,
-    W, Cin % 8 == 0) bf16 or float32, wpk [k*k*Cin16][Cout16] and bpk
+    W, Cin % 8 == 0) bf16 or float32, wpk (`packed_shape`) and bpk
     [Cout16] as `pack_conv2d` makes them in that dtype, into `out` (B, H,
     W, Cout), on the plan of `conv2d_plan`."""
     (b, h, w, cin), cout, dev = xp.shape, out.shape[-1], xp.device
     plan = conv2d_plan(cin, cout, k, _smem_limit(dev.index),
                        xp.element_size())
-    ptrs = (xp.data_ptr(), wpk.data_ptr(), bpk.data_ptr(), out.data_ptr(),
-            b, h, w, cin, cout, k, int(act), plan["ck"])
-    if xp.dtype == torch.float32:
-        rc = build.entry("vfi_conv2d_f32")(
-            *ptrs, plan["smem_bytes"], dev.index,
-            build.current_stream(dev.index))
-    else:
-        rc = build.entry("vfi_conv2d_bf16")(
-            *ptrs, 0 if plan["resident"] else plan["taps_per_group"],
-            plan["x_bytes"], plan["smem_bytes"], dev.index,
-            build.current_stream(dev.index))
+    rc = build.entry(f"vfi_conv2d_{KERNEL_DTYPES[xp.dtype]}")(
+        xp.data_ptr(), wpk.data_ptr(), bpk.data_ptr(), out.data_ptr(),
+        b, h, w, cin, cout, k, int(act), plan["ck"],
+        0 if plan["resident"] else plan["taps_per_group"], plan["x_bytes"],
+        *((int(plan["flush"]),) if xp.dtype == torch.float32 else ()),
+        plan["smem_bytes"], dev.index, build.current_stream(dev.index))
     if rc:
         build.check(rc, what)
 
@@ -239,38 +285,42 @@ def pack_conv2d(weight: torch.Tensor, bias: Optional[torch.Tensor],
                 dtype: torch.dtype = torch.bfloat16) -> tuple:
     """The conv and DCN kernels' weight layout for the instance of
     `dtype` (bf16 or float32, the input's): OIHW (Cout, Cin, kh, kw) ->
-    `dtype` [kh * kw * Cin16][Cout16] (tap-major, t = kw * i + j; channels
-    padded to multiples of 16 with zeros), bias -> f32 [Cout16] (its
-    values rounded to `dtype`, zeros for None and the padding). A module
-    whose weights stay fixed packs them once and passes the result as
-    `packed=`."""
+    bf16 [kh * kw * Cin16][Cout16] (K rows, tap-major, t = kw * i + j;
+    channels padded to multiples of 16 with zeros), the B operand of
+    ldmatrix.trans; float32 [Cout16][kh * kw * Cin8] (K contiguous, column
+    t * Cin8 + c; Cin padded to 8, Cout to 16 with zeros), the B operand of
+    the 3xTF32 core. Bias -> f32 [Cout16] (its values rounded to `dtype`,
+    zeros for None and the padding). A module whose weights stay fixed
+    packs them once and passes the result as `packed=`."""
     kernel_dtype("pack_conv2d", dtype)
     cout, cin, kh, kw = weight.shape
-    cin16, cout16 = _pad16(cin), _pad16(cout)
-    dev = weight.device
-    wpk = torch.zeros(kh * kw, cin16, cout16, dtype=dtype, device=dev)
-    wpk[:, :cin, :cout] = weight.detach().to(dtype).permute(
-        2, 3, 1, 0).reshape(kh * kw, cin, cout)
+    cout16, dev = _pad16(cout), weight.device
+    taps = weight.detach().to(dtype).permute(2, 3, 1, 0).reshape(
+        kh * kw, cin, cout)
+    if dtype == torch.float32:
+        wpk = torch.zeros(cout16, kh * kw, _pad8(cin), dtype=dtype,
+                          device=dev)
+        wpk[:cout, :, :cin] = taps.permute(2, 0, 1)
+    else:
+        wpk = torch.zeros(kh * kw, _pad16(cin), cout16, dtype=dtype,
+                          device=dev)
+        wpk[:, :cin, :cout] = taps
     bpk = torch.zeros(cout16, dtype=torch.float32, device=dev)
     if bias is not None:
         bpk[:cout] = bias.detach().to(dtype).float()
-    return wpk.reshape(kh * kw * cin16, cout16), bpk
+    return wpk.reshape(packed_shape(cin, cout, kh, dtype)), bpk
 
 
 def pack_conv_chain(weights: Sequence[torch.Tensor],
                     biases: Sequence[Optional[torch.Tensor]],
                     dtype: torch.dtype = torch.bfloat16) -> tuple:
-    """The chain kernel's weight layout: every layer's `pack_conv2d`
-    block, [9][cin_p][cout_p] in `dtype`, concatenated into one buffer, and
-    its [cout_p] f32 biases into another. A module whose weights stay fixed
+    """The chain kernel's weight layout: every layer's `pack_conv2d` block
+    in `dtype` (`packed_shape`), concatenated into one buffer, and its
+    [cout_p] f32 biases into another. A module whose weights stay fixed
     packs them once and passes the result as `conv_chain(..., packed=)`."""
     packs = [pack_conv2d(w, b, dtype) for w, b in zip(weights, biases)]
     return (torch.cat([w.reshape(-1) for w, _ in packs]),
             torch.cat([b for _, b in packs]))
-
-
-def _pad8(c: int) -> int:
-    return -(-c // 8) * 8
 
 
 # The fused chain kernel (`csrc/conv_chain.cu`): output tiles it may take,
@@ -414,14 +464,14 @@ def chain_plan(chans: tuple, acts: tuple, b: int, h: int, w: int,
     ms). A fused tile recomputes its halo (1.56x the work for three layers
     on 16 x 16 outputs) and re-reads every layer's weights a tile; the
     layers pay one device-memory round trip of each intermediate, which
-    at these widths costs less. In float32 too: medians of four turns of
-    `tools/conv_turns.py` on an H100 (700 W), fused / layers / cuDNN
-    float32 layer by layer, 720p feat 9.278 / 5.979 / 7.060 ms, motion
-    17.389 / 6.736 / 7.809, rec 6.293 / 3.698 / 4.728; 360x640 feat
-    2.362 / 1.547 / 2.000, motion 4.404 / 1.752 / 2.176: fusing saves
-    the intermediates' round trips, which cost the FFMA-bound layers
-    little, and pays the halo's recompute (1.43x the work on 8 x 16
-    tiles, 2.08x for motion on 8 x 8) with a core no nearer its bound.
+    at these widths costs less. In float32 too: medians of two turns each
+    of `tools/conv_turns.py` on an H100 (700 W), fused (FFMA) / layers
+    (the 3xTF32 conv) / cuDNN float32 layer by layer, 720p feat 8.989 /
+    3.133 / 7.030 ms, motion 17.621 / 3.712 / 7.776, rec 6.230 / 1.922 /
+    4.722; 360x640 feat 2.309 / 0.792 / 1.999, motion 4.515 / 0.942 /
+    2.173: the fused kernel pays the halo's recompute (1.43x the work on 8
+    x 16 tiles, 2.08x for motion on 8 x 8) on a core that runs its
+    products at the float32 rate, the layers theirs on the tensor cores.
     `route="fused"` still runs the kernel."""
     L = len(chans) - 1
     if not 1 <= L <= MAX_LAYERS:
@@ -444,13 +494,14 @@ def chain_plan(chans: tuple, acts: tuple, b: int, h: int, w: int,
 def chain_layer_packs(wpk: torch.Tensor, bpk: torch.Tensor,
                       chans: Sequence[int]) -> list:
     """The "layers" route's weights: views of `pack_conv_chain`'s buffers,
-    one (wpk [9 * Cin16][Cout16], bpk [Cout16]) per layer, each exactly
-    that layer's `pack_conv2d` block."""
+    one (wpk `packed_shape`, bpk [Cout16]) per layer, each exactly that
+    layer's `pack_conv2d` block in wpk's dtype."""
     packs, wo, bo = [], 0, 0
-    for ci, co in zip(map(_pad16, chans[:-1]), map(_pad16, chans[1:])):
-        packs.append((wpk[wo:wo + 9 * ci * co].view(9 * ci, co),
-                      bpk[bo:bo + co]))
-        wo, bo = wo + 9 * ci * co, bo + co
+    for ci, co in zip(chans[:-1], chans[1:]):
+        shape = packed_shape(ci, co, 3, wpk.dtype)
+        n = shape[0] * shape[1]
+        packs.append((wpk[wo:wo + n].view(shape), bpk[bo:bo + _pad16(co)]))
+        wo, bo = wo + n, bo + _pad16(co)
     return packs
 
 
@@ -518,8 +569,9 @@ def conv_chain(x: torch.Tensor, weights: Sequence[torch.Tensor],
     if any(w.device != x.device for w in weights):
         raise ValueError("weights must be on the input's device")
     wpk, bpk = packed or pack_conv_chain(weights, biases, x.dtype)
-    n_w = sum(9 * _pad16(ci) * _pad16(co) for ci, co in
-              zip(chans[:-1], chans[1:]))
+    n_w = sum(9 * _pad8(ci) * _pad16(co) if x.dtype == torch.float32
+              else 9 * _pad16(ci) * _pad16(co)
+              for ci, co in zip(chans[:-1], chans[1:]))
     if wpk.numel() != n_w or wpk.device != x.device or wpk.dtype != x.dtype:
         raise ValueError("packed weights do not match this chain's "
                          "channels, device or dtype")
@@ -647,7 +699,7 @@ def conv2d(x: torch.Tensor, weight: torch.Tensor,
                                      and bias.device != x.device):
         raise ValueError("weight and bias must be on the input's device")
     wpk, bpk = packed or pack_conv2d(weight, bias, x.dtype)
-    if (tuple(wpk.shape) != (k * k * _pad16(cin), _pad16(cout))
+    if (tuple(wpk.shape) != packed_shape(cin, cout, k, x.dtype)
             or wpk.device != x.device or wpk.dtype != x.dtype):
         raise ValueError("packed weights do not match this conv's shape, "
                          "device or dtype")

@@ -20,7 +20,8 @@
 
 A CPU tensor runs the plain version; a CUDA tensor launches the kernel
 (bf16 or float32, every operand of one dtype, contiguous; the float32
-instances compute the plain version's float32 arithmetic) or raises.
+instances sample and blend in the plain version's float32 arithmetic, the
+DCN's GEMM in 3xTF32 on the tensor cores) or raises.
 Packed DCN weights are made in the input's dtype (`pack_dcn(..., dtype=)`);
 another dtype raises ValueError. Every launch key in `launches_by_shape`
 ends with the instance's tag, "bf16" or "f32". On the card the result
@@ -47,10 +48,11 @@ from typing import Optional
 import torch
 
 from vfi_tpu_torch.ops.cuda import build
-from vfi_tpu_torch.ops.cuda.conv import (H100_SMEM_PER_BLOCK, KERNEL_DTYPES,
-                                         ROW_PAD, _pad16, _round128,
+from vfi_tpu_torch.ops.cuda.conv import (F32_FLUSH_K, H100_SMEM_PER_BLOCK,
+                                         KERNEL_DTYPES, ROW_PAD, _pad8,
+                                         _pad16, _round128,
                                          _smem_limit, pack_conv2d,
-                                         pad_channels8)
+                                         packed_shape, pad_channels8)
 from vfi_tpu_torch.ops.cuda.grad import ThroughPlain, needs_grad
 from vfi_tpu_torch.ops.deform_conv_shifts import (deform_conv2d_shifts,
                                                   deform_conv2d_shifts_bwd)
@@ -73,15 +75,17 @@ pack_dcn = pack_conv2d
 # csrc/dcn_bounded.cu).
 DCN_TILE_PLANS, DCN_TILE_W = ((16, 2), (16, 1), (8, 1)), 16
 DCN_STREAM_ROWS = (8, 4)
-# The float32 instances: the tile design with one input buffer; the stream
-# design on 8 x 16 tiles, its chunks also 8 and 4 channels wide (a 16-byte
-# piece holds 4 float32 channels: with 4-channel chunks an 8 x 16 tile fits
-# up to R = 35, so no 4 x 16 instance); slab rows of 16 pixels + 4 floats,
-# channel-major (F_SP in csrc/dcn_bounded.cu); weight rows unpadded.
-DCN_TILE_PLANS_F32 = ((16, 1), (8, 1))
-DCN_STREAM_ROWS_F32 = (8,)
-DCN_F32_CHUNKS = (8, 4)
-DCN_F32_SLAB_PITCH = 20
+# The float32 instances (3xTF32 on the tensor cores): the tile design on
+# 8 x 16 tiles with one input buffer (16 x 16, 16 warps of at most 128
+# registers, would spill past Cout16 = 16 with its flushed sums); the
+# stream design on 8 x 16, then 4 x 16 tiles, in chunks of multiples of 8
+# channels (one k-step); slab and weight rows padded by DCN_F32_ROW_PAD
+# floats (F_PAD in csrc/dcn_bounded.cu). Both flush their sums into float32
+# registers every tap (tile) or step (stream), so the plan keeps the tile
+# design's Cin8 and the stream design's chunk within F32_FLUSH_K.
+DCN_TILE_ROWS_F32 = 8
+DCN_STREAM_ROWS_F32 = (8, 4)
+DCN_F32_ROW_PAD = 4
 
 
 def deform_conv2d_bounded_plain(x, offset, mask, weight, bias=None,
@@ -176,45 +180,52 @@ def _dcn_xu(cin8: int, itemsize: int = 2) -> int:
     return pieces + (pieces % 2 == 0)
 
 
-def _slab_bytes(rows: int, chans: int, itemsize: int) -> int:
+def _slab_bytes(rows: int, chans: int, itemsize: int = 2) -> int:
     """A block's sample slabs: one a warp of 16 pixels x `chans`
-    channels, pixel-major with rows padded by ROW_PAD (bf16), or
-    channel-major in rows of DCN_F32_SLAB_PITCH floats (float32)."""
+    channels, pixel-major, rows padded by ROW_PAD bf16 or DCN_F32_ROW_PAD
+    floats."""
+    pad = ROW_PAD if itemsize == 2 else DCN_F32_ROW_PAD
+    return rows * DCN_TILE_W * (chans + pad) * itemsize
+
+
+def _slice_bytes(cout16: int, chans: int, itemsize: int = 2) -> int:
+    """One streamed weight slice of `chans` input channels: bf16
+    [chans][Cout16 + 8], float32 [Cout16][chans + 4] (K contiguous)."""
     if itemsize == 2:
-        return rows * DCN_TILE_W * (chans + ROW_PAD) * 2
-    return rows * chans * DCN_F32_SLAB_PITCH * 4
+        return chans * (cout16 + ROW_PAD) * 2
+    return cout16 * (chans + DCN_F32_ROW_PAD) * 4
 
 
-def _weight_row_bytes(cout16: int, itemsize: int) -> int:
-    """One packed weight row in shared memory: bf16 rows padded by
-    ROW_PAD (ldmatrix's banks), float32 rows unpadded (read whole)."""
-    return (cout16 + ROW_PAD) * 2 if itemsize == 2 else cout16 * 4
-
-
-def _dcn_chunks(cin16: int) -> list:
-    """The stream design's chunk widths, widest first: Cin16 split into
-    n = 1, 2, ... chunks of one multiple of 16 (the last may be narrower)."""
-    return sorted({_pad16(-(-cin16 // n)) for n in range(1, cin16 // 16 + 1)},
-                  reverse=True)
+def _dcn_chunks(cin: int, unit: int = 16) -> list:
+    """The stream design's chunk widths, widest first: `cin` (a multiple
+    of `unit`) split into n = 1, 2, ... chunks of one multiple of `unit`
+    (the last may be narrower)."""
+    widths = set()
+    for n in range(1, cin // unit + 1):
+        per = -(-cin // n)
+        widths.add(-(-per // unit) * unit)
+    return sorted(widths, reverse=True)
 
 
 def _stream_plan(cin: int, cout: int, R: int, limit: int,
                  itemsize: int = 2) -> Optional[dict]:
     """The stream design's plan (`csrc/dcn_bounded.cu`), or None where no
-    tile holds its narrowest chunk (16 channels in bf16, 4 in float32):
-    output tiles of `rows` x 16 pixels (`DCN_STREAM_ROWS`; in float32
-    `DCN_STREAM_ROWS_F32`), two weight slices of `chans` rows
-    (`_weight_row_bytes`), one input-tile buffer of (rows + 2 + 2R) x
-    (18 + 2R) pixels x `xu` 16-byte units, and one slab a warp of 16
-    pixels x `chans` channels (`_slab_bytes`). It takes the larger tile,
-    then the widest chunk, with the odd pixel stride of the tile design
-    (`_dcn_xu` of the chunk's pieces) and, where none fits, with the
-    pieces unpadded."""
-    cin8 = -(-cin // 8) * 8
-    cin16, cout16 = _pad16(cin), _pad16(cout)
+    tile holds its narrowest chunk: output tiles of `rows` x 16 pixels
+    (`DCN_STREAM_ROWS`; in float32 `DCN_STREAM_ROWS_F32`), two weight
+    slices of `chans` channels (`_slice_bytes`), one input-tile buffer of
+    (rows + 2 + 2R) x (18 + 2R) pixels x `xu` 16-byte units, and one slab a
+    warp of 16 pixels x `chans` channels (`_slab_bytes`). Chunks: Cin16
+    split into equal multiples of 16 (bf16), Cin8 into equal multiples of 8
+    (float32; `_dcn_chunks`, at most F32_FLUSH_K channels: a step's sums
+    are flushed). It takes the larger tile, then the widest chunk, with the
+    odd pixel stride of the tile design (`_dcn_xu` of the chunk's pieces)
+    and, where none fits, with the pieces unpadded."""
+    cin8, cout16 = _pad8(cin), _pad16(cout)
     per = 16 // itemsize                       # channels a 16-byte piece
-    chunks = _dcn_chunks(cin16) + list(DCN_F32_CHUNKS if itemsize == 4
-                                       else ())
+    width = _pad16(cin) if itemsize == 2 else cin8
+    chunks = _dcn_chunks(width, 16 if itemsize == 2 else 8)
+    if itemsize == 4:
+        chunks = [c for c in chunks if c <= F32_FLUSH_K]
     for padded in (True, False):
         for rows in (DCN_STREAM_ROWS if itemsize == 2
                      else DCN_STREAM_ROWS_F32):
@@ -223,16 +234,46 @@ def _stream_plan(cin: int, cout: int, R: int, limit: int,
                 pieces = min(chans, cin8) // per
                 xu = _dcn_xu(pieces * per, itemsize) if padded else pieces
                 x_bytes = _round128(tpx * xu * 16)
-                w_bytes = 2 * chans * _weight_row_bytes(cout16, itemsize)
+                w_bytes = 2 * _slice_bytes(cout16, chans, itemsize)
                 s_bytes = _slab_bytes(rows, chans, itemsize)
                 smem = w_bytes + x_bytes + s_bytes
                 if smem <= limit:
-                    return {"design": "stream",
+                    plan = {"design": "stream",
                             "tile": f"{rows}x{DCN_TILE_W}", "rows": rows,
                             "nbuf": 1, "chans": chans,
-                            "chunks": -(-cin16 // chans), "xu": xu,
+                            "chunks": -(-width // chans), "xu": xu,
                             "x_bytes": x_bytes, "w_bytes": w_bytes,
                             "s_bytes": s_bytes, "smem_bytes": smem}
+                    return plan if itemsize == 2 else {**plan,
+                                                       "core": "tf32x3"}
+    return None
+
+
+def _tile_plan_f32(cin: int, cout: int, R: int, limit: int
+                   ) -> Optional[dict]:
+    """The float32 tile design's plan (tensor cores), or None: the weights
+    [Cout16][9 * Cin8 + 4] floats resident, one input buffer, one slab a
+    warp of 16 pixels x (`chans` + 4) floats, on 8 x 16 tiles with the
+    widest slab (a multiple of 8 channels up to Cin8) that fits. None past
+    Cin8 = F32_FLUSH_K: the kernel flushes its sums once a tap."""
+    cin8, cout16 = _pad8(cin), _pad16(cout)
+    if cin8 > F32_FLUSH_K:
+        return None
+    rows, xu = DCN_TILE_ROWS_F32, _dcn_xu(cin8, 4)
+    w_bytes = 4 * cout16 * (9 * cin8 + DCN_F32_ROW_PAD)
+    tpx = (rows + 2 + 2 * R) * (DCN_TILE_W + 2 + 2 * R)
+    x_bytes = _round128(tpx * xu * 16)
+    free = limit - w_bytes - x_bytes
+    for chans in range(cin8, 0, -8):
+        s_bytes = _slab_bytes(rows, chans, 4)
+        if s_bytes <= free:
+            return {"design": "tile", "core": "tf32x3",
+                    "tile": f"{rows}x{DCN_TILE_W}", "rows": rows,
+                    "nbuf": 1, "chans": chans,
+                    "passes": -(-cin8 // chans), "xu": xu,
+                    "x_bytes": x_bytes, "w_bytes": w_bytes,
+                    "s_bytes": s_bytes,
+                    "smem_bytes": w_bytes + x_bytes + s_bytes}
     return None
 
 
@@ -256,14 +297,23 @@ def dcn_plan(cin: int, cout: int, max_offset: int,
     in channel chunks. On an H100 the tile design holds C = 64
     up to R = 8 and C = 67 up to R = 6; the stream design runs C = 64 from
     R = 9, C = 67 from R = 7 and C = 128 at every R.
-    Float32 (FFMA, no tensor cores): the same designs and search, with one
-    input buffer on the tile design (`DCN_TILE_PLANS_F32`), 16-byte pieces
-    of 4 channels (the input doubles in bytes), float32 slabs and weight
-    rows (`_slab_bytes`, `_weight_row_bytes`) and stream chunks down to 4
-    channels. On an H100 C = 64 runs the tile design up to R = 1 (at R = 1
-    on 8 x 16 tiles with 16-channel slabs), C = 67 and C = 128 the stream
-    design at every R; R <= 35 fits at any Cin <= 128 and Cout <= 128, as
-    in bf16.
+    Float32 (`_tile_plan_f32`, then `_stream_plan`): the same designs on
+    3xTF32 (plan key "core": "tf32x3"), the weights packed [Cout16][9 *
+    Cin8] (K contiguous), slabs of multiples of 8 channels, sums flushed
+    into float32 registers every tap (tile) or step (stream); the tile
+    design with one input buffer on 8 x 16 tiles up to Cin8 = F32_FLUSH_K,
+    its warps in pairs; the stream design on 8 x 16, then 4 x 16, its
+    chunks at most F32_FLUSH_K channels. On an H100 C = 64 runs
+    the tile design up to R = 1 (on 8 x 16 tiles with 32-channel slab
+    passes), C = 67 and C = 128 the stream design at every R; R <= 35 fits
+    at any Cin <= 128 and Cout <= 128, as in bf16 (R = 35 on 4 x 16 tiles
+    in 8-channel chunks; `tests/test_torch_f32.py`). The FFMA designs they
+    replaced were slower at every float32 shape a path runs (device ms per
+    launch, FFMA / 3xTF32, medians of two turns each of
+    `tools/conv_turns.py` on an H100 at 700 W): C = 64, R = 1 at 720p 2.988
+    / 1.785 (the stream design there: 2.031), 4x480x640 3.959 / 2.375,
+    2x320x320 0.724 / 0.442; at 480x640 C = 67, R = 2 1.522 / 1.095, R = 8
+    1.788 / 1.280, C = 128, R = 4 3.249 / 2.235.
     Raises ValueError past Cout 128 or R < 0, or where nothing fits (on an
     H100 R <= 35 fits at any Cin <= 128 and Cout <= 128)."""
     R = int(max_offset)
@@ -274,17 +324,17 @@ def dcn_plan(cin: int, cout: int, max_offset: int,
     if itemsize not in (2, 4):
         raise ValueError(f"deform_conv2d_bounded kernel has bf16 and float32 "
                          f"instances, got itemsize {itemsize}")
-    cin8 = -(-cin // 8) * 8
+    cin8 = _pad8(cin)
     cin16, cout16 = _pad16(cin), _pad16(cout)
     xu = _dcn_xu(cin8, itemsize)
-    w_bytes = 9 * cin16 * _weight_row_bytes(cout16, itemsize)
-    for rows, nbuf in (DCN_TILE_PLANS if itemsize == 2
-                       else DCN_TILE_PLANS_F32):
+    w_bytes = 9 * cin16 * (cout16 + ROW_PAD) * 2
+    plan = _tile_plan_f32(cin, cout, R, limit) if itemsize == 4 else None
+    for rows, nbuf in (DCN_TILE_PLANS if itemsize == 2 else ()):
         tpx = (rows + 2 + 2 * R) * (DCN_TILE_W + 2 + 2 * R)
         x_bytes = _round128(tpx * xu * 16)
         free = limit - w_bytes - nbuf * x_bytes
         for chans in range(cin16, 0, -16):
-            s_bytes = _slab_bytes(rows, chans, itemsize)
+            s_bytes = _slab_bytes(rows, chans)
             if s_bytes <= free:
                 return {"design": "tile",
                         "tile": f"{rows}x{DCN_TILE_W}", "rows": rows,
@@ -293,7 +343,8 @@ def dcn_plan(cin: int, cout: int, max_offset: int,
                         "x_bytes": x_bytes, "w_bytes": w_bytes,
                         "s_bytes": s_bytes,
                         "smem_bytes": w_bytes + nbuf * x_bytes + s_bytes}
-    plan = _stream_plan(cin, cout, R, limit, itemsize)
+    if plan is None:
+        plan = _stream_plan(cin, cout, R, limit, itemsize)
     if plan is None:
         raise ValueError(
             f"deform_conv2d_bounded kernel: no plan for C={cin}->{cout} at "
@@ -313,13 +364,15 @@ def _dcn_launch(x, offset, mask, wpk, bpk, cout, R, plan, dev):
     args = (xp.data_ptr(), offset.data_ptr(),
             None if mask is None else mask.data_ptr(), wpk.data_ptr(),
             bpk.data_ptr(), out.data_ptr(), b, h, w, xp.shape[-1], cout, R,
-            0 if plan["design"] == "tile" else 1, plan["rows"], plan["chans"])
+            0 if plan["design"] == "tile" else 1)
     tail = (plan["xu"], plan["x_bytes"], plan["smem_bytes"], dev,
             build.current_stream(dev))
     if x.dtype == torch.float32:
-        rc = build.entry("vfi_dcn_bounded_f32")(*args, *tail)
+        rc = build.entry("vfi_dcn_bounded_f32")(
+            *args, plan["rows"], plan["chans"], *tail)
     else:
-        rc = build.entry("vfi_dcn_bounded_bf16")(*args, plan["nbuf"], *tail)
+        rc = build.entry("vfi_dcn_bounded_bf16")(
+            *args, plan["rows"], plan["chans"], plan["nbuf"], *tail)
     if rc:
         build.check(rc, "deform_conv2d_bounded")
     deform_conv2d_bounded.launches += 1
@@ -377,7 +430,7 @@ def deform_conv2d_bounded(x: torch.Tensor, offset: torch.Tensor,
     # raises where none fits
     plan = dcn_plan(cin, cout, R, _smem_limit(dev), x.element_size())
     wpk, bpk = packed or pack_dcn(weight, bias, x.dtype)
-    if (tuple(wpk.shape) != (9 * _pad16(cin), _pad16(cout))
+    if (tuple(wpk.shape) != packed_shape(cin, cout, DCN_K, x.dtype)
             or wpk.get_device() != dev or wpk.dtype != x.dtype):
         raise ValueError("packed weights do not match this DCN's channels, "
                          "device or dtype")

@@ -19,14 +19,17 @@ device too. Shapes:
 
 - `CinxCout`: a 3x3 conv + bias + ReLU through `ops.cuda.conv2d`;
 - `CinxCoutc`: a one-layer `conv_chain` without the ReLU (the DCN blocks'
-  offset conv);
+  offset conv); either with `:f32`, in float32 (the kernel's float32
+  instance), e.g. `64x64:f32`, `64x27c:f32`;
 - `dcnCrR`: the bounded DCN `ops.cuda.deform_conv2d_bounded`, C -> C
   channels at radius R, weights packed once as the engine does, offsets
   reaching past R, a sigmoid mask (`dcn64r1`: qocc's `fusion_dcn0`;
   `dcn67r2`: q12's; both on the tile design; `dcn67r8`, `dcn128r4`,
   `dcn128r8`: the stream design); with `:stream` the stream design at a
   shape the plan gives the tile design (the checkout's `dcn_plan`
-  replaced by its `_stream_plan` for that shape);
+  replaced by its `_stream_plan` for that shape); a last `:f32` runs it in
+  float32 (the float32 instances, weights packed in float32), e.g.
+  `dcn64r1:f32`, `dcn67r2:stream:f32`;
 - `warpCrR[:zero]`: the bounded warp `ops.cuda.bounded_warp` of a
   C-channel image, flows reaching past R (`warp3r16`: the RGB frame;
   `warp64r16`, the tools' feature map, and `warp64r4`: the wide
@@ -134,17 +137,19 @@ def device_ms(fn):
 for shape in args["shapes"]:
     rng = np.random.default_rng(0)
     if shape.startswith("dcn"):
-        spec, _, how = shape[3:].partition(":")
+        spec, *hows = shape[3:].split(":")
+        dt = torch.float32 if hows[-1:] == ["f32"] else torch.bfloat16
         c, r = (int(v) for v in spec.split("r"))
-        sampling.dcn_plan = (sampling._stream_plan if how == "stream"
+        sampling.dcn_plan = (sampling._stream_plan if "stream" in hows
                              else plan)
-        x = bf(rng.standard_normal((b, h, w, c)))
-        off = bf(rng.standard_normal((b, h, w, 18)) * 0.8 * r)
+        x = f32(rng.standard_normal((b, h, w, c))).to(dt)
+        off = f32(rng.standard_normal((b, h, w, 18)) * 0.8 * r).to(dt)
         mask = torch.sigmoid(f32(rng.standard_normal((b, h, w, 9)) * 2.0)
-                             ).to(torch.bfloat16)
+                             ).to(dt)
         wt = f32(rng.standard_normal((c, c, 3, 3)) / (9 * c) ** 0.5)
         bs = f32(rng.standard_normal((c,)) * 0.1)
-        pk = pack_dcn(wt, bs)
+        pk = pack_dcn(wt, bs) if dt == torch.bfloat16 else pack_dcn(wt, bs,
+                                                                    dt)
         fn = lambda: deform_conv2d_bounded(x, off, mask, wt, bs, r,
                                            packed=pk)
     elif shape.startswith("warp"):
@@ -190,9 +195,11 @@ for shape in args["shapes"]:
             kw = {"route": how} if how and routed else {}
             fn = lambda: conv_chain(x, ws, bs, acts, packed=pk, **kw)
     else:
-        chain = shape.endswith("c")
-        cin, cout = (int(v) for v in shape.rstrip("c").split("x"))
-        x = bf(rng.standard_normal((b, h, w, cin), np.float32))
+        spec, _, how = shape.partition(":")
+        chain = spec.endswith("c")
+        cin, cout = (int(v) for v in spec.rstrip("c").split("x"))
+        x = f32(rng.standard_normal((b, h, w, cin), np.float32))
+        x = x if how == "f32" else x.to(torch.bfloat16)
         wt = f32(rng.standard_normal((cout, cin, 3, 3)) * 0.05)
         bs = f32(rng.standard_normal((cout,)))
         if chain:
@@ -222,7 +229,8 @@ def parse_args(argv=None):
                     help="comma list of checkout roots, in turn order")
     ap.add_argument("--shapes", default=SHAPES,
                     help="comma list of CinxCout (conv2d + ReLU), "
-                         "CinxCoutc (one-layer conv_chain), dcnCrR[:stream] "
+                         "CinxCoutc (one-layer conv_chain), either [:f32], "
+                         "dcnCrR[:stream][:f32] "
                          "(bounded DCN), warpCrR[:zero] (bounded warp), "
                          "copyC (an image's clone) or "
                          "chain_NAME[:fused|layers|cudnn][:f32] (a trunk "

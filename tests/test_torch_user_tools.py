@@ -259,12 +259,27 @@ def test_profile_forward_smoke(capsys, tmp_path):
                                              "emavfi_qocc_best.npz"),
                                 "--radius", "1", "--conv_kernel", "pallas",
                                 "--top", "5", "--keep", str(tmp_path)])
-    assert _last_json(capsys)["frames"] == res["frames"] == 1
+    out = capsys.readouterr().out
+    assert json.loads(out.strip().splitlines()[-1])["frames"] \
+        == res["frames"] == 1
     assert len(res["top_kernels_ms"]) == 5
     assert (tmp_path / "trace.json").stat().st_size > 0
     rows = (sum(res["timeline_ms"].values())
             - res["cross_category_overlap_ms"] + res["idle_ms"])
     assert rows == pytest.approx(res["trace_span_ms"])
+    # the model's spans: printed, never counted as ops, their self ms
+    # adding up to the outermost spans' inclusive ms
+    spans = res["spans"]
+    assert {"vfi.features", "vfi.fusion", "vfi.dcn",
+            "vfi.reconstruct"} <= set(spans)
+    assert "spans (ms;" in out and "vfi.reconstruct" in out
+    assert not any(n.startswith("vfi.") for n, _ in res["top_kernels_ms"])
+    assert sum(r["host_self_ms"] for r in spans.values()) == pytest.approx(
+        res["span_roots_ms"])
+    assert res["span_roots_ms"] == pytest.approx(sum(
+        spans[n]["host_ms"] for n in ("vfi.features", "vfi.context",
+                                      "vfi.motion", "vfi.warp", "vfi.fusion",
+                                      "vfi.reconstruct")))
 
 
 def test_offset_stats_smoke(capsys):

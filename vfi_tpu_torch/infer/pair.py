@@ -25,6 +25,13 @@ every rank calls `midpoints` with the same frames; the exact halo pipeline
 gathered on every rank. The JAX engine's other H-sharding, GSPMD on the
 XLA ops without `use_pallas`, has no counterpart: `spatial=True` always
 takes the halo pipeline, so it needs the bounded DCN and warp.
+
+Host spans (`utils.profiling.span`, recorded only under a profiler): a
+call is `vfi.midpoints`; each guard chunk (and the body of
+`midpoints_sequence`) a `vfi.launch`, holding its copies in
+(`vfi.upload`, one a frame batch), the forward (`vfi.forward`: the
+normalisation, the flow prior and the model's stage spans) and the
+midpoints in the io dtype (`vfi.output`).
 """
 
 from __future__ import annotations
@@ -45,6 +52,7 @@ from vfi_tpu_torch.parallel.mesh import make_mesh, shard_batch
 from vfi_tpu_torch.parallel.spatial import (build_spatial_forward,
                                             required_halo)
 from vfi_tpu_torch.utils.convert import infer_model_dims, params_from_jax
+from vfi_tpu_torch.utils.profiling import span
 
 # TTA's (transform, inverse) pairs on NHWC [0, 1] frames: identity,
 # horizontal flip, vertical flip, temporal swap (the midpoint of (f1, f0)
@@ -284,9 +292,12 @@ class FrameInterpolator:
     def _single(self, f0: torch.Tensor, f1: torch.Tensor,
                 replica=None) -> torch.Tensor:
         model, flow = replica or (self.model, self.flow_module)
-        n0, n1 = self._normalize(f0), self._normalize(f1)
+        with span("vfi.normalize"):
+            n0, n1 = self._normalize(f0), self._normalize(f1)
         if flow is not None:
-            n1, _ = prior_prewarp(flow, n0, n1, scale=self.flow_prior_scale)
+            with span("vfi.prior"):
+                n1, _ = prior_prewarp(flow, n0, n1,
+                                      scale=self.flow_prior_scale)
         return model(n0, n1)
 
     def _forward_one(self, f0, f1, replica=None) -> torch.Tensor:
@@ -299,11 +310,12 @@ class FrameInterpolator:
     def _forward(self, f0: torch.Tensor, f1: torch.Tensor) -> torch.Tensor:
         """The forward of a batch the 'data' axis divides: each row's
         share on its replica's device, the midpoints back on the first."""
-        if self.mesh.shape["data"] == 1:
-            return self._forward_one(f0, f1)
-        outs = [self._forward_one(a, b, self._replicas[a.device])
-                for a, b in shard_batch((f0, f1), self.mesh)]
-        return torch.cat([o.to(self.device) for o in outs])
+        with span("vfi.forward"):
+            if self.mesh.shape["data"] == 1:
+                return self._forward_one(f0, f1)
+            outs = [self._forward_one(a, b, self._replicas[a.device])
+                    for a, b in shard_batch((f0, f1), self.mesh)]
+            return torch.cat([o.to(self.device) for o in outs])
 
     def _spatial_fwd(self, global_h: int):
         """The halo pipeline's forward for one padded height, built once."""
@@ -323,12 +335,13 @@ class FrameInterpolator:
         the halo from the padded edge are exact; the last ones see a
         displaced frame edge. With `data_group` this spatial group runs
         its share of the (padded) batch and the shares are gathered."""
-        if self.data_group is not None:
-            k = f0.shape[0] // self._n_data
-            i = comm.rank(self.data_group) * k
-            out = self._spatial_band(f0[i:i + k], f1[i:i + k])
-            return comm.all_gather_rows(out, self.data_group, dim=0)
-        return self._spatial_band(f0, f1)
+        with span("vfi.forward"):
+            if self.data_group is not None:
+                k = f0.shape[0] // self._n_data
+                i = comm.rank(self.data_group) * k
+                out = self._spatial_band(f0[i:i + k], f1[i:i + k])
+                return comm.all_gather_rows(out, self.data_group, dim=0)
+            return self._spatial_band(f0, f1)
 
     def _spatial_band(self, f0: torch.Tensor, f1: torch.Tensor
                       ) -> torch.Tensor:
@@ -347,9 +360,10 @@ class FrameInterpolator:
     def _to_device(self, f) -> torch.Tensor:
         """Frames in the io dtype -> float32 [0, 1] on the device; uint8
         frames go up as they are and convert there."""
-        if self.io_uint8:
-            return torch.as_tensor(f).to(self.device).float() / 255.0
-        return torch.as_tensor(f).to(self.device, torch.float32)
+        with span("vfi.upload"):
+            if self.io_uint8:
+                return torch.as_tensor(f).to(self.device).float() / 255.0
+            return torch.as_tensor(f).to(self.device, torch.float32)
 
     def _from_forward(self, out: torch.Tensor) -> torch.Tensor:
         """The forward's [0, 1] midpoints in the io dtype."""
@@ -371,16 +385,18 @@ class FrameInterpolator:
         """Midpoint of each pair: (B, H, W, 3) arrays or tensors in the io
         dtype in, a (B, H, W, 3) tensor in the io dtype on the device
         out."""
-        if self.broadcast_inputs:
-            if comm.rank() != 0:
-                raise RuntimeError("with broadcast_inputs only rank 0 calls "
-                                   "midpoints; the others follow()")
-            head = torch.tensor([1, *f0.shape[:3]], device=self.device)
-            torch.distributed.broadcast(head, 0)
-            f0, f1 = (self._to_device(x).contiguous() for x in (f0, f1))
-            for x in (f0, f1):
-                torch.distributed.broadcast(x, 0)
-        return self._midpoints(f0, f1)
+        with span("vfi.midpoints"):
+            if self.broadcast_inputs:
+                if comm.rank() != 0:
+                    raise RuntimeError("with broadcast_inputs only rank 0 "
+                                       "calls midpoints; the others "
+                                       "follow()")
+                head = torch.tensor([1, *f0.shape[:3]], device=self.device)
+                torch.distributed.broadcast(head, 0)
+                f0, f1 = (self._to_device(x).contiguous() for x in (f0, f1))
+                for x in (f0, f1):
+                    torch.distributed.broadcast(x, 0)
+            return self._midpoints(f0, f1)
 
     def follow(self) -> int:
         """On a rank other than 0 under `broadcast_inputs`: take part in
@@ -445,16 +461,22 @@ class FrameInterpolator:
             # the probe decides per call over the pairs, and the routed
             # modes pad and split, as in midpoints
             return self.midpoints(frames[:-1], frames[1:])
-        fr = self._to_device(frames)
-        return self._from_forward(self._forward(fr[:-1], fr[1:]))
+        with span("vfi.launch"):
+            fr = self._to_device(frames)
+            out = self._forward(fr[:-1], fr[1:])
+            with span("vfi.output"):
+                return self._from_forward(out)
 
     @torch.inference_mode()
     def _flow_p95(self, f0: torch.Tensor, f1: torch.Tensor) -> float:
         """95th percentile (linear interpolation, `jnp.percentile`'s
         default) of the flow estimator's motion magnitude over the pairs."""
-        fl = self.flow_module(self._normalize(f0), self._normalize(f1))
-        mag = torch.sqrt(fl[..., 0].square() + fl[..., 1].square())
-        return percentile_linear(mag, 95.0)
+        with span("vfi.normalize"):
+            n0, n1 = self._normalize(f0), self._normalize(f1)
+        with span("vfi.prior"):
+            fl = self.flow_module(n0, n1)
+            mag = torch.sqrt(fl[..., 0].square() + fl[..., 1].square())
+            return percentile_linear(mag, 95.0)
 
     def _probe_scaled(self, f0, f1) -> bool:
         """One auto_scale probe on at most the first guard chunk's pairs:
@@ -482,22 +504,26 @@ class FrameInterpolator:
     @torch.inference_mode()
     def _midpoints_launch(self, f0, f1, scaled: bool = False
                           ) -> torch.Tensor:
-        b = f0.shape[0]
-        f0, f1 = self._pad_batch(self._to_device(f0), self._to_device(f1))
-        if self.spatial:
-            out = self._spatial_launch(f0, f1)
-        elif not scaled:
-            out = self._from_forward(self._forward(f0, f1))
-        else:
-            # Large motion: halve the resolution (halves the apparent
-            # flow, back inside the trunk's receptive field) and resize
-            # the midpoints back to the native size.
+        with span("vfi.launch"):
+            b = f0.shape[0]
+            f0, f1 = self._pad_batch(self._to_device(f0),
+                                     self._to_device(f1))
             h, w = f0.shape[1], f0.shape[2]
-            half = (h // 2, w // 2)
-            out = self._forward(resize_bilinear(f0, half),
-                                resize_bilinear(f1, half))
-            out = resize_bilinear(out, (h, w))
-        return out[:b]
+            if self.spatial:
+                out = self._spatial_launch(f0, f1)
+            elif not scaled:
+                out = self._forward(f0, f1)
+            else:
+                # Large motion: halve the resolution (halves the apparent
+                # flow, back inside the trunk's receptive field) and
+                # resize the midpoints back to the native size.
+                half = (h // 2, w // 2)
+                out = self._forward(resize_bilinear(f0, half),
+                                    resize_bilinear(f1, half))
+            with span("vfi.output"):
+                out = (resize_bilinear(out, (h, w)) if scaled
+                       else self._from_forward(out))
+                return out[:b]
 
     def recursive(self, f0, f1, factor: int) -> list:
         """`factor` frames between each pair, as a list of `midpoints`

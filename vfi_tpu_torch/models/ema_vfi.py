@@ -43,6 +43,12 @@ the group) and divides by the global pooled extent; the cascade's coarse
 pass and pre-warp run on the gathered global pair (`all_gather`), then the
 rank cuts its slab again. `parallel/spatial.py` owns the halo and height
 contract.
+
+Host spans (`utils.profiling.span`, recorded only under a profiler): each
+coarse level `vfi.cascade`; stages 1-3 `vfi.features`, `vfi.context`,
+`vfi.motion` (inside `vfi.cascade` on a coarse pass); stage 4 `vfi.warp`;
+stage 5 `vfi.fusion`, each DCN inside it `vfi.dcn`; stage 6
+`vfi.reconstruct`.
 """
 
 from __future__ import annotations
@@ -60,6 +66,7 @@ from vfi_tpu_torch.ops.cuda import KERNELS, PLAIN, pack_conv_chain
 from vfi_tpu_torch.ops.resize import resize_bilinear
 from vfi_tpu_torch.ops.warp import warp
 from vfi_tpu_torch.parallel import comm
+from vfi_tpu_torch.utils.profiling import span
 
 
 def _identity(x, scale=1):
@@ -211,31 +218,36 @@ class EMAVFI(nn.Module):
         makes the context pool a sum over the ranks' owned rows."""
         layer_mask = mask
         mask = mask or _identity
-        feat = mask(self.feat_ext_conv1(torch.cat([a, b2], dim=-1)))
-        feat = self._chain(feat, self.feat_chain, (True,) * self.num_blocks,
-                           layer_mask)
-        ctx = mask(self.ctx_conv1(feat), 2)
-        ctx = self.ctx_conv3(mask(self.ctx_conv2(ctx), 4))
-        if owner_mask is not None:
-            # The exact global mean: every rank sums the rows it owns, the
-            # sums add over the group, over the global pooled extent.
-            pooled = comm.all_reduce_sum(
-                owner_mask(ctx, 4).float().sum(dim=(1, 2)),
-                self.spatial_group)
-            count = (self.spatial_global_h // 4) * ctx.shape[2]
-            ctx = (pooled / count).to(ctx.dtype)
-        else:
-            ctx = ctx.mean(dim=(1, 2))
-        d = self.ctx_dense
-        ctx = torch.nn.functional.linear(ctx, d.weight.to(ctx.dtype),
-                                         d.bias.to(ctx.dtype))
-        b, h, w, _ = feat.shape
-        ctx_map = ctx[:, None, None, :].expand(b, h, w, self.mid_channels)
-        # (spatial mode: the broadcast context is nonzero on rows outside
-        # the image; the mask restores the zero padding there)
-        flow = self._chain(mask(torch.cat([feat, ctx_map], dim=-1)),
-                           self.MOTION_CHAIN, (True, True, False),
-                           layer_mask)
+        with span("vfi.features"):
+            feat = mask(self.feat_ext_conv1(torch.cat([a, b2], dim=-1)))
+            feat = self._chain(feat, self.feat_chain,
+                               (True,) * self.num_blocks, layer_mask)
+        with span("vfi.context"):
+            ctx = mask(self.ctx_conv1(feat), 2)
+            ctx = self.ctx_conv3(mask(self.ctx_conv2(ctx), 4))
+            if owner_mask is not None:
+                # The exact global mean: every rank sums the rows it owns,
+                # the sums add over the group, over the global pooled
+                # extent.
+                pooled = comm.all_reduce_sum(
+                    owner_mask(ctx, 4).float().sum(dim=(1, 2)),
+                    self.spatial_group)
+                count = (self.spatial_global_h // 4) * ctx.shape[2]
+                ctx = (pooled / count).to(ctx.dtype)
+            else:
+                ctx = ctx.mean(dim=(1, 2))
+            d = self.ctx_dense
+            ctx = torch.nn.functional.linear(ctx, d.weight.to(ctx.dtype),
+                                             d.bias.to(ctx.dtype))
+        with span("vfi.motion"):
+            b, h, w, _ = feat.shape
+            ctx_map = ctx[:, None, None, :].expand(b, h, w,
+                                                   self.mid_channels)
+            # (spatial mode: the broadcast context is nonzero on rows
+            # outside the image; the mask restores the zero padding there)
+            flow = self._chain(mask(torch.cat([feat, ctx_map], dim=-1)),
+                               self.MOTION_CHAIN, (True, True, False),
+                               layer_mask)
         return feat, flow
 
     def forward(self, frame1: torch.Tensor, frame2: torch.Tensor
@@ -255,45 +267,52 @@ class EMAVFI(nn.Module):
             mask, owner_mask = _identity, None
             h, w = f1.shape[1], f1.shape[2]
         for lvl in range(self.cascade_levels - 1, 0, -1):
-            s = 2 ** lvl
-            ch, cw = -(-h // s), -(-w // s)
-            if spatial:
-                # The coarse pass and the unbounded pre-warp run on the
-                # global pair, gathered from the ranks' owned rows, with no
-                # mask; each rank then cuts its slab of the warped frame.
-                g1, g2 = (comm.all_gather_rows(x[:, halo:halo + h_local],
-                                               group) for x in (f1, f2))
-            else:
-                g1, g2 = f1, f2
-            _, cflow = self._motion_stages(
-                resize_bilinear(g1, (ch, cw)), resize_bilinear(g2, (ch, cw)),
-                _identity if spatial else None)
-            up = resize_bilinear(cflow.float(), (h, w))
-            scale = torch.tensor([w / cw, h / ch], dtype=torch.float32,
-                                 device=up.device)
-            f2 = warp(g2, up * scale)
-            if spatial:
-                f2 = F.pad(f2, (0, 0, 0, 0, halo, halo))
-                f2 = mask(f2[:, start:start + h_local + 2 * halo])
+            with span("vfi.cascade"):
+                s = 2 ** lvl
+                ch, cw = -(-h // s), -(-w // s)
+                if spatial:
+                    # The coarse pass and the unbounded pre-warp run on the
+                    # global pair, gathered from the ranks' owned rows, with
+                    # no mask; each rank then cuts its slab of the warped
+                    # frame.
+                    g1, g2 = (comm.all_gather_rows(
+                        x[:, halo:halo + h_local], group) for x in (f1, f2))
+                else:
+                    g1, g2 = f1, f2
+                _, cflow = self._motion_stages(
+                    resize_bilinear(g1, (ch, cw)),
+                    resize_bilinear(g2, (ch, cw)),
+                    _identity if spatial else None)
+                up = resize_bilinear(cflow.float(), (h, w))
+                scale = torch.tensor([w / cw, h / ch], dtype=torch.float32,
+                                     device=up.device)
+                f2 = warp(g2, up * scale)
+                if spatial:
+                    f2 = F.pad(f2, (0, 0, 0, 0, halo, halo))
+                    f2 = mask(f2[:, start:start + h_local + 2 * halo])
 
         feat, flow = self._motion_stages(f1, f2, mask if spatial else None,
                                          owner_mask)
 
-        if self.warp_max_flow is None:
-            warped2 = warp(f2, flow)
-        else:
-            warped2 = self.ops.bounded_warp(f2.contiguous(), flow.contiguous(),
-                                            self.warp_max_flow)
+        with span("vfi.warp"):
+            if self.warp_max_flow is None:
+                warped2 = warp(f2, flow)
+            else:
+                warped2 = self.ops.bounded_warp(f2.contiguous(),
+                                                flow.contiguous(),
+                                                self.warp_max_flow)
 
-        fused = mask(torch.cat([feat, warped2], dim=-1))
-        if self.fuse_project:
-            fused = mask(self.fuse_proj(fused))
-        for i in range(self.num_blocks):
-            fused = mask(getattr(self, f"fusion_dcn{i}")(fused.contiguous(),
-                                                         self.ops))
+        with span("vfi.fusion"):
+            fused = mask(torch.cat([feat, warped2], dim=-1))
+            if self.fuse_project:
+                fused = mask(self.fuse_proj(fused))
+            for i in range(self.num_blocks):
+                fused = mask(getattr(self, f"fusion_dcn{i}")(
+                    fused.contiguous(), self.ops))
 
-        out = self._chain(fused, self.REC_CHAIN, (True, True, False),
-                          mask if spatial else None, mask_last=False)
-        out = torch.tanh(out)
-        return ((out + 1.0) * 0.5).to(
-            torch.promote_types(frame1.dtype, torch.float32))
+        with span("vfi.reconstruct"):
+            out = self._chain(fused, self.REC_CHAIN, (True, True, False),
+                              mask if spatial else None, mask_last=False)
+            out = torch.tanh(out)
+            return ((out + 1.0) * 0.5).to(
+                torch.promote_types(frame1.dtype, torch.float32))

@@ -24,6 +24,7 @@ from torch import nn
 from vfi_tpu_torch.ops.cuda import (KERNELS, Ops, pack_conv_chain,
                                     pack_dcn)
 from vfi_tpu_torch.ops.deform_conv import deform_conv2d
+from vfi_tpu_torch.utils.profiling import span
 
 CONV_KERNELS = ("xla", "pallas")
 
@@ -89,7 +90,8 @@ class ModulatedDeformConv(nn.Module):
     (`ops/deform_conv.py`, plain PyTorch, as in the JAX package).
     `capture`, where set to a callable, is called with the offset conv's
     raw output (B, H, W, 27) on every forward (the JAX model's
-    `capture_intermediates` of `offset_conv`, for `tools/dump_offsets`)."""
+    `capture_intermediates` of `offset_conv`, for `tools/dump_offsets`).
+    The forward is the host span `vfi.dcn` (`utils.profiling.span`)."""
 
     def __init__(self, channels: int, max_offset: Optional[int],
                  conv_kernel: str = "xla"):
@@ -121,19 +123,20 @@ class ModulatedDeformConv(nn.Module):
                        else pack_dcn(self.weight, self.bias, dtype))
 
     def forward(self, x: torch.Tensor, ops: Ops = KERNELS) -> torch.Tensor:
-        if self.conv_kernel == "pallas":
-            raw = ops.conv_chain(x, [self.offset_conv.weight],
-                                 [self.offset_conv.bias], (False,),
-                                 packed=self.packed[0])
-        else:
-            raw = conv_nhwc(x, self.offset_conv, act=False)
-        if self.capture is not None:
-            self.capture(raw)
-        off_static, mask, off_dynamic = torch.split(raw, 9, dim=-1)
-        offset = torch.cat([off_static, off_dynamic], dim=-1).contiguous()
-        mask = torch.sigmoid(mask).contiguous()
-        if self.max_offset is None:
-            return deform_conv2d(x, offset, mask, self.weight, self.bias)
-        return ops.deform_conv2d_bounded(x, offset, mask, self.weight,
-                                         self.bias, self.max_offset,
-                                         packed=self.packed[1])
+        with span("vfi.dcn"):
+            if self.conv_kernel == "pallas":
+                raw = ops.conv_chain(x, [self.offset_conv.weight],
+                                     [self.offset_conv.bias], (False,),
+                                     packed=self.packed[0])
+            else:
+                raw = conv_nhwc(x, self.offset_conv, act=False)
+            if self.capture is not None:
+                self.capture(raw)
+            off_static, mask, off_dynamic = torch.split(raw, 9, dim=-1)
+            offset = torch.cat([off_static, off_dynamic], dim=-1).contiguous()
+            mask = torch.sigmoid(mask).contiguous()
+            if self.max_offset is None:
+                return deform_conv2d(x, offset, mask, self.weight, self.bias)
+            return ops.deform_conv2d_bounded(x, offset, mask, self.weight,
+                                             self.bias, self.max_offset,
+                                             packed=self.packed[1])

@@ -3,7 +3,7 @@
     python -m vfi_tpu_torch.tools.profile_forward [--iters 4] [--b 4]
         [--h 720] [--w 1280] [--ckpt ckpt.npz] [--radius 2]
         [--conv_kernel xla|pallas] [--top 25] [--keep DIR] [--plain]
-        [--device cuda|cpu] [--smoke]
+        [--engine [--cascade_levels 2]] [--device cuda|cpu] [--smoke]
 
 The counterpart of the JAX package's `tools/profile_forward.py`. It
 chains `--iters` forwards of the model in bf16 (dcn_max_offset `--radius`,
@@ -20,7 +20,18 @@ prints:
   between categories and the device's idle gaps, which sum to the trace's
   wall span;
 - the top `--top` ops by device time;
-- device ops and kernel-wrapper launches a frame, and the host wall.
+- device ops and kernel-wrapper launches a frame, and the host wall;
+- the program's spans (`vfi.*`, `utils.profiling.span_table`): a row a
+  span with its count, host ms (inclusive and self), the device ms and
+  ops launched inside it (inclusive and self) and the ms inside it in
+  which no kernel ran.
+
+`--engine` profiles `--iters` calls of the inference engine
+(`FrameInterpolator.midpoints`) instead, each on `--b` uint8 pairs from
+page-locked host memory on the card, with `io_uint8`, the flow prior of
+the checkpoint's `.flow.npz` where there is one and `--cascade_levels`
+(needs `--ckpt`): the engine's spans (call, launch, upload, forward,
+output) above the model's.
 
 The last line is one JSON object with all of it. With `--ckpt` the model
 has the checkpoint's weights and topology (`fuse_project` read off the
@@ -38,7 +49,9 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 
+import numpy as np
 import torch
 
 from vfi_tpu_torch.infer.pair import resolve_device
@@ -71,6 +84,11 @@ def parse_args(argv=None):
     p.add_argument("--top", type=int, default=25)
     p.add_argument("--keep", default=None,
                    help="also write the Chrome trace to DIR/trace.json")
+    p.add_argument("--engine", action="store_true",
+                   help="profile FrameInterpolator.midpoints calls on uint8 "
+                        "pairs (needs --ckpt)")
+    p.add_argument("--cascade_levels", type=int, default=1,
+                   help="the model's self-cascade levels")
     p.add_argument("--device", default="cuda")
     p.add_argument("--smoke", action="store_true",
                    help="a 1x16x32 pair, one forward (runs on the CPU with "
@@ -82,25 +100,73 @@ def parse_args(argv=None):
                 f"--{flag} chose a TPU kernel's generation or tiling; the "
                 f"port has one DCN kernel, whose design and tiles "
                 f"ops.cuda.dcn_plan picks from the shape")
+    if args.engine and args.ckpt is None:
+        raise SystemExit("--engine needs --ckpt")
     if args.smoke:
         vars(args).update(SMOKE)
     return args
 
 
+def engine_call(args, dev: torch.device):
+    """One `midpoints` call of the engine over `--ckpt` (and its
+    `.flow.npz` flow prior where there is one) on `--b` uint8 pairs,
+    page-locked on the card."""
+    from vfi_tpu_torch.infer.pair import FrameInterpolator
+    from vfi_tpu_torch.utils.convert import load_params_npz
+
+    flow = args.ckpt[:-len(".npz")] + ".flow.npz"
+    engine = FrameInterpolator(
+        load_params_npz(args.ckpt), device=dev, io_uint8=True,
+        flow_params=(load_params_npz(flow) if os.path.exists(flow)
+                     else None),
+        dcn_max_offset=args.radius, warp_max_flow=16,
+        cascade_levels=args.cascade_levels, conv_kernel=args.conv_kernel,
+        use_kernels=not args.plain)
+    f0, f1 = (torch.from_numpy((x.cpu().numpy() * 255).astype(np.uint8))
+              for x in uniform_frames(args.b, args.h, args.w,
+                                      torch.device("cpu")))
+    if dev.type == "cuda":
+        f0, f1 = f0.pin_memory(), f1.pin_memory()
+    return lambda: engine.midpoints(f0, f1)
+
+
+def print_spans(prof: dict) -> None:
+    """The span table, a row a `vfi.*` span."""
+    print("\nspans (ms; host incl / self, device incl / self, ops incl / "
+          "self, no kernel running inside):")
+    for name, r in prof["spans"].items():
+        print(f"  {name:16s} x{r['count']:<3d} {r['host_ms']:9.3f} "
+              f"{r['host_self_ms']:9.3f}  {r['device_ms']:9.3f} "
+              f"{r['device_self_ms']:9.3f}  {r['ops']:6d} {r['ops_self']:6d}"
+              f"  {r['idle_ms']:9.3f}")
+    print(f"  outermost spans {prof['span_roots_ms']:9.3f} ms host; device "
+          f"ms outside every span {prof['span_unattributed_ms']:.3f}; ops "
+          f"before their span {prof['ops_before_span']}", flush=True)
+
+
 def main(argv=None) -> dict:
     args = parse_args(argv)
     dev = resolve_device(args.device)
-    model = build_model(args.ckpt, dev, dtype=torch.bfloat16,
-                        dcn_max_offset=args.radius, warp_max_flow=16,
-                        conv_kernel=args.conv_kernel,
-                        use_kernels=not args.plain)
-    f0, f1 = uniform_frames(args.b, args.h, args.w, dev)
+    if args.engine:
+        call = engine_call(args, dev)
 
-    def chain():
-        x = f0
-        for _ in range(args.iters):
-            x = model(x, f1)
-        return x
+        def chain():
+            for _ in range(args.iters):
+                out = call()
+            return out
+    else:
+        model = build_model(args.ckpt, dev, dtype=torch.bfloat16,
+                            dcn_max_offset=args.radius, warp_max_flow=16,
+                            conv_kernel=args.conv_kernel,
+                            cascade_levels=args.cascade_levels,
+                            use_kernels=not args.plain)
+        f0, f1 = uniform_frames(args.b, args.h, args.w, dev)
+
+        def chain():
+            x = f0
+            for _ in range(args.iters):
+                x = model(x, f1)
+            return x
 
     with torch.inference_mode():
         chain()                                  # warm-up
@@ -113,6 +179,7 @@ def main(argv=None) -> dict:
     card = card_line(dev)
     print(f"{card}  b={args.b} {args.h}x{args.w} iters="
           f"{args.iters} R={args.radius} conv_kernel={args.conv_kernel}"
+          f" cascade={args.cascade_levels}{' engine' if args.engine else ''}"
           f"{' plain' if args.plain else ''}", flush=True)
     total = prof["device_kernel_ms"]
     print(f"\ntotal device op time: {total:.3f} ms ({total / n:.3f} "
@@ -137,10 +204,12 @@ def main(argv=None) -> dict:
           f"wrapper launches/frame {sum(counts.values()) / n:.2f}  host "
           f"wall {prof['wall_ms']:.3f} ms ({prof['wall_ms'] / n:.3f} "
           f"ms/frame)", flush=True)
+    print_spans(prof)
     result = {"tool": "profile_forward", "card": card,
               "b": args.b, "h": args.h, "w": args.w, "iters": args.iters,
               "frames": n, "radius": args.radius, "ckpt": args.ckpt,
               "conv_kernel": args.conv_kernel, "plain": args.plain,
+              "engine": args.engine, "cascade_levels": args.cascade_levels,
               "launches": counts, **prof}
     print(json.dumps(result), flush=True)
     return result

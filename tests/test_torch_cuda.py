@@ -10,7 +10,11 @@ topology) through the engine with both conv_kernel settings, the
 flagship engine (io_uint8) behind the HTTP server, and the kernels'
 float32 instances (conv, chain "layers" route, DCN tile and stream
 designs, the three warp instances, their gradients, the float32 engine
-and train step). Needs an
+and train step), and the engine's CUDA graphs (replays bit-equal to the
+eager launches, their port kernels read off the device trace, at qocc's
+and q12's topologies in bf16 and float32, after
+eviction, on a capture from another thread, and past a failed capture).
+Needs an
 NVIDIA GPU and nvcc; skips without a GPU. Run on
 the card with `python -m pytest --noconftest tests/test_torch_cuda.py -m cuda`
 (tests/conftest.py imports jax, which a GPU host that runs only the port
@@ -1087,3 +1091,160 @@ def test_f32_train_step_runs_the_f32_kernels(dev):
     assert gk.dtype == torch.float32 and torch.isfinite(gk).all()
     assert abs(lk - lp) <= 1e-4 * abs(lp)
     assert torch.nn.functional.cosine_similarity(gk, gp, dim=0) >= 0.9999
+
+
+def _random_engines(dev, config, bf16, **kw):
+    """Two engines over one random tree of the configuration's topology
+    (qocc: the fuse projection, R=1; q12: 67-wide DCNs, R=2; both with
+    the flow prior, cascade 2, warp bound 16, conv_kernel "pallas"), on
+    64x96 frames in launches of 4 pairs: the first with its CUDA graphs,
+    the second with no graph key (every launch eager), as the reference."""
+    from vfi_tpu_torch.infer import FrameInterpolator
+    from vfi_tpu_torch.models import EMAVFI, SimpleFlowNet
+    from vfi_tpu_torch.utils.convert import params_to_jax
+
+    fuse, radius = {"qocc": (True, 1), "q12": (False, 2)}[config]
+    torch.manual_seed(0)
+    model = EMAVFI(mid_channels=64, num_blocks=3, fuse_project=fuse,
+                   dcn_max_offset=radius, warp_max_flow=16)
+    with torch.no_grad():
+        for i in range(3):
+            getattr(model, f"fusion_dcn{i}").offset_conv.weight.normal_(
+                0, 0.02)
+    params = params_to_jax(model.state_dict())
+    flow = params_to_jax(SimpleFlowNet(mid_channels=32,
+                                       levels=3).state_dict())
+    kw = dict(flow_params=flow, bf16=bf16, io_uint8=bf16,
+              dcn_max_offset=radius, warp_max_flow=16, cascade_levels=2,
+              conv_kernel="pallas", device=dev,
+              max_px_per_launch=4 * 64 * 96, **kw)
+    graphs, eager = FrameInterpolator(params, **kw), \
+        FrameInterpolator(params, **kw)
+    eager._graph_key = lambda *args: None
+    return graphs, eager
+
+
+def _pairs(seed, b, bf16):
+    rng = np.random.default_rng(seed)
+    f0 = rng.integers(0, 256, (b, 64, 96, 3), dtype=np.uint8)
+    f1 = np.roll(f0, (2, -3), axis=(1, 2))
+    if not bf16:
+        f0, f1 = (x.astype(np.float32) / 255 for x in (f0, f1))
+    return torch.from_numpy(f0).pin_memory(), torch.from_numpy(f1).pin_memory()
+
+
+@pytest.mark.parametrize("bf16", [True, False])
+@pytest.mark.parametrize("config", ["qocc", "q12"])
+def test_graph_replays_equal_the_eager_launches(dev, config, bf16):
+    """Calls of 8 pairs (two launches of 4) replay the launch's graph from
+    the second launch on, across new frames after the capture, and equal
+    the eager engine's midpoints bit for bit. The wrappers count a kernel
+    where they launch it: once in an eager launch, twice in a captured
+    one (its eager run and its recording), never in a replay; the device
+    trace of a replayed call holds the eager call's port kernels, name
+    for name. The sequence route takes the same graph."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vfi_tpu_torch.utils.profiling import port_kernel_counts
+
+    graphs, eager = _random_engines(dev, config, bf16)
+    calls = [_pairs(s, 8, bf16) for s in (1, 2, 1)]
+    for i, (f0, f1) in enumerate(calls):
+        reset_launch_counts()
+        want = eager.midpoints(f0, f1)
+        assert launch_counts()["conv_chain"] == 16
+        reset_launch_counts()
+        got = graphs.midpoints(f0, f1)
+        torch.cuda.synchronize()
+        assert launch_counts()["conv_chain"] == (24 if i == 0 else 0)
+        assert got.dtype == want.dtype and torch.equal(got, want)
+    assert graphs.graph_stats == {"captured": 1, "replayed": 4, "eager": 1,
+                                  "evicted": 0}
+    frames = torch.cat([calls[1][0][:3], calls[1][1][2:3]])   # 3 pairs
+    want = eager.midpoints_sequence(frames)
+    for _ in range(3):
+        assert torch.equal(graphs.midpoints_sequence(frames), want)
+    assert graphs.graph_stats == {"captured": 2, "replayed": 5, "eager": 2,
+                                  "evicted": 0}
+    assert torch.equal(graphs.midpoints(frames[:-1], frames[1:]), want)
+    ran = {}
+    for name, eng in (("eager", eager), ("replayed", graphs)):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            eng.midpoints(*calls[1])
+            torch.cuda.synchronize()
+        ran[name] = port_kernel_counts(prof.events())
+    assert graphs.graph_stats["replayed"] == 8
+    assert sum(ran["eager"].values()) >= 16 + 6 + 2
+    assert ran["replayed"] == ran["eager"]
+
+
+def test_graph_recaptured_after_eviction_is_exact(dev, monkeypatch):
+    """With room for one key, alternating batch sizes evict and recapture:
+    each capture's midpoints equal the eager engine's."""
+    from vfi_tpu_torch.infer import pair
+
+    graphs, eager = _random_engines(dev, "qocc", True)
+    monkeypatch.setattr(pair, "GRAPH_KEYS", 1)
+    for b in (2, 2, 3, 3, 2, 2, 2):
+        f0, f1 = _pairs(b, b, True)
+        assert torch.equal(graphs.midpoints(f0, f1), eager.midpoints(f0, f1))
+    assert graphs.graph_stats == {"captured": 3, "replayed": 1, "eager": 3,
+                                  "evicted": 2}
+
+
+def test_graph_captured_in_another_thread_is_exact(dev):
+    """A key first run on one thread (a server's warm-up) and then on a
+    worker thread, which has made no cuDNN or cuBLAS handle yet: the
+    worker captures and replays, and every launch equals the eager
+    engine's."""
+    import threading
+
+    graphs, eager = _random_engines(dev, "qocc", True)
+    f0, f1 = _pairs(9, 4, True)
+    want = eager.midpoints(f0, f1)
+    got = [graphs.midpoints(f0, f1)]
+
+    def worker():
+        for _ in range(2):
+            got.append(graphs.midpoints(f0, f1))
+
+    t = threading.Thread(target=worker)
+    t.start()
+    t.join(timeout=300)
+    assert not t.is_alive() and len(got) == 3
+    assert all(torch.equal(g, want) for g in got)
+    assert graphs.graph_stats == {"captured": 1, "replayed": 1, "eager": 1,
+                                  "evicted": 0}
+
+
+def test_a_failed_graph_capture_runs_eager_and_takes_a_new_pool(dev,
+                                                             monkeypatch):
+    """A launch that synchronises the card while it is being captured:
+    the capture fails with a warning, that launch and the key's later
+    ones run eager and equal the eager engine's; another key then
+    captures on a new pool."""
+    graphs, eager = _random_engines(dev, "qocc", True)
+    body = graphs._launch_body
+
+    def syncing(*args):
+        if torch.cuda.is_current_stream_capturing():
+            torch.cuda.synchronize()
+        return body(*args)
+
+    monkeypatch.setattr(graphs, "_launch_body", syncing)
+    f0, f1 = _pairs(10, 2, True)
+    want = eager.midpoints(f0, f1)
+    assert torch.equal(graphs.midpoints(f0, f1), want)
+    with pytest.warns(UserWarning, match="capture"):
+        assert torch.equal(graphs.midpoints(f0, f1), want)
+    assert torch.equal(graphs.midpoints(f0, f1), want)
+    assert graphs.graph_stats == {"captured": 0, "replayed": 0, "eager": 3,
+                                  "evicted": 0}
+    monkeypatch.setattr(graphs, "_launch_body", body)
+    f0, f1 = _pairs(11, 3, True)
+    want = eager.midpoints(f0, f1)
+    for _ in range(3):
+        assert torch.equal(graphs.midpoints(f0, f1), want)
+    assert graphs.graph_stats["captured"] == 1
+    assert graphs.graph_stats["replayed"] == 1

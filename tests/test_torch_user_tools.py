@@ -2,7 +2,8 @@
 `dump_offsets`, `offset_stats`, `bench_flowprior`, `bench_train_step`) and
 the profiler's breakdown (`utils.profiling`) against the JAX package's
 `tools/` on the CPU: the interval union and timeline against
-`tools/profile_forward.py`'s, the category of fixed kernel names, the
+`tools/profile_forward.py`'s, the category of fixed kernel names and
+the count of the port's kernels among a trace's device events, the
 offset planes against the JAX model's `capture_intermediates` on a tiny
 random model (float32, JAX at HIGHEST precision, within 1e-5), `pair_stats`
 against `tools/offset_stats.py`'s bit for bit, the training config
@@ -11,6 +12,7 @@ against `config/train_config.yaml`; then each tool's `--device cpu
 
 import json
 import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -26,7 +28,8 @@ from vfi_tpu_torch.tools import (bench_flowprior, bench_kernels,
 from vfi_tpu_torch.utils.config import load_train_config
 from vfi_tpu_torch.utils.convert import params_from_jax
 from vfi_tpu_torch.utils.profiling import (CATEGORIES, category,
-                                           device_profile, timeline,
+                                           device_profile,
+                                           port_kernel_counts, timeline,
                                            union_ms)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -116,6 +119,30 @@ def test_category_sorts_kernel_names():
     got = [(name, category(name)) for name, _ in KERNEL_NAMES]
     assert got == KERNEL_NAMES
     assert {c for _, c in KERNEL_NAMES} == set(CATEGORIES)
+
+
+class _Ev:
+    def __init__(self, name, device_type):
+        self.name, self.device_type = name, device_type
+
+
+def test_port_kernel_counts_counts_each_kernel_of_the_sources():
+    """Every `__global__` of csrc/*.cu, as a trace names it, counts under
+    its own name; no other kernel counts, nor a host op of that name."""
+    src = os.path.join(os.path.dirname(profile_forward.__file__), "..",
+                       "csrc")
+    names = sorted({n for f in os.listdir(src) if f.endswith(".cu")
+                    for n in re.findall(r"^(\w+_kernel)\(",
+                                        open(os.path.join(src, f)).read(),
+                                        re.M)})
+    assert len(names) >= 11
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+    events = [_Ev(f"void {n}<64, 2>({n[:4]}Params)", cuda)
+              for n in names for _ in range(2)]
+    events += [_Ev(n, cuda) for n, c in KERNEL_NAMES
+               if c != "port-kernels"]
+    events += [_Ev(names[0], cpu)]
+    assert port_kernel_counts(events) == {n: 2 for n in names}
 
 
 def test_device_profile_on_the_cpu_adds_up():

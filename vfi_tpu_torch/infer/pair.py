@@ -26,17 +26,50 @@ gathered on every rank. The JAX engine's other H-sharding, GSPMD on the
 XLA ops without `use_pallas`, has no counterpart: `spatial=True` always
 takes the halo pipeline, so it needs the bounded DCN and warp.
 
+CUDA graphs: on a card, each launch of a fixed shape is captured once as
+a `torch.cuda.CUDAGraph` and replayed after, so the host issues one graph
+launch in place of the ~650 ops of the flow prior and the model. A
+launch here is one guard chunk (or the body of `midpoints_sequence`):
+its frames in the io dtype in static input buffers, then the conversion
+to float32, the normalisation, the prior, the model (TTA's four forwards
+and the half-size route of auto_scale included) and the midpoints in the
+io dtype, copied out of the static output before the next replay can
+overwrite it. A key (batch, H, W, io dtype, device, route and the backend
+flags that pick cuDNN's and cuBLAS's kernels) runs eager on its first
+launch, which warms the library plans and the resize matrices (a shape
+seen once never pays for a capture). Its next launch made with no
+profiler recording runs eager once more, in the thread that captures (a
+capture cannot create that thread's cuDNN and cuBLAS handles), and is
+captured; later launches replay: the same kernels in the same order, so
+the midpoints equal the eager path's bit for bit. A capture that fails
+leaves its key eager, with a warning. The graphs of an engine share one
+memory pool and replay in turn on one stream; at most `GRAPH_KEYS` keys
+are kept, the least recently used dropped. Routes the engine can see
+cannot be captured run eager: the CPU, `spatial` (and so
+`broadcast_inputs`), a mesh with more than one 'data' row, frames in
+another dtype than the io dtype, a launch inside someone else's capture,
+and the auto_scale probe (it reads its percentile on the host).
+`graph_stats` counts the launches `captured`, `replayed` and run `eager`,
+and the graphs `evicted`. The kernel wrappers count a kernel where they
+launch it (`ops.cuda.launch_counts`): once an eager launch, twice a
+captured one (its eager run, then its recording), never a replay, whose
+kernels show only in a device trace.
+
 Host spans (`utils.profiling.span`, recorded only under a profiler): a
 call is `vfi.midpoints`; each guard chunk (and the body of
 `midpoints_sequence`) a `vfi.launch`, holding its copies in
 (`vfi.upload`, one a frame batch), the forward (`vfi.forward`: the
-normalisation, the flow prior and the model's stage spans) and the
-midpoints in the io dtype (`vfi.output`).
+normalisation, the flow prior and the model's stage spans, or on a
+replayed launch `vfi.replay`, the graph's launch, in which the stages
+record no span) and the midpoints in the io dtype (`vfi.output`).
 """
 
 from __future__ import annotations
 
 import copy
+import threading
+import warnings
+from collections import OrderedDict
 from typing import Optional
 
 import numpy as np
@@ -46,7 +79,7 @@ from vfi_tpu_torch.data.dataset import IMAGENET_MEAN, IMAGENET_STD
 from vfi_tpu_torch.models.ema_vfi import EMAVFI
 from vfi_tpu_torch.models.flownet import SimpleFlowNet
 from vfi_tpu_torch.models.prior import prior_prewarp
-from vfi_tpu_torch.ops.resize import resize_bilinear
+from vfi_tpu_torch.ops.resize import keep_matrices, resize_bilinear
 from vfi_tpu_torch.parallel import comm
 from vfi_tpu_torch.parallel.mesh import make_mesh, shard_batch
 from vfi_tpu_torch.parallel.spatial import (build_spatial_forward,
@@ -64,6 +97,36 @@ TTA_SYMMETRIES = (
     (lambda a, b: (a.flip(1), b.flip(1)), lambda o: o.flip(1)),
     (lambda a, b: (b, a), lambda o: o),
 )
+
+
+# Launch keys whose CUDA graphs an engine keeps. The serving batcher pads
+# each launch to its bucket's launch size (`pad_to_max`, on by default), so
+# a frame size takes one key, which its sequence route's full chunks
+# share; unpadded, it sends every batch size from 1 to the guard's cap (4
+# pairs at 720p with the flow prior), and 8 holds that range at two frame
+# sizes. Past it the least recently used key is dropped. The graphs share one memory pool, so a
+# kept key costs its static inputs and output (33 MB for 4 uint8 pairs at
+# 720p) and the graph's own few MB, not a second copy of the activations.
+GRAPH_KEYS = 8
+
+
+def capture_flags() -> tuple:
+    """The backend flags that decide which cuDNN and cuBLAS kernels a
+    launch runs, which a CUDA graph freezes at its capture."""
+    m, c = torch.backends.cuda.matmul, torch.backends.cudnn
+    return (m.allow_tf32, m.allow_bf16_reduced_precision_reduction,
+            c.allow_tf32, c.benchmark, c.deterministic)
+
+
+class _Graph:
+    """One captured launch: the graph, its static input and output
+    buffers and the resize matrices it reads (kept alive past their
+    cache)."""
+    __slots__ = ("graph", "in0", "in1", "out", "kept")
+
+
+# A key whose capture failed: its launches run eager.
+_NO_GRAPH = object()
 
 
 def pick_interpolation_factor(src_fps: float, target_fps: Optional[float],
@@ -168,7 +231,10 @@ class FrameInterpolator:
     shares are gathered. `broadcast_inputs=True` lets the default group's
     rank 0 alone call `midpoints` (and what calls it): the frames reach
     every other rank by `broadcast`, which serve rank 0's calls in
-    `follow()` until it calls `release()`."""
+    `follow()` until it calls `release()`.
+
+    On a card, launches of a shape seen before replay a CUDA graph (see
+    the module docstring); `graph_stats` counts them."""
 
     def __init__(self, params, in_channels: Optional[int] = None,
                  mid_channels: Optional[int] = None,
@@ -283,6 +349,13 @@ class FrameInterpolator:
         self._n_data = (mesh.shape["data"] if not spatial else
                         1 if data_group is None else comm.size(data_group))
         self._spatial_fwd_cache: dict = {}
+        self.graph_stats = {"captured": 0, "replayed": 0, "eager": 0,
+                            "evicted": 0}
+        # launch key -> its _Graph, None once it has run eager, or
+        # _NO_GRAPH; least recently used first
+        self._graphs: OrderedDict = OrderedDict()
+        self._graph_pool = None
+        self._graph_lock = threading.Lock()
 
     def _normalize(self, f: torch.Tensor) -> torch.Tensor:
         if f.device != self._mean.device:
@@ -362,8 +435,12 @@ class FrameInterpolator:
         frames go up as they are and convert there."""
         with span("vfi.upload"):
             if self.io_uint8:
-                return torch.as_tensor(f).to(self.device).float() / 255.0
+                return self._to_float(torch.as_tensor(f).to(self.device))
             return torch.as_tensor(f).to(self.device, torch.float32)
+
+    def _to_float(self, x: torch.Tensor) -> torch.Tensor:
+        """Frames in the io dtype on the device -> float32 [0, 1]."""
+        return x.float() / 255.0 if self.io_uint8 else x
 
     def _from_forward(self, out: torch.Tensor) -> torch.Tensor:
         """The forward's [0, 1] midpoints in the io dtype."""
@@ -462,10 +539,21 @@ class FrameInterpolator:
             # modes pad and split, as in midpoints
             return self.midpoints(frames[:-1], frames[1:])
         with span("vfi.launch"):
-            fr = self._to_device(frames)
-            out = self._forward(fr[:-1], fr[1:])
-            with span("vfi.output"):
-                return self._from_forward(out)
+            key = self._graph_key(frames[:-1])
+            if key is None:
+                fr = self._to_device(frames)
+            else:
+                # each frame up once; the pairs are copied on the device
+                # into the graph's inputs
+                with span("vfi.upload"):
+                    raw = torch.as_tensor(frames).to(self.device)
+                out = self._replay(key, raw[:-1], raw[1:])
+                if out is not None:
+                    return out
+                with span("vfi.upload"):
+                    fr = self._to_float(raw)
+            self.graph_stats["eager"] += 1
+            return self._launch_body(fr[:-1], fr[1:], False)
 
     @torch.inference_mode()
     def _flow_p95(self, f0: torch.Tensor, f1: torch.Tensor) -> float:
@@ -505,25 +593,120 @@ class FrameInterpolator:
     def _midpoints_launch(self, f0, f1, scaled: bool = False
                           ) -> torch.Tensor:
         with span("vfi.launch"):
+            key = self._graph_key(f0, scaled)
+            if key is not None:
+                out = self._replay(key, f0, f1)
+                if out is not None:
+                    return out
+            self.graph_stats["eager"] += 1
             b = f0.shape[0]
             f0, f1 = self._pad_batch(self._to_device(f0),
                                      self._to_device(f1))
-            h, w = f0.shape[1], f0.shape[2]
-            if self.spatial:
-                out = self._spatial_launch(f0, f1)
-            elif not scaled:
-                out = self._forward(f0, f1)
-            else:
-                # Large motion: halve the resolution (halves the apparent
-                # flow, back inside the trunk's receptive field) and
-                # resize the midpoints back to the native size.
-                half = (h // 2, w // 2)
-                out = self._forward(resize_bilinear(f0, half),
-                                    resize_bilinear(f1, half))
+            return self._launch_body(f0, f1, scaled)[:b]
+
+    def _launch_body(self, f0: torch.Tensor, f1: torch.Tensor,
+                     scaled: bool) -> torch.Tensor:
+        """A launch's work on the device, from float32 [0, 1] frames (the
+        batch padded to the 'data' axis) to its midpoints in the io dtype
+        (float32 on the half-size route)."""
+        h, w = f0.shape[1], f0.shape[2]
+        if self.spatial:
+            out = self._spatial_launch(f0, f1)
+        elif not scaled:
+            out = self._forward(f0, f1)
+        else:
+            # Large motion: halve the resolution (halves the apparent
+            # flow, back inside the trunk's receptive field) and resize
+            # the midpoints back to the native size.
+            half = (h // 2, w // 2)
+            out = self._forward(resize_bilinear(f0, half),
+                                resize_bilinear(f1, half))
+        with span("vfi.output"):
+            return (resize_bilinear(out, (h, w)) if scaled
+                    else self._from_forward(out))
+
+    def _graph_key(self, f0, scaled: bool = False) -> Optional[tuple]:
+        """The CUDA-graph key of a launch on the pairs `f0` (and their
+        partners, of the same shape), or None for a route that runs eager
+        (see the module docstring)."""
+        if (self.device.type != "cuda" or self.spatial or self._n_data > 1
+                or torch.cuda.is_current_stream_capturing()):
+            return None
+        t = torch.as_tensor(f0)
+        if t.dtype != (torch.uint8 if self.io_uint8 else torch.float32):
+            return None
+        return (tuple(t.shape), t.dtype, self.device, scaled,
+                capture_flags())
+
+    def _replay(self, key: tuple, f0, f1) -> Optional[torch.Tensor]:
+        """The launch through the key's CUDA graph, or None where this
+        launch runs eager: the key's first launch, any launch while a
+        profiler records (a capture is never profiled) and a key whose
+        capture failed. The key's next launch is captured (`_capture`);
+        later ones copy their frames into the graph's inputs, replay it
+        and return a copy of its output."""
+        with self._graph_lock:
+            g = self._graphs.get(key, False)
+            if (g is False or g is _NO_GRAPH
+                    or (g is None and torch.autograd._profiler_enabled())):
+                self._keep_graph(key, g or None)
+                return None
+            if g is None:
+                out, g = self._capture(key, f0, f1)
+                self._keep_graph(key, g)
+                self.graph_stats["eager" if g is _NO_GRAPH
+                                 else "captured"] += 1
+                return out
+            self._graphs.move_to_end(key)
+            with span("vfi.upload"):
+                g.in0.copy_(torch.as_tensor(f0))
+            with span("vfi.upload"):
+                g.in1.copy_(torch.as_tensor(f1))
+            with span("vfi.forward"), span("vfi.replay"):
+                g.graph.replay()
+            self.graph_stats["replayed"] += 1
             with span("vfi.output"):
-                out = (resize_bilinear(out, (h, w)) if scaled
-                       else self._from_forward(out))
-                return out[:b]
+                return g.out.clone()
+
+    def _capture(self, key: tuple, f0, f1) -> tuple:
+        """The key's launch on these pairs, run eager in this thread
+        (which makes this thread's cuDNN and cuBLAS handles: a capture
+        cannot), then captured into a graph of the engine's pool. Returns
+        the eager midpoints and the graph, or `_NO_GRAPH` where the
+        capture failed: a warning says why, the key runs eager from then
+        on, and the next capture takes a new pool (a failed capture
+        leaves its pool recording)."""
+        g = _Graph()
+        g.in0, g.in1 = (torch.empty(key[0], dtype=key[1], device=self.device
+                                    ).copy_(torch.as_tensor(x))
+                        for x in (f0, f1))
+        out = self._launch_body(self._to_float(g.in0), self._to_float(g.in1),
+                                key[3])
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        g.graph = torch.cuda.CUDAGraph()
+        try:
+            with keep_matrices() as g.kept, torch.cuda.device(self.device), \
+                    torch.cuda.graph(g.graph, pool=self._graph_pool,
+                                     capture_error_mode="thread_local"):
+                g.out = self._launch_body(self._to_float(g.in0),
+                                          self._to_float(g.in1), key[3])
+        except RuntimeError as e:
+            warnings.warn(f"CUDA graph capture of the launch {key[:2]} "
+                          f"failed; it runs eager: {e}")
+            self._graph_pool = None
+            g = _NO_GRAPH
+        return out, g
+
+    def _keep_graph(self, key: tuple, g) -> None:
+        """Record the key (most recently used), dropping the least
+        recently used past `GRAPH_KEYS`."""
+        self._graphs[key] = g
+        self._graphs.move_to_end(key)
+        while len(self._graphs) > GRAPH_KEYS:
+            _, old = self._graphs.popitem(last=False)
+            if isinstance(old, _Graph):
+                self.graph_stats["evicted"] += 1
 
     def recursive(self, f0, f1, factor: int) -> list:
         """`factor` frames between each pair, as a list of `midpoints`

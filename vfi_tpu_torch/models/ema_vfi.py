@@ -283,10 +283,14 @@ class EMAVFI(nn.Module):
                     resize_bilinear(g1, (ch, cw)),
                     resize_bilinear(g2, (ch, cw)),
                     _identity if spatial else None)
+                # The flow to the fine grid, x by w / cw and y by h / ch:
+                # each Python float rounds to float32 as a float32 tensor
+                # of it would, with no host-to-device copy (a CUDA graph
+                # may capture this).
                 up = resize_bilinear(cflow.float(), (h, w))
-                scale = torch.tensor([w / cw, h / ch], dtype=torch.float32,
-                                     device=up.device)
-                f2 = warp(g2, up * scale)
+                up[..., 0] *= w / cw
+                up[..., 1] *= h / ch
+                f2 = warp(g2, up)
                 if spatial:
                     f2 = F.pad(f2, (0, 0, 0, 0, halo, halo))
                     f2 = mask(f2[:, start:start + h_local + 2 * halo])

@@ -8,12 +8,18 @@ to bf16 on both sides.
 
 `resize_u8` resizes a uint8 image as Pillow's `BILINEAR` does (the JAX
 CLIs' `--size`): antialiased when it shrinks, rounded to uint8.
+
+`keep_matrices()` collects the cached matrices the resizes of a block
+read: a CUDA graph captured in the block reads them at every replay, so
+its owner keeps them alive after the cache has dropped them.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
-from typing import Tuple
+import threading
+from typing import Iterator, List, Tuple
 
 import numpy as np
 import torch
@@ -53,6 +59,21 @@ def _build_matrix(out_size, in_size, align_corners, device, dtype):
     return m.to(dtype)
 
 
+_kept = threading.local()
+
+
+@contextlib.contextmanager
+def keep_matrices() -> Iterator[List[torch.Tensor]]:
+    """The list of every interpolation matrix that this thread's resizes
+    read inside the block."""
+    outer = getattr(_kept, "into", None)
+    _kept.into = into = []
+    try:
+        yield into
+    finally:
+        _kept.into = outer
+
+
 def resize_bilinear(image: torch.Tensor, size: Tuple[int, int],
                     align_corners: bool = False) -> torch.Tensor:
     """Resize NHWC `image` to `size` = (H', W')."""
@@ -60,6 +81,9 @@ def resize_bilinear(image: torch.Tensor, size: Tuple[int, int],
     oh, ow = size
     mh = _interp_matrix(oh, h, align_corners, image.device, image.dtype)
     mw = _interp_matrix(ow, w, align_corners, image.device, image.dtype)
+    into = getattr(_kept, "into", None)
+    if into is not None:
+        into += (mh, mw)
     out = torch.einsum("oh,bhwc->bowc", mh, image)
     return torch.einsum("pw,bowc->bopc", mw, out)
 

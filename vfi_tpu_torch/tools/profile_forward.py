@@ -31,7 +31,14 @@ prints:
 page-locked host memory on the card, with `io_uint8`, the flow prior of
 the checkpoint's `.flow.npz` where there is one and `--cascade_levels`
 (needs `--ckpt`): the engine's spans (call, launch, upload, forward,
-output) above the model's.
+output) above the model's. The engine warms up on one pair less (or
+more), so that no graph of the profiled call's shape is captured before
+it: the profiled calls run eager, each stage in its span (the engine
+never captures a CUDA graph under a profiler). On the card one more call
+then captures the launches' graphs, and `--iters` steady calls, which
+replay them (`vfi.replay`; the stages record no span there), are
+profiled too: their span table is printed after the first's and is the
+result's `replay`.
 
 The last line is one JSON object with all of it. With `--ckpt` the model
 has the checkpoint's weights and topology (`fuse_project` read off the
@@ -108,9 +115,10 @@ def parse_args(argv=None):
 
 
 def engine_call(args, dev: torch.device):
-    """One `midpoints` call of the engine over `--ckpt` (and its
-    `.flow.npz` flow prior where there is one) on `--b` uint8 pairs,
-    page-locked on the card."""
+    """The engine over `--ckpt` (and its `.flow.npz` flow prior where
+    there is one) and `--b` uint8 pairs, page-locked on the card: a
+    `midpoints` call on them, and a warm-up call on one pair less (or,
+    for one pair, two), another launch shape."""
     from vfi_tpu_torch.infer.pair import FrameInterpolator
     from vfi_tpu_torch.utils.convert import load_params_npz
 
@@ -127,7 +135,9 @@ def engine_call(args, dev: torch.device):
                                       torch.device("cpu")))
     if dev.type == "cuda":
         f0, f1 = f0.pin_memory(), f1.pin_memory()
-    return lambda: engine.midpoints(f0, f1)
+    w0, w1 = (x[1:] if args.b > 1 else torch.cat([x, x]) for x in (f0, f1))
+    return (lambda: engine.midpoints(f0, f1),
+            lambda: engine.midpoints(w0, w1))
 
 
 def print_spans(prof: dict) -> None:
@@ -148,13 +158,14 @@ def main(argv=None) -> dict:
     args = parse_args(argv)
     dev = resolve_device(args.device)
     if args.engine:
-        call = engine_call(args, dev)
+        call, warm = engine_call(args, dev)
 
         def chain():
             for _ in range(args.iters):
                 out = call()
             return out
     else:
+        warm = None
         model = build_model(args.ckpt, dev, dtype=torch.bfloat16,
                             dcn_max_offset=args.radius, warp_max_flow=16,
                             conv_kernel=args.conv_kernel,
@@ -168,13 +179,17 @@ def main(argv=None) -> dict:
                 x = model(x, f1)
             return x
 
+    replay = None
     with torch.inference_mode():
-        chain()                                  # warm-up
+        (warm or chain)()                        # warm-up
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         before = launch_counts()
         prof = device_profile(chain, dev, log_dir=args.keep, top=args.top)
         counts = {k: v - before[k] for k, v in launch_counts().items()}
+        if warm is not None and dev.type == "cuda":
+            call()                               # captures the graphs
+            replay = device_profile(chain, dev, top=args.top)
     n = args.b * args.iters
     card = card_line(dev)
     print(f"{card}  b={args.b} {args.h}x{args.w} iters="
@@ -205,12 +220,18 @@ def main(argv=None) -> dict:
           f"wall {prof['wall_ms']:.3f} ms ({prof['wall_ms'] / n:.3f} "
           f"ms/frame)", flush=True)
     print_spans(prof)
+    if replay is not None:
+        print(f"\nsteady calls, replayed: device ops/frame "
+              f"{replay['kernel_launches'] / n:.1f}, device idle "
+              f"{replay['idle_ms']:.3f} ms, host wall {replay['wall_ms']:.3f}"
+              f" ms ({replay['wall_ms'] / n:.3f} ms/frame)")
+        print_spans(replay)
     result = {"tool": "profile_forward", "card": card,
               "b": args.b, "h": args.h, "w": args.w, "iters": args.iters,
               "frames": n, "radius": args.radius, "ckpt": args.ckpt,
               "conv_kernel": args.conv_kernel, "plain": args.plain,
               "engine": args.engine, "cascade_levels": args.cascade_levels,
-              "launches": counts, **prof}
+              "launches": counts, **prof, "replay": replay}
     print(json.dumps(result), flush=True)
     return result
 

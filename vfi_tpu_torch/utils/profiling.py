@@ -14,6 +14,8 @@ gemm, elementwise, reduce, layout, collectives, other) summed, and on the
 timeline (`timeline`: the union of each category's intervals, the
 overlap between categories and the device's idle gaps, which together
 make the trace's wall span). `PORT_KERNELS` names the port's CUDA kernels.
+`port_kernel_counts(events)` counts the port's kernels by name among a
+profile's device events, those a CUDA graph replays included.
 
 `span(name)` opens one of the program's named host spans (`vfi.*`): a
 `torch.profiler.record_function` while a profiler records, so the spans
@@ -31,6 +33,7 @@ import contextlib
 import os
 import re
 import time
+from collections import Counter
 from dataclasses import dataclass, field
 from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
@@ -101,6 +104,24 @@ def category(name: str) -> str:
         if any(f in low for f in frags):
             return cat
     return "other"
+
+
+# A port kernel's name (csrc/*.cu's `__global__`s) inside the name a
+# device trace gives it ("void dcn_tile_kernel<64, 16>(DcnParams)").
+_PORT_KERNEL = re.compile(
+    r"\b(conv2d(?:_f32)?|conv_chain(?:_f32)?|dcn_\w+?|warp_bounded\w*?)"
+    r"_kernel\b")
+
+
+def port_kernel_counts(events) -> Counter:
+    """How often each of the port's CUDA kernels ran among a profile's
+    device events (`torch.profiler.profile(...).events()`), by kernel
+    name. CUPTI lists a CUDA graph's replayed kernels one by one, so this
+    counts them where the wrappers' counters, which count at launch,
+    cannot."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return Counter(m.group(0) for ev in events if ev.device_type == cuda
+                   for m in [_PORT_KERNEL.search(ev.name)] if m)
 
 
 def _merged(iv) -> list:

@@ -55,9 +55,14 @@ and the script exits non-zero without a result line:
            dcn_max_offset=1, warp_max_flow=16, cascade_levels=2,
            conv_kernel="pallas") answers three b=1 requests and one b=2
            request at 1280x720 on the card: launch counts (8 conv-chain,
-           3 DCN, 1 warp per engine launch), finite outputs in [0, 1], PSNR
-           against the same engine run through the plain versions on the
-           card, frames/s;
+           3 DCN, 1 warp, 1 conv per engine launch: PER_LAUNCH; "8 / 3 /
+           1" below counts the conv-chain, DCN and warp launches and
+           implies the fuse projection's conv where the engine is the bf16
+           flagship's), no input copied by a wrapper, a replayed launch
+           running CAT_KERNELS_GONE fewer concatenation kernels than an
+           eager launch of the forward that concatenates, finite outputs
+           in [0, 1], PSNR against the same engine run through the plain
+           versions on the card, frames/s;
 5. serve   (a) the flagship engine with io_uint8 behind the HTTP server
            (`vfi_tpu_torch.serve`, the serve CLI's batcher defaults:
            max_batch 8, 5 ms, 5M px a launch), warmed for 720p pairs and
@@ -268,14 +273,15 @@ from vfi_tpu_torch.infer.video_io import (CAP_PROP_FPS, CAP_PROP_FRAME_COUNT,
                                           CAP_PROP_FRAME_WIDTH, to_float,
                                           to_u8)
 from vfi_tpu_torch.models import SimpleFlowNet
-from vfi_tpu_torch.ops.cuda import (PLAIN, WRAPPERS, bounded_warp,
+from vfi_tpu_torch.ops.cuda import (PLAIN, WRAPPERS, as_parts, bounded_warp,
                                     bounded_warp_plain, build, chain_plan,
                                     conv2d,
                                     conv2d_plain, conv2d_plan, conv_chain,
                                     conv_chain_plain, dcn_plan,
                                     deform_conv2d_bounded,
                                     deform_conv2d_bounded_plain,
-                                    launch_counts, pack_conv2d,
+                                    input_form_counts, launch_counts,
+                                    pack_conv2d,
                                     pack_conv_chain, pack_dcn,
                                     reset_launch_counts)
 from vfi_tpu_torch.ops.cuda.conv import ROUTES
@@ -381,10 +387,19 @@ SWEEPS = (
 PSNR_TOL_DB = 0.05
 SSIM_TOL = 0.002
 # Launches of each wrapper per engine launch on the flagship path. The
-# conv2d wrapper runs only in the kernel tools; the three one-layer offset
-# chains run the conv kernel (csrc/conv2d.cu) and count as conv_chain.
+# three one-layer offset chains run the conv kernel (csrc/conv2d.cu) and
+# count as conv_chain; the conv2d wrapper runs the fuse projection, which
+# reads its input in two parts (features, the warped frame's 8-wide view).
+# PER_LAUNCH_CAT: the forwards that concatenate instead (float32, whose
+# fuse projection stays a cuDNN conv) and q12's topology (no fuse
+# projection). The bf16 flagship's launches copy no input
+# (`input_form_counts()["copied"]` 0), and a launch runs CAT_KERNELS_GONE
+# fewer concatenation kernels (CatArrayBatchedCopy) than a launch of the
+# concatenating forward: the two motion chains' and the fusion's.
 PER_LAUNCH = {"conv_chain": 8, "deform_conv2d_bounded": 3, "bounded_warp": 1,
-              "conv2d": 0}
+              "conv2d": 1}
+PER_LAUNCH_CAT = dict(PER_LAUNCH, conv2d=0)
+CAT_KERNELS_GONE = 3
 CHAIN_TPU = "vfi_tpu/ops/pallas/conv.py:543"
 CONV_TPU = "vfi_tpu/ops/pallas/conv.py:92"
 CONV_V2_TPU = "vfi_tpu/ops/pallas/conv.py:282"
@@ -930,6 +945,133 @@ def conv2d_row(rnd, gen, cin, cout, k, b, h, w, variant, replaces,
         plan=conv2d_plan(cin, cout, k, itemsize=x.element_size()))
 
 
+def vs_cat(name: str, got: torch.Tensor, cat: torch.Tensor) -> dict:
+    """A kernel on parts or a view (`got`) against the same kernel on their
+    zero-padded concatenation (`cat`): bit for bit, or the row fails."""
+    torch.cuda.synchronize()
+    if not torch.equal(got, cat):
+        raise AssertionError(f"{name}: the kernel on parts or a view differs "
+                             f"from it on their concatenation")
+    return {"vs_cat_bit_exact": True}
+
+
+def fuse_row(rnd, sd, b, h, w, paths) -> dict:
+    """The fuse projection (1x1, 67 -> 64, no ReLU) as the bf16 flagship
+    runs it, with the checkpoint's weights: the conv kernel reading two
+    parts, the features and the [..., :3] view of the bounded warp's 8-wide
+    buffer, held against its plain version on the parts, and bit for bit
+    against the kernel on their zero-padded concatenation
+    (`vs_cat_bit_exact`). Library: the concatenating forward's cat, cuDNN
+    conv and bias add (bf16, three calls)."""
+    dev = rnd(1).device
+    feat = rnd(b, h, w, 64)
+    rgb8 = torch.zeros(b, h, w, 8, dtype=torch.bfloat16, device=dev)
+    rgb8[..., :3] = rnd(b, h, w, 3)
+    rgb = rgb8[..., :3]
+    wt = sd["fuse_proj.conv.weight"].cuda()
+    bt = sd["fuse_proj.conv.bias"].cuda()
+    pk = pack_conv2d(wt, bt)
+    wb, bb = wt.to(torch.bfloat16), bt.to(torch.bfloat16)
+    ref = conv2d(torch.cat([feat, rgb], dim=-1), wt, bt, packed=pk)
+    name = row_name("conv2d/fuse_proj67x64k1/parts", b, h, w)
+    same = vs_cat(name, conv2d((feat, rgb), wt, bt, packed=pk), ref)
+
+    def library():
+        x = torch.cat([feat, rgb], dim=-1).permute(0, 3, 1, 2)
+        return F.conv2d(x, wb) + bb[:, None, None]
+
+    # The kernel's one rounding against the library's two: how far the
+    # bf16 flagship's fuse projection moved.
+    twice = library().permute(0, 2, 3, 1)
+    return kernel_row(
+        name, "vfi_tpu_torch/csrc/conv2d.cu", CONV_TPU,
+        (paths, "conv2d", (67, 64, 1, h, w, "bf16")),
+        lambda: conv2d((feat, rgb), wt, bt, packed=pk),
+        lambda: conv2d_plain((feat, rgb), wt, bt), library,
+        nbytes(feat, rgb, bt) + nbytes(wt) // 2, 2.0 * b * h * w * 67 * 64,
+        library_call="cat+F.conv2d+bias", **same,
+        vs_library_max_abs=(ref.float() - twice.float()).abs().max().item(),
+        vs_library_max_rel=((ref.float() - twice.float()).abs().max()
+                            / twice.float().abs().max()).item())
+
+
+def parts_rows(rnd, sd, sd12, dcn12, shapes) -> list:
+    """The main path's inputs in parts and views, with the checkpoints'
+    weights, each held against its plain version and bit for bit against
+    the kernel on the zero-padded concatenation (`vs_cat_bit_exact`): the
+    flagship's motion chain on (features, the context vector broadcast
+    over the pixels: a stride-0 part read through L1) at `shapes` ((b, h,
+    w) each: 720p and its cascade level); and on q12's batch the first DCN
+    on (features, the [..., :3] view of the warp's 8-wide buffer), the
+    later DCNs on the [..., :67] view of a 72-wide buffer, both into a
+    padded output (`padded=True`), and the reconstruction chain on that
+    view. Their launch keys have no path: the whole-input rows of the same
+    shapes carry the paths' launches. No library call."""
+    rows = []
+    names = [f"motion_conv{i}.conv" for i in (1, 2, 3)]
+    ws = [sd[f"{n}.weight"].cuda() for n in names]
+    bs = [sd[f"{n}.bias"].cuda() for n in names]
+    acts = (True, True, False)
+    pk = pack_conv_chain(ws, bs)
+    for b, h, w in shapes:
+        feat = rnd(b, h, w, 64)
+        x = (feat, rnd(b, 64)[:, None, None, :].expand(b, h, w, 64))
+        name = row_name("conv_chain/motion/parts", b, h, w)
+        same = vs_cat(name, conv_chain(x, ws, bs, acts, packed=pk),
+                      conv_chain(torch.cat(x, -1), ws, bs, acts, packed=pk))
+        rows.append(kernel_row(
+            name, "vfi_tpu_torch/csrc/conv2d.cu", CHAIN_TPU,
+            ((), "conv_chain", ("layers", (128, 64, 64, 2), h, w, "bf16")),
+            lambda x=x: conv_chain(x, ws, bs, acts, packed=pk),
+            lambda x=x: conv_chain_plain(x, ws, bs, acts), None,
+            nbytes(feat) + b * 128 + nbytes(*ws) // 2 + nbytes(*bs),
+            sum(2.0 * b * h * w * 9 * t.shape[1] * t.shape[0] for t in ws),
+            dtype="bf16", **same))
+    b, h, w, R = EB, EH, EW, 2
+    wt, bt = dcn12
+    pk = pack_dcn(wt, bt)
+    off = rnd(b, h, w, 18, scale=0.8 * R)
+    mask = torch.sigmoid(rnd(b, h, w, 9, scale=2.0).float()).to(torch.bfloat16)
+    rgb8, wide = rnd(b, h, w, 8), rnd(b, h, w, 72)
+    n = b * h * w
+    for tag, x in (("parts", (rnd(b, h, w, 64), rgb8[..., :3])),
+                   ("view", wide[..., :67])):
+        name = row_name(f"deform_conv2d_bounded/C67R{R}/{tag}", b, h, w)
+        got = deform_conv2d_bounded(x, off, mask, wt, bt, R, packed=pk,
+                                    padded=True)
+        if got.stride(2) != 72:
+            raise AssertionError(f"{name}: output pixel stride "
+                                 f"{got.stride(2)}, not the padded 72")
+        same = vs_cat(name, got, deform_conv2d_bounded(
+            torch.cat(as_parts(x), -1), off, mask, wt, bt, R, packed=pk))
+        rows.append(kernel_row(
+            name, "vfi_tpu_torch/csrc/dcn_bounded.cu", DCN_V4_TPU,
+            ((), "deform_conv2d_bounded", (67, 67, h, w, R, "bf16")),
+            lambda x=x: deform_conv2d_bounded(x, off, mask, wt, bt, R,
+                                              packed=pk, padded=True),
+            lambda x=x: deform_conv2d_bounded_plain(x, off, mask, wt, bt, R),
+            None, nbytes(*as_parts(x), off, mask) + nbytes(wt) // 2
+            + nbytes(bt), 2.0 * n * 9 * 67 * 67, 8.0 * n * 9 * 67,
+            dtype="bf16", **same))
+    names = [f"rec_conv{i}.conv" for i in (1, 2, 3)]
+    ws = [sd12[f"{nm}.weight"].cuda() for nm in names]
+    bs = [sd12[f"{nm}.bias"].cuda() for nm in names]
+    pk = pack_conv_chain(ws, bs)
+    x = wide[..., :67]
+    name = row_name("conv_chain/rec67/view", b, h, w)
+    same = vs_cat(name, conv_chain(x, ws, bs, acts, packed=pk),
+                  conv_chain(x.contiguous(), ws, bs, acts, packed=pk))
+    rows.append(kernel_row(
+        name, "vfi_tpu_torch/csrc/conv2d.cu", CHAIN_TPU,
+        ((), "conv_chain", ("layers", (67, 64, 64, 3), h, w, "bf16")),
+        lambda: conv_chain(x, ws, bs, acts, packed=pk),
+        lambda: conv_chain_plain(x, ws, bs, acts), None,
+        nbytes(x) + nbytes(*ws) // 2 + nbytes(*bs),
+        sum(2.0 * n * 9 * t.shape[1] * t.shape[0] for t in ws), dtype="bf16",
+        **same))
+    return rows
+
+
 def dcn_row(rnd, wt, bt, b, h, w, R, replaces, paths,
             dt=torch.bfloat16) -> dict:
     """Bounded DCN at a fusion stack's shape with weights `wt`, `bt`;
@@ -1060,6 +1202,11 @@ def phase_kernels(sd: dict, sd12: dict, dev) -> list:
                   for d in (sd, sd12)]
     rows.append(dcn_row(rnd, *dcn, 1, H, W, 1, DCN_TPU, main + ut))
     rows.append(dcn_row(rnd, *dcn, 1, ih, iw, 1, DCN_TPU, cli))
+    # The flagship's fuse projection on the conv kernel, at its paths'
+    # shapes.
+    for h, w, paths in ((H, W, main + ut), (EH, EW, cli), (ih, iw, cli)):
+        rows.append(fuse_row(rnd, sd, 1, h, w, paths))
+    rows += parts_rows(rnd, sd, sd12, dcn12, ((1, H, W), (1, H // 2, W // 2)))
     # The v4 route's shapes on the eval path: qocc (C=64, R=1) at native
     # (infer_cli's val pair's too) and auto_scale's half resolution, q12
     # (C=67, R=2, also the q12 phase's); C=67 at R=4 (the training
@@ -1221,6 +1368,20 @@ def port_kernels_of(fn) -> dict:
     return dict(port_kernel_counts(prof.events()))
 
 
+def cat_kernels_of(fn) -> int:
+    """How many concatenation kernels (PyTorch's CatArrayBatchedCopy) ran
+    in `fn()`, read off the profiler's device trace (a replay's too)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    return sum(1 for ev in prof.events()
+               if ev.device_type == cuda and "CatArrayBatchedCopy" in ev.name)
+
+
 def kernel_family_failures(tag: str, ran: dict) -> list:
     """One engine launch's port kernels (`port_kernels_of`) against
     PER_LAUNCH: 3 DCN and 1 warp kernels, and a conv kernel at least for
@@ -1258,14 +1419,30 @@ def phase_main(params, flow_params) -> dict:
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         outs.append(out)
-    counts = launch_counts()
+    counts, forms = launch_counts(), input_form_counts()
     by_shape = shapes_now()
     graphs = graph_delta(eng, g0)
     # Each key's next launch is captured, the b=1 key's later ones replay;
     # a replay's kernels, read off the device trace, are the eager run's.
     replay_kernels = port_kernels_of(lambda: eng.midpoints(*requests[0]))
+    # A replayed launch's concatenation kernels against an eager launch of
+    # the forward that concatenates (a twin whose every launch runs eager).
+    cat_eng = FrameInterpolator(params, flow_params=flow_params,
+                                device=CARD0, **FLAGSHIP)
+    cat_eng.model._reads_parts = lambda x: False
+    cat_eng._graph_key = lambda *args: None
+    cat_eng.midpoints(*requests[0])
+    cats = {"replayed": cat_kernels_of(lambda: eng.midpoints(*requests[0])),
+            "concatenating": cat_kernels_of(
+                lambda: cat_eng.midpoints(*requests[0]))}
 
     failures = launch_failures("main", counts, body_runs(graphs))
+    if forms["copied"] != 0:
+        failures.append(f"main: launches by input form {forms}: a wrapper "
+                        f"copied an input")
+    if cats["replayed"] != cats["concatenating"] - CAT_KERNELS_GONE:
+        failures.append(f"main: concatenation kernels {cats}, expected "
+                        f"{CAT_KERNELS_GONE} fewer in the replay")
     if graphs != {"captured": 2, "replayed": 2, "eager": 0, "evicted": 0}:
         failures.append(f"main: graph_stats moved by {graphs}")
     failures += kernel_family_failures("main eager", eager_kernels)
@@ -1292,6 +1469,7 @@ def phase_main(params, flow_params) -> dict:
     pairs = sum(a.shape[0] for a, _ in requests)
     return {"phase": "main", "requests": [a.shape[0] for a, _ in requests],
             "request_seconds": times, "launches": counts, "graphs": graphs,
+            "launches_by_input": forms, "cat_kernels": cats,
             "device_kernels_eager": eager_kernels,
             "device_kernels_replayed": replay_kernels,
             "frames_per_s_b1": 1.0 / float(np.median(times[:3])),
@@ -1603,11 +1781,13 @@ def moving_frames(gen: np.random.Generator, n: int) -> list:
             for k in range(n)]
 
 
-def launch_failures(tag: str, counts: dict, runs: int) -> list:
-    """Wrappers whose launches are not PER_LAUNCH's for `runs` runs of
-    the engine's launch body (`body_runs`)."""
+def launch_failures(tag: str, counts: dict, runs: int,
+                    per: dict = PER_LAUNCH) -> list:
+    """Wrappers whose launches are not `per`'s (PER_LAUNCH, or
+    PER_LAUNCH_CAT) for `runs` runs of the engine's launch body
+    (`body_runs`)."""
     return [f"{tag}: {k} {v} launches over {runs} runs of the launch body"
-            for k, v in counts.items() if v != PER_LAUNCH[k] * runs]
+            for k, v in counts.items() if v != per[k] * runs]
 
 
 def graph_delta(eng, since: dict) -> dict:
@@ -1809,7 +1989,9 @@ def infer_cli_request(argv: list, tag: str, failures: list) -> tuple:
         got = native.decode_png_rgb(f.read())
     want = (np.clip(mids[0][0].float().cpu().numpy(), 0, 1)
             * 255).astype(np.uint8)
-    failures += launch_failures(tag, counts, len(fwds))
+    failures += launch_failures(
+        tag, counts, len(fwds),
+        PER_LAUNCH_CAT if "--fp32" in argv else PER_LAUNCH)
     if rc != 0 or len(mids) != 1 or len(fwds) != 1 or not (
             np.array_equal(got, want)):
         failures.append(f"{tag}: rc {rc}, {len(fwds)} engine "
@@ -1894,7 +2076,8 @@ def phase_fp32(params, flow_params, eng16) -> dict:
     counts = launch_counts()
     add_shapes(by_shape, shapes_now())
     failures += launch_failures("fp32", counts,
-                                body_runs(graph_delta(eng, g0)))
+                                body_runs(graph_delta(eng, g0)),
+                                PER_LAUNCH_CAT)
     failures += dtype_failures("fp32", by_shape, "f32")
     refs = [plain.midpoints(a, b) for a, b in requests]
     errs = [(o - r).abs().max().item() for o, r in zip(outs, refs)]
@@ -1922,7 +2105,8 @@ def phase_fp32(params, flow_params, eng16) -> dict:
         if prec == "f32":
             add_shapes(by_shape, shapes_now())
             failures += launch_failures("fp32 turns", launch_counts(),
-                                        body_runs(graph_delta(eng, g0)))
+                                        body_runs(graph_delta(eng, g0)),
+                                        PER_LAUNCH_CAT)
     fps = {p: {"b1": 1.0 / float(np.median(t["b1"])),
                "b2": 2.0 / float(np.median(t["b2"]))}
            for p, t in times.items()}
@@ -2052,10 +2236,10 @@ def phase_q12(frames: dict, R: int = 2) -> dict:
     secs = time.perf_counter() - t0
     counts, by_shape = launch_counts(), shapes_now()
     runs = body_runs(graph_delta(eng, g0))
-    if launch_failures("q12", counts, runs):
+    if launch_failures("q12", counts, runs, PER_LAUNCH_CAT):
         raise AssertionError(f"q12 R={R} launches {counts} over {runs} "
                              f"runs of the launch body, expected "
-                             f"{PER_LAUNCH} each")
+                             f"{PER_LAUNCH_CAT} each")
     dcn_key = (67, 67, EH, EW, R, "bf16")
     design = dcn_plan(67, 67, R, torch.cuda.get_device_properties(
         0).shared_memory_per_block_optin)["design"]
@@ -2925,10 +3109,11 @@ def phase_conv_compare(frames: dict, params, flow_params) -> list:
     chains = {"xla": 0, "pallas": PER_LAUNCH["conv_chain"]}
     results, failures = [], []
 
-    def want(ck, runs):     # `runs` of the launch body (`body_runs`)
+    def want(ck, runs, eng):   # `runs` of the launch body (`body_runs`)
+        fuse = ck == "pallas" and eng.model.fuse_project
         return {"conv_chain": chains[ck] * runs,
                 "deform_conv2d_bounded": 3 * runs,
-                "bounded_warp": runs, "conv2d": 0}
+                "bounded_warp": runs, "conv2d": runs if fuse else 0}
 
     t0 = time.perf_counter()
     f0, f1 = smooth_frames(np.random.default_rng(SEED), 1)
@@ -2947,7 +3132,7 @@ def phase_conv_compare(frames: dict, params, flow_params) -> list:
             torch.cuda.synchronize()
             times[ck].append(time.perf_counter() - t1)
         runs = body_runs(graph_delta(engs[ck], g0))
-        if launch_counts() != want(ck, runs):
+        if launch_counts() != want(ck, runs, engs[ck]):
             failures.append(f"flagship {ck}: launches {launch_counts()} "
                             f"over {runs} runs of the launch body")
     agree = psnr(outs["xla"], outs["pallas"])
@@ -2987,7 +3172,7 @@ def phase_conv_compare(frames: dict, params, flow_params) -> list:
             times[ck].append(time.perf_counter() - t1)
             runs = (body_runs(graph_delta(engs[ck], g0))
                     * (4 if skw.get("tta") else 1))
-            if launch_counts() != want(ck, runs):
+            if launch_counts() != want(ck, runs, engs[ck]):
                 failures.append(f"{name} {ck}: launches {launch_counts()} "
                                 f"over {runs} runs of the model")
         pairs = sum(bt["n"] for bt in batches)

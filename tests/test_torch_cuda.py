@@ -653,8 +653,9 @@ def test_q12_engine_runs_the_kernels(dev, conv_kernel, chains):
 def test_server_runs_the_kernels_on_a_raw_request(dev):
     """A 2x64x96 raw request through the port's HTTP server over the qocc
     engine at the flagship settings with io_uint8 and the kernels on: one
-    engine launch with 8 conv-chain, 3 DCN and 1 warp kernel launches,
-    a uint8 midpoint within 40 dB of the plain-version engine's."""
+    engine launch with 8 conv-chain, 3 DCN, 1 warp and 1 conv (the fuse
+    projection) kernel launches, a uint8 midpoint within 40 dB of the
+    plain-version engine's."""
     import urllib.request
 
     from vfi_tpu_torch.infer import FrameInterpolator
@@ -686,7 +687,7 @@ def test_server_runs_the_kernels_on_a_raw_request(dev):
         server.shutdown()
     assert status == 200 and batches == 1
     assert counts == {"conv_chain": 8, "deform_conv2d_bounded": 3,
-                      "bounded_warp": 1, "conv2d": 0}
+                      "bounded_warp": 1, "conv2d": 1}
     got = np.frombuffer(data, np.uint8).reshape(64, 96, 3)
     ref = FrameInterpolator(params, use_kernels=False, **kw).midpoints(
         a[None], b[None])[0].cpu().numpy()
@@ -697,9 +698,9 @@ def test_server_runs_the_kernels_on_a_raw_request(dev):
 def test_recursive_runs_the_kernels_at_every_level(dev):
     """`recursive` at factor 3 on a 2x64x96 pair at the flagship settings
     (qocc, flow prior, cascade 2, R=1, warp bound 16, conv_kernel
-    "pallas"): three engine launches, each with 8 conv-chain, 3 DCN and 1
-    warp kernel launches; every inserted frame within 40 dB of the
-    plain-version engine's."""
+    "pallas"): three engine launches, each with 8 conv-chain, 3 DCN, 1
+    warp and 1 conv (the fuse projection) kernel launches; every inserted
+    frame within 40 dB of the plain-version engine's."""
     from vfi_tpu_torch.infer import FrameInterpolator
     from vfi_tpu_torch.utils.convert import load_params_npz
 
@@ -717,7 +718,7 @@ def test_recursive_runs_the_kernels_at_every_level(dev):
     torch.cuda.synchronize()
     assert launch_counts() == {"conv_chain": 24,
                                "deform_conv2d_bounded": 9, "bounded_warp": 3,
-                               "conv2d": 0}
+                               "conv2d": 3}
     ref = FrameInterpolator(params, use_kernels=False, **kw).recursive(
         f0, f1, 3)
     assert len(got) == len(ref) == 3

@@ -57,6 +57,94 @@ __device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, boo
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
                "r"(valid ? 16 : 0));
 }
+// As cp_async16, but reads only the first `bytes` (0..16) of `src` and
+// writes zeros to the rest of the 16 bytes; `src` must still be a 16-byte
+// aligned device address. `l1`: through the L1 cache (.ca) instead of past
+// it (.cg), for a source that every pixel reads (a broadcast): from L2
+// alone, the requests of every SM for the same line queue at its one L2
+// slice (a 720p 128 -> 64 conv whose half input was one broadcast vector
+// took 2x the time of its contiguous input on an H100).
+__device__ __forceinline__ void cp_async16_n(void* dst, const void* src, int bytes,
+                                             bool l1 = false) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if (l1)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+                 "r"(bytes));
+  else
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+                 "r"(bytes));
+}
+
+// An input read in place (a channels-contiguous NHWC view) in up to two
+// parts split along channels: part 0 holds channels [0, c0), part 1
+// [c0, c0 + c1) (c1 = 0: no part 1; c0 a multiple of 8 where c1 > 0).
+// Each part has its own image, row and pixel strides in elements (each a
+// multiple of 8, i.e. 16 bytes; 0 allowed: a broadcast); an element's
+// offset within an image fits 32 bits. A tile loader takes an image's base
+// pointers once (`image`), then copies each 16-byte unit of channels
+// (`load`): the bytes of it that lie in the input, zeros for the rest (the
+// channels past c0 + c1, up to the kernel's padded width) and for a pixel
+// outside the image. `load<false>` reads part 0 alone, the whole input of
+// a kernel instance for one part: the arithmetic of a contiguous tensor's
+// loader with the part's strides. `load<true>` picks the part from the
+// channel, and reads a part that is a broadcast along rows (a pixel stride
+// of 0) through L1.
+template <typename T>
+struct InputParts {
+  const T* x0;
+  const T* x1;
+  long long sb0, sb1;
+  int sy0, sx0, sy1, sx1;
+  int c0, c1;
+
+  struct Image {
+    const T* b0;
+    const T* b1;
+  };
+  __device__ __forceinline__ Image image(int b) const { return {x0 + b * sb0, x1 + b * sb1}; }
+
+  // Channels ch .. ch + 16 / sizeof(T) of pixel (gy, gx) of `img` into
+  // `dst`; `inimg`: the pixel lies in the image.
+  template <bool TWO>
+  __device__ __forceinline__ void load(void* dst, const Image& img, int gy, int gx, int ch,
+                                       bool inimg) const {
+    constexpr int PER = 16 / sizeof(T);
+    const bool hi = TWO && ch >= c0;
+    const int cc = hi ? ch - c0 : ch, left = (hi ? c1 : c0) - cc;
+    const bool ok = inimg && left > 0;
+    const T* src = (hi ? img.b1 : img.b0) + ((hi ? sy1 : sy0) * gy + (hi ? sx1 : sx0) * gx + cc);
+    cp_async16_n(dst, ok ? src : x0, ok ? (left < PER ? left : PER) * (int)sizeof(T) : 0,
+                 TWO && (hi ? sx1 : sx0) == 0);
+  }
+};
+
+// The InputParts of (x0, strides, c0, x1, strides, c1) as the C entries take
+// them for H x W images, or false where the loader cannot read them: a
+// stride off 16 bytes or negative, a part off 16-byte alignment, part 0
+// not a multiple of 16 bytes wide where there are two, no channels, or an
+// offset within an image past 32 bits.
+template <typename T>
+__host__ inline bool make_parts(InputParts<T>& in, int H, int W, const void* x0, long long sb0,
+                                long long sy0, long long sx0, int c0, const void* x1,
+                                long long sb1, long long sy1, long long sx1, int c1) {
+  constexpr int PER = 16 / sizeof(T);
+  auto ok = [&](const void* p, long long sb, long long sy, long long sx, int c) {
+    return p != nullptr && reinterpret_cast<uintptr_t>(p) % 16 == 0 && sb % PER == 0 &&
+           sy % PER == 0 && sx % PER == 0 && sb >= 0 && sy >= 0 && sx >= 0 &&
+           (H > 0 ? H - 1 : 0) * sy + (W > 0 ? W - 1 : 0) * sx + c + PER < (1LL << 31);
+  };
+  if (c0 < 1 || c1 < 0 || !ok(x0, sb0, sy0, sx0, c0) ||
+      (c1 > 0 && (c0 % PER != 0 || !ok(x1, sb1, sy1, sx1, c1))))
+    return false;
+  const bool two = c1 > 0;
+  in.x0 = static_cast<const T*>(x0);
+  in.x1 = static_cast<const T*>(two ? x1 : x0);
+  in.sb0 = sb0; in.sy0 = (int)sy0; in.sx0 = (int)sx0;
+  in.sb1 = two ? sb1 : 0; in.sy1 = two ? (int)sy1 : 0; in.sx1 = two ? (int)sx1 : 0;
+  in.c0 = c0; in.c1 = c1;
+  return true;
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }

@@ -52,9 +52,19 @@
 //   ReLU, one rounding to bf16; a 4x4 transpose within each quad of lanes
 //   (shuffles) gives each lane 8 consecutive channels, stored as 16 bytes
 //   where Cout % 8 == 0.
-// Cin must be a multiple of 8 (16-byte copies); the wrapper pads another
-// input with zero channels, and the packed weights carry zero rows up to
-// Cin16.
+// - The input is read where it lies: a channels-contiguous NHWC view with
+//   any image, row and pixel strides that are multiples of 8 elements (0
+//   too: a per-image vector broadcast over the pixels), in one part or in
+//   two split along channels (common.cuh InputParts: part 0 a multiple of 8
+//   channels). The tile loader takes each 16-byte unit's source from its
+//   channel and loads the channels past a part's end, up to Cin16, as
+//   zeros. So a caller hands over a concatenation's parts, or a view of a
+//   wider buffer, without copying them into one tensor: the tile holds what
+//   the zero-padded concatenation would hold, and the output is the same
+//   bit for bit. The packed weights carry zero rows up to Cin16. An input
+//   in one part runs the instances whose loader reads part 0 alone (TWO
+//   false: a contiguous tensor's address arithmetic, no per-unit choice of
+//   part or cache path); only two parts run the instances that choose.
 
 #include "common.cuh"
 
@@ -74,18 +84,20 @@ constexpr int MAX_COUT = 128;
 constexpr int MAX_K = 9;
 
 struct ConvParams {
-  const bf16* x;        // (B, H, W, Cin)
+  InputParts<bf16> x;   // (B, H, W, c0 + c1) in one or two parts, read in place
   const bf16* w;        // (K * K * Cin16, Cout16), row t * Cin16 + c, zero padded
   const float* bias;    // (Cout16,), zero padded
   bf16* out;            // (B, H, W, Cout)
-  int B, H, W, Cin, Cout, K, Cin16, Cout16, act;
+  int B, H, W, Cin, Cout, K, Cin16, Cout16, act;   // Cin: c0 + c1 padded to 8
   int ck;               // tile channels per chunk (multiple of 16)
   int tg;               // taps per streamed weight group; 0: weights resident
   int x_bytes;          // one input-tile buffer; the weights follow both
   int tiles_x, tiles_y, tiles;
 };
 
-template <int NF>  // n8 fragments per warp: Cout16 = WN * NF * 8
+// NF: n8 fragments per warp, Cout16 = WN * NF * 8; TWO: the input in two
+// parts (else part 0 alone: InputParts::load).
+template <int NF, bool TWO>
 __global__ void __launch_bounds__(NTHREADS, NF <= 4 ? 2 : 1)
 conv2d_kernel(const ConvParams p) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -128,16 +140,15 @@ conv2d_kernel(const ConvParams p) {
     const int y0 = ty * TH - m, x0 = tx * TW - m;
     const int pieces = chunk_width(c) / 8;
     const uint32_t mag_p = fast_div_magic(pieces);
-    const bf16* xb = p.x + (size_t)b * p.H * p.W * p.Cin;
     bf16* dst0 = xs + slot * xslot_elems;
+    const auto img = p.x.image(b);
     for (int it = threadIdx.x; it < tpx * pieces; it += NTHREADS) {
       const int pix = fast_div(it, mag_p);
       const int pc = it - pix * pieces;
       const int row = fast_div(pix, mag_tcols), col = pix - row * tcols;
-      const int gy = y0 + row, gx = x0 + col, ch = c * ck + pc * 8;
-      const bool ok = ch < p.Cin && gy >= 0 && gy < p.H && gx >= 0 && gx < p.W;
-      cp_async16_zfill(dst0 + pix * xp + pc * 8,
-                       ok ? xb + ((size_t)gy * p.W + gx) * p.Cin + ch : p.x, ok);
+      const int gy = y0 + row, gx = x0 + col;
+      p.x.template load<TWO>(dst0 + pix * xp + pc * 8, img, gy, gx, c * ck + pc * 8,
+                             gy >= 0 && gy < p.H && gx >= 0 && gx < p.W);
     }
   };
   // Streamed weights: taps g*tg .. of chunk c, as [tap][ck][wp] in `slot`.
@@ -612,6 +623,21 @@ conv2d_f32_kernel(const ConvF32Params p) {
 __host__ __device__ constexpr int f32_mf(int nf, bool flush) {
   return (nf <= 4 ? 4 : 2) / (flush ? 2 : 1);
 }
+template <bool TWO>
+int launch_bf16(int nf, const ConvParams& p, int smem, cudaStream_t s) {
+  auto go = [&](auto kernel) { return launch_persistent(kernel, p, p.tiles, NTHREADS, smem, s); };
+  switch (nf) {
+    case 1: return go(conv2d_kernel<1, TWO>);
+    case 2: return go(conv2d_kernel<2, TWO>);
+    case 3: return go(conv2d_kernel<3, TWO>);
+    case 4: return go(conv2d_kernel<4, TWO>);
+    case 5: return go(conv2d_kernel<5, TWO>);
+    case 6: return go(conv2d_kernel<6, TWO>);
+    case 7: return go(conv2d_kernel<7, TWO>);
+    default: return go(conv2d_kernel<8, TWO>);
+  }
+}
+
 template <bool FLUSH>
 int launch_f32(int nf, const ConvF32Params& p, int smem, cudaStream_t s) {
   auto go = [&](auto kernel) { return launch_persistent(kernel, p, p.tiles, NTHREADS, smem, s); };
@@ -629,18 +655,26 @@ int launch_f32(int nf, const ConvF32Params& p, int smem, cudaStream_t s) {
 
 }  // namespace
 
-// Launch one conv (odd K <= 9, Cin % 8 == 0, 1 <= Cout <= 128; act != 0
-// fuses the ReLU) on the plan of `conv2d_plan` (ops/cuda/conv.py): ck
+// Launch one conv (odd K <= 9, 1 <= Cout <= 128; act != 0 fuses the ReLU)
+// of the input in parts (x0, its image, row and pixel strides in elements,
+// c0 channels; x1 likewise, c1 = 0 for none: common.cuh InputParts) on the
+// plan of `conv2d_plan` (ops/cuda/conv.py) for Cin = c0 + c1 padded to 8: ck
 // channels per input chunk, tg taps per streamed weight group (0: the
 // whole weight set resident), x_bytes per input-tile buffer, smem bytes in
 // all. Returns the cudaError_t of the launch (cudaErrorInvalidValue for a
-// shape or plan outside the contract); the kernel runs on `stream`.
-extern "C" int vfi_conv2d_bf16(const void* x, const void* w, const void* bias, void* out,
-                               int B, int H, int W, int Cin, int Cout, int K, int act,
+// shape, layout or plan outside the contract); the kernel runs on `stream`.
+extern "C" int vfi_conv2d_bf16(const void* x0, long long sb0, long long sy0, long long sx0,
+                               int c0, const void* x1, long long sb1, long long sy1,
+                               long long sx1, int c1, const void* w, const void* bias,
+                               void* out, int B, int H, int W, int Cout, int K, int act,
                                int ck, int tg, int x_bytes, int smem,
                                int device, void* stream) {
-  if (Cin < 8 || Cin % 8 != 0 || Cout < 1 || Cout > MAX_COUT || K < 1 || K % 2 == 0 ||
-      K > MAX_K || B < 0 || H < 0 || W < 0)
+  ConvParams p{};
+  if (!make_parts(p.x, H, W, x0, sb0, sy0, sx0, c0, x1, sb1, sy1, sx1, c1))
+    return (int)cudaErrorInvalidValue;
+  const int Cin = (c0 + c1 + 7) / 8 * 8;
+  if (Cout < 1 || Cout > MAX_COUT || K < 1 || K % 2 == 0 || K > MAX_K || B < 0 || H < 0 ||
+      W < 0)
     return (int)cudaErrorInvalidValue;
   const int cin16 = pad16(Cin), cout16 = pad16(Cout), wp = cout16 + PAD;
   const int tpx = (TH + K - 1) * (TW + K - 1);
@@ -648,8 +682,6 @@ extern "C" int vfi_conv2d_bf16(const void* x, const void* w, const void* bias, v
   if (ck < 16 || ck % 16 != 0 || ck > cin16 || tg < 0 || tg > K * K || x_bytes % 128 != 0 ||
       x_bytes < tpx * (ck + PAD) * 2 || smem < 2LL * x_bytes + wbytes)
     return (int)cudaErrorInvalidValue;
-  ConvParams p{};
-  p.x = static_cast<const bf16*>(x);
   p.w = static_cast<const bf16*>(w);
   p.bias = static_cast<const float*>(bias);
   p.out = static_cast<bf16*>(out);
@@ -663,17 +695,8 @@ extern "C" int vfi_conv2d_bf16(const void* x, const void* w, const void* bias, v
   cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto go = [&](auto kernel) { return launch_persistent(kernel, p, p.tiles, NTHREADS, smem, s); };
-  switch (cout16 / 16) {
-    case 1: return go(conv2d_kernel<1>);
-    case 2: return go(conv2d_kernel<2>);
-    case 3: return go(conv2d_kernel<3>);
-    case 4: return go(conv2d_kernel<4>);
-    case 5: return go(conv2d_kernel<5>);
-    case 6: return go(conv2d_kernel<6>);
-    case 7: return go(conv2d_kernel<7>);
-    default: return go(conv2d_kernel<8>);
-  }
+  if (c1 > 0) return launch_bf16<true>(cout16 / 16, p, smem, s);
+  return launch_bf16<false>(cout16 / 16, p, smem, s);
 }
 
 // Launch one float32 conv (Cin % 8 == 0, odd K <= 9, 1 <= Cout <= 128;

@@ -1,7 +1,8 @@
 // Bounded modulated deformable conv (DCNv2), bf16 NHWC, stride 1, 3x3,
 // padding 1, one offset group, offsets clamped to [-R, R], optional mask
-// (none means weight 1), Cin a multiple of 8 (the wrapper pads any other),
-// Cout up to 128, any R whose plan fits (below); and its float32 instances
+// (none means weight 1), any Cin read in place (a view, or two parts split
+// along channels: below), Cout up to 128, any R whose plan fits (below);
+// and its float32 instances
 // of both designs (below the bf16 kernels: float32 throughout, 3xTF32 on
 // the tensor cores).
 //
@@ -24,6 +25,20 @@
 // well before the tensor cores or the bytes do. So the design keeps every
 // byte that is read more than once in shared memory, and the blend free
 // of block barriers.
+//
+// Input and output in place (the bf16 instances of both designs): the input
+// is a channels-contiguous NHWC view, its image, row and pixel strides
+// multiples of 8 elements, in one part or two split along channels
+// (common.cuh InputParts, part 0 a multiple of 8 channels); the tile
+// loader takes each 16-byte unit's source from its channel and loads the
+// channels past a part's end, up to the padded width, as zeros, so the
+// tile holds what the zero-padded concatenation would. An input in one
+// part runs the instances whose loader reads part 0 alone (TWO false), as
+// the float32 instances do. The output's pixel
+// stride `oc` is Cout or Cout padded to 8; the channels past Cout are
+// written as zeros (not as the products of the packed weights' zero
+// columns), so a consumer reads the padded buffer, or its [..., :Cout]
+// view, without a copy.
 //
 // Numerics (both designs): the clamped sample position in float32; each
 // sample-slab entry the float32 blend of its four corners in the order
@@ -111,14 +126,15 @@ constexpr int ROW_PAD = 8;        // slab and weight row padding (bf16)
 // T: the element type, bf16 or float (the float32 instances, below).
 template <typename T>
 struct DcnParamsT {
-  const T* x;           // (B, H, W, Cin)
+  InputParts<T> x;      // (B, H, W, c0 + c1) in one or two parts, read in place
   const T* offset;      // (B, H, W, 18): (dy, dx) of tap t at 2t, 2t + 1
   const T* mask;        // (B, H, W, 9), or null: weight 1
   const T* w;           // bf16: (9 * Cin16, Cout16), row t * Cin16 + c, zero padded;
                         // float32: (Cout16, 9 * Cin), column t * Cin + c
   const float* bias;    // (Cout16,), zero padded
-  T* out;               // (B, H, W, Cout)
-  int B, H, W, Cin, Cout, R, Cin16;
+  T* out;               // (B, H, W, oc): channels past Cout written as zeros
+  int B, H, W, Cin, Cout, R, Cin16;   // Cin: c0 + c1 padded to 8
+  int oc;               // the output's pixel stride: Cout, or Cout padded to 8 (bf16)
   int xu;               // input-tile pixel stride in 16-byte units
   int chans;            // tile: slab channels a pass; stream: a chunk's
   int nchunks;          // stream: chunks of Cin16
@@ -160,25 +176,25 @@ __device__ __forceinline__ void load_meta(const DcnParams& p, int b, int gy, int
 }
 
 // Copy rows x tcols input pixels from image origin (y0, x0), `np` 16-byte
-// pieces a pixel (8 bf16 or 4 float32 channels) from channel c0 on, into
-// `dst` at `xu` pieces a pixel (cp.async, zeros outside the image);
-// threads `NT` apart.
-template <int NT, typename T>
+// pieces a pixel (8 bf16 or 4 float32 channels) from channel ch0 on, into
+// `dst` at `xu` pieces a pixel (cp.async, zeros outside the image and past
+// the input's channels); threads `NT` apart. TWO: the input in two parts
+// (else part 0 alone: common.cuh InputParts::load).
+template <int NT, bool TWO, typename T>
 __device__ __forceinline__ void stage_input(const DcnParamsT<T>& p, unsigned char* dst, int b,
-                                            int y0, int x0, int tpx, int tcols, int c0,
+                                            int y0, int x0, int tpx, int tcols, int ch0,
                                             int np) {
   constexpr int PER = 16 / sizeof(T);   // channels a piece
   const uint32_t mag_np = fast_div_magic(np > 1 ? np : 2);
   const uint32_t mag_tcols = fast_div_magic(tcols);
-  const T* xb = p.x + (size_t)b * p.H * p.W * p.Cin + c0;
+  const auto img = p.x.image(b);
   for (int it = threadIdx.x; it < tpx * np; it += NT) {
     const int pix = np > 1 ? fast_div(it, mag_np) : it;
     const int pc = it - pix * np;
     const int row = fast_div(pix, mag_tcols), col = pix - row * tcols;
     const int gy = y0 + row, gx = x0 + col;
-    const bool ok = gy >= 0 && gy < p.H && gx >= 0 && gx < p.W;
-    cp_async16_zfill(dst + (pix * p.xu + pc) * 16,
-                     ok ? xb + ((size_t)gy * p.W + gx) * p.Cin + pc * PER : p.x, ok);
+    p.x.template load<TWO>(dst + (pix * p.xu + pc) * 16, img, gy, gx, ch0 + pc * PER,
+                           gy >= 0 && gy < p.H && gx >= 0 && gx < p.W);
   }
 }
 
@@ -269,17 +285,19 @@ __device__ __forceinline__ void tap_words(const uint32_t (&off)[NTAPS],
 
 // The warp's m16 fragment of output row oy, columns ox0 .. ox0 + 15, of
 // image b: the bias added, one rounding, a quad-lane transpose, 16-byte
-// stores (2-byte where Cout % 8 != 0); the accumulators are zeroed after.
+// stores where the output's pixel stride `oc` is a multiple of 8 (the
+// channels past Cout zeroed first), 2-byte ones else; the accumulators are
+// zeroed after.
 template <int NF>
 __device__ __forceinline__ void store_epilogue(const DcnParams& p, float (&acc)[NF][4], int b,
                                                int oy, int ox0, int lane) {
   const int g8 = lane >> 2, q4 = lane & 3;
-  const bool vec = (p.Cout % 8) == 0;
+  const bool vec = (p.oc % 8) == 0;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int ox = ox0 + g8 + 8 * h;
     const bool inimg = oy < p.H && ox < p.W;
-    bf16* orow = p.out + (((size_t)b * p.H + oy) * p.W + ox) * p.Cout;
+    bf16* orow = p.out + (((size_t)b * p.H + oy) * p.W + ox) * p.oc;
 #pragma unroll
     for (int j0 = 0; j0 < NF; j0 += 4) {
       uint32_t u[4];
@@ -291,8 +309,11 @@ __device__ __forceinline__ void store_epilogue(const DcnParams& p, float (&acc)[
       }
       quad_transpose(u, q4);
       const int ch0 = (j0 + q4) * 8;
-      if (inimg && j0 + q4 < NF && ch0 < p.Cout) {
+      if (inimg && j0 + q4 < NF && ch0 < p.oc) {
         if (vec) {
+#pragma unroll
+          for (int e = 0; e < 8; ++e)   // the padding channels: zeros
+            if (ch0 + e >= p.Cout) u[e >> 1] &= (e & 1) ? 0x0000FFFFu : 0xFFFF0000u;
           *reinterpret_cast<uint4*>(orow + ch0) = make_uint4(u[0], u[1], u[2], u[3]);
         } else {
 #pragma unroll
@@ -331,8 +352,9 @@ __device__ __forceinline__ void slab_mma(float (&acc)[NF][4], uint32_t a_lane, u
 
 // ---------------------------------------------------------------------------
 // Design "tile": TH output tile rows, one warp a row (an m16 fragment of 16
-// pixels); NF n8 fragments: Cout16 = 8 * NF.
-template <int TH, int NF>
+// pixels); NF n8 fragments: Cout16 = 8 * NF; TWO: the input in two parts
+// (stage_input).
+template <int TH, int NF, bool TWO>
 __global__ void __launch_bounds__(TH * 32, 1)
 dcn_tile_kernel(const DcnParams p) {
   constexpr int NT = TH * 32;       // threads
@@ -355,7 +377,7 @@ dcn_tile_kernel(const DcnParams p) {
   auto stage_x = [&](int tile, int buf) {   // the tile's input and halo
     int b, ty, tx;
     tile_origin(p, tile, b, ty, tx);
-    stage_input<NT>(p, xs + buf * p.x_bytes, b, ty * TH - 1 - R, tx * TILE_W - 1 - R, tpx,
+    stage_input<NT, TWO>(p, xs + buf * p.x_bytes, b, ty * TH - 1 - R, tx * TILE_W - 1 - R, tpx,
                     tcols, 0, cin8);
   };
   auto meta = [&](int tile, uint32_t (&off)[NTAPS], uint32_t (&msk)[NTAPS]) {
@@ -441,8 +463,8 @@ dcn_tile_kernel(const DcnParams p) {
 
 // ---------------------------------------------------------------------------
 // Design "stream": TH output tile rows, one warp a row; NF n8 fragments. A
-// step is (tile, chunk, tap).
-template <int TH, int NF>
+// step is (tile, chunk, tap); TWO as in the tile design.
+template <int TH, int NF, bool TWO>
 __global__ void __launch_bounds__(TH * 32, 1)
 dcn_stream_kernel(const DcnParams p) {
   constexpr int NT = TH * 32;       // threads
@@ -462,8 +484,8 @@ dcn_stream_kernel(const DcnParams p) {
   auto stage_x = [&](int tile, int c) {
     int b, ty, tx;
     tile_origin(p, tile, b, ty, tx);
-    stage_input<NT>(p, xs, b, ty * TH - 1 - R, tx * TILE_W - 1 - R, tpx, tcols, c * ck,
-                    min(ck, p.Cin - c * ck) / 8);
+    stage_input<NT, TWO>(p, xs, b, ty * TH - 1 - R, tx * TILE_W - 1 - R, tpx, tcols, c * ck,
+                         min(ck, p.Cin - c * ck) / 8);
   };
   // The weight slice of (chunk c, tap t): packed rows t * Cin16 + c * ck ...
   // into slot `slot`.
@@ -806,7 +828,8 @@ dcn_tile_tf32_kernel(const DcnF32Params p) {
   auto stage_x = [&](int tile) {
     int b, ty, tx;
     tile_origin(p, tile, b, ty, tx);
-    stage_input<NT>(p, xs, b, ty * TH - 1 - R, tx * TILE_W - 1 - R, tpx, tcols, 0, pieces);
+    stage_input<NT, false>(p, xs, b, ty * TH - 1 - R, tx * TILE_W - 1 - R, tpx, tcols, 0,
+                           pieces);
   };
   auto meta = [&](int tile, float2 (&off)[NTAPS], float (&msk)[NTAPS]) {
     int b, ty, tx;
@@ -905,8 +928,8 @@ dcn_stream_tf32_kernel(const DcnF32Params p) {
   auto stage_x = [&](int tile, int c) {
     int b, ty, tx;
     tile_origin(p, tile, b, ty, tx);
-    stage_input<NT>(p, xs, b, ty * TH - 1 - R, tx * TILE_W - 1 - R, tpx, tcols, c * ck,
-                    min(ck, Cin - c * ck) / 4);
+    stage_input<NT, false>(p, xs, b, ty * TH - 1 - R, tx * TILE_W - 1 - R, tpx, tcols,
+                           c * ck, min(ck, Cin - c * ck) / 4);
   };
   // The weight slice of (chunk c, tap t): packed columns t * Cin + c * ck ..
   // of every row, as [Cout16][sp] in slot `slot`.
@@ -988,12 +1011,13 @@ dcn_stream_tf32_kernel(const DcnF32Params p) {
   }
 }
 
-// The instance of design `design` (0 tile, 1 stream) for `rows` tile rows
-// and Cout16 = 8 * nf.
-template <int NF>
+// The instance of design `design` (0 tile, 1 stream) for `rows` tile rows,
+// Cout16 = 8 * nf and an input in two parts (TWO) or one.
+template <int NF, bool TWO>
 void (*pick_nf(int design, int rows))(DcnParams) {
-  if (design == 0) return rows == 16 ? &dcn_tile_kernel<16, NF> : &dcn_tile_kernel<8, NF>;
-  return rows == 8 ? &dcn_stream_kernel<8, NF> : &dcn_stream_kernel<4, NF>;
+  if (design == 0)
+    return rows == 16 ? &dcn_tile_kernel<16, NF, TWO> : &dcn_tile_kernel<8, NF, TWO>;
+  return rows == 8 ? &dcn_stream_kernel<8, NF, TWO> : &dcn_stream_kernel<4, NF, TWO>;
 }
 
 // The float32 instance of design `design` (0 tile: 8 rows; 1 stream: 8 or
@@ -1018,39 +1042,52 @@ void (*pick_kernel_f32(int design, int rows, int nf))(DcnF32Params) {
   }
 }
 
+template <bool TWO>
 void (*pick_kernel(int design, int rows, int nf))(DcnParams) {
   switch (nf) {
-    case 2: return pick_nf<2>(design, rows);
-    case 4: return pick_nf<4>(design, rows);
-    case 6: return pick_nf<6>(design, rows);
-    case 8: return pick_nf<8>(design, rows);
-    case 10: return pick_nf<10>(design, rows);
-    case 12: return pick_nf<12>(design, rows);
-    case 14: return pick_nf<14>(design, rows);
-    default: return pick_nf<16>(design, rows);
+    case 2: return pick_nf<2, TWO>(design, rows);
+    case 4: return pick_nf<4, TWO>(design, rows);
+    case 6: return pick_nf<6, TWO>(design, rows);
+    case 8: return pick_nf<8, TWO>(design, rows);
+    case 10: return pick_nf<10, TWO>(design, rows);
+    case 12: return pick_nf<12, TWO>(design, rows);
+    case 14: return pick_nf<14, TWO>(design, rows);
+    default: return pick_nf<16, TWO>(design, rows);
   }
 }
 
 }  // namespace
 
-// Launch one bounded DCN layer (integer radius R >= 0, Cin % 8 == 0,
-// 1 <= Cout <= 128, `mask` null for weight 1) on the plan of `dcn_plan`
-// (ops/cuda/sampling.py). `rows` output tile rows, `chans` channels a slab
+// Launch one bounded DCN layer (integer radius R >= 0, 1 <= Cout <= 128,
+// `mask` null for weight 1) of the input in parts (x0, its image, row and
+// pixel strides in elements, c0 channels; x1 likewise, c1 = 0 for none:
+// common.cuh InputParts) into `out` of pixel stride `oc` (Cout, or Cout
+// padded to 8 with the padding channels written as zeros), on the plan of
+// `dcn_plan` (ops/cuda/sampling.py) for Cin = c0 + c1 padded to 8. `rows`
+// output tile rows, `chans` channels a slab
 // pass (design 0, "tile": 16 or 8 rows, weights resident) or a chunk
 // (design 1, "stream": 8 or 4 rows, weights streamed a tap at a time),
 // `nbuf` input-tile buffers (1 or 2; the stream design takes 1) of
 // `x_bytes` each with a pixel stride of `xu` 16-byte units. `smem`: the
 // plan's dynamic shared memory in bytes. Returns the cudaError_t of the
-// launch; cudaErrorInvalidValue for arguments out of range, a plan whose
-// regions overrun `smem`, or offsets off 4-byte alignment.
-extern "C" int vfi_dcn_bounded_bf16(const void* x, const void* offset, const void* mask,
-                                    const void* w, const void* bias, void* out,
-                                    int B, int H, int W, int Cin, int Cout, int R,
+// launch; cudaErrorInvalidValue for arguments out of range, an input
+// layout the loader cannot read, a plan whose regions overrun `smem`, or
+// offsets off 4-byte alignment.
+extern "C" int vfi_dcn_bounded_bf16(const void* x0, long long sb0, long long sy0,
+                                    long long sx0, int c0, const void* x1, long long sb1,
+                                    long long sy1, long long sx1, int c1, const void* offset,
+                                    const void* mask, const void* w, const void* bias,
+                                    void* out, int oc, int B, int H, int W, int Cout, int R,
                                     int design, int rows, int chans, int nbuf, int xu,
                                     int x_bytes, int smem, int device, void* stream) {
-  if (Cin < 8 || Cin % 8 != 0 || Cout < 1 || Cout > MAX_COUT || R < 0 || B < 0 || H < 0 ||
-      W < 0 || smem < 0 || chans < 16 || chans % 16 != 0 || (nbuf != 1 && nbuf != 2) ||
-      x_bytes % 128 != 0 || reinterpret_cast<uintptr_t>(offset) % 4 != 0)
+  DcnParams p{};
+  if (!make_parts(p.x, H, W, x0, sb0, sy0, sx0, c0, x1, sb1, sy1, sx1, c1))
+    return (int)cudaErrorInvalidValue;
+  const int Cin = (c0 + c1 + 7) / 8 * 8;
+  if (Cout < 1 || Cout > MAX_COUT || R < 0 || B < 0 || H < 0 || W < 0 || smem < 0 ||
+      chans < 16 || chans % 16 != 0 || (nbuf != 1 && nbuf != 2) || x_bytes % 128 != 0 ||
+      reinterpret_cast<uintptr_t>(offset) % 4 != 0 ||
+      (oc != Cout && oc != (Cout + 7) / 8 * 8) || reinterpret_cast<uintptr_t>(out) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   const int cin16 = pad16(Cin), cout16 = pad16(Cout);
   if (chans > cin16 || (design != 0 && design != 1) ||
@@ -1066,23 +1103,23 @@ extern "C" int vfi_dcn_bounded_bf16(const void* x, const void* offset, const voi
   if ((design == 0 ? xu != dcn_xu(Cin) : xu < pieces) || x_bytes < 16 * tpx * xu ||
       smem < (design == 0 ? 1 : 2) * w_bytes + (long long)nbuf * x_bytes + s_bytes)
     return (int)cudaErrorInvalidValue;
-  DcnParams p{};
-  p.x = static_cast<const bf16*>(x);
   p.offset = static_cast<const bf16*>(offset);
   p.mask = static_cast<const bf16*>(mask);
   p.w = static_cast<const bf16*>(w);
   p.bias = static_cast<const float*>(bias);
   p.out = static_cast<bf16*>(out);
   p.B = B; p.H = H; p.W = W; p.Cin = Cin; p.Cout = Cout; p.R = R; p.Cin16 = cin16;
-  p.xu = xu; p.chans = chans; p.nchunks = (cin16 + chans - 1) / chans; p.nbuf = nbuf;
+  p.oc = oc; p.xu = xu; p.chans = chans; p.nchunks = (cin16 + chans - 1) / chans; p.nbuf = nbuf;
   p.w_bytes = (int)w_bytes; p.x_bytes = x_bytes;
   p.tiles_x = (W + TILE_W - 1) / TILE_W; p.tiles_y = (H + rows - 1) / rows;
   p.tiles = B * p.tiles_x * p.tiles_y;
   if (p.tiles == 0) return (int)cudaSuccess;
   const cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
-  return launch_persistent(pick_kernel(design, rows, cout16 / 8), p, p.tiles, rows * 32,
-                           smem, static_cast<cudaStream_t>(stream));
+  const int nf = cout16 / 8;
+  return launch_persistent(c1 > 0 ? pick_kernel<true>(design, rows, nf)
+                                  : pick_kernel<false>(design, rows, nf),
+                           p, p.tiles, rows * 32, smem, static_cast<cudaStream_t>(stream));
 }
 
 // Launch one float32 bounded DCN layer (integer radius R >= 0, Cin % 8 == 0,
@@ -1118,14 +1155,16 @@ extern "C" int vfi_dcn_bounded_f32(const void* x, const void* offset, const void
       smem < (design == 0 ? 1 : 2) * w_bytes + x_bytes + s_bytes)
     return (int)cudaErrorInvalidValue;
   DcnF32Params p{};
-  p.x = static_cast<const float*>(x);
+  const long long px = Cin, row = (long long)W * Cin;
+  if (!make_parts(p.x, H, W, x, (long long)H * row, row, px, Cin, nullptr, 0, 0, 0, 0))
+    return (int)cudaErrorInvalidValue;
   p.offset = static_cast<const float*>(offset);
   p.mask = static_cast<const float*>(mask);
   p.w = static_cast<const float*>(w);
   p.bias = static_cast<const float*>(bias);
   p.out = static_cast<float*>(out);
   p.B = B; p.H = H; p.W = W; p.Cin = Cin; p.Cout = Cout; p.R = R; p.Cin16 = pad16(Cin);
-  p.xu = xu; p.chans = chans; p.nchunks = (Cin + chans - 1) / chans; p.nbuf = 1;
+  p.oc = Cout; p.xu = xu; p.chans = chans; p.nchunks = (Cin + chans - 1) / chans; p.nbuf = 1;
   p.w_bytes = (int)w_bytes; p.x_bytes = x_bytes;
   p.tiles_x = (W + TILE_W - 1) / TILE_W; p.tiles_y = (H + rows - 1) / rows;
   p.tiles = B * p.tiles_x * p.tiles_y;

@@ -26,6 +26,11 @@
 // alignment, and a row's ragged last pixel take 2-byte loads and stores
 // instead. Index arithmetic is 32-bit where every element index fits, and
 // a thread issues the corner loads of both its pixels before it blends.
+// The bf16 instance can also write each pixel 8 channels wide, its C
+// values and zeros (`oc` = 8): the buffer whose
+// [..., :C] view the conv and DCN kernels read in place as one part of
+// their input, where a 3-channel tensor (6-byte pixels) would need a
+// padded copy.
 // On an H100 at R = 16 with random flows (tools/conv_turns.py, in turns):
 // 2-D tiles took 0.0191 ms at 720p where blocks of 1,024 consecutive pixels
 // took 0.0255;
@@ -119,12 +124,16 @@ __device__ __forceinline__ float rnd(float v) {
 // three phases so that the loads of both its pixels are in flight
 // together: positions and weights, the 4 x C corner loads of each pixel,
 // the blends. T: bf16 or float; I: the index type, 32-bit where every
-// element index fits. `vec`: W % PPT == 0, the flow aligned to its PPT
-// pixels' 2 * PPT elements and the output to PPT elements.
+// element index fits. `oc`: the output's pixel stride, C, or 8 in bf16
+// (a pixel's C channels and 8 - C zeros, one 16-byte store: the 8-wide
+// buffer whose [..., :C] view a kernel that reads 16-byte units of
+// channels takes in place). `vec`: W % PPT == 0, the flow aligned to its
+// PPT pixels' 2 * PPT elements and the output to PPT elements (16 bytes
+// where oc = 8).
 template <typename T, int C, typename I>
 __global__ void __launch_bounds__(NTHREADS)
 warp_bounded_kernel(const T* __restrict__ image, const T* __restrict__ flow,
-                    T* __restrict__ out, int H, int W, float R, bool vec) {
+                    T* __restrict__ out, int H, int W, float R, bool vec, int oc) {
   const int y = blockIdx.y * ROWS + threadIdx.x / TX;
   const int x0 = (blockIdx.x * TX + threadIdx.x % TX) * PPT;
   if (y >= H || x0 >= W) return;
@@ -201,10 +210,25 @@ warp_bounded_kernel(const T* __restrict__ image, const T* __restrict__ flow,
       s = rnd<T>(__fadd_rn(s, rnd<T>(__fmul_rn(v[k][2][c], w[k][2]))));
       s = rnd<T>(__fadd_rn(s, rnd<T>(__fmul_rn(v[k][3][c], w[k][3]))));
       o[k * C + c] = from_f<T>(s);
-      if (!full && k < cnt) out[(p0 + k) * C + c] = o[k * C + c];
+      if (!full && k < cnt) out[(p0 + k) * oc + c] = o[k * C + c];
     }
+  if (!full && oc != C) {
+    for (int k = 0; k < cnt; ++k)
+      for (int c = C; c < oc; ++c) out[(p0 + k) * oc + c] = from_f<T>(0.0f);
+  }
   if (full) {
     if constexpr (is_bf16<T>()) {
+      if (oc != C) {   // 8 channels a pixel: C values, then zeros
+#pragma unroll
+        for (int k = 0; k < PPT; ++k) {
+          uint32_t u[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+          for (int c = 0; c < C; ++c)
+            u[c >> 1] |= (uint32_t)__bfloat16_as_ushort(o[k * C + c]) << (16 * (c & 1));
+          reinterpret_cast<uint4*>(out + (p0 + k) * oc)[0] = make_uint4(u[0], u[1], u[2], u[3]);
+        }
+        return;
+      }
       uint32_t* dst = reinterpret_cast<uint32_t*>(out + p0 * C);
 #pragma unroll
       for (int k = 0; k < C; ++k)
@@ -219,14 +243,14 @@ warp_bounded_kernel(const T* __restrict__ image, const T* __restrict__ flow,
 }
 
 template <typename T, typename I>
-void launch_rgb(const T* im, const T* fl, T* o, int B, int H, int W, int C, float R, bool vec,
-                cudaStream_t st) {
+void launch_rgb(const T* im, const T* fl, T* o, int B, int H, int W, int C, int oc, float R,
+                bool vec, cudaStream_t st) {
   const dim3 grid((W + TX * PPT - 1) / (TX * PPT), (H + ROWS - 1) / ROWS, B);
   switch (C) {
-    case 1: warp_bounded_kernel<T, 1, I><<<grid, NTHREADS, 0, st>>>(im, fl, o, H, W, R, vec); break;
-    case 2: warp_bounded_kernel<T, 2, I><<<grid, NTHREADS, 0, st>>>(im, fl, o, H, W, R, vec); break;
-    case 3: warp_bounded_kernel<T, 3, I><<<grid, NTHREADS, 0, st>>>(im, fl, o, H, W, R, vec); break;
-    default: warp_bounded_kernel<T, 4, I><<<grid, NTHREADS, 0, st>>>(im, fl, o, H, W, R, vec); break;
+    case 1: warp_bounded_kernel<T, 1, I><<<grid, NTHREADS, 0, st>>>(im, fl, o, H, W, R, vec, oc); break;
+    case 2: warp_bounded_kernel<T, 2, I><<<grid, NTHREADS, 0, st>>>(im, fl, o, H, W, R, vec, oc); break;
+    case 3: warp_bounded_kernel<T, 3, I><<<grid, NTHREADS, 0, st>>>(im, fl, o, H, W, R, vec, oc); break;
+    default: warp_bounded_kernel<T, 4, I><<<grid, NTHREADS, 0, st>>>(im, fl, o, H, W, R, vec, oc); break;
   }
 }
 
@@ -352,12 +376,15 @@ warp_bounded_wide_2b_kernel(const T* __restrict__ image, const T* __restrict__ f
 
 // One bounded warp of T elements: the RGB instance for C <= 4, else the
 // wide one, 16-byte where C is a multiple of its group and the image and
-// output are 16-byte aligned, else one element a read.
+// output are 16-byte aligned, else one element a read. `oc`: the output's
+// pixel stride, C, or 8 for the bf16 RGB instance.
 template <typename T>
 int warp_launch(const void* image, const void* flow, void* out, int B, int H, int W, int C,
-                float R, int device, void* stream) {
+                int oc, float R, int device, void* stream) {
   constexpr int VEC = 16 / sizeof(T);
-  if (C < 1 || B < 0 || H < 0 || W < 0) return (int)cudaErrorInvalidValue;
+  if (C < 1 || B < 0 || H < 0 || W < 0 ||
+      (oc != C && !(is_bf16<T>() && C <= MAXC && oc == 8)))
+    return (int)cudaErrorInvalidValue;
   const long long n = (long long)B * H * W;
   if (n == 0) return (int)cudaSuccess;
   const cudaError_t err = use_device(device);
@@ -369,11 +396,11 @@ int warp_launch(const void* image, const void* flow, void* out, int B, int H, in
   if (C <= MAXC) {
     const bool vec = W % PPT == 0 &&
                      reinterpret_cast<uintptr_t>(flow) % (2 * PPT * sizeof(T)) == 0 &&
-                     reinterpret_cast<uintptr_t>(out) % (PPT * sizeof(T)) == 0;
-    if (n * 4 < (1LL << 31))   // every element index fits 32 bits
-      launch_rgb<T, int>(im, fl, o, B, H, W, C, R, vec, st);
+                     reinterpret_cast<uintptr_t>(out) % (oc == C ? PPT * sizeof(T) : 16) == 0;
+    if (n * (oc > MAXC ? oc : MAXC) < (1LL << 31))   // every element index fits 32 bits
+      launch_rgb<T, int>(im, fl, o, B, H, W, C, oc, R, vec, st);
     else
-      launch_rgb<T, long long>(im, fl, o, B, H, W, C, R, vec, st);
+      launch_rgb<T, long long>(im, fl, o, B, H, W, C, oc, R, vec, st);
   } else if (C % VEC == 0 && reinterpret_cast<uintptr_t>(image) % 16 == 0 &&
              reinterpret_cast<uintptr_t>(out) % 16 == 0) {
     if (n * C < (1LL << 31))   // every element index fits 32 bits
@@ -391,21 +418,22 @@ int warp_launch(const void* image, const void* flow, void* out, int B, int H, in
 }  // namespace
 
 // Launch one bounded warp (any C >= 1: C <= 4 the bf16-rounded RGB
-// instance, else the float32-blend wide one). Returns the cudaError_t of
-// the launch.
+// instance, else the float32-blend wide one) into `out` of pixel stride
+// `oc`: C, or 8 for C <= 4 (each pixel's channels past C written as
+// zeros). Returns the cudaError_t of the launch.
 extern "C" int vfi_warp_bounded_bf16(const void* image, const void* flow, void* out,
-                                     int B, int H, int W, int C, float R,
+                                     int B, int H, int W, int C, int oc, float R,
                                      int device, void* stream) {
-  return warp_launch<bf16>(image, flow, out, B, H, W, C, R, device, stream);
+  return warp_launch<bf16>(image, flow, out, B, H, W, C, oc, R, device, stream);
 }
 
 // The float32 instances: the same function and instances on float32
 // tensors, every product and sum IEEE float32 in ops/warp.py's order (the
 // plain version's arithmetic: bit-exact). The wide 16-byte instance reads
 // groups of 4 channels, so it takes C % 4 == 0; any other C > 4 takes the
-// one-element instance.
+// one-element instance. `oc` must be C.
 extern "C" int vfi_warp_bounded_f32(const void* image, const void* flow, void* out,
-                                    int B, int H, int W, int C, float R,
+                                    int B, int H, int W, int C, int oc, float R,
                                     int device, void* stream) {
-  return warp_launch<float>(image, flow, out, B, H, W, C, R, device, stream);
+  return warp_launch<float>(image, flow, out, B, H, W, C, oc, R, device, stream);
 }

@@ -29,6 +29,21 @@ choice: the JAX model's `use_pallas` and `dcn_kernel` (the XLA shifts op,
 v4 and v5 compute one function) have no counterpart here.
 `pack_kernel_weights()` repacks the kernels' weights once for inference.
 
+Inputs in parts (`_reads_parts`): with the kernels under
+conv_kernel="pallas", for a bf16 CUDA forward outside spatial mode with no
+gradient to record (`ops.cuda.reads_views`), the model builds no channel
+concatenation for the kernels, and asks the bounded warp and the DCNs for
+padded outputs (`padded=True`). The motion chain's first layer reads
+(features, the context vector broadcast over the pixels); the fusion reads
+(features, the warped frame's 8-wide buffer), through the fuse projection
+on the conv kernel (`ops.conv2d`: the bias added in float32 before one
+rounding, where the plain conv rounds twice) or, without it, through the
+first DCN and its offset conv; a DCN's 67-wide output is the view of its
+72-wide buffer that the next DCN and the reconstruction read in place.
+Every other forward (CPU, float32, spatial mode, training,
+conv_kernel="xla", the plain versions) concatenates, as the JAX model
+does; so does the fusion after an exact warp.
+
 Spatial mode (`spatial_global_h` set; `with_spatial` makes such a copy
 sharing the weights), the counterpart of the JAX model's `spatial_axis`:
 each rank of `spatial_group` (a `torch.distributed` group, None: the
@@ -62,7 +77,8 @@ from torch import nn
 
 from vfi_tpu_torch.models.layers import (ConvBlock, ModulatedDeformConv,
                                          apply_conv_chain, check_conv_kernel)
-from vfi_tpu_torch.ops.cuda import KERNELS, PLAIN, pack_conv_chain
+from vfi_tpu_torch.ops.cuda import (KERNELS, PLAIN, pack_conv2d,
+                                    pack_conv_chain, reads_views)
 from vfi_tpu_torch.ops.resize import resize_bilinear
 from vfi_tpu_torch.ops.warp import warp
 from vfi_tpu_torch.parallel import comm
@@ -102,6 +118,7 @@ class EMAVFI(nn.Module):
         self.feat_chain = tuple(f"feat_ext_block{i}"
                                 for i in range(num_blocks))
         self.packed = {}
+        self.fuse_packed = None
         self.spatial_group = spatial_group
         self.spatial_halo = spatial_halo
         self.spatial_global_h = spatial_global_h
@@ -188,16 +205,32 @@ class EMAVFI(nn.Module):
                 x = mask(x)
         return x
 
+    def _reads_parts(self, x: torch.Tensor) -> bool:
+        """Whether a forward of input `x` hands the kernels concatenations
+        as parts and views, and asks the bounded warp and the DCNs for
+        padded outputs (the module docstring's "Inputs in parts"): the
+        kernels under conv_kernel "pallas", no spatial mode, and the path
+        on which they read in place (`ops.cuda.reads_views`: a bf16 CUDA
+        input, no gradient to record). Decided on what the forward
+        observes."""
+        return (self.conv_kernel == "pallas" and self.ops is KERNELS
+                and self.spatial_global_h is None
+                and reads_views(x, *self.parameters()))
+
     def pack_kernel_weights(self) -> None:
         """Repack the DCNs' weights, and under conv_kernel="pallas" every
         chain's (in spatial mode, which runs the layers one by one, every
-        trunk layer's too), into the kernels' layouts once, on the
+        trunk layer's too) and the fuse projection's (`fuse_packed`, for
+        the conv kernel), into the kernels' layouts once, on the
         weights' device, in the working dtype (`dtype`, or float32 for a
         model without one: the kernel instance its forward launches). Call
         it after the weights are loaded and moved, and again whenever they
         change; a model never packed repacks on every call."""
         dt = self.dtype or torch.float32
         if self.conv_kernel == "pallas":
+            if self.fuse_project:
+                fp = self.fuse_proj.conv
+                self.fuse_packed = pack_conv2d(fp.weight, fp.bias, dt)
             for names in (self.feat_chain, self.MOTION_CHAIN,
                           self.REC_CHAIN):
                 blocks = [getattr(self, n).conv for n in names]
@@ -211,11 +244,13 @@ class EMAVFI(nn.Module):
         for i in range(self.num_blocks):
             getattr(self, f"fusion_dcn{i}").pack_kernel_weights(dt)
 
-    def _motion_stages(self, a, b2, mask=None, owner_mask=None):
+    def _motion_stages(self, a, b2, mask=None, owner_mask=None,
+                       parts=False):
         """Feature extraction, context, motion -> (features, flow). In
         spatial mode `mask` masks each layer's rows (identity on the
         cascade's global coarse pass) and `owner_mask`, where given,
-        makes the context pool a sum over the ranks' owned rows."""
+        makes the context pool a sum over the ranks' owned rows. With
+        `parts` the motion chain reads (features, broadcast context)."""
         layer_mask = mask
         mask = mask or _identity
         with span("vfi.features"):
@@ -245,8 +280,9 @@ class EMAVFI(nn.Module):
                                                    self.mid_channels)
             # (spatial mode: the broadcast context is nonzero on rows
             # outside the image; the mask restores the zero padding there)
-            flow = self._chain(mask(torch.cat([feat, ctx_map], dim=-1)),
-                               self.MOTION_CHAIN, (True, True, False),
+            x = ((feat, ctx_map) if parts
+                 else mask(torch.cat([feat, ctx_map], dim=-1)))
+            flow = self._chain(x, self.MOTION_CHAIN, (True, True, False),
                                layer_mask)
         return feat, flow
 
@@ -256,6 +292,7 @@ class EMAVFI(nn.Module):
         f1 = frame1.to(compute)
         f2 = frame2.to(compute)
         spatial = self.spatial_global_h is not None
+        parts = self._reads_parts(f1)
         if spatial:
             mask, owner_mask = self._row_tools()
             f1, f2 = mask(f1), mask(f2)
@@ -282,7 +319,7 @@ class EMAVFI(nn.Module):
                 _, cflow = self._motion_stages(
                     resize_bilinear(g1, (ch, cw)),
                     resize_bilinear(g2, (ch, cw)),
-                    _identity if spatial else None)
+                    _identity if spatial else None, parts=parts)
                 # The flow to the fine grid, x by w / cw and y by h / ch:
                 # each Python float rounds to float32 as a float32 tensor
                 # of it would, with no host-to-device copy (a CUDA graph
@@ -296,7 +333,7 @@ class EMAVFI(nn.Module):
                     f2 = mask(f2[:, start:start + h_local + 2 * halo])
 
         feat, flow = self._motion_stages(f1, f2, mask if spatial else None,
-                                         owner_mask)
+                                         owner_mask, parts)
 
         with span("vfi.warp"):
             if self.warp_max_flow is None:
@@ -304,15 +341,23 @@ class EMAVFI(nn.Module):
             else:
                 warped2 = self.ops.bounded_warp(f2.contiguous(),
                                                 flow.contiguous(),
-                                                self.warp_max_flow)
+                                                self.warp_max_flow,
+                                                padded=parts)
 
         with span("vfi.fusion"):
-            fused = mask(torch.cat([feat, warped2], dim=-1))
-            if self.fuse_project:
-                fused = mask(self.fuse_proj(fused))
+            if parts and self.warp_max_flow is not None:
+                fused = (feat, warped2)   # the bounded warp's 8-wide view
+                if self.fuse_project:
+                    fp = self.fuse_proj.conv
+                    fused = self.ops.conv2d(fused, fp.weight, fp.bias,
+                                            packed=self.fuse_packed)
+            else:
+                fused = mask(torch.cat([feat, warped2], dim=-1))
+                if self.fuse_project:
+                    fused = mask(self.fuse_proj(fused))
             for i in range(self.num_blocks):
                 fused = mask(getattr(self, f"fusion_dcn{i}")(
-                    fused.contiguous(), self.ops))
+                    fused, self.ops, padded=parts))
 
         with span("vfi.reconstruct"):
             out = self._chain(fused, self.REC_CHAIN, (True, True, False),

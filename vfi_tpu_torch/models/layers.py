@@ -21,8 +21,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from vfi_tpu_torch.ops.cuda import (KERNELS, Ops, pack_conv_chain,
-                                    pack_dcn)
+from vfi_tpu_torch.ops.cuda import (KERNELS, Ops, as_parts, cat_parts,
+                                    pack_conv_chain, pack_dcn)
 from vfi_tpu_torch.ops.deform_conv import deform_conv2d
 from vfi_tpu_torch.utils.profiling import span
 
@@ -63,13 +63,16 @@ class ConvBlock(nn.Module):
         return conv_nhwc(x, self.conv, self.act)
 
 
-def apply_conv_chain(x: torch.Tensor, blocks: Sequence[ConvBlock],
+def apply_conv_chain(x, blocks: Sequence[ConvBlock],
                      acts: Sequence[bool], dtype=None, ops: Ops = KERNELS,
                      packed: Optional[tuple] = None) -> torch.Tensor:
     """Stride-1 3x3 conv(+ReLU) chain over the blocks' parameters
-    (`vfi_tpu/models/layers.py:441`): one `conv_chain` launch. `packed`
-    is `pack_conv_chain` of the blocks' parameters, or None."""
-    x = x.to(dtype or x.dtype).contiguous()
+    (`vfi_tpu/models/layers.py:441`): one `conv_chain` launch on `x`, a
+    tensor or its two parts along channels, as it lies (the kernel reads
+    views). `packed` is `pack_conv_chain` of the blocks' parameters, or
+    None."""
+    parts = tuple(p.to(dtype or p.dtype) for p in as_parts(x))
+    x = parts[0] if len(parts) == 1 else parts
     ws = [blk.conv.weight for blk in blocks]
     bs = [blk.conv.bias for blk in blocks]
     return ops.conv_chain(x, ws, bs, tuple(acts), packed=packed)
@@ -122,21 +125,27 @@ class ModulatedDeformConv(nn.Module):
                        None if self.max_offset is None
                        else pack_dcn(self.weight, self.bias, dtype))
 
-    def forward(self, x: torch.Tensor, ops: Ops = KERNELS) -> torch.Tensor:
+    def forward(self, x, ops: Ops = KERNELS, padded: bool = False
+                ) -> torch.Tensor:
+        """x: a tensor or its two parts along channels (the kernels read
+        them in place; the other routes concatenate them). `padded`: the
+        result goes to kernels that read views (`deform_conv2d_bounded`)."""
         with span("vfi.dcn"):
             if self.conv_kernel == "pallas":
                 raw = ops.conv_chain(x, [self.offset_conv.weight],
                                      [self.offset_conv.bias], (False,),
                                      packed=self.packed[0])
             else:
-                raw = conv_nhwc(x, self.offset_conv, act=False)
+                raw = conv_nhwc(cat_parts(x), self.offset_conv, act=False)
             if self.capture is not None:
                 self.capture(raw)
             off_static, mask, off_dynamic = torch.split(raw, 9, dim=-1)
             offset = torch.cat([off_static, off_dynamic], dim=-1).contiguous()
             mask = torch.sigmoid(mask).contiguous()
             if self.max_offset is None:
-                return deform_conv2d(x, offset, mask, self.weight, self.bias)
+                return deform_conv2d(cat_parts(x), offset, mask, self.weight,
+                                     self.bias)
             return ops.deform_conv2d_bounded(x, offset, mask, self.weight,
                                              self.bias, self.max_offset,
-                                             packed=self.packed[1])
+                                             packed=self.packed[1],
+                                             padded=padded)

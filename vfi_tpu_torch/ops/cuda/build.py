@@ -34,6 +34,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
+# An input in two parts (common.cuh InputParts): x0, its image, row and
+# pixel strides in elements, c0; x1, its strides, c1 (0: no part 1).
+_PARTS = [_P, _L, _L, _L, _I, _P, _L, _L, _L, _I]
 # C entry points: name -> argtypes. Every entry returns an int: the
 # cudaError_t of its launch (0 = launched), or the count it names.
 SIGNATURES = {
@@ -48,24 +52,26 @@ SIGNATURES = {
     "vfi_conv_chain_f32": [_P, _P, _P, _P, _I, _I, _I, _I,
                            _I, _I, _I, _I, _I, _I, _I, _I,
                            _I, _I, _I, _I, _I, _I, _P],
-    # x, w, bias, out, B, H, W, Cin, Cout, K, act, ck, taps_per_group,
-    # x_bytes, smem_bytes (conv2d_plan), device, stream
-    "vfi_conv2d_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+    # the input's parts (_PARTS), w, bias, out, B, H, W, Cout, K, act, ck,
+    # taps_per_group, x_bytes, smem_bytes (conv2d_plan), device, stream
+    "vfi_conv2d_bf16": [*_PARTS, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                         _I, _I, _I, _I, _I, _P],
-    # as the bf16 entry, with flush before smem_bytes (conv2d_plan,
-    # itemsize 4)
+    # x, w, bias, out, B, H, W, Cin, Cout, K, act, ck, taps_per_group,
+    # x_bytes, flush, smem_bytes (conv2d_plan, itemsize 4), device, stream
     "vfi_conv2d_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                        _I, _I, _I, _I, _I, _I, _P],
+    # the input's parts (_PARTS), offset, mask, w, bias, out, out's pixel
+    # stride, B, H, W, Cout, R, design, rows, chans, nbuf, xu, x_bytes,
+    # smem_bytes (dcn_plan), device, stream
+    "vfi_dcn_bounded_bf16": [*_PARTS, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                             _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, offset, mask, w, bias, out, B, H, W, Cin, Cout, R, design, rows,
-    # chans, nbuf, xu, x_bytes, smem_bytes (dcn_plan), device, stream
-    "vfi_dcn_bounded_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                             _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    # as the bf16 entry without nbuf (one input buffer; dcn_plan, itemsize 4)
+    # chans, xu, x_bytes, smem_bytes (dcn_plan, itemsize 4), device, stream
     "vfi_dcn_bounded_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                             _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    # image, flow, out, B, H, W, C, R, device, stream
-    "vfi_warp_bounded_bf16": [_P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
-    "vfi_warp_bounded_f32": [_P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    # image, flow, out, B, H, W, C, out's pixel stride, R, device, stream
+    "vfi_warp_bounded_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
+    "vfi_warp_bounded_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
 }
 
 _lib = None

@@ -11,9 +11,8 @@ PyTorch versions.
   packed=None, route=None)`: x NHWC, weights OIHW (`nn.Conv2d.weight`),
   biases (cout,) or None; `packed` is `pack_conv_chain(weights, biases)`
   made ahead of time, or None to pack on this call. On the card: bf16 or
-  float32, contiguous, 1..4 layers, every cout <= 64; the first layer
-  takes any width (an input whose channels are not a multiple of 8 is
-  zero-padded to one first, `pad_channels8`). `chain_plan` picks the
+  float32, 1..4 layers, every cout <= 64; the first layer takes any width
+  (see "Inputs" below). `chain_plan` picks the
   route of each shape: "layers" runs each layer as one launch of the
   single-conv kernel (its bf16 or float32 instance) on that layer's slice
   of the packed weights (a chain of one layer always does: the DCN
@@ -28,8 +27,29 @@ PyTorch versions.
   optional bias and an optional fused ReLU, NHWC, float32 accumulation and
   one rounding of the output. On the card: bf16 or float32 (the kernel's
   float32 instance: 3xTF32 on the tensor cores, float32-accurate products
-  summed in float32), contiguous, k <= 9, Cout <= 128, any Cin, on the
-  plan of `conv2d_plan`.
+  summed in float32), k <= 9, Cout <= 128, any Cin, on the plan of
+  `conv2d_plan`.
+
+Inputs. `x` of `conv_chain`, `conv2d` and `ops/cuda/sampling.py`'s
+`deform_conv2d_bounded` is an NHWC tensor or a sequence of two that split
+one input along channels (`as_parts`): a concatenation the caller need not
+build. The bf16 conv kernel (both wrappers, the chain on its "layers"
+route) and both designs of the bf16 DCN read their input where it lies
+(`in_place`): a channels-contiguous view whose image, row and pixel strides
+are multiples of 8 elements (0 too: an `expand`ed per-image vector), or two
+such parts, the first a multiple of 8 channels wide; their tile loaders
+load the channels past a part's end as zeros, so the result equals the
+kernel's on the zero-padded concatenation bit for bit. A contiguous input
+whose channels are not a multiple of 8 is copied zero-padded
+(`pad_channels8`), and a view those loaders cannot read raises ValueError.
+The float32 instances, the fused chain kernel and any input that needs a
+gradient take one contiguous tensor: the wrapper concatenates and pads a
+copy. Each wrapper counts its launches by how it took the input in
+`launches_by_input`, keyed (form, dtype tag), the forms `INPUT_FORMS`.
+`reads_views` says whether a call is on the path where the kernels read
+in place; there, and only where the caller asks (`padded=True`), the
+bounded warp and the DCN write an odd width padded to 8 and return its
+view (`ops/cuda/sampling.py`), so that the next kernel needs no copy.
 
 Weights are packed in the input's dtype (`pack_conv2d(..., dtype=)`), in
 that instance's layout; packed weights of another dtype raise ValueError. Every launch key in
@@ -92,14 +112,110 @@ def kernel_dtype(name: str, dtype: torch.dtype) -> str:
     return tag
 
 
-def conv_chain_plain(x: torch.Tensor, weights: Sequence[torch.Tensor],
+# How a launch took its input (`launches_by_input`): "whole", one
+# contiguous tensor whose channels are a multiple of 8; "view", one tensor
+# read in place; "parts", two parts read in place; "copied", a tensor the
+# wrapper made (the parts' concatenation, a zero-padded or contiguous copy).
+INPUT_FORMS = ("whole", "view", "parts", "copied")
+
+
+def as_parts(x) -> tuple:
+    """`x`, an NHWC tensor or a sequence of one or two that split one input
+    along channels (the first's channels first), as a tuple of tensors;
+    ValueError for more parts or parts of other images, dtypes or
+    devices."""
+    parts = tuple(x) if isinstance(x, (tuple, list)) else (x,)
+    if not 1 <= len(parts) <= 2:
+        raise ValueError(f"an input takes one or two parts, got {len(parts)}")
+    if any(p.dim() != 4 for p in parts):
+        raise ValueError(f"x must be NHWC, got shapes "
+                         f"{[tuple(p.shape) for p in parts]}")
+    a = parts[0]
+    if len(parts) == 2 and (parts[1].shape[:3] != a.shape[:3]
+                            or parts[1].dtype != a.dtype
+                            or parts[1].device != a.device):
+        raise ValueError(f"parts {tuple(a.shape)} {a.dtype} {a.device} and "
+                         f"{tuple(parts[1].shape)} {parts[1].dtype} "
+                         f"{parts[1].device} do not split one input")
+    return parts
+
+
+def cat_parts(x) -> torch.Tensor:
+    """The one tensor of `x` (`as_parts`): its single part as it is, or its
+    two parts concatenated along channels."""
+    parts = as_parts(x)
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+
+
+def reads_views(x: torch.Tensor, *others) -> bool:
+    """Whether a call on `x` is on the path where the bf16 conv and DCN
+    kernels read views and parts in place (and where the bounded warp and
+    the DCN write a padded buffer's view on request): a bf16 CUDA `x`, and
+    no gradient to record for it or for `others` (the call's other tensors
+    and parameters; None entries are skipped)."""
+    return (x.is_cuda and x.dtype == torch.bfloat16
+            and not needs_grad(x, *others))
+
+
+def in_place(t: torch.Tensor) -> bool:
+    """Whether the bf16 kernels' tile loaders read NHWC `t` where it lies:
+    channels contiguous, the image, row and pixel strides multiples of 8
+    elements (16 bytes; 0 too), the first element on a 16-byte boundary."""
+    sb, sy, sx, sc = t.stride()
+    return (sc == 1 and sb % 8 == 0 and sy % 8 == 0 and sx % 8 == 0
+            and t.data_ptr() % 16 == 0)
+
+
+def kernel_input(x, name: str, views: bool) -> tuple:
+    """(parts, form): the tensors a launch hands its kernel for input `x`
+    (`as_parts`) and how (`INPUT_FORMS`). `views`: the kernel instance
+    reads views and two parts in place (the bf16 conv and DCN); else it
+    takes one contiguous tensor of a multiple of 8 channels, which the
+    parts' concatenation, zero-padded, is copied into where `x` is not one.
+    Raises ValueError for a view, or a part, the loaders cannot read."""
+    parts = as_parts(x)
+    t = parts[0]
+    if len(parts) == 1 and t.is_contiguous() and t.shape[-1] % 8 == 0 \
+            and t.data_ptr() % 16 == 0:
+        return parts, "whole"
+    if not views:
+        return (pad_channels8(cat_parts(parts).contiguous()),), "copied"
+    if len(parts) == 1:
+        if t.is_contiguous():
+            return (pad_channels8(t) if t.shape[-1] % 8 else t.clone(),), \
+                "copied"
+        if in_place(t):
+            return parts, "view"
+    elif t.shape[-1] % 8 == 0 and all(in_place(p) for p in parts):
+        return parts, "parts"
+    raise ValueError(
+        f"{name} kernel reads a channels-contiguous view whose image, row "
+        f"and pixel strides are multiples of 8 elements and that starts on "
+        f"16 bytes, in one part or two (the first a multiple of 8 channels "
+        f"wide), got parts of shapes {[tuple(p.shape) for p in parts]}, "
+        f"strides {[p.stride() for p in parts]}")
+
+
+def parts_args(parts: tuple) -> tuple:
+    """The C entries' arguments for an input in parts (common.cuh
+    InputParts): each part's pointer, image, row and pixel strides in
+    elements and channels; zeros for an absent second part."""
+    args = []
+    for p in parts:
+        args += [p.data_ptr(), *p.stride()[:3], p.shape[-1]]
+    return (*args, *([0] * 5 * (2 - len(parts))))
+
+
+def conv_chain_plain(x, weights: Sequence[torch.Tensor],
                      biases: Sequence[Optional[torch.Tensor]],
                      acts: Sequence[bool],
                      packed: Optional[tuple] = None) -> torch.Tensor:
     """The chain as L separate float32 convolutions on the working-dtype
-    values (each layer rounded to x.dtype). It reads `weights`; `packed`,
-    the kernel's copy of them, is taken only so that this function and
-    `conv_chain` share one signature."""
+    values (each layer rounded to x.dtype) of `x`, a tensor or its parts
+    (`cat_parts`). It reads `weights`; `packed`, the kernel's copy of them,
+    is taken only so that this function and `conv_chain` share one
+    signature."""
+    x = cat_parts(x)
     dt = x.dtype
     o = x.permute(0, 3, 1, 2)
     for w, b, a in zip(weights, biases, acts):
@@ -253,30 +369,39 @@ def _smem_limit(index: int) -> int:
         index).shared_memory_per_block_optin
 
 
-def _launch_conv2d(xp: torch.Tensor, wpk: torch.Tensor, bpk: torch.Tensor,
+def _launch_conv2d(xp: tuple, wpk: torch.Tensor, bpk: torch.Tensor,
                    out: torch.Tensor, k: int, act: bool, what: str) -> None:
-    """One launch of the conv kernel's instance for xp's dtype: xp (B, H,
-    W, Cin % 8 == 0) bf16 or float32, wpk (`packed_shape`) and bpk
-    [Cout16] as `pack_conv2d` makes them in that dtype, into `out` (B, H,
-    W, Cout), on the plan of `conv2d_plan`."""
-    (b, h, w, cin), cout, dev = xp.shape, out.shape[-1], xp.device
+    """One launch of the conv kernel's instance for the input's dtype: xp
+    the input's parts as `kernel_input` gives them (bf16: read in place;
+    float32: one contiguous tensor of Cin % 8 == 0), wpk (`packed_shape`)
+    and bpk [Cout16] as `pack_conv2d` makes them in that dtype, into `out`
+    (B, H, W, Cout), on the plan of `conv2d_plan`."""
+    x0, cout = xp[0], out.shape[-1]
+    (b, h, w, _), dev = x0.shape, x0.device
+    cin = _pad8(sum(p.shape[-1] for p in xp))
     plan = conv2d_plan(cin, cout, k, _smem_limit(dev.index),
-                       xp.element_size())
-    rc = build.entry(f"vfi_conv2d_{KERNEL_DTYPES[xp.dtype]}")(
-        xp.data_ptr(), wpk.data_ptr(), bpk.data_ptr(), out.data_ptr(),
-        b, h, w, cin, cout, k, int(act), plan["ck"],
-        0 if plan["resident"] else plan["taps_per_group"], plan["x_bytes"],
-        *((int(plan["flush"]),) if xp.dtype == torch.float32 else ()),
-        plan["smem_bytes"], dev.index, build.current_stream(dev.index))
+                       x0.element_size())
+    io = (wpk.data_ptr(), bpk.data_ptr(), out.data_ptr(), b, h, w)
+    step = (cout, k, int(act), plan["ck"],
+            0 if plan["resident"] else plan["taps_per_group"],
+            plan["x_bytes"])
+    if x0.dtype == torch.float32:
+        rc = build.entry("vfi_conv2d_f32")(
+            x0.data_ptr(), *io, cin, *step, int(plan["flush"]),
+            plan["smem_bytes"], dev.index, build.current_stream(dev.index))
+    else:
+        rc = build.entry("vfi_conv2d_bf16")(
+            *parts_args(xp), *io, *step, plan["smem_bytes"], dev.index,
+            build.current_stream(dev.index))
     if rc:
         build.check(rc, what)
 
 
 def pad_channels8(x: torch.Tensor) -> torch.Tensor:
-    """x with its channels zero-padded to a multiple of 8: the chain and
-    DCN kernels copy their input tile in 16-byte rows of 8 bf16 channels
-    (the float32 instances take the same widths). A 67-channel input
-    (134-byte rows) becomes 72 channels; others pass unchanged."""
+    """x with its channels zero-padded to a multiple of 8: the conv and
+    DCN kernels copy their input tile in 16-byte units of 8 bf16 channels
+    (the float32 instances take the same widths). A contiguous 67-channel
+    input (134-byte pixels) becomes 72 channels; others pass unchanged."""
     c = x.shape[-1]
     return x if c % 8 == 0 else F.pad(x, (0, -c % 8))
 
@@ -531,7 +656,7 @@ def _launch_chain_fused(xp: torch.Tensor, wpk: torch.Tensor,
         build.check(rc, "conv_chain")
 
 
-def conv_chain(x: torch.Tensor, weights: Sequence[torch.Tensor],
+def conv_chain(x, weights: Sequence[torch.Tensor],
                biases: Sequence[Optional[torch.Tensor]],
                acts: Sequence[bool],
                packed: Optional[tuple] = None,
@@ -539,64 +664,73 @@ def conv_chain(x: torch.Tensor, weights: Sequence[torch.Tensor],
     weights, biases, acts = list(weights), list(biases), tuple(acts)
     if not (len(weights) == len(biases) == len(acts)):
         raise ValueError("weights, biases and acts differ in length")
-    if x.dim() != 4:
-        raise ValueError(f"x must be NHWC, got shape {tuple(x.shape)}")
+    parts = as_parts(x)
     if route is not None and route not in ROUTES:
         raise ValueError(f"route must be one of {ROUTES} or None, got "
                          f"{route!r}")
-    chans = [x.shape[3]]
+    x0 = parts[0]
+    chans = [sum(p.shape[3] for p in parts)]
     for w in weights:
         if w.dim() != 4 or w.shape[2:] != (3, 3) or w.shape[1] != chans[-1]:
             raise ValueError(f"layer weight {tuple(w.shape)} is not OIHW "
                              f"3x3 with cin={chans[-1]}")
         chans.append(w.shape[0])
     chans = tuple(chans)
-    if x.device.type == "cpu":
-        return conv_chain_plain(x, weights, biases, acts)
-    if x.device.type != "cuda":
-        raise ValueError(f"conv_chain: unsupported device {x.device}")
-    tag = kernel_dtype("conv_chain", x.dtype)
-    if not x.is_contiguous():
-        raise ValueError("conv_chain kernel takes a contiguous NHWC tensor")
-    b, h, w, _ = x.shape
-    plan = chain_plan(chans, acts, b, h, w, _smem_limit(x.device.index),
-                      x.element_size())
+    if x0.device.type == "cpu":
+        return conv_chain_plain(parts, weights, biases, acts)
+    if x0.device.type != "cuda":
+        raise ValueError(f"conv_chain: unsupported device {x0.device}")
+    tag = kernel_dtype("conv_chain", x0.dtype)
+    b, h, w, _ = x0.shape
+    plan = chain_plan(chans, acts, b, h, w, _smem_limit(x0.device.index),
+                      x0.element_size())
     L, use = len(weights), route or plan["route"]
     if use == "fused" and plan["fused"] is None:
         raise ValueError(f"conv_chain: no fused plan for channels {chans} "
                          f"(one layer runs the conv kernel; wider inputs "
                          f"overrun shared memory)")
-    if any(w.device != x.device for w in weights):
+    if any(w.device != x0.device for w in weights):
         raise ValueError("weights must be on the input's device")
-    wpk, bpk = packed or pack_conv_chain(weights, biases, x.dtype)
-    n_w = sum(9 * _pad8(ci) * _pad16(co) if x.dtype == torch.float32
+    wpk, bpk = packed or pack_conv_chain(weights, biases, x0.dtype)
+    n_w = sum(9 * _pad8(ci) * _pad16(co) if x0.dtype == torch.float32
               else 9 * _pad16(ci) * _pad16(co)
               for ci, co in zip(chans[:-1], chans[1:]))
-    if wpk.numel() != n_w or wpk.device != x.device or wpk.dtype != x.dtype:
+    if (wpk.numel() != n_w or wpk.device != x0.device
+            or wpk.dtype != x0.dtype):
         raise ValueError("packed weights do not match this chain's "
                          "channels, device or dtype")
+    # Autograd saves one input tensor: the parts' concatenation.
+    grad = needs_grad(*parts, *weights, *biases)
+    x = cat_parts(parts) if grad else parts
+    xp, form = kernel_input(x, "conv_chain",
+                            tag == "bf16" and use == "layers")
+    if grad and len(parts) == 2:
+        form = "copied"
 
     def launch(x, *_):
-        xp = pad_channels8(x)
         if use == "fused":
-            out = x.new_empty(b, h, w, chans[-1])
-            _launch_chain_fused(xp, wpk, bpk, out, chans, acts,
+            out = x0.new_empty(b, h, w, chans[-1])
+            _launch_chain_fused(xp[0], wpk, bpk, out, chans, acts,
                                 plan["fused"])
         else:
+            xl = xp
             for l, (wl, bl) in enumerate(chain_layer_packs(wpk, bpk,
                                                            chans)):
                 co = chans[l + 1] if l == L - 1 else _pad8(chans[l + 1])
-                out = x.new_empty(b, h, w, co)
-                _launch_conv2d(xp, wl, bl, out, 3, acts[l], "conv_chain")
-                xp = out
+                out = x0.new_empty(b, h, w, co)
+                _launch_conv2d(xl, wl, bl, out, 3, acts[l], "conv_chain")
+                xl = (out,)
         conv_chain.launches += 1
         conv_chain.launches_by_shape[(chans, h, w, tag)] += 1
         conv_chain.launches_by_plan[(use, chans, h, w, tag)] += 1
+        conv_chain.launches_by_input[(form, tag)] += 1
         return out
 
     def plain(x, *wb):
         return conv_chain_plain(x, wb[:L], wb[L:], acts)
 
+    if not grad:
+        return launch(x)
     return differentiable(launch, plain, x, *weights, *biases)
 
 
@@ -604,16 +738,20 @@ conv_chain.launches = 0
 conv_chain.launches_by_shape = Counter()
 # Launches by (route, chans, h, w, dtype tag): which route each call ran.
 conv_chain.launches_by_plan = Counter()
+# Launches by (form, dtype tag): how each took its input (INPUT_FORMS).
+conv_chain.launches_by_input = Counter()
 
 
-def conv2d_plain(x: torch.Tensor, weight: torch.Tensor,
+def conv2d_plain(x, weight: torch.Tensor,
                  bias: Optional[torch.Tensor] = None, act: bool = False,
                  variant: str = "im2col",
                  packed: Optional[tuple] = None) -> torch.Tensor:
-    """One float32 convolution of the working-dtype values: the weight and
-    bias rounded to x.dtype, float32 accumulation, bias, ReLU, one rounding
-    to x.dtype. `variant` and `packed` are taken only so that this
-    function and `conv2d` share one signature."""
+    """One float32 convolution of the working-dtype values of `x`, a
+    tensor or its parts (`cat_parts`): the weight and bias rounded to
+    x.dtype, float32 accumulation, bias, ReLU, one rounding to x.dtype.
+    `variant` and `packed` are taken only so that this function and
+    `conv2d` share one signature."""
+    x = cat_parts(x)
     dt = x.dtype
     y = F.conv2d(x.permute(0, 3, 1, 2).float(), weight.to(dt).float(),
                  padding=weight.shape[-1] // 2)
@@ -661,19 +799,20 @@ class Conv2dFunction(torch.autograd.Function):
         return (None, None, *conv2d_backward(g, *ctx.saved_tensors))
 
 
-def conv2d(x: torch.Tensor, weight: torch.Tensor,
+def conv2d(x, weight: torch.Tensor,
            bias: Optional[torch.Tensor] = None, act: bool = False,
            variant: str = "im2col",
            packed: Optional[tuple] = None) -> torch.Tensor:
-    """x (B, H, W, Cin) NHWC; weight OIHW (Cout, Cin, k, k), k odd; bias
-    (Cout,) or None; `act` fuses a ReLU; `variant` one of
+    """x (B, H, W, Cin) NHWC, or its two parts split along channels (the
+    module docstring's "Inputs"); weight OIHW (Cout, Cin, k, k), k odd;
+    bias (Cout,) or None; `act` fuses a ReLU; `variant` one of
     `CONV2D_VARIANTS` (TPU layouts of the same function; "v2" keeps
     `conv2d_pallas_v2`'s refusals: Cin in {64, 128}, W a multiple of
     128 // Cin); `packed` is `pack_conv2d(weight, bias)` made ahead of
     time, or None to pack on this call. Returns (B, H, W, Cout)."""
-    if x.dim() != 4:
-        raise ValueError(f"x must be NHWC, got shape {tuple(x.shape)}")
-    b, h, w, cin = x.shape
+    parts = as_parts(x)
+    x0 = parts[0]
+    (b, h, w, _), cin = x0.shape, sum(p.shape[3] for p in parts)
     if (weight.dim() != 4 or weight.shape[1] != cin
             or weight.shape[2] != weight.shape[3] or weight.shape[2] % 2 != 1):
         raise ValueError(f"weight {tuple(weight.shape)} is not OIHW square "
@@ -684,37 +823,44 @@ def conv2d(x: torch.Tensor, weight: torch.Tensor,
     if variant == "v2" and (cin not in (64, 128) or w % (128 // cin)):
         raise ValueError(f"v2 packed conv supports C in {{64, 128}} with W "
                          f"a multiple of 128 // C, got C={cin}, W={w}")
-    if x.device.type == "cpu":
-        return conv2d_plain(x, weight, bias, act)
-    if x.device.type != "cuda":
-        raise ValueError(f"conv2d: unsupported device {x.device}")
-    tag = kernel_dtype("conv2d", x.dtype)
-    if not x.is_contiguous():
-        raise ValueError("conv2d kernel takes a contiguous NHWC tensor")
+    if x0.device.type == "cpu":
+        return conv2d_plain(parts, weight, bias, act)
+    if x0.device.type != "cuda":
+        raise ValueError(f"conv2d: unsupported device {x0.device}")
+    tag = kernel_dtype("conv2d", x0.dtype)
     cout, k = weight.shape[0], weight.shape[2]
     if cout > CONV2D_MAX_COUT or k > CONV2D_MAX_K:
         raise ValueError(f"conv2d kernel takes Cout <= {CONV2D_MAX_COUT} and "
                          f"k <= {CONV2D_MAX_K}, got Cout={cout}, k={k}")
-    if weight.device != x.device or (bias is not None
-                                     and bias.device != x.device):
+    if weight.device != x0.device or (bias is not None
+                                      and bias.device != x0.device):
         raise ValueError("weight and bias must be on the input's device")
-    wpk, bpk = packed or pack_conv2d(weight, bias, x.dtype)
-    if (tuple(wpk.shape) != packed_shape(cin, cout, k, x.dtype)
-            or wpk.device != x.device or wpk.dtype != x.dtype):
+    wpk, bpk = packed or pack_conv2d(weight, bias, x0.dtype)
+    if (tuple(wpk.shape) != packed_shape(cin, cout, k, x0.dtype)
+            or wpk.device != x0.device or wpk.dtype != x0.dtype):
         raise ValueError("packed weights do not match this conv's shape, "
                          "device or dtype")
+    # Autograd saves one input tensor: the parts' concatenation.
+    grad = needs_grad(*parts, weight, bias)
+    x = cat_parts(parts) if grad else parts
+    xp, form = kernel_input(x, "conv2d", tag == "bf16")
+    if grad and len(parts) == 2:
+        form = "copied"
 
-    def launch(x, *_):
-        out = torch.empty(b, h, w, cout, dtype=x.dtype, device=x.device)
-        _launch_conv2d(pad_channels8(x), wpk, bpk, out, k, act, "conv2d")
+    def launch(*_):
+        out = torch.empty(b, h, w, cout, dtype=x0.dtype, device=x0.device)
+        _launch_conv2d(xp, wpk, bpk, out, k, act, "conv2d")
         conv2d.launches += 1
         conv2d.launches_by_shape[(cin, cout, k, h, w, tag)] += 1
+        conv2d.launches_by_input[(form, tag)] += 1
         return out
 
-    if needs_grad(x, weight, bias):
+    if grad:
         return Conv2dFunction.apply(launch, act, x, weight, bias)
-    return launch(x)
+    return launch()
 
 
 conv2d.launches = 0
 conv2d.launches_by_shape = Counter()
+# Launches by (form, dtype tag): how each took its input (INPUT_FORMS).
+conv2d.launches_by_input = Counter()

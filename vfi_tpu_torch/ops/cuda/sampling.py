@@ -21,7 +21,17 @@
 A CPU tensor runs the plain version; a CUDA tensor launches the kernel
 (bf16 or float32, every operand of one dtype, contiguous; the float32
 instances sample and blend in the plain version's float32 arithmetic, the
-DCN's GEMM in 3xTF32 on the tensor cores) or raises.
+DCN's GEMM in 3xTF32 on the tensor cores) or raises. The DCN's input `x`
+may also be a view or two parts split along channels, which its bf16
+designs read in place (`ops/cuda/conv.py` "Inputs"), and it counts its
+launches by how it took `x` in `launches_by_input`. Asked to
+(`padded=True`, by a caller that hands the result to a kernel that reads
+views) and on the path where the kernels read in place (`reads_views`),
+a DCN whose Cout is not a multiple of 8 writes Cout padded to 8 (the
+padding channels zeros) and returns the [..., :Cout] view, and the RGB
+warp (C <= 4) writes 8 channels a pixel (C values, then zeros) and
+returns the [..., :C] view: a kernel reads either as (part of) its input
+where the tensor itself (134- or 6-byte pixels) would need a padded copy.
 Packed DCN weights are made in the input's dtype (`pack_dcn(..., dtype=)`);
 another dtype raises ValueError. Every launch key in `launches_by_shape`
 ends with the instance's tag, "bf16" or "f32". On the card the result
@@ -50,9 +60,10 @@ import torch
 from vfi_tpu_torch.ops.cuda import build
 from vfi_tpu_torch.ops.cuda.conv import (F32_FLUSH_K, H100_SMEM_PER_BLOCK,
                                          KERNEL_DTYPES, ROW_PAD, _pad8,
-                                         _pad16, _round128,
-                                         _smem_limit, pack_conv2d,
-                                         packed_shape, pad_channels8)
+                                         _pad16, _round128, _smem_limit,
+                                         as_parts, cat_parts, kernel_input,
+                                         pack_conv2d, packed_shape,
+                                         parts_args, reads_views)
 from vfi_tpu_torch.ops.cuda.grad import ThroughPlain, needs_grad
 from vfi_tpu_torch.ops.deform_conv_shifts import (deform_conv2d_shifts,
                                                   deform_conv2d_shifts_bwd)
@@ -91,11 +102,12 @@ DCN_F32_ROW_PAD = 4
 def deform_conv2d_bounded_plain(x, offset, mask, weight, bias=None,
                                 max_offset: int = 3,
                                 packed: Optional[tuple] = None,
-                                padding: int = DCN_PADDING) -> torch.Tensor:
-    """Reads `weight` and `bias`; `packed`, the kernel's copy of them, is
-    taken only so that this function and `deform_conv2d_bounded` share one
-    signature."""
-    return deform_conv2d_shifts(x, offset, mask, weight, bias,
+                                padding: int = DCN_PADDING,
+                                padded: bool = False) -> torch.Tensor:
+    """`x` a tensor or its parts (`cat_parts`). Reads `weight` and `bias`;
+    `packed`, the kernel's copy of them, and `padded` are taken only so
+    that this function and `deform_conv2d_bounded` share one signature."""
+    return deform_conv2d_shifts(cat_parts(x), offset, mask, weight, bias,
                                 max_offset=max_offset, padding=padding)
 
 
@@ -138,17 +150,21 @@ def hand_backward():
 
 
 def bounded_warp_plain(image: torch.Tensor, flow: torch.Tensor,
-                       max_flow: int = 16) -> torch.Tensor:
+                       max_flow: int = 16, padded: bool = False
+                       ) -> torch.Tensor:
+    """`padded` is taken only so that this function and `bounded_warp`
+    share one signature."""
     r = float(max_flow)
     if image.shape[-1] <= WARP_RGB_MAX_C:
         return warp(image, flow.clamp(-r, r))
     return warp(image.float(), flow.clamp(-r, r)).to(image.dtype)
 
 
-def _cuda_checks(name: str, **tensors) -> int:
+def _cuda_checks(name: str, strided: tuple = (), **tensors) -> int:
     """The index of the card the tensors lie on; raises unless each is a
-    contiguous CUDA tensor on one card, all of one dtype the kernels take
-    (bfloat16 or float32; None entries are skipped)."""
+    CUDA tensor on one card, contiguous unless named in `strided`, all of
+    one dtype the kernels take (bfloat16 or float32; None entries are
+    skipped)."""
     dev = dtype = None
     for k, t in tensors.items():
         if t is None:
@@ -162,7 +178,7 @@ def _cuda_checks(name: str, **tensors) -> int:
             raise TypeError(f"{name} kernel takes operands of one dtype, got "
                             f"{k} {t.dtype} beside {dtype}")
         dtype = t.dtype
-        if not t.is_contiguous():
+        if k not in strided and not t.is_contiguous():
             raise ValueError(f"{name} kernel takes a contiguous {k}")
         d = t.get_device()
         if dev is not None and d != dev:
@@ -355,49 +371,59 @@ def dcn_plan(cin: int, cout: int, max_offset: int,
     return plan
 
 
-def _dcn_launch(x, offset, mask, wpk, bpk, cout, R, plan, dev):
-    b, h, w, cin = x.shape
-    out = torch.empty(b, h, w, cout, dtype=x.dtype, device=x.device)
-    xp = pad_channels8(x)
+def _dcn_launch(xp, form, offset, mask, wpk, bpk, cin, cout, R, plan, dev,
+                pad_out=False):
+    """One launch on `plan` of the Cin-channel input's parts `xp` as
+    `kernel_input` gives them (taken as `form`); with `pad_out` (bf16)
+    into Cout padded to 8, returning the [..., :Cout] view."""
+    x0 = xp[0]
+    b, h, w, _ = x0.shape
+    tag = KERNEL_DTYPES[x0.dtype]
+    oc = _pad8(cout) if pad_out else cout
+    out = torch.empty(b, h, w, oc, dtype=x0.dtype, device=x0.device)
     if offset.data_ptr() % (2 * offset.element_size()):
         offset = offset.clone()   # the kernel reads (dy, dx) as one word
-    args = (xp.data_ptr(), offset.data_ptr(),
-            None if mask is None else mask.data_ptr(), wpk.data_ptr(),
-            bpk.data_ptr(), out.data_ptr(), b, h, w, xp.shape[-1], cout, R,
-            0 if plan["design"] == "tile" else 1)
+    meta = (offset.data_ptr(), None if mask is None else mask.data_ptr(),
+            wpk.data_ptr(), bpk.data_ptr(), out.data_ptr())
+    design = 0 if plan["design"] == "tile" else 1
     tail = (plan["xu"], plan["x_bytes"], plan["smem_bytes"], dev,
             build.current_stream(dev))
-    if x.dtype == torch.float32:
+    if tag == "f32":
         rc = build.entry("vfi_dcn_bounded_f32")(
-            *args, plan["rows"], plan["chans"], *tail)
+            x0.data_ptr(), *meta, b, h, w, x0.shape[-1], cout, R, design,
+            plan["rows"], plan["chans"], *tail)
     else:
         rc = build.entry("vfi_dcn_bounded_bf16")(
-            *args, plan["rows"], plan["chans"], plan["nbuf"], *tail)
+            *parts_args(xp), *meta, oc, b, h, w, cout, R, design,
+            plan["rows"], plan["chans"], plan["nbuf"], *tail)
     if rc:
         build.check(rc, "deform_conv2d_bounded")
     deform_conv2d_bounded.launches += 1
-    deform_conv2d_bounded.launches_by_shape[
-        (cin, cout, h, w, R, KERNEL_DTYPES[x.dtype])] += 1
-    return out
+    deform_conv2d_bounded.launches_by_shape[(cin, cout, h, w, R, tag)] += 1
+    deform_conv2d_bounded.launches_by_input[(form, tag)] += 1
+    return out if oc == cout else out[..., :cout]
 
 
-def deform_conv2d_bounded(x: torch.Tensor, offset: torch.Tensor,
+def deform_conv2d_bounded(x, offset: torch.Tensor,
                           mask: Optional[torch.Tensor], weight: torch.Tensor,
                           bias: Optional[torch.Tensor] = None,
                           max_offset: int = 3,
                           tile_w: Optional[int] = None,
                           packed: Optional[tuple] = None,
-                          padding: int = DCN_PADDING) -> torch.Tensor:
-    """x (B, H, W, Cin) NHWC; offset (B, H, W, 18) as (dy, dx) per tap;
+                          padding: int = DCN_PADDING,
+                          padded: bool = False) -> torch.Tensor:
+    """x (B, H, W, Cin) NHWC, or its two parts split along channels
+    (`ops/cuda/conv.py` "Inputs"); offset (B, H, W, 18) as (dy, dx) per tap;
     mask (B, H, W, 9), already sigmoided, or None (weight 1); weight OIHW
     (Cout, Cin, 3, 3); bias (Cout,) or None; `packed` is
     `pack_dcn(weight, bias)` made ahead of time, or None to pack on this
-    call; `padding` 1 (v3's argument; the only value the kernel takes).
-    Returns (B, H, W, Cout)."""
+    call; `padding` 1 (v3's argument; the only value the kernel takes);
+    `padded`: the result goes to a kernel that reads views (the module
+    docstring). Returns (B, H, W, Cout)."""
     del tile_w  # TPU tiling knob: no effect on the function
-    if x.dim() != 4:
-        raise ValueError(f"x must be NHWC, got shape {tuple(x.shape)}")
-    b, h, w, cin = x.shape
+    parts = as_parts(x)
+    x0 = parts[0]
+    (b, h, w, _), cin = x0.shape, sum(p.shape[3] for p in parts)
     if (weight.dim() != 4 or tuple(weight.shape[1:]) != (cin, DCN_K, DCN_K)
             or padding != DCN_PADDING):
         raise ValueError(f"deform_conv2d_bounded takes a 3x3 OIHW weight "
@@ -410,8 +436,11 @@ def deform_conv2d_bounded(x: torch.Tensor, offset: torch.Tensor,
                          f"{None if mask is None else tuple(mask.shape)} do "
                          f"not match x {tuple(x.shape)}")
     R = int(max_offset)
-    hand = _HAND_BACKWARD[0] and needs_grad(x, offset, mask, weight, bias)
-    if x.device.type == "cpu":
+    grad = needs_grad(*parts, offset, mask, weight, bias)
+    hand = _HAND_BACKWARD[0] and grad
+    if grad:   # autograd saves one input tensor: the parts' concatenation
+        x = cat_parts(parts)
+    if x0.device.type == "cpu":
         if hand:
             return HandBackward.apply(
                 lambda x, offset, mask: deform_conv2d_bounded_plain(
@@ -419,7 +448,9 @@ def deform_conv2d_bounded(x: torch.Tensor, offset: torch.Tensor,
                 R, x, offset, mask, weight, bias)
         return deform_conv2d_bounded_plain(x, offset, mask, weight, bias,
                                            max_offset)
-    dev = _cuda_checks("deform_conv2d_bounded", x=x, offset=offset, mask=mask)
+    dev = _cuda_checks("deform_conv2d_bounded", ("x", "x1"),
+                       **dict(zip(("x", "x1"), parts)), offset=offset,
+                       mask=mask)
     if not 1 <= cout <= DCN_MAX_COUT or max_offset < 0:
         raise ValueError(f"deform_conv2d_bounded kernel takes Cout in "
                          f"1..{DCN_MAX_COUT} and R >= 0, got Cout={cout}, "
@@ -428,22 +459,29 @@ def deform_conv2d_bounded(x: torch.Tensor, offset: torch.Tensor,
                                       and bias.get_device() != dev):
         raise ValueError("weight and bias must be on the input's device")
     # raises where none fits
-    plan = dcn_plan(cin, cout, R, _smem_limit(dev), x.element_size())
-    wpk, bpk = packed or pack_dcn(weight, bias, x.dtype)
-    if (tuple(wpk.shape) != packed_shape(cin, cout, DCN_K, x.dtype)
-            or wpk.get_device() != dev or wpk.dtype != x.dtype):
+    plan = dcn_plan(cin, cout, R, _smem_limit(dev), x0.element_size())
+    wpk, bpk = packed or pack_dcn(weight, bias, x0.dtype)
+    if (tuple(wpk.shape) != packed_shape(cin, cout, DCN_K, x0.dtype)
+            or wpk.get_device() != dev or wpk.dtype != x0.dtype):
         raise ValueError("packed weights do not match this DCN's channels, "
                          "device or dtype")
+    bf16 = x0.dtype == torch.bfloat16
+    xp, form = kernel_input(x, "deform_conv2d_bounded", bf16)
+    if grad and len(parts) == 2:
+        form = "copied"
     if hand:
         return HandBackward.apply(
-            lambda x, offset, mask: _dcn_launch(x, offset, mask, wpk, bpk,
-                                                cout, R, plan, dev),
+            lambda x, offset, mask: _dcn_launch(xp, form, offset, mask, wpk,
+                                                bpk, cin, cout, R, plan, dev),
             R, x, offset, mask, weight, bias)
-    if not needs_grad(x, offset, mask, weight, bias):
-        return _dcn_launch(x, offset, mask, wpk, bpk, cout, R, plan, dev)
+    if not grad:
+        return _dcn_launch(xp, form, offset, mask, wpk, bpk, cin, cout, R,
+                           plan, dev, pad_out=padded and cout % 8 != 0
+                           and reads_views(x0, *parts[1:], offset, mask,
+                                           weight, bias))
     return ThroughPlain.apply(
-        lambda x, offset, mask, *_: _dcn_launch(x, offset, mask, wpk, bpk,
-                                                cout, R, plan, dev),
+        lambda x, offset, mask, *_: _dcn_launch(xp, form, offset, mask, wpk,
+                                                bpk, cin, cout, R, plan, dev),
         lambda x, offset, mask, weight, bias: deform_conv2d_bounded_plain(
             x, offset, mask, weight, bias, R),
         x, offset, mask, weight, bias)
@@ -454,29 +492,35 @@ _WARP_ENTRIES = {torch.bfloat16: "vfi_warp_bounded_bf16",
                  torch.float32: "vfi_warp_bounded_f32"}
 
 
-def _warp_launch(image, flow, max_flow, dev):
+def _warp_launch(image, flow, max_flow, dev, pad_out=False):
+    """One launch; with `pad_out` (bf16, C <= 4) into 8 channels a pixel,
+    returning the [..., :C] view."""
     b, h, w, c = image.shape
-    out = torch.empty_like(image)
+    oc = 8 if pad_out else c
+    out = (torch.empty(b, h, w, oc, dtype=image.dtype, device=image.device)
+           if pad_out else torch.empty_like(image))
     rc = build.entry(_WARP_ENTRIES[image.dtype])(
-        image.data_ptr(), flow.data_ptr(), out.data_ptr(), b, h, w, c,
+        image.data_ptr(), flow.data_ptr(), out.data_ptr(), b, h, w, c, oc,
         float(max_flow), dev, build.current_stream(dev))
     if rc:
         build.check(rc, "bounded_warp")
     bounded_warp.launches += 1
     bounded_warp.launches_by_shape[
         (c, h, w, int(max_flow), KERNEL_DTYPES[image.dtype])] += 1
-    return out
+    return out[..., :c] if pad_out else out
 
 
 def bounded_warp(image: torch.Tensor, flow: torch.Tensor,
-                 max_flow: int = 16) -> torch.Tensor:
+                 max_flow: int = 16, padded: bool = False) -> torch.Tensor:
     """image (B, H, W, C), any C; flow (B, H, W, 2) channels (dx, dy) in
-    pixels, clipped to [-max_flow, max_flow]. Bilinear, zeros padding."""
+    pixels, clipped to [-max_flow, max_flow]. Bilinear, zeros padding.
+    `padded`: the result goes to a kernel that reads views (the module
+    docstring)."""
     if image.dim() != 4 or flow.shape != (*image.shape[:3], 2):
         raise ValueError(f"image {tuple(image.shape)} / flow "
                          f"{tuple(flow.shape)} shapes do not match")
     if not image.is_cuda and image.device.type == "cpu":
-        return bounded_warp_plain(image, flow, max_flow)
+        return bounded_warp_plain(image, flow, max_flow, padded)
     dev = image.get_device()
     if not (flow.get_device() == dev >= 0 and image.dtype is flow.dtype
             and image.dtype in _WARP_ENTRIES and image.is_contiguous()
@@ -484,7 +528,9 @@ def bounded_warp(image: torch.Tensor, flow: torch.Tensor,
         dev = _cuda_checks("bounded_warp", image=image, flow=flow)
     if not (torch.is_grad_enabled()
             and (image.requires_grad or flow.requires_grad)):
-        return _warp_launch(image, flow, max_flow, dev)
+        return _warp_launch(image, flow, max_flow, dev,
+                            padded and image.shape[-1] <= WARP_RGB_MAX_C
+                            and reads_views(image))
     return ThroughPlain.apply(
         lambda image, flow: _warp_launch(image, flow, max_flow, dev),
         lambda image, flow: bounded_warp_plain(image, flow, max_flow),
@@ -493,5 +539,7 @@ def bounded_warp(image: torch.Tensor, flow: torch.Tensor,
 
 deform_conv2d_bounded.launches = 0
 deform_conv2d_bounded.launches_by_shape = Counter()
+# Launches by (form, dtype tag): how each took its input (INPUT_FORMS).
+deform_conv2d_bounded.launches_by_input = Counter()
 bounded_warp.launches = 0
 bounded_warp.launches_by_shape = Counter()

@@ -48,6 +48,17 @@ device too. Shapes:
   (a sequence of library calls, the "xla" route's trunk). A last `:f32`
   runs the chain in float32 (the kernels' float32 instances; `cudnn`
   with TF32 off), e.g. `chain_feat:fused:f32`, `chain_motion:f32`.
+  `parts` (bf16, a checkout whose kernels read inputs in parts): the
+  checkout's route on the input as the model hands it over, `motion` as
+  (features, a per-image context vector broadcast over the pixels),
+  `rec67` as the [..., :67] view of a 72-wide buffer;
+- `fuse:HOW`: the fuse projection, 1x1 67 -> 64 + bias: `parts`, the conv
+  kernel (`ops.cuda.conv2d`, weights packed once) reading (features, the
+  [..., :3] view of an 8-wide frame buffer); `cudnn`, what a forward that
+  concatenates runs, `torch.cat` of the features and a 3-channel frame,
+  then `models.layers.conv_nhwc` (cuDNN's conv and a bias add in bf16);
+  `cat`, that concatenation into the conv kernel (which pads a copy);
+  `whole`, the conv kernel on one contiguous 72-channel input (no copy).
 
 Inputs and weights come from a seeded numpy generator, the same in every
 process. Give the trees in turns (A, B, B, A) to cancel drift of the
@@ -86,6 +97,7 @@ from vfi_tpu_torch.ops.cuda import (bounded_warp, conv2d, conv_chain,
                                     deform_conv2d_bounded, pack_conv_chain,
                                     pack_dcn)
 from vfi_tpu_torch.ops.cuda import sampling
+from vfi_tpu_torch.models.layers import conv_nhwc
 routed = "route" in inspect.signature(conv_chain).parameters
 CHAINS = {"feat": ((64, 64, 64, 64), (1, 1, 1)),
           "motion": ((128, 64, 64, 2), (1, 1, 0)),
@@ -190,10 +202,45 @@ for shape in args["shapes"]:
                 for wt, bt, a, pk in zip(ws, bs, acts, pks):
                     y = conv_chain(y, [wt], [bt], (a,), packed=pk)
                 return y
+        elif how == "parts":
+            pk = pack_conv_chain(ws, bs)
+            if name == "motion":
+                ctx = bf(rng.standard_normal((b, 64)))
+                x = (x[..., :64], ctx[:, None, None, :].expand(b, h, w, 64))
+            else:
+                buf = torch.zeros(b, h, w, 72, dtype=dt, device=dev)
+                buf[..., :chans[0]] = x
+                x = buf[..., :chans[0]]
+            fn = lambda: conv_chain(x, ws, bs, acts, packed=pk)
         else:
             pk = pack_conv_chain(ws, bs, **kw_pack)
             kw = {"route": how} if how and routed else {}
             fn = lambda: conv_chain(x, ws, bs, acts, packed=pk, **kw)
+    elif shape.startswith("fuse"):
+        how = shape.partition(":")[2]
+        feat = bf(rng.standard_normal((b, h, w, 64)))
+        rgb = bf(rng.uniform(0.0, 1.0, (b, h, w, 3)))
+        proj = torch.nn.Conv2d(67, 64, 1).to(dev).requires_grad_(False)
+        with torch.no_grad():
+            proj.weight.copy_(f32(rng.standard_normal((64, 67, 1, 1)) / 67 ** 0.5))
+            proj.bias.copy_(f32(rng.standard_normal((64,)) * 0.1))
+        if how == "parts":
+            from vfi_tpu_torch.ops.cuda import pack_conv2d
+            buf = torch.zeros(b, h, w, 8, dtype=torch.bfloat16, device=dev)
+            buf[..., :3] = rgb
+            parts = (feat, buf[..., :3])
+            pk = pack_conv2d(proj.weight, proj.bias)
+            fn = lambda: conv2d(parts, proj.weight, proj.bias, packed=pk)
+        elif how == "cat":
+            fn = lambda: conv2d(torch.cat([feat, rgb], dim=-1), proj.weight,
+                                proj.bias)
+        elif how == "whole":
+            x72 = torch.cat([feat, rgb, rgb[..., :2] * 0, rgb * 0], dim=-1)
+            w72 = torch.nn.functional.pad(proj.weight, (0, 0, 0, 0, 0, 5))
+            fn = lambda: conv2d(x72, w72, proj.bias)
+        else:
+            fn = lambda: conv_nhwc(torch.cat([feat, rgb], dim=-1), proj,
+                                   False)
     else:
         spec, _, how = shape.partition(":")
         chain = spec.endswith("c")

@@ -149,8 +149,11 @@ def counters():
     shapes[(3, h, w, R)] = shapes.get((3, h, w, R), 0) + 1
 
 
+# (a checkout whose warp entry takes the output's pixel stride: 3 here)
+oc = (3,) * (len(getattr(build, "SIGNATURES", {}).get(
+    "vfi_warp_bounded_bf16", ())) == 11)
 args_ptr = (img.data_ptr(), flow.data_ptr(), out.data_ptr(), b, h, w, 3,
-            float(R), 0)
+            *oc, float(R), 0)
 pieces = {"lookup": {
     "shape_checks": lambda: (img.dim() != 4 or tuple(flow.shape) != tuple(
         img.shape[:3]) + (2,) or img.device.type == "cpu"),

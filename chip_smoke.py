@@ -37,15 +37,16 @@ and the script exits non-zero without a result line:
            ("rgb", or "wide16" / "wide2b": the wide kernel's 16-byte or
            2-byte instance), each conv row its tile plan (a one-layer chain
            runs the conv kernel, csrc/conv2d.cu); a chain of 2-4 layers
-           has a row for each route (`chain_route` "fused": the chain
-           kernel; "layers": one conv-kernel launch a layer) beside the
-           route `chain_plan` picks (`plan_route`), and cuDNN layer by
-           layer as its library time (a sequence of calls). Then the
+           has a row for each wrapper (`chain_route` "layers":
+           `conv_chain`, one conv-kernel launch a layer, which the paths
+           run; "fused": `conv_chain_fused`, the chain kernel, which no
+           path runs), and cuDNN layer by layer as its library time (a
+           sequence of calls). Then the
            float32 instances (rows named `..._f32`, `f32_rows`): each of
            the eight TPU kernels at its bf16 row's shape and every shape
-           the float32 phases launch (a float32 chain of 2-4 layers on
-           both routes too: the fused kernel's float32 instance and the
-           layers), against the float32 plain versions
+           the float32 phases launch (a float32 chain of 2-4 layers
+           through both wrappers too: the layers and the fused kernel's
+           float32 instance), against the float32 plain versions
            (TF32 off) within F32_REL_TOL (conv, DCN) and F32_WARP_TOL
            (warps; `bit_exact` says whether they were), their bounds with
            every float32 product as three TF32 passes on the tensor cores
@@ -81,7 +82,9 @@ and the script exits non-zero without a result line:
            requests at 640x480, uint8 midpoints, no kernel launched;
 6. video   the flagship engine (float io, as the JAX video path runs it)
            behind `infer.video.interpolate_video`, with a source and a
-           sink held in memory (the card's machine has no cv2): VIDEO_FRAMES
+           sink held in memory (the card's machine has cv2, but no codec
+           may stand between the frames and the checks below, which hold
+           each source frame bit for bit): VIDEO_FRAMES
            smooth 1280x720 BGR frames of a steady shift at VIDEO_FPS
            (factor 3: two bisection levels of `recursive`), VIDEO_BATCH
            pairs a batch (the engine's 4M-pixel guard runs each as two b=4
@@ -205,10 +208,6 @@ and the script exits non-zero without a result line:
            the first step's loss equal, the gradients' cosine at least
            USER_GRAD_COS; ms a step); the conv, DCN and warp kernels
            launched;
-12c. video_demo not run: one line says so. The clip demo
-           (`tools/video_demo.py`) runs `cli.infer video` in a process of
-           its own, whose launches no row would hold; the `video` and
-           `videos` phases drive that pipeline in this process;
 13. grad   gradients through each kernel wrapper (conv, chain of three
            layers and of one, DCN on the tile and the stream design, warp
            at C=3 and C=64) against those
@@ -277,14 +276,15 @@ from vfi_tpu_torch.ops.cuda import (PLAIN, WRAPPERS, as_parts, bounded_warp,
                                     bounded_warp_plain, build, chain_plan,
                                     conv2d,
                                     conv2d_plain, conv2d_plan, conv_chain,
-                                    conv_chain_plain, dcn_plan,
+                                    conv_chain_fused, conv_chain_plain,
+                                    dcn_plan,
                                     deform_conv2d_bounded,
                                     deform_conv2d_bounded_plain,
                                     input_form_counts, launch_counts,
                                     pack_conv2d,
                                     pack_conv_chain, pack_dcn,
                                     reset_launch_counts)
-from vfi_tpu_torch.ops.cuda.conv import ROUTES
+from vfi_tpu_torch.ops.cuda.conv import chain_fused_plan
 from vfi_tpu_torch.ops.resize import resize_bilinear
 from vfi_tpu_torch.parallel import make_mesh, required_halo
 from vfi_tpu_torch.serve import (BatcherStats, InterpolationServer,
@@ -397,7 +397,7 @@ SSIM_TOL = 0.002
 # fewer concatenation kernels (CatArrayBatchedCopy) than a launch of the
 # concatenating forward: the two motion chains' and the fusion's.
 PER_LAUNCH = {"conv_chain": 8, "deform_conv2d_bounded": 3, "bounded_warp": 1,
-              "conv2d": 1}
+              "conv2d": 1, "conv_chain_fused": 0}
 PER_LAUNCH_CAT = dict(PER_LAUNCH, conv2d=0)
 CAT_KERNELS_GONE = 3
 CHAIN_TPU = "vfi_tpu/ops/pallas/conv.py:543"
@@ -541,7 +541,7 @@ SP_H, SP_W = 1080, 1920
 SPATIAL_PADDED_TOL = 2.0 ** -5
 SPATIAL_NATIVE_TOL = 2.0 ** -3
 SPATIAL_PER_RANK = {"conv_chain": 18, "deform_conv2d_bounded": 3,
-                    "bounded_warp": 1, "conv2d": 0}
+                    "bounded_warp": 1, "conv2d": 0, "conv_chain_fused": 0}
 SPATIAL_TURNS = ("spatial", "one", "one", "spatial")
 # dp_train: one optimizer step of TRAIN_RECIPE (batch 16, 8 microbatches of
 # 2 at 320x320) over two ranks, each one pair a microbatch, from
@@ -861,15 +861,15 @@ def dtype_rows(dt) -> dict:
 def chain_rows(rnd, sd, tag, cin, names, acts, b, h, w, paths,
                dt=torch.bfloat16) -> list:
     """The chain at one shape with the checkpoint's weights, packed once as
-    the engine does: one row a route ("fused", the chain kernel; "layers",
-    one conv-kernel launch a layer; a chain of one layer has only the
-    latter), in bf16 or float32 (`dt`: each kernel's instance of that
-    type), all checked against one plain result.
-    `plan_route` names the route `chain_plan` picks; the paths' launches
-    count on that route's row (the other's key has no path). Library:
-    cuDNN layer by layer (`F.conv2d` in the chain's dtype, TF32 off, then
-    `relu` where the layer has one), the "xla" route's trunk: a sequence
-    of calls where the chain has more than one layer."""
+    the engine does: one row a wrapper (`chain_route` "fused":
+    `conv_chain_fused`, the chain kernel, on no path; "layers":
+    `conv_chain`, one conv-kernel launch a layer, whose launches the paths
+    count; a chain of one layer has only the latter), in bf16 or float32
+    (`dt`: each kernel's instance of that type), all checked against one
+    plain result. `plan`: `chain_fused_plan`, or `chain_plan`'s layers.
+    Library: cuDNN layer by layer (`F.conv2d` in the chain's dtype, TF32
+    off, then `relu` where the layer has one), the "xla" route's trunk: a
+    sequence of calls where the chain has more than one layer."""
     d = dtype_rows(dt)
     ws = [sd[f"{n}.weight"].cuda() for n in names]
     bs = [sd[f"{n}.bias"].cuda() for n in names]
@@ -886,30 +886,31 @@ def chain_rows(rnd, sd, tag, cin, names, acts, b, h, w, paths,
 
     chans = tuple([cin] + [wt.shape[0] for wt in ws])
     pk = pack_conv_chain(ws, bs, dt)
-    plan = chain_plan(chans, acts, b, h, w, torch.cuda.get_device_properties(
-        x.device).shared_memory_per_block_optin, x.element_size())
+    smem = torch.cuda.get_device_properties(
+        x.device).shared_memory_per_block_optin
     plain = lambda: conv_chain_plain(x, ws, bs, acts)  # noqa: E731
     ref, plain_ms = plain(), median_ms(plain)
     calls = " -> ".join(f"F.conv2d{'+relu' if a else ''}" for a in acts)
     flops = sum(2.0 * b * h * w * 9 * wt.shape[1] * wt.shape[0] for wt in ws)
-    routes = ROUTES if len(ws) > 1 else ("layers",)
+    wrappers = [("layers", conv_chain, "conv2d.cu", paths, chain_plan(
+        chans, acts, b, h, w, smem, x.element_size()))]
+    if len(ws) > 1:
+        wrappers.insert(0, ("fused", conv_chain_fused, "conv_chain.cu", (),
+                            chain_fused_plan(chans, smem, x.element_size())))
     rows = []
-    for route in routes:
-        suffix = "/layers" if len(routes) > 1 and route == "layers" else ""
+    for route, fn, src, on, plan in wrappers:
+        suffix = "/layers" if len(wrappers) > 1 and route == "layers" else ""
         rows.append(kernel_row(
             row_name(f"conv_chain/{tag}{suffix}{d['suffix']}", b, h, w),
-            "vfi_tpu_torch/csrc/"
-            + ("conv_chain.cu" if route == "fused" else "conv2d.cu"),
-            CHAIN_TPU, (paths if route == plan["route"] else (),
-                        "conv_chain", (route, chans, h, w, d["tag"])),
-            lambda: conv_chain(x, ws, bs, acts, packed=pk, route=route),
+            "vfi_tpu_torch/csrc/" + src, CHAIN_TPU,
+            (on, fn.__name__, (chans, h, w, d["tag"])),
+            lambda fn=fn: fn(x, ws, bs, acts, packed=pk),
             plain, library,
             nbytes(x) + nbytes(*ws) * x.element_size() // 4 + nbytes(*bs),
             0.0 if d["f32_products"] else flops, ref=ref, plain_ms=plain_ms,
             flops_tf32x3=flops if d["f32_products"] else 0.0,
             rel_tol=d["rel_tol"], dtype=d["tag"], chain_route=route,
-            plan_route=plan["route"], library_call=calls,
-            plan=plan["fused"] if route == "fused" else plan["layers"]))
+            library_call=calls, plan=plan))
     return rows
 
 
@@ -1021,7 +1022,7 @@ def parts_rows(rnd, sd, sd12, dcn12, shapes) -> list:
                       conv_chain(torch.cat(x, -1), ws, bs, acts, packed=pk))
         rows.append(kernel_row(
             name, "vfi_tpu_torch/csrc/conv2d.cu", CHAIN_TPU,
-            ((), "conv_chain", ("layers", (128, 64, 64, 2), h, w, "bf16")),
+            ((), "conv_chain", ((128, 64, 64, 2), h, w, "bf16")),
             lambda x=x: conv_chain(x, ws, bs, acts, packed=pk),
             lambda x=x: conv_chain_plain(x, ws, bs, acts), None,
             nbytes(feat) + b * 128 + nbytes(*ws) // 2 + nbytes(*bs),
@@ -1063,7 +1064,7 @@ def parts_rows(rnd, sd, sd12, dcn12, shapes) -> list:
                   conv_chain(x.contiguous(), ws, bs, acts, packed=pk))
     rows.append(kernel_row(
         name, "vfi_tpu_torch/csrc/conv2d.cu", CHAIN_TPU,
-        ((), "conv_chain", ("layers", (67, 64, 64, 3), h, w, "bf16")),
+        ((), "conv_chain", ((67, 64, 64, 3), h, w, "bf16")),
         lambda: conv_chain(x, ws, bs, acts, packed=pk),
         lambda: conv_chain_plain(x, ws, bs, acts), None,
         nbytes(x) + nbytes(*ws) // 2 + nbytes(*bs),
@@ -1385,7 +1386,7 @@ def cat_kernels_of(fn) -> int:
 def kernel_family_failures(tag: str, ran: dict) -> list:
     """One engine launch's port kernels (`port_kernels_of`) against
     PER_LAUNCH: 3 DCN and 1 warp kernels, and a conv kernel at least for
-    each chain (a chain on the "layers" route runs one a layer)."""
+    each chain (`conv_chain` runs one a layer)."""
     fam = Counter()
     for name, n in ran.items():
         fam["deform_conv2d_bounded" if name.startswith("dcn_") else
@@ -2169,7 +2170,8 @@ def phase_eval_fp32(frames: dict) -> dict:
             by_shape = shapes_now()
             forwards = body_runs(graph_delta(eng, g0))
             want = {"conv_chain": 0, "deform_conv2d_bounded": 3 * forwards,
-                    "bounded_warp": forwards, "conv2d": 0}
+                    "bounded_warp": forwards, "conv2d": 0,
+                    "conv_chain_fused": 0}
             if launch_counts() != want:
                 failures.append(f"eval_fp32: launches {launch_counts()}, "
                                 f"expected {want}")
@@ -2191,12 +2193,8 @@ def phase_eval_fp32(frames: dict) -> dict:
 
 
 def shapes_now() -> dict:
-    """Launches by wrapper and shape since the last reset; the chain's by
-    route and shape (`launches_by_plan`), so that each route's row is
-    checked against the launches that took it."""
-    return {fn.__name__: Counter(fn.launches_by_plan if fn is conv_chain
-                                 else fn.launches_by_shape)
-            for fn in WRAPPERS}
+    """Launches by wrapper and shape since the last reset."""
+    return {fn.__name__: Counter(fn.launches_by_shape) for fn in WRAPPERS}
 
 
 def decode_val() -> dict:
@@ -2293,7 +2291,7 @@ def phase_eval(frames: dict) -> dict:
         forwards = len(batches) * (4 if kw.get("tta") else 1)
         runs = body_runs(graphs) * (4 if kw.get("tta") else 1)
         want = {"conv_chain": 0, "deform_conv2d_bounded": 3 * runs,
-                "bounded_warp": runs, "conv2d": 0}
+                "bounded_warp": runs, "conv2d": 0, "conv_chain_fused": 0}
         pairs = sum(bt["n"] for bt in batches)
         quality, missed = sweep_quality(name, report, record)
         scenes = {sc: {"psnr": r["psnr"], "ssim": r["ssim"],
@@ -2588,7 +2586,8 @@ def phase_train() -> dict:
                            len(trainer.val_loader)),
                           (TRAIN_PATHS[1], 1)):
             want = {"deform_conv2d_bounded": trainer.model.num_blocks * per,
-                    "bounded_warp": per, "conv_chain": 0, "conv2d": 0}
+                    "bounded_warp": per, "conv_chain": 0, "conv2d": 0,
+                    "conv_chain_fused": 0}
             got = {k: sum(c.values()) for k, c in by_path[path].items()}
             if got != want:
                 failures.append(f"{path}: launches {got}, expected {want}")
@@ -3064,7 +3063,7 @@ def phase_dp_train() -> dict:
     step = (p1 - init.cuda()).norm().item()
     per_rank = {"deform_conv2d_bounded": 3 * 2 * TRAIN_RECIPE["accum_steps"],
                 "bounded_warp": 2 * TRAIN_RECIPE["accum_steps"],
-                "conv_chain": 0, "conv2d": 0}
+                "conv_chain": 0, "conv2d": 0, "conv_chain_fused": 0}
     failures = [f"dp_train rank {r}: launches {rr['counts']}, expected "
                 f"{per_rank}" for r, rr in enumerate(res)
                 if rr["counts"] != per_rank]
@@ -3113,7 +3112,8 @@ def phase_conv_compare(frames: dict, params, flow_params) -> list:
         fuse = ck == "pallas" and eng.model.fuse_project
         return {"conv_chain": chains[ck] * runs,
                 "deform_conv2d_bounded": 3 * runs,
-                "bounded_warp": runs, "conv2d": runs if fuse else 0}
+                "bounded_warp": runs, "conv2d": runs if fuse else 0,
+                "conv_chain_fused": 0}
 
     t0 = time.perf_counter()
     f0, f1 = smooth_frames(np.random.default_rng(SEED), 1)
@@ -3326,18 +3326,6 @@ def phase_user_tools() -> dict:
             "_by_shape": shapes_now()}
 
 
-def phase_video_demo() -> dict:
-    """The clip demo is not run here: `tools/video_demo.py` times
-    `cli.infer video` in a process of its own, whose kernel launches no
-    row of this script would hold. The `video` and `videos` phases drive
-    the same pipeline in this process, held against the plain engine."""
-    return {"phase": "video_demo", "ran": False,
-            "why": "tools/video_demo.py runs cli.infer video in its own "
-                   "process, whose launches no kernel row holds; the video "
-                   "and videos phases drive that pipeline here: not run, "
-                   "not counted"}
-
-
 def grad_case(name, kernel, plain, inputs) -> dict:
     """Gradients of sum(out * cot) through `kernel` and through `plain`
     with respect to every floating input: the kernel's output carries a
@@ -3408,8 +3396,7 @@ def phase_grad(dev) -> dict:
                   lambda x, *p: conv_chain_plain(x, p[:3], p[3:], acts),
                   [x, *w3, *b3]),
         grad_case("conv_chain/fused",
-                  lambda x, *p: conv_chain(x, p[:3], p[3:], acts,
-                                           route="fused"),
+                  lambda x, *p: conv_chain_fused(x, p[:3], p[3:], acts),
                   lambda x, *p: conv_chain_plain(x, p[:3], p[3:], acts),
                   [x, *w3, *b3]),
         grad_case("conv_chain/L1",
@@ -3571,7 +3558,6 @@ def main() -> int:
     user_res = phase_user_tools()
     by_path["user_tools"] = user_res.pop("_by_shape")
     emit(user_res)
-    emit(phase_video_demo())
     emit(phase_grad(dev))
     if "--profile" in sys.argv[1:]:
         emit(phase_profile(eng, request))

@@ -1,14 +1,17 @@
-"""The conv chain's route plan (`vfi_tpu_torch.ops.cuda.chain_plan`, pure
-Python, no card) and the auto_scale probe's percentile
+"""The conv chain's plans (`vfi_tpu_torch.ops.cuda.chain_plan` and
+`chain_fused_plan`, pure Python, no card), `conv_chain_fused` on the CPU,
+and the auto_scale probe's percentile
 (`vfi_tpu_torch.infer.pair.percentile_linear`) on the CPU.
 
-`chain_plan` names the route each chain shape runs ("fused": one launch
-of `csrc/conv_chain.cu` on a tile plan; "layers": one launch of
-`csrc/conv2d.cu` a layer) and both routes' shared memory. Every chain
-shape a path launches (chip_smoke.py's rows) and the contract's extremes
-(2..4 layers, Cout <= 64, first widths 8..128 and 72) must fit an H100's
-232,448 bytes a block; past the contract it raises a ValueError naming the
-limit.
+`chain_plan` is the chain's contract and its layers' plans (one launch of
+`csrc/conv2d.cu` a layer, `conv_chain`); `chain_fused_plan` is the tile
+plan of the fused kernel (`csrc/conv_chain.cu`, `conv_chain_fused`).
+Every chain shape a path launches (chip_smoke.py's rows) and the
+contract's extremes (2..4 layers, Cout <= 64, first widths 8..128 and 72)
+must fit an H100's 232,448 bytes a block in both; past the contract
+`chain_plan` raises a ValueError naming the limit. On the CPU
+`conv_chain_fused` is the plain version, bit for bit, and refuses what
+`conv_chain` refuses before any dispatch.
 
 The percentile replaces `torch.quantile`, which refuses more than 2^24
 elements, in `FrameInterpolator._flow_p95`. It is held against
@@ -25,12 +28,13 @@ import torch
 
 from vfi_tpu_torch.infer import FrameInterpolator
 from vfi_tpu_torch.infer.pair import percentile_linear
-from vfi_tpu_torch.ops.cuda import (chain_plan, conv_chain, conv2d_plan,
-                                    pack_conv2d, pack_conv_chain)
+from vfi_tpu_torch.ops.cuda import (chain_plan, conv2d_plan, conv_chain,
+                                    conv_chain_fused, conv_chain_plain,
+                                    pack_conv2d, pack_conv_chain,
+                                    reset_launch_counts)
 from vfi_tpu_torch.ops.cuda.conv import (CHAIN_MF, CHAIN_WARPS,
-                                         H100_SMEM_PER_BLOCK, ROUTES,
-                                         ROW_PAD, chain_fused_plan,
-                                         chain_layer_packs)
+                                         H100_SMEM_PER_BLOCK, ROW_PAD,
+                                         chain_fused_plan, chain_layer_packs)
 from vfi_tpu_torch.utils.convert import load_params_npz
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -96,28 +100,28 @@ def _check_fused(chans, f):
 @pytest.mark.parametrize("chans,acts,b,h,w", PATH_SHAPES)
 def test_chain_plan_fits_every_path_shape(chans, acts, b, h, w):
     p = chain_plan(chans, acts, b, h, w)
-    assert p["route"] in ROUTES
     L = len(chans) - 1
     widths = [_pad(c, 8) for c in chans[:-1]] + [chans[-1]]
-    assert p["layers"] == [conv2d_plan(ci, co, 3)
-                           for ci, co in zip(widths[:-1], widths[1:])]
-    assert all(q["smem_bytes"] <= H100_SMEM_PER_BLOCK for q in p["layers"])
+    assert p == [conv2d_plan(ci, co, 3)
+                 for ci, co in zip(widths[:-1], widths[1:])]
+    assert all(q["smem_bytes"] <= H100_SMEM_PER_BLOCK for q in p)
     if L == 1:   # one layer is one conv: the conv kernel
-        assert p["route"] == "layers" and p["fused"] is None
+        assert chain_fused_plan(chans) is None
     else:        # the fused kernel runs every chain a path launches
-        _check_fused(chans, p["fused"])
+        _check_fused(chans, chain_fused_plan(chans))
 
 
 @pytest.mark.parametrize("L", [2, 3, 4])
 @pytest.mark.parametrize("c0", [8, 16, 24, 32, 48, 64, 72, 96, 120, 128])
 @pytest.mark.parametrize("cout", [1, 3, 27, 64])
 def test_chain_plan_fits_the_contract_extremes(L, c0, cout):
-    """2..4 layers, Cout <= 64, first widths 8..128 and 72: both routes
-    have a plan within an H100's shared memory."""
+    """2..4 layers, Cout <= 64, first widths 8..128 and 72: the layers
+    and the fused kernel both have a plan within an H100's shared
+    memory."""
     chans = (c0,) + (64,) * (L - 1) + (cout,)
     p = chain_plan(chans, (True,) * L, 1, 37, 53)
-    _check_fused(chans, p["fused"])
-    assert all(q["smem_bytes"] <= H100_SMEM_PER_BLOCK for q in p["layers"])
+    _check_fused(chans, chain_fused_plan(chans))
+    assert all(q["smem_bytes"] <= H100_SMEM_PER_BLOCK for q in p)
     narrow = (c0,) + (cout,) * L
     _check_fused(narrow, chain_fused_plan(narrow))
 
@@ -136,12 +140,15 @@ def test_chain_plan_refuses_past_its_limits(chans, acts, match):
 
 
 def test_chain_fused_plan_refuses_what_shared_memory_cannot_hold():
-    """An input too wide for two activation buffers has no fused plan: the
-    plan routes it through the layers, and forcing "fused" raises."""
+    """An input too wide for two activation buffers has no fused plan
+    (`conv_chain_fused` raises there); its layers have plans, which
+    `conv_chain` runs."""
     assert chain_fused_plan((512, 64, 64)) is None
     p = chain_plan((512, 64, 64), (True, True), 1, 8, 16)
-    assert p["route"] == "layers" and p["fused"] is None
-    assert chain_fused_plan((64, 64), 4096) is None
+    assert len(p) == 2
+    assert all(q["smem_bytes"] <= H100_SMEM_PER_BLOCK for q in p)
+    assert chain_fused_plan((64, 64, 64)) is not None
+    assert chain_fused_plan((64, 64, 64), 4096) is None
 
 
 def test_chain_plan_is_deterministic_and_cached():
@@ -182,11 +189,54 @@ def test_layers_route_packing_slices_are_each_layers_pack_conv2d(chans):
         assert bl.shape == be.shape and torch.equal(bl, be)
 
 
-def test_conv_chain_refuses_an_unknown_route():
-    x = torch.zeros(1, 8, 16, 16)
-    w = [torch.zeros(8, 16, 3, 3)]
-    with pytest.raises(ValueError, match="route"):
-        conv_chain(x, w, [None], (True,), route="cudnn")
+def _chain_case(chans, seed=0):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((1, 8, 16, chans[0])).astype(
+        np.float32)).to(torch.bfloat16)
+    ws = [torch.from_numpy((rng.standard_normal((co, ci, 3, 3))
+                            / (9 * ci) ** 0.5).astype(np.float32))
+          for ci, co in zip(chans[:-1], chans[1:])]
+    bs = [torch.from_numpy(rng.standard_normal(co).astype(np.float32) * 0.1)
+          for co in chans[1:]]
+    return x, ws, bs
+
+
+@pytest.mark.parametrize("split", [False, True], ids=["tensor", "parts"])
+@pytest.mark.parametrize("chans,acts", [PATH_SHAPES[0][:2],
+                                        PATH_SHAPES[1][:2],
+                                        PATH_SHAPES[9][:2]])
+def test_conv_chain_fused_cpu_is_the_plain_version(chans, acts, split):
+    """On the CPU the fused kernel's wrapper runs the plain version, bit
+    for bit, on one tensor or on two parts split along channels (the
+    motion chain's and the reference topology's 64 + the rest), and
+    launches nothing."""
+    x, ws, bs = _chain_case(chans)
+    arg = (x[..., :64], x[..., 64:]) if split and chans[0] > 64 else (
+        (x[..., :32], x[..., 32:]) if split else x)
+    reset_launch_counts()
+    assert torch.equal(conv_chain_fused(arg, ws, bs, acts),
+                       conv_chain_plain(x, ws, bs, acts))
+    assert conv_chain_fused.launches == 0
+    assert not conv_chain_fused.launches_by_shape
+
+
+@pytest.mark.parametrize("change,match", [
+    (lambda ws, bs, acts: ([ws[0][..., :1, :1]] + ws[1:], bs, acts),
+     "not OIHW 3x3"),
+    (lambda ws, bs, acts: ([ws[0][:, :-1]] + ws[1:], bs, acts),
+     "not OIHW 3x3"),
+    (lambda ws, bs, acts: (ws, bs[:-1], acts), "differ in length"),
+    (lambda ws, bs, acts: (ws, bs, acts[:-1]), "differ in length"),
+], ids=["1x1", "cin", "biases", "acts"])
+def test_conv_chain_fused_refuses_what_conv_chain_refuses(change, match):
+    """The argument checks both chain wrappers share, made before any
+    dispatch: a weight that is not OIHW 3x3 on the input's width, and
+    weights, biases and acts of different lengths."""
+    chans, acts = PATH_SHAPES[2][:2]
+    x, ws, bs = _chain_case(chans)
+    for fn in (conv_chain, conv_chain_fused):
+        with pytest.raises(ValueError, match=match):
+            fn(x, *change(ws, bs, acts))
 
 
 @pytest.mark.parametrize("n", [1, 2, 3, 5, 20, 101, 1000])

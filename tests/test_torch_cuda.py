@@ -8,11 +8,11 @@ the warp at C=3 and wide C, gradients through every kernel wrapper
 against those through its plain version, q12 (the 67-channel
 topology) through the engine with both conv_kernel settings, the
 flagship engine (io_uint8) behind the HTTP server, and the kernels'
-float32 instances (conv, chain "layers" route, DCN tile and stream
-designs, the three warp instances, their gradients, the float32 engine
-and train step), and the engine's CUDA graphs (replays bit-equal to the
-eager launches, their port kernels read off the device trace, at qocc's
-and q12's topologies in bf16 and float32, after
+float32 instances (conv, the chain through its layers and fused, DCN
+tile and stream designs, the three warp instances, their gradients, the
+float32 engine and train step), and the engine's CUDA graphs (replays
+bit-equal to the eager launches, their port kernels read off the device
+trace, at qocc's and q12's topologies in bf16 and float32, after
 eviction, on a capture from another thread, and past a failed capture).
 Needs an
 NVIDIA GPU and nvcc; skips without a GPU. Run on
@@ -39,9 +39,10 @@ import pytest
 import torch
 
 from vfi_tpu_torch.ops.cuda import (bounded_warp, bounded_warp_plain,
-                                    chain_plan, conv2d, conv2d_plain,
+                                    conv2d, conv2d_plain,
                                     conv2d_plan, conv_chain,
-                                    conv_chain_plain, dcn_plan,
+                                    conv_chain_fused, conv_chain_plain,
+                                    dcn_plan,
                                     deform_conv2d_bounded,
                                     deform_conv2d_bounded_plain,
                                     hand_backward, launch_counts,
@@ -74,7 +75,7 @@ def _rnd(gen, dev, *shape, scale=1.0):
         torch.bfloat16)
 
 
-@pytest.mark.parametrize("route", [None, "fused", "layers"])
+@pytest.mark.parametrize("fused", [False, True], ids=["layers", "fused"])
 @pytest.mark.parametrize("hw", [(8, 16), (13, 37), (40, 72)])
 @pytest.mark.parametrize("chans,acts", [
     ((64, 64, 64, 64), (True, True, True)),
@@ -89,28 +90,27 @@ def _rnd(gen, dev, *shape, scale=1.0):
     ((128, 64, 64, 64, 64), (True, True, True, False)),
     ((8, 27, 19, 64), (True, False, True)),
 ])
-def test_conv_chain_kernel(dev, hw, chans, acts, route):
-    """Every chain through the plan's route and through each route forced
-    (one layer runs the conv kernel, csrc/conv2d.cu, and refuses "fused");
-    one launch counted either way, by route in `launches_by_plan`."""
+def test_conv_chain_kernel(dev, hw, chans, acts, fused):
+    """Every chain through `conv_chain` (one conv-kernel launch a layer,
+    csrc/conv2d.cu) and through `conv_chain_fused` (the chain kernel,
+    which a chain of one layer refuses); one launch counted by the wrapper
+    that ran, under the chain's shape, none by the other."""
     gen = torch.Generator(device=dev).manual_seed(0)
     x = _rnd(gen, dev, 2, *hw, chans[0])
     ws = [torch.randn(co, ci, 3, 3, generator=gen, device=dev) / (9 * ci) ** .5
           for ci, co in zip(chans[:-1], chans[1:])]
     bs = [torch.randn(co, generator=gen, device=dev) * 0.1 for co in chans[1:]]
+    fn, other = ((conv_chain_fused, conv_chain) if fused
+                 else (conv_chain, conv_chain_fused))
     reset_launch_counts()
-    if route == "fused" and len(ws) == 1:
+    if fused and len(ws) == 1:
         with pytest.raises(ValueError, match="fused"):
-            conv_chain(x, ws, bs, acts, route=route)
+            fn(x, ws, bs, acts)
         return
-    got = conv_chain(x, ws, bs, acts, route=route)
-    assert launch_counts()["conv_chain"] == 1
+    got = fn(x, ws, bs, acts)
+    assert fn.launches == 1 and other.launches == 0
     assert launch_counts()["conv2d"] == 0
-    want = route or chain_plan(chans, acts, 2, *hw,
-                               torch.cuda.get_device_properties(dev)
-                               .shared_memory_per_block_optin)["route"]
-    assert dict(conv_chain.launches_by_plan) == {(want, chans, *hw,
-                                                  "bf16"): 1}
+    assert dict(fn.launches_by_shape) == {(chans, *hw, "bf16"): 1}
     _close(got, conv_chain_plain(x, ws, bs, acts))
 
 
@@ -485,8 +485,7 @@ def _grad_cases(dev):
             [x, ws[0], torch.randn(8, 64, 3, 3, generator=gen, device=dev)
              / 24, bs[0], None]),
         "conv_chain_fused": (
-            lambda x, *p: conv_chain(x, p[:2], p[2:], (True, False),
-                                     route="fused"),
+            lambda x, *p: conv_chain_fused(x, p[:2], p[2:], (True, False)),
             lambda x, *p: conv_chain_plain(x, p[:2], p[2:], (True, False)),
             [x, ws[0], torch.randn(8, 64, 3, 3, generator=gen, device=dev)
              / 24, bs[0], None]),
@@ -643,7 +642,7 @@ def test_q12_engine_runs_the_kernels(dev, conv_kernel, chains):
     torch.cuda.synchronize()
     assert launch_counts() == {"conv_chain": chains,
                                "deform_conv2d_bounded": 3, "bounded_warp": 1,
-                               "conv2d": 0}
+                               "conv2d": 0, "conv_chain_fused": 0}
     assert got.device.type == "cuda" and torch.isfinite(got).all()
     ref = FrameInterpolator(params, use_kernels=False, **kw).midpoints(f0, f1)
     mse = (got - ref).pow(2).mean().item()
@@ -687,7 +686,7 @@ def test_server_runs_the_kernels_on_a_raw_request(dev):
         server.shutdown()
     assert status == 200 and batches == 1
     assert counts == {"conv_chain": 8, "deform_conv2d_bounded": 3,
-                      "bounded_warp": 1, "conv2d": 1}
+                      "bounded_warp": 1, "conv2d": 1, "conv_chain_fused": 0}
     got = np.frombuffer(data, np.uint8).reshape(64, 96, 3)
     ref = FrameInterpolator(params, use_kernels=False, **kw).midpoints(
         a[None], b[None])[0].cpu().numpy()
@@ -718,7 +717,7 @@ def test_recursive_runs_the_kernels_at_every_level(dev):
     torch.cuda.synchronize()
     assert launch_counts() == {"conv_chain": 24,
                                "deform_conv2d_bounded": 9, "bounded_warp": 3,
-                               "conv2d": 3}
+                               "conv2d": 3, "conv_chain_fused": 0}
     ref = FrameInterpolator(params, use_kernels=False, **kw).recursive(
         f0, f1, 3)
     assert len(got) == len(ref) == 3
@@ -838,10 +837,10 @@ def test_conv2d_kernel_f32(dev, hw, cin, cout, k, act):
     ((64, 64, 64, 64, 64), (True, False, True, True)),
     ((16, 27, 64, 16, 48), (True, True, True, False))])
 def test_conv_chain_kernel_f32(dev, hw, chans, acts):
-    """A float32 chain runs the "layers" route (one float32 conv launch a
-    layer); `route="fused"` runs the fused kernel's float32 instance
-    (`vfi_conv_chain_f32`), held to the same plain version, and a chain of
-    one layer still refuses it."""
+    """A float32 chain through `conv_chain` runs its layers (one float32
+    conv launch a layer); `conv_chain_fused` runs the fused kernel's
+    float32 instance (`vfi_conv_chain_f32`), held to the same plain
+    version, and a chain of one layer still refuses it."""
     gen = torch.Generator(device=dev).manual_seed(22)
     x = _f32(gen, dev, 2, *hw, chans[0])
     ws = [_f32(gen, dev, co, ci, 3, 3, scale=(9 * ci) ** -0.5)
@@ -849,18 +848,19 @@ def test_conv_chain_kernel_f32(dev, hw, chans, acts):
     bs = [_f32(gen, dev, co, scale=0.1) for co in chans[1:]]
     reset_launch_counts()
     got = conv_chain(x, ws, bs, acts)
-    assert dict(conv_chain.launches_by_plan) == {("layers", chans, *hw,
-                                                  "f32"): 1}
+    assert dict(conv_chain.launches_by_shape) == {(chans, *hw, "f32"): 1}
+    assert conv_chain_fused.launches == 0
     ref = conv_chain_plain(x, ws, bs, acts)
     _close_f32(got, ref)
     if len(ws) > 1:
         reset_launch_counts()
-        _close_f32(conv_chain(x, ws, bs, acts, route="fused"), ref)
-        assert dict(conv_chain.launches_by_plan) == {("fused", chans, *hw,
-                                                      "f32"): 1}
+        _close_f32(conv_chain_fused(x, ws, bs, acts), ref)
+        assert dict(conv_chain_fused.launches_by_shape) == {
+            (chans, *hw, "f32"): 1}
+        assert conv_chain.launches == 0
     else:
         with pytest.raises(ValueError, match="no fused plan"):
-            conv_chain(x, ws, bs, acts, route="fused")
+            conv_chain_fused(x, ws, bs, acts)
 
 
 def _dcn_case_f32(dev, seed, b, hw, cin, cout, R, with_mask=True):
@@ -1036,7 +1036,8 @@ def test_f32_engine_runs_the_f32_kernels(dev):
     got = FrameInterpolator(params, **kw).midpoints(f0, f1)
     torch.cuda.synchronize()
     assert launch_counts() == {"conv_chain": 8, "deform_conv2d_bounded": 3,
-                               "bounded_warp": 1, "conv2d": 0}
+                               "bounded_warp": 1, "conv2d": 0,
+                               "conv_chain_fused": 0}
     assert all(key[-1] == "f32" for fn in WRAPPERS
                for key in fn.launches_by_shape)
     ref = FrameInterpolator(params, use_kernels=False, **kw).midpoints(f0,

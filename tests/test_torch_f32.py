@@ -88,7 +88,7 @@ def _conv_entry_accepts(p, cin, cout, k):
 
 
 # (cin, cout, k) of every float32 conv launch the card makes: the chains'
-# layers on the "layers" route (first widths padded to 8: 67 -> 72), the
+# layers (first widths padded to 8: 67 -> 72), the
 # single conv's rows, and the card tests' shapes (Cin 1, 3 and 67 padded to
 # 8; k = 9 at Cout = 128).
 F32_CONV_SHAPES = [
@@ -225,19 +225,18 @@ def _check_fused_f32(chans, f):
     ((64, 64, 64, 64), (True,) * 3), ((128, 64, 64, 2), (True, True, False)),
     ((64, 27), (False,)), ((67, 64, 32, 3), (True, True, False))])
 def test_f32_chain_plan_runs_the_layers(chans, acts):
-    """A float32 chain runs the "layers" route, each layer on the float32
-    conv plan of its widths padded to 8; beside it, a chain of 2-4 layers
-    has the fused kernel's float32 plan (`route="fused"` runs it), one
-    layer none."""
+    """A float32 chain runs its layers, each on the float32 conv plan of
+    its widths padded to 8; beside it, a chain of 2-4 layers has the fused
+    kernel's float32 plan (`conv_chain_fused` runs it), one layer
+    none."""
     p = chain_plan(chans, acts, 1, 720, 1280, itemsize=4)
-    assert p["route"] == "layers"
     if len(chans) == 2:
-        assert p["fused"] is None
+        assert chain_fused_plan(chans, itemsize=4) is None
     else:
-        _check_fused_f32(chans, p["fused"])
+        _check_fused_f32(chans, chain_fused_plan(chans, itemsize=4))
     widths = [_pad(c, 8) for c in chans[:-1]] + [chans[-1]]
-    assert p["layers"] == [conv2d_plan(ci, co, 3, itemsize=4)
-                           for ci, co in zip(widths[:-1], widths[1:])]
+    assert p == [conv2d_plan(ci, co, 3, itemsize=4)
+                 for ci, co in zip(widths[:-1], widths[1:])]
 
 
 # Every float32 chain shape the card runs (chip_smoke.py's float32 chain

@@ -199,14 +199,15 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing(rng):
                        conv_chain_plain(t(x), tw, [t(b) for b in bs], acts))
     xd, off, mask, wt, bias = _dcn_case(rng, 1, 5, 7, 4, 4, 1, 0.5, 0.3)
     args = (t(xd), t(off), t(mask), t(wt.transpose(3, 2, 0, 1)), t(bias))
-    assert torch.equal(deform_conv2d_bounded(*args, 1, tile_w=128),
+    assert torch.equal(deform_conv2d_bounded(*args, 1),
                        deform_conv2d_bounded_plain(*args, 1))
     img = t(rng.standard_normal((1, 5, 7, 3)).astype(np.float32))
     flow = t((rng.standard_normal((1, 5, 7, 2)) * 30).astype(np.float32))
     assert torch.equal(bounded_warp(img, flow, 16),
                        bounded_warp_plain(img, flow, 16))
     assert launch_counts() == {"conv_chain": 0, "deform_conv2d_bounded": 0,
-                               "bounded_warp": 0, "conv2d": 0}
+                               "bounded_warp": 0, "conv2d": 0,
+                               "conv_chain_fused": 0}
 
 
 def test_bounded_warp_plain_clips_the_flow(rng):

@@ -14,7 +14,7 @@ import torch
 from vfi_tpu.utils.profiling import StepTimer as JaxStepTimer
 from vfi_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
 from vfi_tpu_torch.tools import (bench_conv, bench_kernels, conv_turns,
-                                 launch_path, time_interleaved)
+                                 time_interleaved)
 from vfi_tpu_torch.utils.profiling import StepTimer, trace
 
 
@@ -227,12 +227,3 @@ def test_conv_turns_times_the_dcn_and_warp_tokens(capsys):
     assert res["rows"][0]["checksum"] == res["rows"][3]["checksum"]
     assert set(res["median_ms"][root]) == set(shapes)
     assert sum(launch_counts().values()) == 0   # children, not this process
-
-
-def test_launch_path_needs_a_card():
-    """The host-path breakdown times the kernel's launch: without a card
-    it fails, naming the tree."""
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    with pytest.raises(RuntimeError, match="needs a card"):
-        launch_path.main(["--trees", root, "--calls", "2"])
-

@@ -8,19 +8,21 @@ PyTorch versions.
   is rounded to the working dtype first and every layer's output is
   rounded to it, as the JAX chain (`vfi_tpu/models/layers.py::
   apply_conv_chain`) does. `conv_chain(x, weights, biases, acts,
-  packed=None, route=None)`: x NHWC, weights OIHW (`nn.Conv2d.weight`),
-  biases (cout,) or None; `packed` is `pack_conv_chain(weights, biases)`
-  made ahead of time, or None to pack on this call. On the card: bf16 or
-  float32, 1..4 layers, every cout <= 64; the first layer takes any width
-  (see "Inputs" below). `chain_plan` picks the
-  route of each shape: "layers" runs each layer as one launch of the
-  single-conv kernel (its bf16 or float32 instance) on that layer's slice
-  of the packed weights (a chain of one layer always does: the DCN
-  blocks' offset convs), "fused" one launch of the chain kernel (its
-  bf16 instance, or its float32 one: FFMA, no rounding but float32's).
-  A float32 chain's packed weights are each layer's float32 `pack_conv2d`
-  block, whose rows the fused kernel copies a channel chunk at a time.
-  `route` overrides the plan's pick, for tests and timing.
+  packed=None)`: x NHWC, weights OIHW (`nn.Conv2d.weight`), biases
+  (cout,) or None; `packed` is `pack_conv_chain(weights, biases)` made
+  ahead of time, or None to pack on this call. On the card: bf16 or
+  float32, 1..4 layers, every cout <= 64 (`chain_plan`); the first layer
+  takes any width (see "Inputs" below). Each layer runs as one launch of
+  the single-conv kernel (its bf16 or float32 instance) on that layer's
+  slice of the packed weights.
+- `conv_chain_fused`, with `conv_chain`'s signature and contract, runs
+  the chain of 2..4 layers as one launch of the fused chain kernel
+  (`csrc/conv_chain.cu`, the counterpart of `_chain_kernel`: its bf16
+  instance, or its float32 one, FFMA, no rounding but float32's) on
+  `chain_fused_plan`. It is slower than `conv_chain` at every chain
+  shape measured (`chain_plan`), so no model path calls it. A float32
+  chain's packed weights are each layer's float32 `pack_conv2d` block,
+  whose rows the fused kernel copies a channel chunk at a time.
 - `conv2d` replaces `conv2d_pallas` (kernel `_conv_kernel`, variants
   "im2col" and "direct") and `conv2d_pallas_v2` (`_conv_kernel_v2`,
   variant "v2"): one stride-1 square odd-k conv, zeros padding k // 2, an
@@ -30,16 +32,16 @@ PyTorch versions.
   summed in float32), k <= 9, Cout <= 128, any Cin, on the plan of
   `conv2d_plan`.
 
-Inputs. `x` of `conv_chain`, `conv2d` and `ops/cuda/sampling.py`'s
-`deform_conv2d_bounded` is an NHWC tensor or a sequence of two that split
-one input along channels (`as_parts`): a concatenation the caller need not
-build. The bf16 conv kernel (both wrappers, the chain on its "layers"
-route) and both designs of the bf16 DCN read their input where it lies
-(`in_place`): a channels-contiguous view whose image, row and pixel strides
-are multiples of 8 elements (0 too: an `expand`ed per-image vector), or two
-such parts, the first a multiple of 8 channels wide; their tile loaders
-load the channels past a part's end as zeros, so the result equals the
-kernel's on the zero-padded concatenation bit for bit. A contiguous input
+Inputs. `x` of `conv_chain`, `conv_chain_fused`, `conv2d` and
+`ops/cuda/sampling.py`'s `deform_conv2d_bounded` is an NHWC tensor or a
+sequence of two that split one input along channels (`as_parts`): a
+concatenation the caller need not build. The bf16 conv kernel (`conv2d`,
+`conv_chain`) and both designs of the bf16 DCN read their input where it
+lies (`in_place`): a channels-contiguous view whose image, row and pixel
+strides are multiples of 8 elements (0 too: an `expand`ed per-image
+vector), or two such parts, the first a multiple of 8 channels wide; their
+tile loaders load the channels past a part's end as zeros, so the result
+equals the kernel's on the zero-padded concatenation bit for bit. A contiguous input
 whose channels are not a multiple of 8 is copied zero-padded
 (`pad_channels8`), and a view those loaders cannot read raises ValueError.
 The float32 instances, the fused chain kernel and any input that needs a
@@ -53,8 +55,8 @@ view (`ops/cuda/sampling.py`), so that the next kernel needs no copy.
 
 Weights are packed in the input's dtype (`pack_conv2d(..., dtype=)`), in
 that instance's layout; packed weights of another dtype raise ValueError. Every launch key in
-`launches_by_shape` / `launches_by_plan` ends with the instance's tag,
-"bf16" or "f32" (`KERNEL_DTYPES`).
+`launches_by_shape` ends with the instance's tag, "bf16" or "f32"
+(`KERNEL_DTYPES`).
 
 A CPU tensor runs the plain version; a CUDA tensor launches the kernel or
 raises. On the card the result carries autograd when an input requires
@@ -453,7 +455,6 @@ def pack_conv_chain(weights: Sequence[torch.Tensor],
 CHAIN_TILES = ((16, 16), (8, 16), (8, 8))
 CHAIN_WARPS = 8
 CHAIN_MF = 4
-ROUTES = ("fused", "layers")
 # Its float32 instance: output tiles, largest first; input channels a
 # weight chunk, widest first; output positions a lane holds at most
 # (F_MP there); the padding of an activation row, in floats (F_PAD).
@@ -463,13 +464,14 @@ CHAIN_F32_MP = 8
 CHAIN_F32_PAD = 4
 
 
-def chain_fused_plan(chans: Sequence[int],
-                     limit: int = H100_SMEM_PER_BLOCK,
+@functools.lru_cache(maxsize=None)
+def chain_fused_plan(chans: tuple, limit: int = H100_SMEM_PER_BLOCK,
                      itemsize: int = 2) -> Optional[dict]:
     """The fused kernel's plan for a chain of widths `chans` (chans[0]
     the input's, which the kernel reads padded to a multiple of 8), for
     its bf16 instance (`itemsize` 2) or its float32 one (4,
-    `_chain_fused_plan_f32`), or None where no tile fits.
+    `_chain_fused_plan_f32`), or None where no tile fits and for one
+    layer (the kernel takes 2..MAX_LAYERS).
 
     bf16: all layers share one flat pixel pitch P = TW + 2L (the tile's
     columns and halo); layer l computes the (TH + 2(L-1-l)) x P positions
@@ -486,11 +488,13 @@ def chain_fused_plan(chans: Sequence[int],
     the most taps the slot holds, evened over its groups. (A 16 x 32 tile,
     1.34x the work of its outputs at L = 3 against 1.56x at 16 x 16, needs
     48 fragments a layer: more than 8 warps of CHAIN_MF hold.)"""
-    if itemsize == 4:
-        return _chain_fused_plan_f32(tuple(chans), limit)
-    if itemsize != 2:
+    if itemsize not in (2, 4):
         raise ValueError(f"conv_chain kernel has bf16 and float32 "
                          f"instances, got itemsize {itemsize}")
+    if len(chans) < 3:
+        return None
+    if itemsize == 4:
+        return _chain_fused_plan_f32(chans, limit)
     L = len(chans) - 1
     cins = [_pad16(c) for c in chans[:-1]]
     couts = [_pad16(c) for c in chans[1:]]
@@ -567,37 +571,47 @@ def _chain_fused_plan_f32(chans: tuple, limit: int) -> Optional[dict]:
 
 @functools.lru_cache(maxsize=None)
 def chain_plan(chans: tuple, acts: tuple, b: int, h: int, w: int,
-               limit: int = H100_SMEM_PER_BLOCK, itemsize: int = 2) -> dict:
-    """The route of one chain shape: chans = (Cin, Cout_1, ..., Cout_L),
-    `acts` the layers' ReLUs, a (b, h, w) input, `limit` bytes of shared
-    memory a block, `itemsize` 2 (bf16) or 4 (float32). Pure and
-    deterministic: nothing is timed at run time.
+               limit: int = H100_SMEM_PER_BLOCK, itemsize: int = 2) -> list:
+    """The chain's contract and its layers' plans: chans = (Cin, Cout_1,
+    ..., Cout_L), `acts` the layers' ReLUs, a (b, h, w) input, `limit`
+    bytes of shared memory a block, `itemsize` 2 (bf16) or 4 (float32).
+    Pure and deterministic: nothing is timed at run time.
 
-    Returns {"route": "fused" | "layers", "fused": `chain_fused_plan` at
-    `itemsize` (or None where no tile fits, and for one layer), "layers":
-    each layer's `conv2d_plan` at `itemsize` (the input width padded to 8;
-    an intermediate's width too, its padding channels computed as exact
-    zeros from the packed weights' zero columns)}. Raises ValueError past
-    the contract: 1..MAX_LAYERS layers, every Cout in 1..MAX_COUT.
+    Returns each layer's `conv2d_plan` at `itemsize` (the input width
+    padded to 8; an intermediate's width too, its padding channels
+    computed as exact zeros from the packed weights' zero columns): the
+    conv-kernel launches of `conv_chain`, one a layer. Raises ValueError
+    past the contract (`_chain_contract`).
 
-    Rule: "layers" at every shape. It rests on device time per launch in
-    turns on an H100 (`tools/conv_turns.py`, PERF.md section 6): the
-    layers route beat the fused kernel at every chain shape a path
-    launches (720p feat 0.727 / 1.255 ms, motion 0.916 / 2.688, rec 0.527
-    / 0.834; 360x640, 4x480x640 incl. rec67 and 4x240x320 alike) and on
-    1x16x32, 1x64x128 and 1x128x256 frames (0.028-0.048 / 0.033-0.104
-    ms). A fused tile recomputes its halo (1.56x the work for three layers
-    on 16 x 16 outputs) and re-reads every layer's weights a tile; the
-    layers pay one device-memory round trip of each intermediate, which
-    at these widths costs less. In float32 too: medians of two turns each
-    of `tools/conv_turns.py` on an H100 (700 W), fused (FFMA) / layers
-    (the 3xTF32 conv) / cuDNN float32 layer by layer, 720p feat 8.989 /
-    3.133 / 7.030 ms, motion 17.621 / 3.712 / 7.776, rec 6.230 / 1.922 /
-    4.722; 360x640 feat 2.309 / 0.792 / 1.999, motion 4.515 / 0.942 /
-    2.173: the fused kernel pays the halo's recompute (1.43x the work on 8
-    x 16 tiles, 2.08x for motion on 8 x 8) on a core that runs its
-    products at the float32 rate, the layers theirs on the tensor cores.
-    `route="fused"` still runs the kernel."""
+    Why a chain runs as its layers and not as one launch of the fused
+    kernel (`conv_chain_fused`): device time per launch in turns on an
+    H100 (`tools/conv_turns.py`, PERF.md section 6): the layers beat the
+    fused kernel at every chain shape a path launches (720p feat 0.727 /
+    1.255 ms, motion 0.916 / 2.688, rec 0.527 / 0.834; 360x640, 4x480x640
+    incl. rec67 and 4x240x320 alike) and on 1x16x32, 1x64x128 and
+    1x128x256 frames (0.028-0.048 / 0.033-0.104 ms). A fused tile
+    recomputes its halo (1.56x the work for three layers on 16 x 16
+    outputs) and re-reads every layer's weights a tile; the layers pay one
+    device-memory round trip of each intermediate, which at these widths
+    costs less. In float32 too: medians of two turns each of
+    `tools/conv_turns.py` on an H100 (700 W), fused (FFMA) / layers (the
+    3xTF32 conv) / cuDNN float32 layer by layer, 720p feat 8.989 / 3.133 /
+    7.030 ms, motion 17.621 / 3.712 / 7.776, rec 6.230 / 1.922 / 4.722;
+    360x640 feat 2.309 / 0.792 / 1.999, motion 4.515 / 0.942 / 2.173: the
+    fused kernel pays the halo's recompute (1.43x the work on 8 x 16
+    tiles, 2.08x for motion on 8 x 8) on a core that runs its products at
+    the float32 rate, the layers theirs on the tensor cores."""
+    _chain_contract(chans, acts, b, h, w)
+    widths = [_pad8(c) for c in chans[:-1]] + [chans[-1]]
+    return [conv2d_plan(ci, co, 3, limit, itemsize)
+            for ci, co in zip(widths[:-1], widths[1:])]
+
+
+def _chain_contract(chans: tuple, acts: tuple, b: int, h: int,
+                    w: int) -> None:
+    """Both chain wrappers' contract: ValueError past 1..MAX_LAYERS layers,
+    for `acts` not one a layer, a Cout past 1..MAX_COUT, an empty input
+    width or a negative shape."""
     L = len(chans) - 1
     if not 1 <= L <= MAX_LAYERS:
         raise ValueError(f"conv_chain takes 1..{MAX_LAYERS} layers, got "
@@ -609,18 +623,13 @@ def chain_plan(chans: tuple, acts: tuple, b: int, h: int, w: int,
                          f"width >= 1), got channels {chans}")
     if min(b, h, w) < 0:
         raise ValueError(f"negative shape {(b, h, w)}")
-    widths = [_pad8(c) for c in chans[:-1]] + [chans[-1]]
-    layers = [conv2d_plan(ci, co, 3, limit, itemsize)
-              for ci, co in zip(widths[:-1], widths[1:])]
-    fused = chain_fused_plan(chans, limit, itemsize) if L > 1 else None
-    return {"route": "layers", "fused": fused, "layers": layers}
 
 
 def chain_layer_packs(wpk: torch.Tensor, bpk: torch.Tensor,
                       chans: Sequence[int]) -> list:
-    """The "layers" route's weights: views of `pack_conv_chain`'s buffers,
-    one (wpk `packed_shape`, bpk [Cout16]) per layer, each exactly that
-    layer's `pack_conv2d` block in wpk's dtype."""
+    """`conv_chain`'s weights a layer: views of `pack_conv_chain`'s
+    buffers, one (wpk `packed_shape`, bpk [Cout16]) per layer, each
+    exactly that layer's `pack_conv2d` block in wpk's dtype."""
     packs, wo, bo = [], 0, 0
     for ci, co in zip(chans[:-1], chans[1:]):
         shape = packed_shape(ci, co, 3, wpk.dtype)
@@ -630,22 +639,41 @@ def chain_layer_packs(wpk: torch.Tensor, bpk: torch.Tensor,
     return packs
 
 
-def _launch_chain_fused(xp: torch.Tensor, wpk: torch.Tensor,
-                        bpk: torch.Tensor, out: torch.Tensor,
-                        chans: Sequence[int], acts: Sequence[bool],
-                        plan: dict) -> None:
-    """One launch of the fused chain kernel's instance for xp's dtype on
-    `chain_fused_plan`'s plan: xp (B, H, W, C0 % 8 == 0) bf16 or float32,
-    the packed chain, into `out`."""
-    (b, h, w, _), dev = xp.shape, xp.device
-    L = len(chans) - 1
-    cs = [xp.shape[-1]] + list(chans[1:]) + [0] * (MAX_LAYERS - L)
+def _launch_chain_layers(xp: tuple, wpk: torch.Tensor, bpk: torch.Tensor,
+                         chans: tuple, acts: tuple) -> torch.Tensor:
+    """`conv_chain`'s launches: one of the conv kernel a layer, on
+    `chain_layer_packs`, the first on the input's parts `xp` as
+    `kernel_input` gives them."""
+    b, h, w, _ = xp[0].shape
+    for l, (wl, bl) in enumerate(chain_layer_packs(wpk, bpk, chans)):
+        co = chans[-1] if l == len(acts) - 1 else _pad8(chans[l + 1])
+        out = xp[0].new_empty(b, h, w, co)
+        _launch_conv2d(xp, wl, bl, out, 3, acts[l], "conv_chain")
+        xp = (out,)
+    return out
+
+
+def _launch_chain_fused(xp: tuple, wpk: torch.Tensor, bpk: torch.Tensor,
+                        chans: tuple, acts: tuple) -> torch.Tensor:
+    """`conv_chain_fused`'s launch: one of the fused chain kernel's
+    instance for the input's dtype on `chain_fused_plan`, xp one (B, H, W,
+    C0 % 8 == 0) bf16 or float32 tensor. ValueError for one layer, and
+    where no fused plan fits."""
+    x0, L = xp[0], len(chans) - 1
+    (b, h, w, _), dev = x0.shape, x0.device
+    plan = chain_fused_plan(chans, _smem_limit(dev.index), x0.element_size())
+    if plan is None:
+        raise ValueError(f"conv_chain_fused: no fused plan for channels "
+                         f"{chans} (one layer runs the conv kernel; wider "
+                         f"inputs overrun shared memory)")
+    out = x0.new_empty(b, h, w, chans[-1])
+    cs = [x0.shape[-1]] + list(chans[1:]) + [0] * (MAX_LAYERS - L)
     act_mask = sum(1 << i for i, a in enumerate(acts) if a)
-    head = (xp.data_ptr(), wpk.data_ptr(), bpk.data_ptr(), out.data_ptr(),
+    head = (x0.data_ptr(), wpk.data_ptr(), bpk.data_ptr(), out.data_ptr(),
             b, h, w, L, *cs, act_mask, plan["th"], plan["tw"])
     tail = (plan["slot_bytes"], plan["smem_bytes"], dev.index,
             build.current_stream(dev.index))
-    if xp.dtype == torch.float32:
+    if x0.dtype == torch.float32:
         rc = build.entry("vfi_conv_chain_f32")(
             *head, plan["ck"], *plan["buf_bytes"], *tail)
     else:
@@ -653,43 +681,40 @@ def _launch_chain_fused(xp: torch.Tensor, wpk: torch.Tensor,
         rc = build.entry("vfi_conv_chain_bf16")(
             *head, *tg, plan["buf_bytes"], *tail)
     if rc:
-        build.check(rc, "conv_chain")
+        build.check(rc, "conv_chain_fused")
+    return out
 
 
-def conv_chain(x, weights: Sequence[torch.Tensor],
-               biases: Sequence[Optional[torch.Tensor]],
-               acts: Sequence[bool],
-               packed: Optional[tuple] = None,
-               route: Optional[str] = None) -> torch.Tensor:
+def _chain(fn, x, weights, biases, acts,
+           packed: Optional[tuple]) -> torch.Tensor:
+    """A call of `fn`, `conv_chain` or `conv_chain_fused`, whose counters
+    it raises: the argument checks, the plain version for a CPU tensor,
+    `_chain_contract`, the packed weights and their checks, the input as
+    `kernel_input` hands it over (`conv_chain`'s bf16 parts read in
+    place), the launch (`_launch_chain_layers` or `_launch_chain_fused`),
+    autograd through `differentiable`."""
+    name, layers = fn.__name__, fn is conv_chain
     weights, biases, acts = list(weights), list(biases), tuple(acts)
     if not (len(weights) == len(biases) == len(acts)):
         raise ValueError("weights, biases and acts differ in length")
     parts = as_parts(x)
-    if route is not None and route not in ROUTES:
-        raise ValueError(f"route must be one of {ROUTES} or None, got "
-                         f"{route!r}")
     x0 = parts[0]
     chans = [sum(p.shape[3] for p in parts)]
-    for w in weights:
-        if w.dim() != 4 or w.shape[2:] != (3, 3) or w.shape[1] != chans[-1]:
-            raise ValueError(f"layer weight {tuple(w.shape)} is not OIHW "
+    for wt in weights:
+        if (wt.dim() != 4 or wt.shape[2:] != (3, 3)
+                or wt.shape[1] != chans[-1]):
+            raise ValueError(f"layer weight {tuple(wt.shape)} is not OIHW "
                              f"3x3 with cin={chans[-1]}")
-        chans.append(w.shape[0])
+        chans.append(wt.shape[0])
     chans = tuple(chans)
     if x0.device.type == "cpu":
         return conv_chain_plain(parts, weights, biases, acts)
     if x0.device.type != "cuda":
-        raise ValueError(f"conv_chain: unsupported device {x0.device}")
-    tag = kernel_dtype("conv_chain", x0.dtype)
+        raise ValueError(f"{name}: unsupported device {x0.device}")
+    tag = kernel_dtype(name, x0.dtype)
     b, h, w, _ = x0.shape
-    plan = chain_plan(chans, acts, b, h, w, _smem_limit(x0.device.index),
-                      x0.element_size())
-    L, use = len(weights), route or plan["route"]
-    if use == "fused" and plan["fused"] is None:
-        raise ValueError(f"conv_chain: no fused plan for channels {chans} "
-                         f"(one layer runs the conv kernel; wider inputs "
-                         f"overrun shared memory)")
-    if any(w.device != x0.device for w in weights):
+    _chain_contract(chans, acts, b, h, w)
+    if any(wt.device != x0.device for wt in weights):
         raise ValueError("weights must be on the input's device")
     wpk, bpk = packed or pack_conv_chain(weights, biases, x0.dtype)
     n_w = sum(9 * _pad8(ci) * _pad16(co) if x0.dtype == torch.float32
@@ -702,44 +727,56 @@ def conv_chain(x, weights: Sequence[torch.Tensor],
     # Autograd saves one input tensor: the parts' concatenation.
     grad = needs_grad(*parts, *weights, *biases)
     x = cat_parts(parts) if grad else parts
-    xp, form = kernel_input(x, "conv_chain",
-                            tag == "bf16" and use == "layers")
+    xp, form = kernel_input(x, name, layers and tag == "bf16")
     if grad and len(parts) == 2:
         form = "copied"
+    L = len(weights)
+    launch = _launch_chain_layers if layers else _launch_chain_fused
 
-    def launch(x, *_):
-        if use == "fused":
-            out = x0.new_empty(b, h, w, chans[-1])
-            _launch_chain_fused(xp[0], wpk, bpk, out, chans, acts,
-                                plan["fused"])
-        else:
-            xl = xp
-            for l, (wl, bl) in enumerate(chain_layer_packs(wpk, bpk,
-                                                           chans)):
-                co = chans[l + 1] if l == L - 1 else _pad8(chans[l + 1])
-                out = x0.new_empty(b, h, w, co)
-                _launch_conv2d(xl, wl, bl, out, 3, acts[l], "conv_chain")
-                xl = (out,)
-        conv_chain.launches += 1
-        conv_chain.launches_by_shape[(chans, h, w, tag)] += 1
-        conv_chain.launches_by_plan[(use, chans, h, w, tag)] += 1
-        conv_chain.launches_by_input[(form, tag)] += 1
+    def run(*_):
+        out = launch(xp, wpk, bpk, chans, acts)
+        fn.launches += 1
+        fn.launches_by_shape[(chans, h, w, tag)] += 1
+        fn.launches_by_input[(form, tag)] += 1
         return out
 
     def plain(x, *wb):
         return conv_chain_plain(x, wb[:L], wb[L:], acts)
 
     if not grad:
-        return launch(x)
-    return differentiable(launch, plain, x, *weights, *biases)
+        return run()
+    return differentiable(run, plain, x, *weights, *biases)
+
+
+def conv_chain(x, weights: Sequence[torch.Tensor],
+               biases: Sequence[Optional[torch.Tensor]],
+               acts: Sequence[bool],
+               packed: Optional[tuple] = None) -> torch.Tensor:
+    """The chain (the module docstring) as one conv-kernel launch a layer;
+    a bf16 input or its parts are read in place where the conv kernel
+    can (`kernel_input`)."""
+    return _chain(conv_chain, x, weights, biases, acts, packed)
+
+
+def conv_chain_fused(x, weights: Sequence[torch.Tensor],
+                     biases: Sequence[Optional[torch.Tensor]],
+                     acts: Sequence[bool],
+                     packed: Optional[tuple] = None) -> torch.Tensor:
+    """The chain as one launch of the fused chain kernel (the module
+    docstring), with `conv_chain`'s arguments and contract. The kernel
+    reads one contiguous tensor: two parts or a view are concatenated
+    into a copy. On the card it raises ValueError for one layer, and where
+    no fused plan fits."""
+    return _chain(conv_chain_fused, x, weights, biases, acts, packed)
 
 
 conv_chain.launches = 0
 conv_chain.launches_by_shape = Counter()
-# Launches by (route, chans, h, w, dtype tag): which route each call ran.
-conv_chain.launches_by_plan = Counter()
 # Launches by (form, dtype tag): how each took its input (INPUT_FORMS).
 conv_chain.launches_by_input = Counter()
+conv_chain_fused.launches = 0
+conv_chain_fused.launches_by_shape = Counter()
+conv_chain_fused.launches_by_input = Counter()
 
 
 def conv2d_plain(x, weight: torch.Tensor,

@@ -42,10 +42,7 @@ launch builds no closure. Inside `hand_backward()` the DCN's backward
 is the hand-written `deform_conv2d_shifts_bwd` on the saved inputs
 instead, with no recomputed forward, on either device (the ablation of
 the JAX package's `tools/bench_train_step.py`). A launch calls its C
-entry bound once
-(`build.entry`) on PyTorch's raw current stream. `tile_w` is accepted
-for API parity with the JAX wrappers (a TPU skip-predicate tiling knob)
-and has no effect on the output.
+entry bound once (`build.entry`) on PyTorch's raw current stream.
 """
 
 from __future__ import annotations
@@ -408,7 +405,6 @@ def deform_conv2d_bounded(x, offset: torch.Tensor,
                           mask: Optional[torch.Tensor], weight: torch.Tensor,
                           bias: Optional[torch.Tensor] = None,
                           max_offset: int = 3,
-                          tile_w: Optional[int] = None,
                           packed: Optional[tuple] = None,
                           padding: int = DCN_PADDING,
                           padded: bool = False) -> torch.Tensor:
@@ -420,7 +416,6 @@ def deform_conv2d_bounded(x, offset: torch.Tensor,
     call; `padding` 1 (v3's argument; the only value the kernel takes);
     `padded`: the result goes to a kernel that reads views (the module
     docstring). Returns (B, H, W, Cout)."""
-    del tile_w  # TPU tiling knob: no effect on the function
     parts = as_parts(x)
     x0 = parts[0]
     (b, h, w, _), cin = x0.shape, sum(p.shape[3] for p in parts)

@@ -20,10 +20,9 @@ cv2; `--smoke` runs a tiny clip on the CPU).
 They run on the card (`--device cuda`, the default) and on the CPU only
 when asked (`--device cpu --smoke`: a tiny shape through the plain
 versions, for the tests). `time_interleaved` is the kernel tools' shared
-timer, `build_model` the model tools' loader. Two more compare checkouts
-on the card, one process a turn: `conv_turns` (device time of the conv,
-DCN and warp kernels) and `launch_path` (the RGB warp's host launch path,
-piece by piece). `bench_serve` is the serving load generator (closed-loop
+timer, `build_model` the model tools' loader. `conv_turns` compares
+checkouts on the card, one process a turn: device time of the conv, DCN
+and warp kernels. `bench_serve` is the serving load generator (closed-loop
 clients against `python -m vfi_tpu_torch.cli.serve` or an in-process
 server).
 """

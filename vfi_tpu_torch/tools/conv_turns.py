@@ -39,17 +39,19 @@ device too. Shapes:
 - `chain_NAME[:HOW]`: a chain of the model's trunk (`CHAINS`: `feat`
   64->64->64->64 with three ReLUs, `motion` 128->64->64->2 and `rec`
   64->64->32->3 with ReLU, ReLU, none, `rec67` the reference topology's
-  67->64->32->3), weights packed once. HOW: none, `conv_chain` on the
-  checkout's own route for the shape; `fused` / `layers`, that route
-  forced (a checkout whose `conv_chain` has no `route` runs its fused
-  kernel for `fused`, and for `layers` one one-layer `conv_chain` a
-  layer, which launches the conv kernel the same way); `cudnn`,
+  67->64->32->3), weights packed once. HOW: none or `layers`,
+  `conv_chain` (one conv-kernel launch a layer); `fused`, the fused chain
+  kernel through `conv_chain_fused` (a checkout from before that wrapper
+  runs `conv_chain(..., route="fused")` for `fused` and
+  `route="layers"` for `layers`, its every shape's route, so `layers`
+  times what none does on both sides and goes once no checkout from
+  before `conv_chain_fused` is compared); `cudnn`,
   `F.conv2d` in bf16 then `relu` where the layer has one, layer by layer
   (a sequence of library calls, the "xla" route's trunk). A last `:f32`
   runs the chain in float32 (the kernels' float32 instances; `cudnn`
   with TF32 off), e.g. `chain_feat:fused:f32`, `chain_motion:f32`.
-  `parts` (bf16, a checkout whose kernels read inputs in parts): the
-  checkout's route on the input as the model hands it over, `motion` as
+  `parts` (bf16, a checkout whose kernels read inputs in parts):
+  `conv_chain` on the input as the model hands it over, `motion` as
   (features, a per-image context vector broadcast over the pixels),
   `rec67` as the [..., :67] view of a 72-wide buffer;
 - `fuse:HOW`: the fuse projection, 1x1 67 -> 64 + bias: `parts`, the conv
@@ -87,7 +89,7 @@ SHAPES = "64x64,128x64,64x32,6x64,64x27c"
 # Run in each checkout: its own package, the API every checkout with the
 # port's conv wrappers shares.
 CHILD = r"""
-import inspect, json, sys
+import functools, json, sys
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -98,7 +100,12 @@ from vfi_tpu_torch.ops.cuda import (bounded_warp, conv2d, conv_chain,
                                     pack_dcn)
 from vfi_tpu_torch.ops.cuda import sampling
 from vfi_tpu_torch.models.layers import conv_nhwc
-routed = "route" in inspect.signature(conv_chain).parameters
+try:
+    from vfi_tpu_torch.ops.cuda import conv_chain_fused
+    conv_chain_layers = conv_chain
+except ImportError:      # an older checkout: `conv_chain(route=)` picks
+    conv_chain_fused = functools.partial(conv_chain, route="fused")
+    conv_chain_layers = functools.partial(conv_chain, route="layers")
 CHAINS = {"feat": ((64, 64, 64, 64), (1, 1, 1)),
           "motion": ((128, 64, 64, 2), (1, 1, 0)),
           "rec": ((64, 64, 32, 3), (1, 1, 0)),
@@ -194,14 +201,6 @@ for shape in args["shapes"]:
                     xn = F.conv2d(xn, wt, bt, padding=1)
                     xn = torch.relu(xn) if a else xn
                 return xn.permute(0, 2, 3, 1)
-        elif how == "layers" and not routed:
-            pks = [pack_conv_chain([wt], [bt], **kw_pack)
-                   for wt, bt in zip(ws, bs)]
-            def fn():
-                y = x
-                for wt, bt, a, pk in zip(ws, bs, acts, pks):
-                    y = conv_chain(y, [wt], [bt], (a,), packed=pk)
-                return y
         elif how == "parts":
             pk = pack_conv_chain(ws, bs)
             if name == "motion":
@@ -214,8 +213,9 @@ for shape in args["shapes"]:
             fn = lambda: conv_chain(x, ws, bs, acts, packed=pk)
         else:
             pk = pack_conv_chain(ws, bs, **kw_pack)
-            kw = {"route": how} if how and routed else {}
-            fn = lambda: conv_chain(x, ws, bs, acts, packed=pk, **kw)
+            run_chain = {"fused": conv_chain_fused,
+                         "layers": conv_chain_layers}.get(how, conv_chain)
+            fn = lambda: run_chain(x, ws, bs, acts, packed=pk)
     elif shape.startswith("fuse"):
         how = shape.partition(":")[2]
         feat = bf(rng.standard_normal((b, h, w, 64)))
